@@ -1,0 +1,161 @@
+"""Flash-decode: hand-written CUDA kernels (``csrc/decode_attention.cu``)
+for one query per sequence against a contiguous KV cache (K3) or a paged
+block arena (K4), and their plain PyTorch versions.
+
+Ports of the Pallas TPU kernels ``decode_attention_fwd`` and
+``paged_decode_attention_fwd``
+(``src/repro/kernels/decode_attention/kernel.py``). Shapes follow those
+kernels: q (B, H, D), caches (B, S, Hkv, D) or arenas
+(num_blocks + 1, block_size, Hkv, D) with block tables (B, T), lengths
+(B,). The G = H / Hkv grouped queries of a kv head share its K/V rows.
+
+Each wrapper takes its plain version for tensors on the CPU and launches
+its kernel for CUDA tensors (or raises); ``<wrapper>.launches`` counts
+kernel launches. The contiguous kernel's contract is ``lengths >= 1``
+(decode always holds the current token); at length 0 it writes zeros, as
+the paged kernel and its oracle do by convention.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+__all__ = [
+    "NEG_INF",
+    "decode_attention",
+    "decode_attention_plain",
+    "paged_decode_attention",
+    "paged_decode_attention_plain",
+    "paged_kv_view",
+]
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_kv_view(arena: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Gather a contiguous per-sequence view (B, T*block_size, ...) out of
+    a block arena (num_blocks+1, block_size, ...) via ``block_table``
+    (B, T). Rows past each sequence's length are whatever the table points
+    at; callers mask by length."""
+    g = arena[block_table.long()]  # (B, T, block_size, ...)
+    return g.reshape(block_table.shape[0], -1, *arena.shape[2:])
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Mirror of ``attention.decode_attention`` in kernel shapes: q (B, H, D),
+    k/v (B, S, Hkv, D). ``q * scale`` is taken in q's dtype before the
+    f32 cast, then masked softmax over all S rows in f32."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf = (q * scale).float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k.float())
+    pos = torch.arange(S, device=q.device)
+    valid = pos[None, None, None, :] < lengths.to(q.device)[:, None, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
+                                 v_arena: torch.Tensor, block_tables: torch.Tensor,
+                                 lengths: torch.Tensor) -> torch.Tensor:
+    """Mirror of ``decode_attention/ref.py::paged_decode_ref``: gather the
+    block-table views, run the contiguous plain decode, and return zeros
+    for length-0 rows."""
+    k = paged_kv_view(k_arena, block_tables)
+    v = paged_kv_view(v_arena, block_tables)
+    out = decode_attention_plain(q, k, v, lengths)
+    live = (lengths.to(q.device) > 0)[:, None, None]
+    return torch.where(live, out, torch.zeros_like(out))
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *ints: torch.Tensor) -> None:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"decode attention takes f32 or bf16 q/k/v of one dtype, "
+                        f"not {q.dtype}/{k.dtype}/{v.dtype}")
+    for t in (q, k, v, *ints):
+        if t.device != q.device:
+            raise ValueError(f"all inputs must be on {q.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("decode attention needs contiguous inputs")
+    for t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"lengths / block tables must be int32, not {t.dtype}")
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    if k.shape[3] != D or H % Hkv or H // Hkv > 8 or D > 256:
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)} "
+                         "(need H % Hkv == 0, H / Hkv <= 8, head_dim <= 256)")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """K3: q (B, H, D) against a contiguous cache k/v (B, S, Hkv, D),
+    masked past ``lengths`` (B,)."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
+    _check(q, k, v, lengths)
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(f"batch mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"lengths {tuple(lengths.shape)}")
+    out = torch.empty_like(q)
+    lib = _build.load_library()
+    rc = lib.repro_decode_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        B, H, Hkv, D, S, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    decode_attention.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed (code {rc})")
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
+                           v_arena: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """K4: q (B, H, D) against block arenas (num_blocks + 1, block_size,
+    Hkv, D) read through ``block_tables`` (B, T); only the
+    ``ceil(length / block_size)`` live blocks of each row are read, and a
+    length-0 row gives zeros."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_arena, v_arena, block_tables, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cpu or cuda, not {q.device}")
+    _check(q, k_arena, v_arena, block_tables, lengths)
+    B, H, D = q.shape
+    bs, Hkv = k_arena.shape[1], k_arena.shape[2]
+    T = block_tables.shape[1]
+    if block_tables.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(f"batch mismatch: q {tuple(q.shape)}, tables "
+                         f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
+    out = torch.empty_like(q)
+    lib = _build.load_library()
+    rc = lib.repro_paged_decode_attention_fwd(
+        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), block_tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, H, Hkv, D, bs, T, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    paged_decode_attention.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed (code {rc})")
+    return out
+
+
+decode_attention.launches = 0
+paged_decode_attention.launches = 0

@@ -1,0 +1,6 @@
+"""Dense GQA decoder of the port (PyTorch definitions)."""
+
+from .bridge import params_from_numpy
+from .model import Model, count_params_analytic
+
+__all__ = ["Model", "count_params_analytic", "params_from_numpy"]

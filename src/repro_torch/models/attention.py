@@ -1,0 +1,324 @@
+"""GQA attention with KV caches (port of the GQA part of
+``repro.models.attention``).
+
+Two execution paths share one set of weights:
+  * prefill (``gqa_prefill``): project the whole chunk, write its K/V rows
+    into the cache, and attend causally with the chunked online-softmax
+    ``mea_attention`` (plain PyTorch, as the reference computes it in jnp);
+  * decode (``gqa_apply`` with a cache): one query per sequence against
+    its cache through kernel K3 (contiguous) or K4 (paged block arena).
+
+Caches are dicts {"k": ..., "v": ...}: contiguous (B, S, Hkv, D) stripes,
+or paged arenas (num_blocks + 1, block_size, Hkv, D) addressed through a
+per-sequence ``block_table`` (B, T). Arena row 0 is the NULL sink: never
+allocated, it absorbs writes from dead lanes and pad rows and backs
+unallocated table entries. Unlike the reference (pure functions), cache
+writes here update the cache tensors IN PLACE and return them — the pool
+holds one copy of every cache.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import decode_attention as _decode_kernel
+from repro_torch.kernels import paged_decode_attention as _paged_decode_kernel
+from repro_torch.kernels.decode_attention import NEG_INF, paged_kv_view
+from .layers import ParamSpec, apply_rope, norm_apply, norm_specs
+
+__all__ = [
+    "NEG_INF", "KV_SEQ_ALIGN", "NULL_BLOCK", "round_kv_len", "paged_kv_view",
+    "cache_row_update", "cache_rows_update", "decode_lengths", "gqa_specs",
+    "mea_attention", "decode_attention", "gqa_apply", "gqa_prefill",
+    "gqa_cache_spec",
+]
+
+#: KV cache sequence axes are rounded up to this multiple at allocation
+#: time, so paged block sizes divide the row count evenly.
+KV_SEQ_ALIGN = 16
+
+#: Arena row reserved as the write sink for masked/dead lanes and the
+#: target of unallocated block-table entries. Never handed out by the
+#: BlockManager; its contents are garbage and are never read unmasked.
+NULL_BLOCK = 0
+
+
+def round_kv_len(max_len: int, block: int = KV_SEQ_ALIGN) -> int:
+    """Round a cache capacity up to the kernel/paging block multiple."""
+    return -(-int(max_len) // block) * block
+
+
+def _per_row(idx, batch: int, device) -> torch.Tensor:
+    return torch.as_tensor(idx, dtype=torch.long, device=device).reshape(-1).expand(batch)
+
+
+def cache_row_update(
+    cache: torch.Tensor,
+    new: torch.Tensor,
+    idx,
+    *,
+    block_table: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Write the single decode row ``new`` (B, 1, ...) into ``cache`` at
+    sequence offset ``idx`` — scalar (all rows share one position) or
+    per-row (B,) — in place.
+
+    Contiguous caches clamp the offset into [0, S-1], as the reference's
+    ``dynamic_update_slice`` does (the engine clips positions to
+    ``max_len - 1`` before the call).
+
+    With ``block_table`` (B, T) the cache is a block arena and row b lands
+    at ``arena[table[b, idx // bs], idx % bs]``; dead lanes carry NULL
+    tables, so their writes land in the sink."""
+    B = new.shape[0]
+    new = new[:, 0].to(cache.dtype)
+    idx = _per_row(idx, B, cache.device)
+    if block_table is not None:
+        bs = cache.shape[1]
+        slot = (idx // bs).clamp(0, block_table.shape[1] - 1)
+        bid = torch.gather(block_table.long(), 1, slot[:, None])[:, 0]
+        cache[bid, idx % bs] = new
+        return cache
+    rows = torch.arange(B, device=cache.device)
+    cache[rows, idx.clamp(0, cache.shape[1] - 1)] = new
+    return cache
+
+
+def cache_rows_update(
+    cache: torch.Tensor,
+    new: torch.Tensor,
+    start,
+    *,
+    block_table: Optional[torch.Tensor] = None,
+    n_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Bulk prefill write, in place: ``new`` (B, P, ...) rows land at
+    sequence positions ``start + [0, P)``.
+
+    Contiguous caches with a scalar start and no ``n_valid`` take one
+    slice write, its start clamped into [0, S-P] as the reference's
+    ``dynamic_update_slice`` clamps. Otherwise (per-row start (B,), or
+    ``n_valid`` (B,) marking each row's real count) rows out of range or
+    past ``n_valid`` are DROPPED, never clamped or wrapped. Paged arenas
+    scatter every row through the block table; rows past ``n_valid`` go
+    to the NULL sink, and pad rows whose table entry is still NULL fall
+    into it as well."""
+    new = new.to(cache.dtype)
+    B, P = new.shape[:2]
+    dev = cache.device
+    scalar = not torch.is_tensor(start) or start.dim() == 0
+    if block_table is None and scalar and n_valid is None:
+        s0 = min(max(int(start), 0), cache.shape[1] - P)
+        cache[:, s0:s0 + P] = new
+        return cache
+    start_t = torch.as_tensor(start, dtype=torch.long, device=dev)
+    ar = torch.arange(P, device=dev)
+    if block_table is None:
+        S = cache.shape[1]
+        pos = start_t.reshape(-1, 1).expand(B, 1) + ar            # (B, P)
+        keep = (pos >= 0) & (pos < S)
+        if n_valid is not None:
+            keep &= ar[None, :] < n_valid.to(dev)[:, None]
+        b_idx = torch.arange(B, device=dev)[:, None].expand(B, P)
+        cache[b_idx[keep], pos[keep]] = new[keep]
+        return cache
+    bs = cache.shape[1]
+    table = block_table.long()
+    pos = start_t.reshape(-1, 1).expand(B, 1) + ar                # (B, P)
+    slot = (pos // bs).clamp(0, table.shape[1] - 1)
+    bid = torch.gather(table, 1, slot)
+    off = pos % bs
+    if n_valid is not None:
+        bid = torch.where(ar[None, :] < n_valid.to(dev)[:, None], bid,
+                          torch.full_like(bid, NULL_BLOCK))
+    cache[bid.reshape(-1), off.reshape(-1)] = new.reshape(B * P, *new.shape[2:])
+    return cache
+
+
+def decode_lengths(idx, batch: int, device=None) -> torch.Tensor:
+    """Valid-prefix lengths (B,) int32 after writing one token at ``idx``."""
+    return (_per_row(idx, batch, device) + 1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# GQA specs
+# ---------------------------------------------------------------------------
+
+def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.dtype
+    out = {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim"), "scaled", dt),
+        "wk": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim"), "scaled", dt),
+        "wv": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim"), "scaled", dt),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"), "scaled", dt),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), "zeros", dt)
+        out["bk"] = ParamSpec((hkv, hd), ("kv_heads", "head_dim"), "zeros", dt)
+        out["bv"] = ParamSpec((hkv, hd), ("kv_heads", "head_dim"), "zeros", dt)
+    if cfg.qk_norm:
+        out["q_norm"] = norm_specs(hd, "rmsnorm", dt)
+        out["k_norm"] = norm_specs(hd, "rmsnorm", dt)
+    return out
+
+
+def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """x (B, S, d) -> q (B, S, H, D), k/v (B, S, Hkv, D), with bias,
+    qk-norm and RoPE as the config asks."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if cfg.qk_norm:
+        q = norm_apply(params["q_norm"], q.contiguous(), "rmsnorm")
+        k = norm_apply(params["k_norm"], k.contiguous(), "rmsnorm")
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Memory-efficient chunked attention (plain PyTorch, prefill)
+# ---------------------------------------------------------------------------
+
+def mea_attention(
+    q: torch.Tensor,          # (B, Sq, H, D)
+    k: torch.Tensor,          # (B, Skv, Hkv, D)
+    v: torch.Tensor,          # (B, Skv, Hkv, Dv)
+    *,
+    causal: bool,
+    chunk: int,
+    q_offset=0,               # absolute position of q[0]: scalar, or (B,)
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks, in f32 (the reference's
+    jnp ``mea_attention``; masked scores are NEG_INF)."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // Hkv
+    dev = q.device
+    scale = 1.0 / math.sqrt(D)
+    qf = (q * scale).float().reshape(B, Sq, Hkv, G, D)
+
+    chunk = min(chunk, Skv)
+    n_chunks = math.ceil(Skv / chunk)
+    q_off = torch.as_tensor(q_offset, dtype=torch.long, device=dev)
+    q_pos = q_off[..., None] + torch.arange(Sq, device=dev)     # (Sq,) or (B, Sq)
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None]
+
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, Hkv, G, Dv), dtype=torch.float32, device=dev)
+    for j in range(n_chunks):
+        kj = k[:, j * chunk:(j + 1) * chunk].float()
+        vj = v[:, j * chunk:(j + 1) * chunk].float()
+        c = kj.shape[1]
+        s = torch.einsum("bqhgd,bchd->bqhgc", qf, kj)
+        kv_pos = j * chunk + torch.arange(c, device=dev)
+        if causal:
+            valid = q_pos[..., :, None] >= kv_pos                    # (1|B, Sq, c)
+            s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqhgc,bchd->bqhgd", p, vj)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     length: torch.Tensor) -> torch.Tensor:
+    """Single-token attention q (B, 1, H, D) against a contiguous cache
+    (B, S, Hkv, D), masked past ``length`` (B,): kernel K3."""
+    return _decode_kernel(q[:, 0].contiguous(), k, v, length)[:, None]
+
+
+def gqa_apply(
+    params: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Dict,
+    cache_index,
+    block_table: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode through the GQA block: write the token's K/V row
+    at ``cache_index`` (scalar or (B,)) and attend against the cache —
+    K4 over the arena with ``block_table``, else K3."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    ck = cache_row_update(cache["k"], k, cache_index, block_table=block_table)
+    cv = cache_row_update(cache["v"], v, cache_index, block_table=block_table)
+    lengths = decode_lengths(cache_index, B, x.device)
+    if block_table is not None:
+        out = _paged_decode_kernel(
+            q[:, 0].contiguous(), ck, cv, block_table.to(torch.int32), lengths
+        )[:, None]
+    else:
+        out = decode_attention(q, ck, cv, length=lengths)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, {"k": ck, "v": cv}
+
+
+def gqa_prefill(
+    params: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Dict,
+    start_index,
+    block_table: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Cache-writing batched prefill: project the whole (B, S) chunk once,
+    write its K/V rows at ``start_index``, and attend causally against the
+    cache (rows past the chunk are masked by causality, rows before it are
+    an earlier chunk's prefix). Paged mode scatters the rows through the
+    block table and attends against the gathered view."""
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    ck = cache_rows_update(cache["k"], k, start_index, block_table=block_table)
+    cv = cache_rows_update(cache["v"], v, start_index, block_table=block_table)
+    if block_table is not None:
+        kv_k, kv_v = paged_kv_view(ck, block_table), paged_kv_view(cv, block_table)
+    else:
+        kv_k, kv_v = ck, cv
+    out = mea_attention(q, kv_k, kv_v, causal=True, chunk=cfg.attn_chunk,
+                        q_offset=start_index)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, {"k": ck, "v": cv}
+
+
+def gqa_cache_spec(
+    cfg: ModelConfig,
+    batch: int,
+    max_len: int,
+    page: Optional[Tuple[int, int]] = None,
+) -> Dict[str, ParamSpec]:
+    """``page=(num_blocks, block_size)`` swaps the per-slot (batch, seq)
+    stripe for a global arena (num_blocks + 1, block_size, ...) — one
+    extra row for the NULL sink block."""
+    if page is not None:
+        num_blocks, block_size = page
+        shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
+        axes = ("kv_blocks", "kv_block", "kv_heads", "head_dim")
+    else:
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        axes = ("act_batch", "act_kv_seq", "kv_heads", "head_dim")
+    return {
+        "k": ParamSpec(shape, axes, "zeros", cfg.dtype),
+        "v": ParamSpec(shape, axes, "zeros", cfg.dtype),
+    }

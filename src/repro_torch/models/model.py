@@ -1,0 +1,244 @@
+"""Top-level model (port of ``repro.models.model`` for dense GQA decoders):
+embeddings, the block stack, the tied head, and the serving entry points
+``prefill_with_cache`` and ``decode_step``.
+
+Parameters and caches are trees of tensors: ``params["stack"]`` and the
+cache tree hold one list per segment with one dict per layer (the
+reference stacks layers on a leading axis instead). Every RMSNorm runs
+through kernel K2 and every decode attention through K3 (contiguous) or
+K4 (paged); the projections, the MLP and the head are plain matrix
+products, as the reference leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from . import attention as attn
+from .layers import (
+    DTYPES,
+    ParamSpec,
+    count_specs,
+    init_from_specs,
+    mlp_apply,
+    norm_apply,
+    norm_specs,
+    tree_map,
+)
+from .transformer import Segment, block_specs, segment_plan
+
+__all__ = ["Model", "count_params_analytic"]
+
+
+def _block_decode(
+    params: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Dict,
+    cache_index,
+    block_tables: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    h = norm_apply(params["attn_norm"], x, cfg.norm)
+    a, new_cache = attn.gqa_apply(
+        params["attn"], h, cfg, positions=positions, cache=cache,
+        cache_index=cache_index, block_table=block_tables,
+    )
+    x = x + a
+    h = norm_apply(params["mlp_norm"], x, cfg.norm)
+    return x + mlp_apply(params["ffn"], h, cfg.act, cfg.glu), new_cache
+
+
+def _block_prefill(
+    params: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Dict,
+    start_index,
+    block_tables: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Multi-token block forward that also writes the block's cache rows
+    (the serving prefill; mirrors ``_block_decode`` with S > 1)."""
+    h = norm_apply(params["attn_norm"], x, cfg.norm)
+    a, new_cache = attn.gqa_prefill(
+        params["attn"], h, cfg, positions=positions, cache=cache,
+        start_index=start_index, block_table=block_tables,
+    )
+    x = x + a
+    h = norm_apply(params["mlp_norm"], x, cfg.norm)
+    return x + mlp_apply(params["ffn"], h, cfg.act, cfg.glu), new_cache
+
+
+def _zeros_from_specs(specs, device) -> Any:
+    """Spec-initialized cache tree (zeros / ones fills) on ``device``."""
+    def make(s: ParamSpec) -> torch.Tensor:
+        fill = torch.ones if s.init == "ones" else torch.zeros
+        return fill(s.shape, dtype=DTYPES[s.dtype], device=device)
+    return tree_map(make, specs)
+
+
+class Model:
+    """A dense GQA decoder. Methods are functions of (params, inputs), like
+    the reference's; cache writes happen in place on the given caches."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.segments: List[Segment] = segment_plan(cfg)
+
+    # -- specs ---------------------------------------------------------------
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        dt = cfg.dtype
+        if cfg.input_kind != "tokens":
+            raise ValueError("the port serves token inputs only")
+        specs: Dict[str, Any] = {
+            "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                               "normal", dt),
+            "stack": [[block_specs(cfg, seg.kind) for _ in range(seg.count)]
+                      for seg in self.segments],
+            "final_norm": norm_specs(cfg.d_model, cfg.norm, dt),
+        }
+        if not cfg.tie_embeddings:
+            specs["head"] = ParamSpec(
+                (cfg.d_model, cfg.vocab_size), ("embed", "vocab"), "scaled", dt
+            )
+        return specs
+
+    def init(self, seed: int = 0, *, device="cuda"):
+        """Random parameters on ``device``, drawn from a ``torch.Generator``
+        on that device seeded with ``seed``."""
+        dev = resolve_device(device)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(int(seed))
+        return init_from_specs(self.param_specs(), generator, dev)
+
+    # -- forward -------------------------------------------------------------
+    def embed_inputs(self, params: Dict, inputs: torch.Tensor) -> torch.Tensor:
+        return params["embed"][inputs.long()]
+
+    def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            out = h @ params["embed"].t()
+        else:
+            out = h @ params["head"]
+        if cfg.logit_scale != 1.0:
+            out = out * cfg.logit_scale
+        if cfg.logit_softcap > 0:
+            out = cfg.logit_softcap * torch.tanh(out / cfg.logit_softcap)
+        return out
+
+    # -- serving ---------------------------------------------------------------
+    def cache_specs(self, batch: int, max_len: int, *,
+                    block_size: Optional[int] = None, num_blocks: int = 0):
+        """Cache spec tree for ``batch`` sequences of up to ``max_len``
+        tokens. The sequence axis is rounded up to ``attn.KV_SEQ_ALIGN``
+        here, at allocation time. ``block_size`` switches every leaf to
+        the paged arena layout (num_blocks + 1, block_size, ...) addressed
+        through block tables; row 0 of an arena is the NULL sink."""
+        max_len = attn.round_kv_len(max_len)
+        page = None if block_size is None else (num_blocks, block_size)
+        return [[attn.gqa_cache_spec(self.cfg, batch, max_len, page)
+                 for _ in range(seg.count)] for seg in self.segments]
+
+    def blank_caches(self, batch: int, max_len: int, *,
+                     block_size: Optional[int] = None, num_blocks: int = 0,
+                     device="cuda"):
+        """Freshly initialized caches on ``device``."""
+        return _zeros_from_specs(
+            self.cache_specs(batch, max_len, block_size=block_size,
+                             num_blocks=num_blocks),
+            resolve_device(device),
+        )
+
+    def prefill_with_cache(
+        self,
+        params: Dict,
+        inputs: torch.Tensor,                      # (B, P) int, right-padded
+        caches,
+        length: Optional[torch.Tensor] = None,     # (B,) valid tokens per row
+        start_index=0,                             # scalar: first write position
+        block_tables: Optional[torch.Tensor] = None,  # (B, T) paged arenas
+    ):
+        """Batched cache-writing prefill -> (last-valid logits (B, 1, V),
+        caches). ``inputs`` may be right-padded to a bucket; pad rows are
+        causally inert and their cache rows are masked by decode's length.
+        ``start_index > 0`` continues a partially prefilled cache."""
+        B, P = inputs.shape
+        dev = inputs.device
+        if length is None:
+            length = torch.full((B,), P, dtype=torch.long, device=dev)
+        start = torch.as_tensor(start_index, dtype=torch.long, device=dev)
+        positions = start + torch.arange(P, device=dev)
+        h, new_caches = self._fused_prefill_stack(
+            params, inputs, caches, positions=positions, start_index=start_index,
+            block_tables=block_tables,
+        )
+        last = (length.to(dev).long() - 1).clamp(0, P - 1)
+        h_last = h[torch.arange(B, device=dev), last][:, None]
+        return self.logits(params, h_last), new_caches
+
+    def _fused_prefill_stack(
+        self,
+        params: Dict,
+        inputs: torch.Tensor,
+        caches,
+        *,
+        positions: torch.Tensor,
+        start_index,
+        block_tables: Optional[torch.Tensor] = None,
+    ):
+        """Cache-writing stack walk of the fused path -> (final-norm hidden
+        states (B, S, D), caches)."""
+        cfg = self.cfg
+        h = self.embed_inputs(params, inputs)
+        new_caches = []
+        for seg_params, seg_cache in zip(params["stack"], caches):
+            seg_new = []
+            for layer, cache in zip(seg_params, seg_cache):
+                h, nc = _block_prefill(
+                    layer, h, cfg, positions=positions, cache=cache,
+                    start_index=start_index, block_tables=block_tables,
+                )
+                seg_new.append(nc)
+            new_caches.append(seg_new)
+        return norm_apply(params["final_norm"], h, cfg.norm), new_caches
+
+    def decode_step(
+        self,
+        params: Dict,
+        token: torch.Tensor,       # (B, 1) int
+        caches,
+        cache_index,               # current length: scalar or (B,)
+        block_tables: Optional[torch.Tensor] = None,  # (B, T): paged KV arenas
+    ):
+        """One token per sequence -> (logits (B, 1, V), caches)."""
+        cfg = self.cfg
+        x = self.embed_inputs(params, token)
+        idx = torch.as_tensor(cache_index, dtype=torch.long, device=x.device)
+        positions = idx.reshape(1) if idx.dim() == 0 else idx[:, None]
+        new_caches = []
+        h = x
+        for seg_params, seg_cache in zip(params["stack"], caches):
+            seg_new = []
+            for layer, cache in zip(seg_params, seg_cache):
+                h, nc = _block_decode(
+                    layer, h, cfg, positions=positions, cache=cache,
+                    cache_index=idx, block_tables=block_tables,
+                )
+                seg_new.append(nc)
+            new_caches.append(seg_new)
+        h = norm_apply(params["final_norm"], h, cfg.norm)
+        return self.logits(params, h), new_caches
+
+
+def count_params_analytic(cfg: ModelConfig) -> int:
+    """Parameter count from the spec tree (exact)."""
+    return count_specs(Model(cfg).param_specs())

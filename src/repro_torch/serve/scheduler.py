@@ -1,0 +1,227 @@
+"""Admission + prefill/decode interleaving with a deterministic event clock.
+
+A copy of the reference scheduler (``repro.serve.scheduler``) for the
+port's engine, without the observability hooks and without the
+speculation and preemption callbacks, which arrive with those features.
+
+Every tick the scheduler picks ONE action — admit-and-prefill a waiting
+request (possibly one chunk of it), run a decode tick over the whole
+slot pool, or idle until the next arrival. Virtual time advances by a
+linear cost model per action, so latencies are exact functions of the
+workload, while the engine separately measures wall time. A long prompt
+is chopped into ``prefill_chunk``-token pieces, and between consecutive
+prefill actions at least ``decode_per_prefill`` decode ticks run whenever
+sequences are active. Pure host logic: nothing here touches tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+__all__ = ["Request", "CostModel", "EventClock", "Scheduler", "next_bucket"]
+
+
+def next_bucket(n: int, base: int = 16) -> int:
+    """Smallest power-of-two multiple of ``base`` >= n (prefill shape
+    bucketing)."""
+    b = base
+    while b < n:
+        b *= 2
+    return b
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (P,) int32
+    max_new_tokens: int
+    arrival: float = 0.0
+    #: absolute virtual-time deadline (None = no deadline). Set by the
+    #: caller at submit, or stamped by the scheduler at admission when it
+    #: was built with ``deadline_ticks``. An unfinished request past its
+    #: deadline is cancelled: slot and blocks freed, partial output kept.
+    deadline: Optional[float] = None
+    # -- filled by the engine ------------------------------------------------
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    t_admit: Optional[float] = None
+    t_first_token: Optional[float] = None
+    t_done: Optional[float] = None
+    t_cancelled: Optional[float] = None
+    cancel_reason: Optional[str] = None   # "deadline" | "cancelled"
+    prefilled: int = 0            # prompt tokens already in cache (chunked)
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
+
+    @property
+    def prefill_len(self) -> int:
+        """Tokens the next prefill phase must put in cache: the prompt,
+        plus every emitted token but the last for a request that resumes
+        with tokens already emitted."""
+        return self.prompt_len + max(len(self.tokens) - 1, 0)
+
+    def prefill_target(self) -> np.ndarray:
+        """The exact token sequence prefill feeds — see ``prefill_len``."""
+        if not self.tokens:
+            return self.prompt
+        return np.concatenate([
+            self.prompt, np.asarray(self.tokens[:-1], self.prompt.dtype)
+        ])
+
+    @property
+    def cancelled(self) -> bool:
+        return self.t_cancelled is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class CostModel:
+    """Virtual seconds per engine action: a per-launch constant plus a
+    per-token term for prefill; decode ticks cost the same regardless of
+    how many slots are live (the whole pool is one fixed-shape call)."""
+
+    prefill_base: float = 1e-3
+    prefill_per_token: float = 1e-4
+    decode_tick: float = 1e-3
+
+    def prefill(self, n_tokens: int) -> float:
+        return self.prefill_base + self.prefill_per_token * n_tokens
+
+    def decode(self) -> float:
+        return self.decode_tick
+
+
+class EventClock:
+    def __init__(self, cost: Optional[CostModel] = None):
+        self.cost = cost or CostModel()
+        self.now = 0.0
+
+    def advance_prefill(self, n_tokens: int) -> None:
+        self.now += self.cost.prefill(n_tokens)
+
+    def advance_decode(self) -> None:
+        self.now += self.cost.decode()
+
+    def advance_to(self, t: float) -> None:
+        self.now = max(self.now, t)
+
+
+class Scheduler:
+    """Chooses the next engine action. Pure host logic, fully deterministic."""
+
+    def __init__(
+        self,
+        n_slots: int,
+        *,
+        prefill_chunk: Optional[int] = None,
+        decode_per_prefill: int = 4,
+        clock: Optional[EventClock] = None,
+        deadline_ticks: Optional[int] = None,
+    ):
+        """``deadline_ticks``: default per-request deadline, in decode-tick
+        units of the clock's cost model, stamped at ADMISSION (queueing
+        time does not count against it). Requests submitted with an
+        explicit absolute ``Request.deadline`` keep it."""
+        self.n_slots = n_slots
+        self.prefill_chunk = prefill_chunk
+        self.decode_per_prefill = max(int(decode_per_prefill), 0)
+        self.clock = clock or EventClock()
+        self.deadline_ticks = deadline_ticks
+        self.waiting: List[Request] = []
+        self.running: List[Request] = []   # admitted, mid-prefill (chunked)
+        self._decode_debt = 0              # decode ticks owed before next prefill
+
+    # -- queue ---------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        self.waiting.append(req)
+        self.waiting.sort(key=lambda r: (r.arrival, r.rid))  # FIFO by arrival
+
+    def _eligible(self) -> Optional[Request]:
+        for r in self.waiting:
+            if r.arrival <= self.clock.now:
+                return r
+        return None
+
+    def _next_arrival(self) -> Optional[float]:
+        return min((r.arrival for r in self.waiting), default=None)
+
+    # -- policy --------------------------------------------------------------
+    def next_action(
+        self, n_active: int, n_free: int, can_admit=None
+    ) -> Tuple[str, Optional[Request]]:
+        """-> ("prefill", request) | ("decode", None) | ("idle", None) |
+        ("done", None).
+
+        Mid-prefill requests always finish their remaining chunks before
+        new admissions (they hold a slot). A fresh admission needs a free
+        slot, a paid-down decode debt, and — when the engine supplies a
+        ``can_admit(request)`` predicate (paged pools: "enough free
+        blocks for the whole token budget") — a passing budget check;
+        otherwise decode if anything is active; otherwise jump the clock
+        to the next arrival.
+        """
+        if self.running:
+            req = self.running[0]
+            if self._decode_debt > 0 and n_active > len(self.running):
+                # sequences besides the mid-prefill ones are decoding:
+                # interleave before the next chunk.
+                self._decode_debt -= 1
+                return "decode", None
+            return "prefill", req
+        req = self._eligible()
+        if req is not None and n_free > 0 and (can_admit is None or can_admit(req)):
+            if self._decode_debt > 0 and n_active > 0:
+                self._decode_debt -= 1
+                return "decode", None
+            return "prefill", req
+        if n_active > 0:
+            return "decode", None
+        nxt = self._next_arrival()
+        if nxt is not None:
+            return "idle", None
+        return "done", None
+
+    # -- engine callbacks ----------------------------------------------------
+    def chunk_for(self, req: Request) -> Tuple[int, int]:
+        """(start, n_tokens) of the next prefill chunk for ``req``."""
+        start = req.prefilled
+        remaining = req.prefill_len - start
+        if self.prefill_chunk is None:
+            return start, remaining
+        return start, min(self.prefill_chunk, remaining)
+
+    def on_admit(self, req: Request) -> None:
+        self.waiting.remove(req)
+        self.running.append(req)
+        req.t_admit = self.clock.now
+        if req.deadline is None and self.deadline_ticks is not None:
+            req.deadline = (
+                self.clock.now + self.deadline_ticks * self.clock.cost.decode_tick
+            )
+
+    def drop(self, req: Request) -> None:
+        """Forget a cancelled request wherever it sits in the queues
+        (waiting or mid-prefill running; a decoding request is in
+        neither — its slot is the engine's to free)."""
+        if req in self.waiting:
+            self.waiting.remove(req)
+        if req in self.running:
+            self.running.remove(req)
+
+    def on_prefill_chunk(self, req: Request, n_tokens: int, done: bool) -> None:
+        req.prefilled += n_tokens
+        self.clock.advance_prefill(n_tokens)
+        if done:
+            self.running.remove(req)
+        self._decode_debt = self.decode_per_prefill
+
+    def on_decode_tick(self) -> None:
+        self.clock.advance_decode()
+
+    def on_idle(self) -> None:
+        nxt = self._next_arrival()
+        if nxt is not None:
+            self.clock.advance_to(nxt)

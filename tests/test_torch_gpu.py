@@ -1,0 +1,129 @@
+"""The port's CUDA kernels on the card (marked ``gpu``; skipped without
+one). This file imports no JAX, so it also runs where only PyTorch is
+installed:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Each kernel is held to its plain version on the same CUDA inputs (f32 at
+2e-5; bf16 at 2e-2, plus one bf16 step of the value for RMSNorm), the
+wrappers are shown never to reach a plain version for a CUDA tensor, and
+the reduced model's decode tick is shown to run through the kernels.
+"""
+
+import importlib
+
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.configs import get_config
+from repro_torch.models import Model
+from repro_torch.serve import Scheduler, ServeEngine
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 1, 2048), (3, 100, 576), (7, 64)])
+def test_rms_norm_kernel_matches_plain(cuda, dtype, shape):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    scale = torch.randn(shape[-1:], generator=g).to(cuda, dtype)
+    out, ref = K.rms_norm(x, scale), K.rms_norm_plain(x, scale)
+    rtol = 1 / 128 if dtype == torch.bfloat16 else 0.0
+    atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 64), (9, 3, 64), (8, 1, 128), (4, 4, 32)])
+def test_decode_kernels_match_plain(cuda, dtype, H, Hkv, D):
+    g = torch.Generator().manual_seed(1)
+    S, bs = 256, 16
+    lens = [1, 15, 16, 17, 200, 256]
+    B = len(lens)
+    q = torch.randn((B, H, D), generator=g).to(cuda, dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    out = K.decode_attention(q, k, v, lengths)
+    torch.testing.assert_close(out.float(), K.decode_attention_plain(q, k, v, lengths).float(),
+                               atol=atol, rtol=0)
+    # The same rows through a shuffled arena whose other rows are garbage.
+    T = S // bs
+    perm = torch.randperm(B * T, generator=g) + 1
+    tables = perm.reshape(B, T).to(torch.int32)
+    k_ar = torch.randn((B * T + 1, bs, Hkv, D), generator=g).to(cuda, dtype)
+    v_ar = torch.randn((B * T + 1, bs, Hkv, D), generator=g).to(cuda, dtype)
+    k_ar[perm.to(cuda)] = k.reshape(B * T, bs, Hkv, D)
+    v_ar[perm.to(cuda)] = v.reshape(B * T, bs, Hkv, D)
+    tables = tables.to(cuda)
+    paged = K.paged_decode_attention(q, k_ar, v_ar, tables, lengths)
+    torch.testing.assert_close(
+        paged.float(),
+        K.paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths).float(),
+        atol=atol, rtol=0)
+    assert torch.equal(paged, out), "K3 and K4 differ on identical rows"
+    zero = K.paged_decode_attention(q[:1], k_ar, v_ar, tables[:1],
+                                    torch.zeros(1, dtype=torch.int32, device=cuda))
+    assert (zero == 0).all()
+
+
+def test_wrappers_never_fall_back_to_plain(cuda, monkeypatch):
+    """For CUDA tensors the plain versions are never called."""
+    def boom(*a, **k):
+        raise AssertionError("plain version reached for a CUDA tensor")
+
+    # The package re-exports the wrappers under the modules' names, so
+    # fetch the modules themselves.
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    rn = importlib.import_module("repro_torch.kernels.rmsnorm")
+    monkeypatch.setattr(rn, "rms_norm_plain", boom)
+    monkeypatch.setattr(da, "decode_attention_plain", boom)
+    monkeypatch.setattr(da, "paged_decode_attention_plain", boom)
+    x = torch.randn((2, 64), device=cuda)
+    K.rms_norm(x, torch.ones(64, device=cuda))
+    q = torch.randn((1, 4, 32), device=cuda)
+    kv = torch.randn((1, 32, 2, 32), device=cuda)
+    lengths = torch.tensor([5], dtype=torch.int32, device=cuda)
+    K.decode_attention(q, kv, kv, lengths)
+    K.paged_decode_attention(q, kv, kv, torch.tensor([[0, 0]], dtype=torch.int32,
+                                                     device=cuda), lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.rms_norm(x.t(), torch.ones(2, device=cuda))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("block_size", [None, 16])
+def test_engine_runs_through_the_kernels(cuda, block_size):
+    """A reduced llama3.2-1b served on the card: every norm is a K2 launch
+    (2L+1 per prefill call and per decode tick), every decode attention a
+    K3 (contiguous) or K4 (paged) launch, and the streams are finite."""
+    cfg = get_config("llama3.2-1b").reduced()
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    eng = ServeEngine(model, params, n_slots=3, max_len=64, block_size=block_size,
+                      scheduler=Scheduler(3, prefill_chunk=8))
+    g = torch.Generator().manual_seed(2)
+    for i in range(5):
+        prompt = torch.randint(0, cfg.vocab_size, (int(5 + 4 * i),), generator=g)
+        eng.submit(prompt.numpy(), 6, arrival=0.002 * i)
+    K.reset_launch_counts()
+    results = eng.run()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    st = eng.stats
+    L = cfg.n_layers
+    assert counts["rmsnorm"] == (2 * L + 1) * (st.prefill_calls + st.decode_ticks)
+    attn = "paged_decode_attention" if block_size else "decode_attention"
+    assert counts[attn] == L * st.decode_ticks > 0
+    assert sum(counts.values()) == counts["rmsnorm"] + counts[attn]
+    assert all(len(r.tokens) == 6 for r in results.values())
