@@ -23,9 +23,29 @@ runs, in order, and exits non-zero at the first phase that fails:
 6. profiles decode ticks and prefill chunks with ``torch.profiler`` —
    host wall time, device time, the device's idle share, launches, and
    device time by kernel class;
+7. holds the training kernels against their plain versions on the card:
+   flash attention forward and backward (K1) over the reference's
+   kernel-test shapes and the training shape, causal and not, in f32
+   and bf16, and the RMSNorm forward and backward (K2) at the training
+   rows;
+8. takes one train step of llama3.2-1b at full width, cut to 2 layers,
+   in f32, through the kernels on the card, and the same step on the
+   CPU through the plain versions, and holds loss, gradient norm and
+   every updated parameter of the one to the other, for an SGD step and
+   for the loop's AdamW step;
+9. trains llama3.2-1b at full width (16 layers, bf16, full remat)
+   through the adaptive-(k, beta) loop with 8 workers, a worker failure
+   and its rejoin, and checks the losses, the stage walk, the fleet
+   path, the kernels' launch counts per step and the peak memory; then
+   holds the training kernels against their plain versions at every
+   batch shape the loop ran;
+10. times the training kernels at the training shape beside their plain
+   versions, one library call and their bounds, and profiles one
+   full-width train step at beta = 1;
 
-and prints the ``kernels`` JSON line (the profile under ``profile``), the
-card line and, last, the ``{"ok": true, ...}`` line.
+and prints the ``kernels`` JSON line (the profiles under ``profile`` and
+``train_profile``), the card line and, last, the ``{"ok": true, ...}``
+line.
 
 It imports nothing of JAX and nothing of the reference package.
 """
@@ -48,6 +68,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: bf16 RMSNorm outputs reach |y| of 4-5, where one bf16 rounding step is
 #: 2^-5 = 3.1e-2: a one-rounding flip between the kernel's and PyTorch's
@@ -101,11 +122,29 @@ def scatter_to_arena(k, v, lengths, block_size, gen):
     return k_arena, v_arena, tables.to(dev)
 
 
+def hold_rms_norm(shape, dtype, gen) -> float:
+    """K2 forward vs its plain version on random (shape) x; max |err|."""
+    from repro_torch.kernels import rms_norm, rms_norm_plain
+
+    x = torch.randn(shape, generator=gen).to("cuda", dtype)
+    scale = (1 + 0.1 * torch.randn(shape[-1:], generator=gen)).to("cuda", dtype)
+    out, ref = rms_norm(x, scale), rms_norm_plain(x, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    rtol = RMS_RTOL_BF16 if dtype == torch.bfloat16 else 0.0
+    ok = bool((err <= TOL[dtype] + rtol * ref.float().abs()).all())
+    name = str(dtype).replace("torch.", "")
+    print(f"  K2 rmsnorm {name} x {tuple(shape)}: max|err|={err.max().item():.3e}"
+          f" ({'ok' if ok else 'FAIL'})")
+    check(ok, f"rmsnorm {name} {tuple(shape)} disagrees with its plain version")
+    return err.max().item()
+
+
 def check_kernels() -> dict:
     """Every kernel vs its plain version; returns {kernel: max |err| in bf16}."""
     from repro_torch.kernels import (
         decode_attention, decode_attention_plain, paged_decode_attention,
-        paged_decode_attention_plain, rms_norm, rms_norm_plain,
+        paged_decode_attention_plain,
     )
 
     dev = torch.device("cuda")
@@ -114,18 +153,9 @@ def check_kernels() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for rows in (4, 512):
-            x = torch.randn((rows, 2048), generator=gen).to(dev, dtype)
-            scale = (1 + 0.1 * torch.randn(2048, generator=gen)).to(dev, dtype)
-            out, ref = rms_norm(x, scale), rms_norm_plain(x, scale)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            rtol = RMS_RTOL_BF16 if dtype == torch.bfloat16 else 0.0
-            ok = bool((err <= TOL[dtype] + rtol * ref.float().abs()).all())
-            print(f"  K2 rmsnorm {name} rows={rows} D=2048: max|err|={err.max().item():.3e}"
-                  f" ({'ok' if ok else 'FAIL'})")
-            check(ok, f"rmsnorm {name} rows={rows} disagrees with its plain version")
+            err = hold_rms_norm((rows, 2048), dtype, gen)
             if dtype == torch.bfloat16:
-                worst["rmsnorm"] = max(worst["rmsnorm"], err.max().item())
+                worst["rmsnorm"] = max(worst["rmsnorm"], err)
         for H, Hkv in ((32, 8), (9, 3)):
             for lens in ([1, 15, 16, 17], [1000, 1024, 500, 33], [0, 1, 15, 1000]):
                 B, S, D = len(lens), 1024, 64
@@ -275,8 +305,10 @@ def time_ms(fn, n: int = 60, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
+    """The least time (ms) for the work: bytes over the memory rate or
+    operations over ``peak``, whichever is larger, and which it was."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -351,8 +383,14 @@ def time_kernels(cfg, reqs) -> dict:
 # ---------------------------------------------------------------------------
 
 def kernel_class(name: str) -> str:
+    if "rmsnorm_bwd" in name:
+        return "K2 rmsnorm bwd"
     if "rmsnorm" in name:
         return "K2 rmsnorm"
+    if "fa_bwd" in name:
+        return "K1 flash attention bwd"
+    if "fa_fwd" in name:
+        return "K1 flash attention fwd"
     if "decode_kernel" in name and "PagedRows" in name:
         return "K4 paged decode"
     if "decode_kernel" in name:
@@ -456,6 +494,459 @@ def profile_serving(model, params) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 32, 512, 16
+#: RMSNorm (K2) rows: half the training batch, the training run's largest
+#: (32 x 512 tokens at beta = 1) and a decode-sized one.
+RMS_BWD_SHAPES = ((8192, 2048), (TRAIN_B * TRAIN_S, 2048), (4, 1, 2048))
+
+
+def hold_flash(shape, causal: bool, dtype, gen) -> tuple:
+    """K1 forward and backward vs their plain versions on random inputs
+    of ``shape`` (B, Sq, Skv, H, Hkv, D, Dv); (out err, max dq/dk/dv err)."""
+    from repro_torch.kernels import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.parity import within
+
+    B, Sq, Skv, H, Hkv, D, Dv = shape
+    dev = torch.device("cuda")
+    q = torch.randn((B, Sq, H, D), generator=gen).to(dev, dtype)
+    k = torch.randn((B, Skv, Hkv, D), generator=gen).to(dev, dtype)
+    v = torch.randn((B, Skv, Hkv, Dv), generator=gen).to(dev, dtype)
+    do = torch.randn((B, Sq, H, Dv), generator=gen).to(dev, dtype)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    grads = flash_attention_bwd(q, k, v, ref, ref_lse, do, causal=causal)
+    refs = flash_attention_bwd_plain(q, k, v, ref, ref_lse, do, causal=causal)
+    torch.cuda.synchronize()
+    e_o, ok_o = within(out, ref, dtype)
+    e_l, ok_l = within(lse, ref_lse, torch.float32)
+    bwd = [within(g, r, dtype) for g, r in zip(grads, refs)]
+    ok = ok_o and ok_l and all(o for _, o in bwd)
+    name = str(dtype).replace("torch.", "")
+    print(f"  K1 {name} B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} D={D} Dv={Dv} "
+          f"causal={causal}: out {e_o:.2e}, lse {e_l:.2e}, dq/dk/dv "
+          f"{' / '.join(f'{e:.2e}' for e, _ in bwd)} ({'ok' if ok else 'FAIL'})")
+    check(ok, f"flash attention {name} {shape} causal={causal} disagrees with its plain "
+              "version")
+    return e_o, max(e for e, _ in bwd)
+
+
+def hold_rms_norm_bwd(shape, dtype, gen) -> float:
+    """K2 backward vs its plain version on random inputs of ``shape``;
+    max |err| of dx and dscale.
+
+    bf16 dscale sums g * x^ over rows, x^ the normalized row rounded to
+    bf16. The kernel's rsqrt may differ from PyTorch's in its last bits,
+    so x^ may round the other way where n lies near a bf16 midpoint: a
+    column's tolerance adds one bf16 step of |g * n| for each of those
+    elements (``dscale_bf16_slack``), beside the usual bf16 rule."""
+    from repro_torch.kernels import rms_norm_bwd, rms_norm_bwd_plain
+    from repro_torch.kernels.parity import NEAR_ULPS, dscale_bf16_slack, within
+
+    dev = torch.device("cuda")
+    x = torch.randn(shape, generator=gen).to(dev, dtype)
+    g = torch.randn(shape, generator=gen).to(dev, dtype)
+    scale = (1 + 0.1 * torch.randn(shape[-1:], generator=gen)).to(dev, dtype)
+    (dx, ds), (rx, rs) = rms_norm_bwd(g, x, scale), rms_norm_bwd_plain(g, x, scale)
+    torch.cuda.synchronize()
+    slack, near = (dscale_bf16_slack(g, x, near_ulps=NEAR_ULPS) if dtype == torch.bfloat16
+                   else (0.0, 0))
+    (e_x, ok_x), (e_s, ok_s) = within(dx, rx, dtype), within(ds, rs, dtype, slack)
+    name = str(dtype).replace("torch.", "")
+    extra = ""
+    if dtype == torch.bfloat16:
+        extra = (f"; {near} of {x.numel()} elements within {NEAR_ULPS} f32 ulps of a "
+                 f"bf16 midpoint, slack <= {float(torch.as_tensor(slack).max()):.3e}")
+    print(f"  K2 bwd {name} x {tuple(shape)}: dx {e_x:.2e}, dscale {e_s:.2e} "
+          f"(|dscale| <= {rs.float().abs().max().item():.1f}{extra}) "
+          f"({'ok' if ok_x and ok_s else 'FAIL'})")
+    check(ok_x and ok_s, f"rmsnorm backward {name} {tuple(shape)} disagrees")
+    if dtype == torch.bfloat16 and x.numel() >= 4096 * shape[-1]:
+        # The tolerance has teeth: the kernel's dscale less one row's share
+        # (a dropped row) must fail it.
+        xl = x.float().reshape(-1, shape[-1])[-1]
+        xh = (xl * torch.rsqrt(xl.square().mean() + 1e-6)).to(dtype).float()
+        dropped = (ds.float() - g.float().reshape(-1, shape[-1])[-1] * xh).to(dtype)
+        _, passes = within(dropped, rs, dtype, slack)
+        _, all_rows = within(dropped, rs, dtype, dscale_bf16_slack(g, x)[0])
+        print(f"    dscale with one of {x.numel() // shape[-1]} rows dropped: "
+              f"{'passes (FAIL)' if passes else 'rejected (ok)'}; a slack of 2^-8 |g n| "
+              f"summed over every row would {'pass' if all_rows else 'reject'} it")
+        check(not passes, "the bf16 dscale tolerance does not catch a dropped row")
+    return max(e_x, e_s)
+
+
+def check_training_kernels() -> dict:
+    """K1 forward and backward over ``FLASH_SHAPES``, causal and not, and
+    K2 forward and backward at the training rows, in f32 and bf16, vs
+    their plain versions; returns {kernel: max |err| in bf16}."""
+    from repro_torch.kernels.parity import FLASH_SHAPES
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    worst = {"flash_attention": 0.0, "flash_attention_bwd": 0.0, "rmsnorm": 0.0,
+             "rmsnorm_bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for shape in FLASH_SHAPES:
+            for causal in (True, False):
+                e_o, e_b = hold_flash(shape, causal, dtype, gen)
+                if bf16:
+                    worst["flash_attention"] = max(worst["flash_attention"], e_o)
+                    worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], e_b)
+        for shape in RMS_BWD_SHAPES:
+            e_f, e_b = hold_rms_norm(shape, dtype, gen), hold_rms_norm_bwd(shape, dtype, gen)
+            if bf16:
+                worst["rmsnorm"] = max(worst["rmsnorm"], e_f)
+                worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], e_b)
+    return worst
+
+
+def check_loop_shapes(cfg, shapes, worst: dict) -> None:
+    """K1 (causal) and K2, forward and backward, vs their plain versions in
+    the model's dtype at every batch shape (B, S) the training loop ran:
+    attention at (B, S, S, H, Hkv, D, D), the norms at B * S rows. Raises
+    ``worst`` to the largest error seen."""
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for B, S in shapes:
+        e_o, e_b = hold_flash((B, S, S, H, Hkv, D, D), True, dtype, gen)
+        rows = (B * S, cfg.d_model)
+        e_f, e_r = hold_rms_norm(rows, dtype, gen), hold_rms_norm_bwd(rows, dtype, gen)
+        for key, e in (("flash_attention", e_o), ("flash_attention_bwd", e_b),
+                       ("rmsnorm", e_f), ("rmsnorm_bwd", e_r)):
+            worst[key] = max(worst[key], e)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: one train step through the kernels against the plain path
+# ---------------------------------------------------------------------------
+
+def token_batch(vocab: int, n_workers: int, per_worker: int, seq: int, mask) -> dict:
+    from repro_torch.data import StagedBatcher, TokenStream
+
+    b = StagedBatcher(TokenStream(vocab, seed=SEED), n_workers=n_workers,
+                      global_batch=n_workers * per_worker, seq_len=seq)
+    arr = b.batch_for_stage(1.0)
+    return {"inputs": torch.from_numpy(arr["inputs"]), "labels": torch.from_numpy(arr["labels"]),
+            "worker_mask": torch.tensor(mask, dtype=torch.float32), "lr": 1e-3}
+
+
+def step_vs_plain(cfg) -> dict:
+    """llama3.2-1b at full width cut to 2 layers, f32, B 4 x S 64 with
+    worker mask [1, 0, 1, 1]: one clipped SGD step through the kernels on
+    the card and through the plain versions on the CPU, from the same
+    parameters and batch.
+
+    SGD first: its update is the clipped gradient, the thing the kernels
+    compute. Then the loop's AdamW step from the same parameters, with
+    each side's clipped gradient and update recorded. AdamW's first step
+    maps a gradient g to lr * g / (|g| + eps), whose slope
+    eps / (|g| + eps)^2 turns the f32 noise of two GEMM libraries into up
+    to lr itself where |g| is near eps = 1e-8 (the tied head gives the
+    embedding rows of absent tokens such gradients). So the AdamW updates
+    are held to each other where both |g| >= 100 eps, within what the
+    gradient tolerance implies through that slope, and the elements below
+    it are counted and their largest difference printed."""
+    import dataclasses
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import Optimizer, adamw, sgd
+    from repro_torch.runtime import make_train_step
+
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = Model(small)
+    cpu_params = model.init(SEED, device="cpu")
+    gpu_params = tree_map(lambda t: t.to("cuda"), cpu_params, is_leaf=torch.is_tensor)
+    batch = token_batch(small.vocab_size, 4, 1, 64, [1.0, 0.0, 1.0, 1.0])
+    batch["lr"] = 0.1
+    gpu_batch = {k: v.to("cuda") if torch.is_tensor(v) else v for k, v in batch.items()}
+    opt = sgd()
+    step = make_train_step(model, opt)
+    reset_launch_counts()
+    new_gpu, _, m_gpu = step(gpu_params, opt.init(gpu_params), gpu_batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    new_cpu, _, m_cpu = step(cpu_params, opt.init(cpu_params), batch)
+    cpu_s = time.perf_counter() - t0
+    L = small.n_layers
+    expect = {"rmsnorm": 2 * (2 * L) + 1, "rmsnorm_bwd": 2 * L + 1,
+              "flash_attention": 2 * L, "flash_attention_bwd": L,
+              "decode_attention": 0, "paged_decode_attention": 0}
+    print(f"  launches in the kernel step: {counts} (expected {expect}; remat "
+          f"{small.remat!r} runs each block's forward twice)")
+    check(counts == expect, "the kernel train step did not run through every kernel")
+    loss_g, loss_c = float(m_gpu["loss"]), float(m_cpu["loss"])
+    gn_g, gn_c = float(m_gpu["grad_norm"]), float(m_cpu["grad_norm"])
+    # f32 on both sides, sums in other orders: loss and grad norm to 1e-5
+    # relative; each parameter leaf's update (old - new, the clipped
+    # gradient times lr) to 1e-4 of the leaf's largest update, plus one
+    # f32 rounding of the weight it is added to (|p| * 2^-23 < 2e-7 * |p|).
+    worst, ok = 0.0, True
+    for p0, a, b in zip(tree_leaves(cpu_params, is_leaf=torch.is_tensor),
+                        tree_leaves(new_gpu, is_leaf=torch.is_tensor),
+                        tree_leaves(new_cpu, is_leaf=torch.is_tensor)):
+        ua, ub = p0 - a.cpu(), p0 - b
+        err = (ua - ub).abs()
+        worst = max(worst, err.max().item())
+        ok &= bool((err <= 1e-4 * ub.abs().max() + 2e-7 * p0.abs().clamp_min(1.0)).all())
+    print(f"  loss {loss_g:.7f} (card) vs {loss_c:.7f} (CPU plain, {cpu_s:.1f} s); "
+          f"grad norm {gn_g:.7f} vs {gn_c:.7f}; max |update diff| {worst:.3e} "
+          f"(lr {batch['lr']}) ({'ok' if ok else 'FAIL'})")
+    check(abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), "train step loss: card vs plain")
+    check(abs(gn_g - gn_c) <= 1e-5 * abs(gn_c), "train step grad norm: card vs plain")
+    check(ok, "updated parameters: card vs plain")
+    del new_gpu, new_cpu
+
+    def recorded(opt):
+        seen = {}
+
+        def update(grads, state, params, lr):
+            updates, state = opt.update(grads, state, params, lr)
+            seen["grads"] = tree_leaves(grads, is_leaf=torch.is_tensor)
+            seen["updates"] = tree_leaves(updates, is_leaf=torch.is_tensor)
+            return updates, state
+
+        return Optimizer(opt.init, update), seen
+
+    eps, lr = 1e-8, batch["lr"]
+    seen = []
+    for params, b in ((gpu_params, gpu_batch), (cpu_params, batch)):
+        opt, rec = recorded(adamw(eps=eps))
+        make_train_step(model, opt)(params, opt.init(params), b)
+        seen.append(rec)
+    # Gradients: 1e-4 of the leaf's largest, as the SGD check above. AdamW
+    # updates where both |g| >= 100 eps: |du| / lr <= eps * dg_tol /
+    # ((|g_card| + eps) (|g_cpu| + eps)), the first step's slope over the
+    # gradient tolerance, plus 1e-6 for the roundings of m^ / sqrt(v^).
+    g_ok = a_ok = True
+    worst_g = worst_in = worst_below = 0.0
+    n_in = n_below = 0
+    below = []
+    for ga, gb, ua, ub in zip(seen[0]["grads"], seen[1]["grads"], seen[0]["updates"],
+                              seen[1]["updates"]):
+        ga, ua, gb, ub = ga.cpu().float(), ua.cpu().float(), gb.float(), ub.float()
+        dg_tol = 1e-4 * gb.abs().max().item()
+        dg = (ga - gb).abs()
+        worst_g = max(worst_g, dg.max().item())
+        g_ok &= bool((dg <= dg_tol).all())
+        du = (ua - ub).abs() / lr
+        big = torch.minimum(ga.abs(), gb.abs()) >= 100 * eps
+        bound = eps * dg_tol / ((ga.abs() + eps) * (gb.abs() + eps)) + 1e-6
+        a_ok &= bool((du[big] <= bound[big]).all())
+        n_in += int(big.sum())
+        if big.any():
+            worst_in = max(worst_in, du[big].max().item())
+        if not big.all():
+            k = int((~big).sum())
+            n_below += k
+            worst_below = max(worst_below, du[~big].max().item())
+            below.append((tuple(ga.shape), k, du[~big].max().item()))
+    print(f"  AdamW step (eps {eps}): max |grad diff| {worst_g:.3e} "
+          f"({'ok' if g_ok else 'FAIL'}); {n_in} elements with |g| >= {100 * eps:g}: max "
+          f"|update diff| {worst_in:.3e} lr ({'ok' if a_ok else 'FAIL'}); {n_below} below: "
+          f"max |update diff| {worst_below:.3e} lr")
+    for shape, k, d in sorted(below, key=lambda r: -r[1])[:4]:
+        print(f"      leaf {shape}: {k} elements with |g| < {100 * eps:g}, max |update "
+              f"diff| {d:.3e} lr")
+    check(g_ok, "AdamW step gradients: card vs plain")
+    check(a_ok, "AdamW step updates where |g| >= 100 eps: card vs plain")
+    return {"loss": [loss_g, loss_c], "grad_norm": [gn_g, gn_c], "max_update_diff": worst,
+            "adamw": {"max_grad_diff": worst_g, "elements_at_or_above_100eps": n_in,
+                      "max_update_diff_over_lr": worst_in, "elements_below_100eps": n_below,
+                      "max_update_diff_over_lr_below": worst_below}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the training loop at full width
+# ---------------------------------------------------------------------------
+
+def train_full_width(model) -> dict:
+    from repro_torch.core import DiagnosticConfig, SimplifiedDelayModel, StrategyConfig
+    from repro_torch.data import StagedBatcher, TokenStream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import FaultEvent, TrainLoopConfig, train
+
+    cfg = model.cfg
+    n = 8
+    # A loose loss diagnostic (any plateau test passes after 4 steps of a
+    # stage) so that 16 steps walk beta up the whole grid to 1.
+    strategy = StrategyConfig(
+        "adaptive_kbeta", n=n, s=4, k0=1, k_max=4, beta_grid=(0.25, 0.5, 0.75, 1.0),
+        diagnostic=DiagnosticConfig(kind="loss", rel_tol=0.5, min_iters=4, consecutive=1),
+    )
+    batcher = StagedBatcher(TokenStream(cfg.vocab_size, seed=SEED), n_workers=n,
+                            global_batch=TRAIN_B, seq_len=TRAIN_S)
+    events = [FaultEvent(5, "fail", 3), FaultEvent(10, "rejoin", 3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train(model, adamw(), strategy, SimplifiedDelayModel(lambda_y=1.0, x=0.05), batcher,
+                TrainLoopConfig(total_steps=TRAIN_STEPS, lr=3e-4, log_every=4, seed=SEED,
+                                events=events), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    L = cfg.n_layers
+    remat = 2 if cfg.remat == "full" else 1
+    per_step = {"flash_attention": remat * L, "flash_attention_bwd": L,
+                "rmsnorm": remat * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+                "decode_attention": 0, "paged_decode_attention": 0}
+    steps = len(hist)
+    print(f"  {steps} steps in {wall:.1f} s; batch shapes {out['compiled_shapes']}; peak "
+          f"memory {peak / 2**30:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    print(f"  per step, from the model: each of {L} blocks runs K1 forward and two K2 "
+          f"forwards {remat}x (remat {cfg.remat!r}) and K1 / K2 backward once, plus "
+          f"the final norm: {per_step}")
+    print(f"  launches over the run: {counts}")
+    for h in hist:
+        print(f"    step {h['step']:2d} k={h['k']} beta={h['beta']:.2f} n={h['n_workers']} "
+              f"loss {h['loss']:.4f} grad_norm {h['grad_norm']:.4f} sim_time {h['sim_time']:.3f}")
+    check(counts == {k: v * steps for k, v in per_step.items()},
+          f"launch counts {counts} are not {steps} x {per_step}")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(losses[-1] < losses[0], f"the last loss {losses[-1]} is not below the first {losses[0]}")
+    stages = []
+    for h in hist:
+        if not stages or stages[-1] != (h["k"], h["beta"]):
+            stages.append((h["k"], h["beta"]))
+    check(len(stages) >= 2, f"only one stage visited: {stages}")
+    fleet = [h["n_workers"] for h in hist]
+    walk = [fleet[0]] + [b for a, b in zip(fleet, fleet[1:]) if b != a]
+    check(walk == [8, 7, 8], f"fleet path {walk}, expected 8 -> 7 -> 8")
+    check(peak < 0.9 * torch.cuda.get_device_properties(0).total_memory,
+          f"peak memory {peak / 2**30:.1f} GiB is within 10% of the card")
+    print(f"  stages {stages}; fleet {walk}")
+    return {"steps": steps, "wall_s": wall, "stages": stages, "fleet": walk,
+            "shapes": [tuple(s) for s in out["compiled_shapes"]],
+            "launches": counts, "per_step": per_step, "peak_bytes": peak,
+            "losses": losses, "params": out["params"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: training kernels' times and one profiled train step
+# ---------------------------------------------------------------------------
+
+def time_training_kernels(cfg) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain, rms_norm_bwd, rms_norm_bwd_plain,
+    )
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 3)
+    B, S, H, Hkv, D = TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((B, S, H, D), generator=gen).to(dev, dt)
+    k = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
+    v = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
+    do = torch.randn((B, S, H, D), generator=gen).to(dev, dt)
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    pairs = S * (S + 1) // 2                     # causal (query, key) pairs per head
+    fwd_flops = 4 * B * H * pairs * D            # QK^T and PV, 2 flops per MAC
+    qkv = (q.numel() + k.numel() + v.numel()) * 2
+    out = {}
+    b, kind = bound(qkv + o.numel() * 2 + lse.numel() * 4, fwd_flops, BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    out["flash_attention"] = dict(
+        shape=f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {Hkv}, {D}) bf16, causal",
+        ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), n=30),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=True), n=30),
+        library_ms=time_ms(sdpa, n=30), bound_ms=b, bound_by=kind,
+        flops=fwd_flops,
+    )
+    # Backward: S, dP, dV, dK, dQ are five products against the forward's two.
+    bwd_flops = fwd_flops * 5 // 2
+    b, kind = bound(qkv + 2 * o.numel() * 2 + lse.numel() * 4 + qkv, bwd_flops, BF16_FLOPS)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
+        y.backward(do.transpose(1, 2))
+
+    lib_fb = time_ms(sdpa_fwd_bwd, n=30)
+    lib_f = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                                           enable_gqa=True), n=30)
+    out["flash_attention_bwd"] = dict(
+        shape=out["flash_attention"]["shape"],
+        ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True), n=30),
+        plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+                         n=30),
+        library_ms=lib_fb - lib_f, bound_ms=b, bound_by=kind, flops=bwd_flops,
+    )
+    rows, dm = B * S, cfg.d_model
+    x = torch.randn((rows, dm), generator=gen).to(dev, dt)
+    g = torch.randn((rows, dm), generator=gen).to(dev, dt)
+    scale = (1 + 0.1 * torch.randn(dm, generator=gen)).to(dev, dt)
+    xr, sr = x.detach().requires_grad_(True), scale.detach().requires_grad_(True)
+
+    def lib_rms_fb():
+        F.rms_norm(xr, (dm,), sr, 1e-6).backward(g)
+
+    lib_fb = time_ms(lib_rms_fb, n=30)
+    lib_f = time_ms(lambda: F.rms_norm(xr, (dm,), sr, 1e-6), n=30)
+    # x and g read, dx written (bf16), scale read and dscale written; ~10
+    # f32 operations per element.
+    b, kind = bound(3 * rows * dm * 2 + 2 * dm * 2, 10 * rows * dm)
+    out["rmsnorm_bwd"] = dict(
+        shape=f"x, g ({rows}, {dm}) bf16",
+        ms=time_ms(lambda: rms_norm_bwd(g, x, scale), n=30),
+        plain_ms=time_ms(lambda: rms_norm_bwd_plain(g, x, scale), n=30),
+        library_ms=lib_fb - lib_f, bound_ms=b, bound_by=kind,
+    )
+    for name, r in out.items():
+        print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f"; {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s" if "flops" in r else ""))
+    return out
+
+
+def profile_train_step(model, params) -> dict:
+    """One full-width train step at beta = 1 (8 workers x 4 rows x 512
+    tokens, worker mask of k = 4), timed without the profiler and then
+    profiled over an equal step, after one warm-up step."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+
+    cfg = model.cfg
+    opt = adamw()
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    batch = token_batch(cfg.vocab_size, 8, TRAIN_B // 8, TRAIN_S,
+                        [1.0, 0.0, 1.0, 0.0, 1.0, 0.0, 1.0, 0.0])
+    batch = {k: v.to("cuda") if torch.is_tensor(v) else v for k, v in batch.items()}
+
+    def one():
+        step(params, state, batch)
+
+    one()                                     # warm-up
+    res = window(f"train step, {cfg.name} full width, {TRAIN_B} x {TRAIN_S} tokens, "
+                 f"beta 1", one, one, 1, "step")
+    res["tokens_per_s"] = TRAIN_B * TRAIN_S / (res["wall_ms_per_unit"] / 1e3)
+    print(f"  training throughput: {res['tokens_per_s']:.0f} tokens/s (host clock, "
+          f"one step)")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -497,26 +988,59 @@ def main() -> int:
     times = time_kernels(cfg, workload(cfg.vocab_size))
     print("[6] where serving time goes (torch.profiler)")
     profiled = profile_serving(model, params)
+    del params
+
+    print("[7] training kernels vs plain PyTorch on the card")
+    train_worst = check_training_kernels()
+    print(f"[8] one train step, {cfg.name} at full width cut to 2 layers, f32: kernels on "
+          f"the card vs plain on the CPU")
+    parity = step_vs_plain(cfg)
+    print(f"[9] training {cfg.name} at full width through the adaptive-(k, beta) loop: "
+          f"{cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat!r}, {TRAIN_B} x {TRAIN_S} "
+          f"tokens at beta 1")
+    trained = train_full_width(model)
+    print("    the training kernels vs plain PyTorch at each batch shape the loop ran")
+    check_loop_shapes(cfg, trained["shapes"], train_worst)
+    worst["rmsnorm"] = max(worst["rmsnorm"], train_worst["rmsnorm"])
+    print("[10] training kernels' times (CUDA events, cold L2, median of 30) and one "
+          "profiled train step")
+    train_times = time_training_kernels(cfg)
+    train_profile = profile_train_step(model, trained.pop("params"))
+
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:26",
-                    "rmsnorm_decode", runs["contiguous"]["launches"]["rmsnorm"]
+                    times["rmsnorm_decode"], worst["rmsnorm"],
+                    runs["contiguous"]["launches"]["rmsnorm"]
                     + runs["paged"]["launches"]["rmsnorm"]),
+        "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm/kernel.py:26",
+                        train_times["rmsnorm_bwd"], train_worst["rmsnorm_bwd"],
+                        trained["launches"]["rmsnorm_bwd"]),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:74",
-                             "decode_attention",
+                             times["decode_attention"], worst["decode_attention"],
                              runs["contiguous"]["launches"]["decode_attention"]),
         "paged_decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                    "src/repro/kernels/decode_attention/kernel.py:187",
-                                   "paged_decode_attention",
+                                   times["paged_decode_attention"],
+                                   worst["paged_decode_attention"],
                                    runs["paged"]["launches"]["paged_decode_attention"]),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:89",
+                            train_times["flash_attention"], train_worst["flash_attention"],
+                            trained["launches"]["flash_attention"]),
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention/kernel.py:89",
+                                train_times["flash_attention_bwd"],
+                                train_worst["flash_attention_bwd"],
+                                trained["launches"]["flash_attention_bwd"]),
     }
     kernels = []
-    for kname, (src, replaces, tkey, launches) in sources.items():
-        t = times[tkey]
+    for kname, (src, replaces, t, err, launches) in sources.items():
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches, "max_abs_err": worst[kname], "ms": t["ms"],
+            "launches": launches, "max_abs_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
@@ -526,6 +1050,10 @@ def main() -> int:
         "rmsnorm_prefill_shape": times["rmsnorm_prefill"],
         "decode_tokens_per_s": {p: runs[p]["stats"].decode_tokens_per_wsec for p in runs},
         "profile": profiled,
+        "train_step_parity": parity,
+        "train_loop": trained,
+        "train_kernel_shapes": {k: v["shape"] for k, v in train_times.items()},
+        "train_profile": train_profile,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

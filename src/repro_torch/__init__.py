@@ -1,11 +1,15 @@
-"""repro_torch — the PyTorch and CUDA port of the ``repro`` serving path.
+"""repro_torch — the PyTorch and CUDA port of ``repro``'s serving and
+training paths.
 
 A second package beside the JAX reference: the same configs, model math,
-slot pool, scheduler and continuous-batching engine, written for PyTorch,
-with the reference's Pallas TPU kernels on this path (RMSNorm, flash
-decode, paged flash decode) rewritten by hand in CUDA C++ for Hopper
-(``csrc/``). It imports ``torch`` and ``numpy`` and nothing of JAX or of
-the reference package.
+slot pool, scheduler and continuous-batching engine, and the paper's
+adaptive-(k, beta) training loop with its controller, masked fastest-k
+step, optimizer and checkpoints, written for PyTorch. The reference's
+Pallas TPU kernels on these paths (flash attention, RMSNorm, flash
+decode, paged flash decode) are rewritten by hand in CUDA C++ for Hopper
+(``csrc/``), with backward kernels for the two that training
+differentiates. It imports ``torch`` and ``numpy`` and nothing of JAX or
+of the reference package.
 
 Entry points run on the card by default (``device="cuda"``) and raise
 when none is present; a caller that wants the CPU passes

@@ -5,9 +5,16 @@ version and a launch counter.
 wrapper                       replaces (Pallas TPU kernel)
 ============================  ==============================================
 ``rms_norm``                  ``kernels/rmsnorm/kernel.py::rmsnorm_fwd``
+``rms_norm_bwd``              (XLA's gradient of ``layers.rms_norm``)
+``flash_attention``           ``kernels/flash_attention/kernel.py::flash_attention_fwd``
+``flash_attention_bwd``       (XLA's gradient of the jnp attention)
 ``decode_attention``          ``kernels/decode_attention/kernel.py::decode_attention_fwd``
 ``paged_decode_attention``    ``kernels/decode_attention/kernel.py::paged_decode_attention_fwd``
 ============================  ==============================================
+
+``rms_norm`` and ``flash_attention`` are differentiable: their backward
+passes are ``rms_norm_bwd`` and ``flash_attention_bwd``. The decode
+kernels have no backward and raise under grad.
 """
 
 from typing import Dict
@@ -18,11 +25,20 @@ from .decode_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
 )
-from .rmsnorm import rms_norm, rms_norm_plain
+from .flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_plain,
+)
+from .rmsnorm import rms_norm, rms_norm_bwd, rms_norm_bwd_plain, rms_norm_plain
 
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts",
-    "rms_norm", "rms_norm_plain",
+    "rms_norm", "rms_norm_plain", "rms_norm_bwd", "rms_norm_bwd_plain",
+    "flash_attention", "flash_attention_fwd", "flash_attention_plain",
+    "flash_attention_bwd", "flash_attention_bwd_plain",
     "decode_attention", "decode_attention_plain",
     "paged_decode_attention", "paged_decode_attention_plain",
 ]
@@ -30,8 +46,11 @@ __all__ = [
 #: name -> wrapper; each wrapper's ``launches`` counts kernel launches.
 KERNELS = {
     "rmsnorm": rms_norm,
+    "rmsnorm_bwd": rms_norm_bwd,
     "decode_attention": decode_attention,
     "paged_decode_attention": paged_decode_attention,
+    "flash_attention": flash_attention,
+    "flash_attention_bwd": flash_attention_bwd,
 }
 
 

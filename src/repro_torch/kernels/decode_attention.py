@@ -78,6 +78,14 @@ def paged_decode_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
     return torch.where(live, out, torch.zeros_like(out))
 
 
+def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
+    """The decode kernels have no backward: raise rather than return a
+    tensor that silently carries no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{name} has no backward; call it under torch.no_grad() "
+                           "or with inputs that do not require grad")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *ints: torch.Tensor) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode attention takes f32 or bf16 q/k/v of one dtype, "
@@ -102,7 +110,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *ints: torch.Tenso
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """K3: q (B, H, D) against a contiguous cache k/v (B, S, Hkv, D),
-    masked past ``lengths`` (B,)."""
+    masked past ``lengths`` (B,). Has no backward: raises under grad."""
+    _refuse_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":
@@ -132,7 +141,8 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
     """K4: q (B, H, D) against block arenas (num_blocks + 1, block_size,
     Hkv, D) read through ``block_tables`` (B, T); only the
     ``ceil(length / block_size)`` live blocks of each row are read, and a
-    length-0 row gives zeros."""
+    length-0 row gives zeros. Has no backward: raises under grad."""
+    _refuse_grad("paged_decode_attention", q, k_arena, v_arena)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_arena, v_arena, block_tables, lengths)
     if q.device.type != "cuda":

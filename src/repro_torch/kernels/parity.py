@@ -1,0 +1,84 @@
+"""How a kernel is held to its plain version on the card: the shapes and
+tolerances that ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` share,
+so the two cannot drift apart.
+
+Each tolerance states why it is what it is. The kernels compute in f32
+and sum in another order than their plain versions; in bf16 both round
+once at the end, so an order difference may flip that rounding.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+__all__ = ["FLASH_SHAPES", "NEAR_ULPS", "within", "dscale_bf16_slack"]
+
+#: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
+#: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and
+#: Sq != Skv cases, D != Dv both ways, and llama3.2-1b's training shape at
+#: 4 and at 32 rows (the training loop's largest batch, beta = 1).
+FLASH_SHAPES = [
+    (2, 128, 128, 4, 2, 64, 64), (1, 256, 256, 8, 8, 64, 64), (1, 200, 200, 4, 1, 64, 64),
+    (2, 128, 128, 4, 2, 128, 128), (1, 64, 64, 2, 2, 32, 32), (1, 384, 384, 6, 3, 64, 64),
+    (1, 384, 384, 9, 3, 64, 64), (2, 77, 100, 6, 2, 128, 64), (2, 130, 64, 4, 4, 32, 128),
+    (4, 512, 512, 32, 8, 64, 64), (32, 512, 512, 32, 8, 64, 64),
+]
+
+#: bf16 tolerance: 2e-2, plus one bf16 step of the reference value
+#: (|ref| / 128), the size of one flipped final rounding.
+BF16_ATOL, BF16_RTOL = 2e-2, 1.0 / 128
+
+
+def within(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype,
+           slack=0.0) -> Tuple[float, bool]:
+    """(max |err|, ok) of a kernel's output against its plain version.
+
+    f32: |err| <= 1e-4 * max(1, max |ref|) — the two sum the same f32
+    products in other orders, over up to 512 terms.
+    bf16: |err| <= 2e-2 + |ref| / 128 — both compute in f32 and round once
+    to bf16, so an order difference can flip one rounding (one bf16 step
+    of the value). ``slack`` (a tensor that broadcasts against ``ref``)
+    adds what a stated earlier rounding may move the value by."""
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        ok = bool((err <= 1e-4 * max(1.0, ref.float().abs().max().item())).all())
+    else:
+        ok = bool((err <= BF16_ATOL + ref.float().abs() * BF16_RTOL + slack).all())
+    return err.max().item(), ok
+
+
+#: The RMSNorm backward kernel's rsqrt lies a few f32 ulps from PyTorch's
+#: (rsqrtf is within 2 ulps, and its f32 sum of squares runs in another
+#: order): a normalized value within this many f32 ulps of a bf16 rounding
+#: midpoint may round the other way in the kernel.
+NEAR_ULPS = 32
+
+
+def dscale_bf16_slack(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+                      near_ulps=None) -> Tuple[torch.Tensor, int]:
+    """(per-column bound, elements counted): how far the RMSNorm backward's
+    dscale = sum over rows of g * x^ can move through the bf16 rounding of
+    the normalized row x^ = round(n), n = x * rsqrt(mean(x^2) + eps) in f32.
+
+    ``near_ulps=None``: against a reference that does not round n (an f32
+    gradient of the same bf16 inputs): every element moves by up to half a
+    bf16 step, at most 2^-8 |g n|.
+
+    ``near_ulps=m``: against a reference that rounds n too, from an rsqrt
+    a few f32 ulps away (the kernel's own reduction order and rsqrtf): an
+    element can round the other way only if its f32 n lies within m f32
+    ulps of a bf16 rounding midpoint, and then moves by one bf16 step, at
+    most 2^-7 |g n|. Only those elements are counted."""
+    D = x.shape[-1]
+    xf = x.float().reshape(-1, D)
+    n = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    gn = (g.float().reshape(-1, D) * n).abs()
+    if near_ulps is None:
+        return gn.sum(0) * 2.0 ** -8, n.numel()
+    # bf16 keeps the high 16 bits of the f32 pattern; the rounding
+    # midpoint of a binade step sits where the low 16 bits are 0x8000.
+    low = n.view(torch.int32) & 0xFFFF
+    near = (low - 0x8000).abs() <= near_ulps
+    return (gn * near).sum(0) * 2.0 ** -7, int(near.sum().item())

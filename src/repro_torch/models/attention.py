@@ -1,7 +1,11 @@
 """GQA attention with KV caches (port of the GQA part of
 ``repro.models.attention``).
 
-Two execution paths share one set of weights:
+Three execution paths share one set of weights:
+  * training (``gqa_apply`` without a cache): project, RoPE, and attend
+    over the whole sequence through kernel K1 (flash attention, forward
+    and backward), as the reference's ``gqa_apply`` reaches its Pallas
+    kernel under ``use_pallas``;
   * prefill (``gqa_prefill``): project the whole chunk, write its K/V rows
     into the cache, and attend causally with the chunked online-softmax
     ``mea_attention`` (plain PyTorch, as the reference computes it in jnp);
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import decode_attention as _decode_kernel
+from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import paged_decode_attention as _paged_decode_kernel
 from repro_torch.kernels.decode_attention import NEG_INF, paged_kv_view
 from .layers import ParamSpec, apply_rope, norm_apply, norm_specs
@@ -252,15 +257,23 @@ def gqa_apply(
     cfg: ModelConfig,
     *,
     positions: torch.Tensor,
-    cache: Dict,
-    cache_index,
+    cache: Optional[Dict] = None,
+    cache_index=None,
     block_table: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode through the GQA block: write the token's K/V row
-    at ``cache_index`` (scalar or (B,)) and attend against the cache —
-    K4 over the arena with ``block_table``, else K3."""
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The GQA block. Without a cache (training): attention over the whole
+    sequence through K1, returning (out, None). With one: one-token
+    decode — write the token's K/V row at ``cache_index`` (scalar or
+    (B,)) and attend against the cache, K4 over the arena with
+    ``block_table``, else K3."""
     B = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg, positions)
+    if cache is None:
+        # RoPE hands back fresh tensors; the projections may be strided
+        # views, and K1 takes only contiguous inputs.
+        out = _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=cfg.causal and not cfg.is_encoder)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
     ck = cache_row_update(cache["k"], k, cache_index, block_table=block_table)
     cv = cache_row_update(cache["v"], v, cache_index, block_table=block_table)
     lengths = decode_lengths(cache_index, B, x.device)

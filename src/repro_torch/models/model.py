@@ -1,13 +1,15 @@
 """Top-level model (port of ``repro.models.model`` for dense GQA decoders):
-embeddings, the block stack, the tied head, and the serving entry points
+embeddings, the block stack, the tied head, the training entry points
+``hidden`` and ``train_loss``, and the serving entry points
 ``prefill_with_cache`` and ``decode_step``.
 
 Parameters and caches are trees of tensors: ``params["stack"]`` and the
 cache tree hold one list per segment with one dict per layer (the
 reference stacks layers on a leading axis instead). Every RMSNorm runs
-through kernel K2 and every decode attention through K3 (contiguous) or
-K4 (paged); the projections, the MLP and the head are plain matrix
-products, as the reference leaves them to XLA.
+through kernel K2 (its gradient through K2's backward), every training
+attention through K1 (forward and backward), and every decode attention
+through K3 (contiguous) or K4 (paged); the projections, the MLP and the
+head are plain matrix products, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.collectives import masked_weighted_ce
 from . import attention as attn
 from .layers import (
     DTYPES,
@@ -29,7 +32,7 @@ from .layers import (
     norm_specs,
     tree_map,
 )
-from .transformer import Segment, block_specs, segment_plan
+from .transformer import Segment, block_specs, run_segments, segment_plan
 
 __all__ = ["Model", "count_params_analytic"]
 
@@ -123,6 +126,14 @@ class Model:
     def embed_inputs(self, params: Dict, inputs: torch.Tensor) -> torch.Tensor:
         return params["embed"][inputs.long()]
 
+    def hidden(self, params: Dict, inputs: torch.Tensor,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training forward -> (final-norm hidden states (B, S, D), aux)."""
+        cfg = self.cfg
+        x = self.embed_inputs(params, inputs)
+        h, aux = run_segments(params["stack"], self.segments, x, cfg, positions=positions)
+        return norm_apply(params["final_norm"], h, cfg.norm), aux
+
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         if cfg.tie_embeddings:
@@ -134,6 +145,21 @@ class Model:
         if cfg.logit_softcap > 0:
             out = cfg.logit_softcap * torch.tanh(out / cfg.logit_softcap)
         return out
+
+    # -- training ------------------------------------------------------------
+    def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: inputs (B, S) int, labels (B, S) int, optional mask (B, S)
+        -> (loss, {"ce", "aux", "loss"}). The MoE router loss and DeepSeek's
+        multi-token prediction are not ported yet."""
+        cfg = self.cfg
+        if cfg.moe is not None or cfg.mtp:
+            raise NotImplementedError("MoE aux and MTP losses are not ported yet")
+        inputs, labels = batch["inputs"], batch["labels"]
+        positions = torch.arange(labels.shape[1], device=labels.device)
+        h, aux = self.hidden(params, inputs, positions)
+        ce, _ = masked_weighted_ce(self.logits(params, h), labels, batch.get("mask"))
+        return ce, {"ce": ce, "aux": aux, "loss": ce}
 
     # -- serving ---------------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int, *,

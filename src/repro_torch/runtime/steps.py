@@ -1,19 +1,125 @@
-"""Serving step functions (port of ``repro.runtime.steps``' slot steps).
+"""Step functions (port of ``repro.runtime.steps``): the train step and
+the serving slot steps.
 
 Plain functions, no tracing: PyTorch runs eagerly, so each step is the
-model call itself. Occupancy and ragged lengths enter as data (per-slot
-positions, per-row lengths), as in the reference.
+model call itself. The fastest-k worker mask, occupancy and ragged
+lengths enter as data, as in the reference. The train step is
+single-device: the reference's sharding arguments wait for the
+multi-device slice.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.collectives import contributors, masked_weighted_ce
+from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.model import Model
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    apply_updates,
+    clip_by_global_norm,
+    global_norm,
+)
 
-__all__ = ["make_slot_prefill_step", "make_slot_decode_step"]
+__all__ = ["make_train_step", "make_slot_prefill_step", "make_slot_decode_step"]
+
+
+def _unflatten(like, leaves: List[torch.Tensor]):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like, is_leaf=torch.is_tensor)
+
+
+def make_train_step(model: Model, optimizer: Optimizer, *,
+                    clip_norm: Optional[float] = 1.0, accum_steps: int = 1) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics), with
+    batch = {inputs, labels, [mask], worker_mask, lr}.
+
+    The loss is the masked fastest-k cross-entropy over f32 logits. With
+    ``accum_steps`` = A > 1 the worker-major batch is split so that every
+    worker's rows spread evenly over A microbatches; their gradients are
+    summed in f32, each weighted by its contributed-token count
+    ``denom``, and divided by the total (the reference's ``_grads_accum``,
+    with a Python loop for ``lax.scan``). Gradients are clipped to global
+    norm ``clip_norm``, the optimizer's update is applied, and the
+    metrics are ``loss``, ``ce``, ``aux``, ``denom``, ``grad_norm`` and
+    ``contributors`` as 0-dim tensors. The new parameters are new
+    tensors; the caller drops the old ones."""
+    cfg = model.cfg
+    if cfg.moe is not None or cfg.mtp:
+        raise NotImplementedError("MoE aux and MTP losses are not ported yet")
+
+    def loss_fn(params, batch):
+        labels = batch["labels"]
+        positions = torch.arange(labels.shape[1], device=labels.device)
+        h, aux = model.hidden(params, batch["inputs"], positions)
+        ce, denom = masked_weighted_ce(model.logits(params, h), labels,
+                                       batch.get("mask"), batch.get("worker_mask"))
+        return ce, {"ce": ce, "aux": aux, "denom": denom}
+
+    def grads_of(params, batch) -> Tuple[torch.Tensor, Dict, list]:
+        """loss, metrics and the gradient tree (in the params' dtypes)."""
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params, is_leaf=torch.is_tensor)]
+        loss, metrics = loss_fn(_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                _unflatten(params, list(grads)))
+
+    def grads_accum(params, batch):
+        A = accum_steps
+        n = batch["worker_mask"].shape[0]
+        bw = batch["inputs"].shape[0] // n
+        if bw % A:
+            raise ValueError(f"per-worker batch {bw} not divisible by accum {A}")
+
+        def resh(x):
+            x = x.reshape(n, A, bw // A, *x.shape[1:]).transpose(0, 1)
+            return x.reshape(A, n * (bw // A), *x.shape[3:])
+
+        mb = {k: resh(batch[k]) for k in ("inputs", "labels", "mask")
+              if batch.get(k) is not None}
+        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                        params, is_leaf=torch.is_tensor)
+        dev = batch["labels"].device
+        lsum = dsum = auxsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for a in range(A):
+            micro = {k: v[a] for k, v in mb.items()}
+            micro["worker_mask"] = batch["worker_mask"]
+            loss, metrics, grads = grads_of(params, micro)
+            w = metrics["denom"]
+            gsum = tree_map(lambda s, g: s + w * g.float(), gsum, grads,
+                            is_leaf=torch.is_tensor)
+            lsum = lsum + w * loss
+            dsum = dsum + w
+            auxsum = auxsum + metrics["aux"]
+        dsum = torch.clamp(dsum, min=1.0)
+        grads = tree_map(lambda g: g / dsum, gsum, is_leaf=torch.is_tensor)
+        loss = lsum / dsum
+        return loss, {"ce": loss, "aux": auxsum / A, "denom": dsum}, grads
+
+    def train_step(params, opt_state, batch):
+        if accum_steps > 1:
+            loss, metrics, grads = grads_accum(params, batch)
+        else:
+            loss, metrics, grads = grads_of(params, batch)
+        if clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        else:
+            gnorm = global_norm(grads)
+        updates, opt_state = optimizer.update(grads, opt_state, params, float(batch["lr"]))
+        params = apply_updates(params, updates)
+        wm = batch.get("worker_mask")
+        metrics = dict(metrics)
+        metrics.update(
+            loss=loss, grad_norm=gnorm,
+            contributors=contributors(wm) if wm is not None else torch.zeros(()),
+        )
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_slot_prefill_step(model: Model) -> Callable:

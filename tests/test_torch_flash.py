@@ -1,0 +1,170 @@
+"""The training kernels' plain versions against the reference, on the CPU:
+flash attention forward (K1) against the Pallas kernel in interpret mode
+and its jnp oracle, K1 backward against ``jax.vjp`` of the oracle and of
+the model's ``mea_attention``, and the RMSNorm backward (K2) against
+``jax.vjp`` of ``layers.rms_norm``.
+
+On the CPU the wrappers take these plain versions, so these tests hold
+the functions the CUDA kernels are checked against on the card
+(tests/test_torch_gpu.py, chip_smoke.py phase 7). Inputs come from one
+seeded numpy generator and go to both frameworks.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import attention_ref, flash_attention as pallas_flash
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro_torch.kernels import (
+    flash_attention,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    rms_norm,
+    rms_norm_bwd_plain,
+)
+from repro_torch.kernels.parity import dscale_bf16_slack
+
+RNG = np.random.default_rng(11)
+
+#: A copy of tests/test_kernels.py's FLASH_CASES.
+FLASH_CASES = [
+    # B, Sq, Skv, H, Hkv, D, Dv, causal
+    (2, 128, 128, 4, 2, 64, 64, True),
+    (1, 256, 256, 8, 8, 64, 64, True),     # MHA
+    (1, 200, 200, 4, 1, 64, 64, True),     # MQA, ragged seq (padding path)
+    (2, 128, 128, 4, 2, 128, 128, False),  # bidirectional
+    (1, 64, 64, 2, 2, 32, 32, True),       # small blocks
+    (1, 384, 384, 6, 3, 64, 64, True),     # 3 q blocks
+]
+#: Backward cases: the kernel cases, G = 3 with D != Dv, and Sq != Skv.
+BWD_CASES = FLASH_CASES + [
+    (2, 40, 40, 6, 2, 32, 64, True),
+    (1, 24, 56, 4, 2, 64, 32, False),
+]
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(case, dtype):
+    B, Sq, Skv, H, Hkv, D, Dv, _ = case
+    arrs = [RNG.normal(size=s).astype(np.float32)
+            for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, Dv))]
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    tx = [torch.from_numpy(a).to(_TDT[dtype]) for a in arrs]
+    return jx, tx
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_and_ref(case, dtype):
+    """Tolerance: the reference's own (tests/test_kernels.py) — 2e-5 in
+    f32, 6e-2 in bf16 (one rounding of outputs of magnitude ~4)."""
+    causal = case[-1]
+    (qj, kj, vj), (qt, kt, vt) = _inputs(case, dtype)
+    out, lse = flash_attention_plain(qt, kt, vt, causal=causal)
+    tol = 6e-2 if dtype == "bfloat16" else 2e-5
+    pallas = pallas_flash(qj, kj, vj, causal=causal, interpret=True)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), atol=tol)
+    np.testing.assert_allclose(_f32(out), _f32(attention_ref(qj, kj, vj, causal=causal)),
+                               atol=tol)
+    assert out.dtype == qt.dtype and lse.dtype == torch.float32
+    assert lse.shape == (case[0], case[3], case[1])
+
+
+def test_flash_attention_block_size_invariance():
+    """The Pallas kernel at two block sizes and the port's plain version
+    (which has no blocks) agree: the online softmax does not depend on
+    the tiling."""
+    case = (1, 256, 256, 4, 2, 64, 64, True)
+    (qj, kj, vj), (qt, kt, vt) = _inputs(case, "float32")
+    a = pallas_flash(qj, kj, vj, causal=True, block_q=64, block_kv=64, interpret=True)
+    b = pallas_flash(qj, kj, vj, causal=True, block_q=128, block_kv=256, interpret=True)
+    out, _ = flash_attention_plain(qt, kt, vt, causal=True)
+    np.testing.assert_allclose(_f32(a), _f32(b), atol=1e-5)
+    np.testing.assert_allclose(_f32(out), _f32(a), atol=1e-5)
+
+
+def _mea(q, k, v, causal):
+    return jattn.mea_attention(q, k, v, causal=causal, chunk=64)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("oracle", ["attention_ref", "mea_attention"])
+def test_flash_attention_bwd_matches_jax_vjp(case, oracle):
+    """dq, dk, dv of one shared random cotangent, in f32, from the plain
+    backward and from the CPU ``autograd.Function``, against ``jax.vjp``.
+    Tolerance 1e-4 of the largest gradient magnitude: both sum up to 384
+    f32 products per entry, in other orders."""
+    causal = case[-1]
+    (qj, kj, vj), (qt, kt, vt) = _inputs(case, "float32")
+    do = RNG.normal(size=(case[0], case[1], case[3], case[6])).astype(np.float32)
+    fn = functools.partial(attention_ref, causal=causal) if oracle == "attention_ref" \
+        else functools.partial(_mea, causal=causal)
+    ref = jax.jit(lambda q, k, v, d: jax.vjp(fn, q, k, v)[1](d))(qj, kj, vj, jnp.asarray(do))
+
+    out, lse = flash_attention_plain(qt, kt, vt, causal=causal)
+    plain = flash_attention_bwd_plain(qt, kt, vt, out, lse, torch.from_numpy(do),
+                                      causal=causal)
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    flash_attention(*leaves, causal=causal).backward(torch.from_numpy(do))
+    for r, p, leaf in zip(ref, plain, leaves):
+        atol = 1e-4 * max(1.0, float(np.abs(_f32(r)).max()))
+        np.testing.assert_allclose(_f32(p), _f32(r), atol=atol)
+        np.testing.assert_allclose(_f32(leaf.grad), _f32(r), atol=atol)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 128), (2, 7, 576), (3, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_bwd_matches_jax_vjp(shape, dtype):
+    """dx and dscale against ``jax.vjp(layers.rms_norm)``.
+
+    f32: within 1e-5 of the largest magnitude (sums over up to 576
+    columns and 112 rows in another order).
+    bf16: dx against the bf16 vjp within one bf16 step (2e-2 + |ref|/64;
+    both form it in f32 from the same bf16 products and round once).
+    dscale against the f32 vjp of the same bf16-valued inputs: XLA's CPU
+    reduction sums the bf16 vjp's rows in bf16 itself, so that dscale
+    strays by several rounding steps (~0.1 at |dscale| ~ 5), while the
+    port sums in f32, as its kernel does. The port multiplies g by the
+    normalized row rounded to bf16 (the forward's x^), so each term may
+    differ from the f32 vjp's by 2^-8 of |g * x^|: the tolerance of a
+    column is 2^-8 * sum over rows of |g * x^| plus one bf16 step of the
+    result (|ref| / 64)."""
+    x = RNG.normal(size=shape).astype(np.float32)
+    g = RNG.normal(size=shape).astype(np.float32)
+    s = (1 + 0.1 * RNG.normal(size=shape[-1:])).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    xj, gj, sj = (jnp.asarray(a, jdt) for a in (x, g, s))
+    _, vjp = jax.vjp(lambda a, b: jlayers.rms_norm(a, b), xj, sj)
+    rdx, rds = vjp(gj)
+    if dtype == "bfloat16":
+        f32 = [jnp.asarray(a, jnp.float32) for a in (xj, sj, gj)]
+        _, vjp32 = jax.vjp(lambda a, b: jlayers.rms_norm(a, b), f32[0], f32[1])
+        rds = vjp32(f32[2])[1]
+    tx, tg, ts = (torch.tensor(np.asarray(a, np.float32)).to(_TDT[dtype])
+                  for a in (xj, gj, sj))
+    plain = rms_norm_bwd_plain(tg, tx, ts)
+    xl, sl = tx.clone().requires_grad_(True), ts.clone().requires_grad_(True)
+    rms_norm(xl, sl).backward(tg)
+    for i, (r, p, got) in enumerate(zip((rdx, rds), plain, (xl.grad, sl.grad))):
+        assert got.dtype == _TDT[dtype]
+        if dtype == "float32":
+            atol, rtol = 1e-5 * max(1.0, float(np.abs(_f32(r)).max())), 0.0
+        elif i == 0:
+            atol, rtol = 2e-2, 1 / 64
+        else:
+            atol, rtol = dscale_bf16_slack(tg, tx)[0].numpy(), 1 / 64
+        for val in (p, got):
+            err = np.abs(_f32(val) - _f32(r))
+            assert np.all(err <= atol + rtol * np.abs(_f32(r))), (i, err.max())

@@ -5,9 +5,12 @@ installed:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Each kernel is held to its plain version on the same CUDA inputs (f32 at
-2e-5; bf16 at 2e-2, plus one bf16 step of the value for RMSNorm), the
-wrappers are shown never to reach a plain version for a CUDA tensor, and
-the reduced model's decode tick is shown to run through the kernels.
+2e-5; bf16 at 2e-2, plus one bf16 step of the value for RMSNorm; the
+training kernels by ``repro_torch.kernels.parity``, whose shapes and
+tolerances chip_smoke.py shares), the wrappers are shown
+never to reach a plain version for a CUDA tensor, the decode kernels to
+refuse a gradient, and the reduced model's decode tick and train step to
+run through the kernels.
 """
 
 import importlib
@@ -17,7 +20,11 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.configs import get_config
+from repro_torch.kernels.parity import NEAR_ULPS, FLASH_SHAPES, dscale_bf16_slack, within
 from repro_torch.models import Model
+from repro_torch.models.layers import tree_leaves
+from repro_torch.optim import adamw
+from repro_torch.runtime import make_train_step
 from repro_torch.serve import Scheduler, ServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -89,8 +96,18 @@ def test_wrappers_never_fall_back_to_plain(cuda, monkeypatch):
     monkeypatch.setattr(rn, "rms_norm_plain", boom)
     monkeypatch.setattr(da, "decode_attention_plain", boom)
     monkeypatch.setattr(da, "paged_decode_attention_plain", boom)
-    x = torch.randn((2, 64), device=cuda)
-    K.rms_norm(x, torch.ones(64, device=cuda))
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    monkeypatch.setattr(rn, "rms_norm_bwd_plain", boom)
+    monkeypatch.setattr(fa, "flash_attention_plain", boom)
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", boom)
+    x = torch.randn((2, 64), device=cuda, requires_grad=True)
+    K.rms_norm(x, torch.ones(64, device=cuda)).sum().backward()
+    qa = torch.randn((1, 16, 4, 32), device=cuda, requires_grad=True)
+    ka = torch.randn((1, 16, 2, 32), device=cuda, requires_grad=True)
+    K.flash_attention(qa, ka, ka, causal=True).sum().backward()
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_attention(qa.transpose(1, 2), ka, ka, causal=True)
+    x = x.detach()
     q = torch.randn((1, 4, 32), device=cuda)
     kv = torch.randn((1, 32, 2, 32), device=cuda)
     lengths = torch.tensor([5], dtype=torch.int32, device=cuda)
@@ -125,5 +142,116 @@ def test_engine_runs_through_the_kernels(cuda, block_size):
     assert counts["rmsnorm"] == (2 * L + 1) * (st.prefill_calls + st.decode_ticks)
     attn = "paged_decode_attention" if block_size else "decode_attention"
     assert counts[attn] == L * st.decode_ticks > 0
+    # Serving runs the autograd-wrapped K2 forward exactly as often as
+    # before, and never a training kernel.
     assert sum(counts.values()) == counts["rmsnorm"] + counts[attn]
     assert all(len(r.tokens) == 6 for r in results.values())
+
+
+def _close(out, ref, dtype, slack=0.0):
+    err, ok = within(out, ref, dtype, slack)
+    assert ok, f"max |err| {err:.3e} ({dtype})"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,Dv", FLASH_SHAPES)
+def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, Sq, Skv, H, Hkv, D, Dv):
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((B, Sq, H, D), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Skv, Hkv, D), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Skv, Hkv, Dv), generator=g).to(cuda, dtype)
+    do = torch.randn((B, Sq, H, Dv), generator=g).to(cuda, dtype)
+    out, lse = K.flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = K.flash_attention_plain(q, k, v, causal=causal)
+    _close(out, ref, dtype)
+    _close(lse, ref_lse, torch.float32)
+    grads = K.flash_attention_bwd(q, k, v, ref, ref_lse, do, causal=causal)
+    refs = K.flash_attention_bwd_plain(q, k, v, ref, ref_lse, do, causal=causal)
+    for a, b in zip(grads, refs):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 1, 2048), (8192, 2048), (16384, 2048), (3, 100, 576),
+                                   (7, 64), (5, 33)])
+def test_rms_norm_bwd_kernel_matches_plain(cuda, dtype, shape):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    dy = torch.randn(shape, generator=g).to(cuda, dtype)
+    scale = (1 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda, dtype)
+    (dx, ds), (rx, rs) = K.rms_norm_bwd(dy, x, scale), K.rms_norm_bwd_plain(dy, x, scale)
+    _close(dx, rx, dtype)
+    # bf16 dscale: x^ may round the other way only where its f32 value
+    # lies within NEAR_ULPS of a bf16 midpoint; one bf16 step of |g * n|
+    # for each of those.
+    slack = dscale_bf16_slack(dy, x, near_ulps=NEAR_ULPS)[0] if dtype == torch.bfloat16 else 0.0
+    _close(ds, rs, dtype, slack)
+
+
+def test_decode_kernels_refuse_grad(cuda):
+    q = torch.randn((1, 4, 32), device=cuda, requires_grad=True)
+    kv = torch.randn((1, 32, 2, 32), device=cuda)
+    lengths = torch.tensor([5], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.decode_attention(q, kv, kv, lengths)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.paged_decode_attention(q, kv, kv, torch.tensor([[0, 0]], dtype=torch.int32,
+                                                         device=cuda), lengths)
+    with torch.no_grad():
+        K.decode_attention(q, kv, kv, lengths)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_step_runs_through_the_kernels(cuda, remat, monkeypatch):
+    """A reduced llama3.2-1b train step on the card launches K1 forward and
+    K2 forward once per use (twice under full remat), K1 and K2 backward
+    once, never a plain version, and gives every RMSNorm scale a
+    non-zero gradient."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rn = importlib.import_module("repro_torch.kernels.rmsnorm")
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached for a CUDA tensor")
+
+    for mod, name in ((fa, "flash_attention_plain"), (fa, "flash_attention_bwd_plain"),
+                      (rn, "rms_norm_plain"), (rn, "rms_norm_bwd_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    cfg = get_config("llama3.2-1b").reduced(remat=remat)
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (4, 33), generator=g).to(cuda)
+    batch = {"inputs": ids[:, :-1], "labels": ids[:, 1:],
+             "worker_mask": torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda), "lr": 1e-3}
+    K.reset_launch_counts()
+    new, _, metrics = make_train_step(model, adamw())(params, adamw().init(params), batch)
+    torch.cuda.synchronize()
+    L, r = cfg.n_layers, 2 if remat == "full" else 1
+    assert K.launch_counts() == {
+        "rmsnorm": r * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1, "flash_attention": r * L,
+        "flash_attention_bwd": L, "decode_attention": 0, "paged_decode_attention": 0}
+    assert torch.isfinite(metrics["loss"]) and float(metrics["contributors"]) == 3.0
+    # Every norm scale moved: its gradient reached the optimizer.
+    scales = [layer[n]["scale"] for layer in new["stack"][0] for n in ("attn_norm", "mlp_norm")]
+    old = [layer[n]["scale"] for layer in params["stack"][0] for n in ("attn_norm", "mlp_norm")]
+    for a, b in zip(scales + [new["final_norm"]["scale"]],
+                    old + [params["final_norm"]["scale"]]):
+        assert not torch.equal(a, b)
+    assert len(tree_leaves(new, is_leaf=torch.is_tensor)) == \
+        len(tree_leaves(params, is_leaf=torch.is_tensor))
+
+
+def test_norm_scales_get_gradients_on_the_card(cuda):
+    cfg = get_config("llama3.2-1b").reduced(remat="full")
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    for leaf in tree_leaves(params, is_leaf=torch.is_tensor):
+        leaf.requires_grad_(True)
+    ids = torch.randint(0, cfg.vocab_size, (2, 17), device=cuda)
+    loss, _ = model.train_loss(params, {"inputs": ids[:, :-1], "labels": ids[:, 1:]})
+    loss.backward()
+    norms = [layer[n]["scale"] for layer in params["stack"][0]
+             for n in ("attn_norm", "mlp_norm")] + [params["final_norm"]["scale"]]
+    for s in norms:
+        assert s.grad is not None and bool((s.grad != 0).any())
