@@ -42,9 +42,22 @@ runs, in order, and exits non-zero at the first phase that fails:
 10. times the training kernels at the training shape beside their plain
    versions, one library call and their bounds, and profiles one
    full-width train step at beta = 1;
+11. holds the SSD scan (K5) forward and backward against their plain
+   versions over the reference's kernel-test shapes, the reduced zamba2
+   shape and zamba2-1.2b's training shape, at two decays, in f32 and bf16;
+12. takes one train step of zamba2-1.2b at full width, cut to 2 Mamba2
+   layers and one shared call, in f32, through the kernels on the card
+   and through the plain versions on the CPU, held as in phase 8;
+13. trains zamba2-1.2b at full width (38 Mamba2 layers, 6 shared calls,
+   bf16, full remat) through the adaptive-(k, beta) loop as phase 9 does
+   llama3.2-1b, with the same checks, then holds K5, K1 and K2 against
+   their plain versions at every batch shape the loop ran;
+14. times K5 forward and backward at the training shape beside their
+   plain versions and bounds, and profiles one full-width zamba2 train
+   step;
 
-and prints the ``kernels`` JSON line (the profiles under ``profile`` and
-``train_profile``), the card line and, last, the ``{"ok": true, ...}``
+and prints the ``kernels`` JSON line (eight kernels; the profiles under
+``profile``, ``train_profile`` and ``zamba_train_profile``), the card line and, last, the ``{"ok": true, ...}``
 line.
 
 It imports nothing of JAX and nothing of the reference package.
@@ -52,6 +65,7 @@ It imports nothing of JAX and nothing of the reference package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -391,6 +405,10 @@ def kernel_class(name: str) -> str:
         return "K1 flash attention bwd"
     if "fa_fwd" in name:
         return "K1 flash attention fwd"
+    if "ssd_bwd" in name:
+        return "K5 ssd scan bwd"
+    if "ssd_fwd" in name:
+        return "K5 ssd scan fwd"
     if "decode_kernel" in name and "PagedRows" in name:
         return "K4 paged decode"
     if "decode_kernel" in name:
@@ -637,11 +655,12 @@ def token_batch(vocab: int, n_workers: int, per_worker: int, seq: int, mask) -> 
             "worker_mask": torch.tensor(mask, dtype=torch.float32), "lr": 1e-3}
 
 
-def step_vs_plain(cfg) -> dict:
-    """llama3.2-1b at full width cut to 2 layers, f32, B 4 x S 64 with
-    worker mask [1, 0, 1, 1]: one clipped SGD step through the kernels on
-    the card and through the plain versions on the CPU, from the same
-    parameters and batch.
+def step_vs_plain(small, expect: dict) -> dict:
+    """A model at full width cut to a few layers (``small``, f32), B 4 x
+    S 64 with worker mask [1, 0, 1, 1]: one clipped SGD step through the
+    kernels on the card (whose launches must equal ``expect``) and
+    through the plain versions on the CPU, from the same parameters and
+    batch.
 
     SGD first: its update is the clipped gradient, the thing the kernels
     compute. Then the loop's AdamW step from the same parameters, with
@@ -653,15 +672,12 @@ def step_vs_plain(cfg) -> dict:
     are held to each other where both |g| >= 100 eps, within what the
     gradient tolerance implies through that slope, and the elements below
     it are counted and their largest difference printed."""
-    import dataclasses
-
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import Model
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.optim import Optimizer, adamw, sgd
     from repro_torch.runtime import make_train_step
 
-    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     model = Model(small)
     cpu_params = model.init(SEED, device="cpu")
     gpu_params = tree_map(lambda t: t.to("cuda"), cpu_params, is_leaf=torch.is_tensor)
@@ -677,10 +693,6 @@ def step_vs_plain(cfg) -> dict:
     t0 = time.perf_counter()
     new_cpu, _, m_cpu = step(cpu_params, opt.init(cpu_params), batch)
     cpu_s = time.perf_counter() - t0
-    L = small.n_layers
-    expect = {"rmsnorm": 2 * (2 * L) + 1, "rmsnorm_bwd": 2 * L + 1,
-              "flash_attention": 2 * L, "flash_attention_bwd": L,
-              "decode_attention": 0, "paged_decode_attention": 0}
     print(f"  launches in the kernel step: {counts} (expected {expect}; remat "
           f"{small.remat!r} runs each block's forward twice)")
     check(counts == expect, "the kernel train step did not run through every kernel")
@@ -769,7 +781,31 @@ def step_vs_plain(cfg) -> dict:
 # Phase 9: the training loop at full width
 # ---------------------------------------------------------------------------
 
-def train_full_width(model) -> dict:
+def per_step_launches(cfg) -> dict:
+    """Kernel launches of one train step, from the model's structure. Under
+    remat every checkpointed block runs its forward twice (once more in
+    the backward pass) and its backward once.
+
+    Dense: each block runs K1 and two K2 norms. Hybrid: each Mamba2 layer
+    runs K5 and two K2 norms (its pre-norm and its gated norm), each shared
+    call K1 and two K2 norms. Plus the final norm."""
+    r = 1 if cfg.remat == "none" else 2
+    L = cfg.n_layers
+    counts = dict.fromkeys(("decode_attention", "paged_decode_attention", "ssd_scan",
+                            "ssd_scan_bwd"), 0)
+    if cfg.family in ("ssm", "hybrid"):
+        calls = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        norms = 2 * L + 2 * calls
+        counts.update(flash_attention=r * calls, flash_attention_bwd=calls,
+                      ssd_scan=r * L, ssd_scan_bwd=L)
+    else:
+        norms = 2 * L
+        counts.update(flash_attention=r * L, flash_attention_bwd=L)
+    counts.update(rmsnorm=r * norms + 1, rmsnorm_bwd=norms + 1)
+    return counts
+
+
+def train_full_width(model, steps: int) -> dict:
     from repro_torch.core import DiagnosticConfig, SimplifiedDelayModel, StrategyConfig
     from repro_torch.data import StagedBatcher, TokenStream
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -792,24 +828,19 @@ def train_full_width(model) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     out = train(model, adamw(), strategy, SimplifiedDelayModel(lambda_y=1.0, x=0.05), batcher,
-                TrainLoopConfig(total_steps=TRAIN_STEPS, lr=3e-4, log_every=4, seed=SEED,
+                TrainLoopConfig(total_steps=steps, lr=3e-4, log_every=4, seed=SEED,
                                 events=events), device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     hist = out["history"]
-    L = cfg.n_layers
-    remat = 2 if cfg.remat == "full" else 1
-    per_step = {"flash_attention": remat * L, "flash_attention_bwd": L,
-                "rmsnorm": remat * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1,
-                "decode_attention": 0, "paged_decode_attention": 0}
+    per_step = per_step_launches(cfg)
     steps = len(hist)
     print(f"  {steps} steps in {wall:.1f} s; batch shapes {out['compiled_shapes']}; peak "
           f"memory {peak / 2**30:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
-    print(f"  per step, from the model: each of {L} blocks runs K1 forward and two K2 "
-          f"forwards {remat}x (remat {cfg.remat!r}) and K1 / K2 backward once, plus "
-          f"the final norm: {per_step}")
+    print(f"  per step, from the model (remat {cfg.remat!r}: each checkpointed block's "
+          f"forward twice, its backward once): {per_step}")
     print(f"  launches over the run: {counts}")
     for h in hist:
         print(f"    step {h['step']:2d} k={h['k']} beta={h['beta']:.2f} n={h['n_workers']} "
@@ -947,6 +978,176 @@ def profile_train_step(model, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the SSD scan (K5) against its plain version
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH, ZAMBA_STEPS = "zamba2-1.2b", 16
+
+
+def ssd_inputs(shape, dtype, gen, zamba: bool):
+    """x, dt, A, B, C, dy on the card for ``shape`` (B, S, H, P, G, N,
+    chunk). ``zamba``: zamba2-1.2b's initial decay, A = -e (a_log = 1) and
+    dt = softplus(N(0, 1)); otherwise the reference kernel test's
+    dt ~ U(0.01, 0.3), A ~ -U(0.5, 2)."""
+    import torch.nn.functional as F
+
+    B, S, H, P, G, N, _ = shape
+    dev = torch.device("cuda")
+    x = torch.randn((B, S, H, P), generator=gen).to(dev, dtype)
+    if zamba:
+        dt = F.softplus(torch.randn((B, S, H), generator=gen)).to(dev)
+        A = torch.full((H,), -float(np.e), device=dev)
+    else:
+        dt = (0.01 + 0.29 * torch.rand((B, S, H), generator=gen)).to(dev)
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=gen)).to(dev)
+    Bm = torch.randn((B, S, G, N), generator=gen).to(dev, dtype)
+    Cm = torch.randn((B, S, G, N), generator=gen).to(dev, dtype)
+    dy = torch.randn((B, S, H, P), generator=gen).to(dev, dtype)
+    return x, dt, A, Bm, Cm, dy
+
+
+def hold_ssd(shape, dtype, gen, zamba: bool) -> tuple:
+    """K5 forward (y and every chunk's state) and backward vs their plain
+    versions (``parity.ssd_within``: ddt, dA, dB and dC, long sums whose
+    addends may cancel, get 1e-6 of the size they were formed from); (y
+    err, max gradient err)."""
+    from repro_torch.kernels import ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_fwd
+    from repro_torch.kernels.parity import ssd_within
+    from repro_torch.kernels.ssd_scan import _states_plain, _unlay, ssd_bwd_term_sums
+
+    chunk = shape[-1]
+    x, dt, A, Bm, Cm, dy = ssd_inputs(shape, dtype, gen, zamba)
+    y, states = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    ref_y, ref_states = _states_plain(x, dt, A, Bm, Cm, chunk)
+    ref_y = _unlay(ref_y, x.shape[1]).to(dtype)
+    grads = ssd_scan_bwd(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
+    refs = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
+    terms = (None,) + ssd_bwd_term_sums(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    e_y, ok_y = ssd_within(y, ref_y, dtype)
+    e_s, ok_s = ssd_within(states, ref_states, torch.float32)
+    bwd = [ssd_within(a, b, a.dtype, t) for a, b, t in zip(grads, refs, terms)]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    ok = ok_y and ok_s and finite and all(o for _, o in bwd)
+    name = str(dtype).replace("torch.", "")
+    print(f"  K5 {name} B,S,H,P,G,N,chunk={shape}{' zamba decay' if zamba else ''}: y "
+          f"{e_y:.2e}, states {e_s:.2e}, dx/ddt/dA/dB/dC "
+          f"{' / '.join(f'{e:.2e}' for e, _ in bwd)} ({'ok' if ok else 'FAIL'})")
+    check(ok, f"ssd scan {name} {shape} disagrees with its plain version")
+    return e_y, max(e for e, _ in bwd)
+
+
+def check_ssd_kernels() -> dict:
+    """K5 forward and backward over ``SSD_SHAPES``, at the reference test's
+    decay and at zamba2's, in f32 and bf16; {kernel: max |err| in bf16}."""
+    from repro_torch.kernels.parity import SSD_SHAPES
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    worst = {"ssd_scan": 0.0, "ssd_scan_bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SSD_SHAPES:
+            for zamba in (False, True):
+                e_f, e_b = hold_ssd(shape, dtype, gen, zamba)
+                if dtype == torch.bfloat16:
+                    worst["ssd_scan"] = max(worst["ssd_scan"], e_f)
+                    worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], e_b)
+    return worst
+
+
+def check_zamba_loop_shapes(cfg, shapes, worst: dict) -> None:
+    """K5, K1 (the shared block's causal MHA at D 128) and K2 (at the
+    Mamba and shared widths), forward and backward, vs their plain
+    versions in the model's dtype at every batch shape (B, S) the zamba2
+    loop ran. Raises ``worst`` to the largest error seen."""
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    ssm = cfg.ssm
+    H = ssm.expand * cfg.d_model // ssm.head_dim
+    dw = 2 * cfg.d_model
+    for B, S in shapes:
+        e_f, e_b = hold_ssd((B, S, H, ssm.head_dim, ssm.n_groups, ssm.d_state, ssm.chunk),
+                            dtype, gen, zamba=True)
+        e_o, e_a = hold_flash((B, S, S, cfg.n_heads, cfg.n_heads, dw // cfg.n_heads,
+                               dw // cfg.n_heads), True, dtype, gen)
+        errs = [("ssd_scan", e_f), ("ssd_scan_bwd", e_b), ("flash_attention", e_o),
+                ("flash_attention_bwd", e_a)]
+        for width in (cfg.d_model, dw, ssm.expand * cfg.d_model):
+            errs += [("rmsnorm", hold_rms_norm((B * S, width), dtype, gen)),
+                     ("rmsnorm_bwd", hold_rms_norm_bwd((B * S, width), dtype, gen))]
+        for key, e in errs:
+            worst[key] = max(worst[key], e)
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the SSD scan's times
+# ---------------------------------------------------------------------------
+
+def ssd_work(shape, dtype) -> tuple:
+    """(forward bytes, forward flops, backward bytes, backward flops) the
+    SSD scan needs at ``shape``: each input read once and each output
+    written once (x, dt, A, B, C in; y out; the backward adds dy in and
+    dx, ddt, dA, dB, dC out; the states the kernel keeps for its backward
+    are its own choice and not counted), and the forward's four in-chunk
+    products over the causal pairs of each chunk (positions past S are not
+    work), two flops per multiply-add. The backward is counted as twice
+    the forward: each product's gradient is two products of its size."""
+    B, S, H, P, G, N, chunk = shape
+    es = torch.tensor([], dtype=dtype).element_size()
+    Q = min(chunk, S)
+    flops = 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        pairs = q * (q + 1) // 2
+        flops += 2 * (pairs * N + pairs * P + 2 * q * P * N)
+    flops *= B * H
+    xb, dtb, bcb = B * S * H * P * es, B * S * H * 4, 2 * B * S * G * N * es
+    fwd_bytes = 2 * xb + dtb + H * 4 + bcb
+    bwd_bytes = 3 * xb + 2 * dtb + 2 * H * 4 + 2 * bcb
+    return fwd_bytes, flops, bwd_bytes, 2 * flops
+
+
+def time_ssd_kernels(cfg) -> dict:
+    """K5 forward and backward at zamba2-1.2b's training shape (32 x 512
+    tokens, bf16) beside their plain versions and bounds. No PyTorch call
+    computes the SSD scan, so there is no library time."""
+    from repro_torch.kernels import ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_fwd
+    from repro_torch.kernels.ssd_scan import _states_plain
+
+    ssm = cfg.ssm
+    H = ssm.expand * cfg.d_model // ssm.head_dim
+    shape = (TRAIN_B, TRAIN_S, H, ssm.head_dim, ssm.n_groups, ssm.d_state, ssm.chunk)
+    dt_ = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 7)
+    x, dt, A, Bm, Cm, dy = ssd_inputs(shape, dt_, gen, zamba=True)
+    chunk = ssm.chunk
+    _, states = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    fb, ff, bb, bf = ssd_work(shape, dt_)
+    desc = (f"x ({TRAIN_B}, {TRAIN_S}, {H}, {ssm.head_dim}), B/C ({TRAIN_B}, {TRAIN_S}, "
+            f"{ssm.n_groups}, {ssm.d_state}) bf16, chunk {chunk}")
+    out = {}
+    b, kind = bound(fb, ff, BF16_FLOPS)
+    out["ssd_scan"] = dict(
+        shape=desc, ms=time_ms(lambda: ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk), n=30),
+        plain_ms=time_ms(lambda: _states_plain(x, dt, A, Bm, Cm, chunk), n=30),
+        library_ms=None, bound_ms=b, bound_by=kind, flops=ff, bytes=fb,
+    )
+    b, kind = bound(bb, bf, BF16_FLOPS)
+    out["ssd_scan_bwd"] = dict(
+        shape=desc + ", with dy",
+        ms=time_ms(lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, chunk=chunk), n=30),
+        plain_ms=time_ms(lambda: ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy,
+                                                    chunk=chunk), n=30),
+        library_ms=None, bound_ms=b, bound_by=kind, flops=bf, bytes=bb,
+    )
+    for name, r in out.items():
+        print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library none (no PyTorch call computes the SSD scan), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e9:.3f} GB, "
+              f"{r['flops'] / 1e9:.1f} GFLOP); {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -954,7 +1155,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models import Model
+    from repro_torch.models import Model, count_params_analytic
 
     t_start = time.perf_counter()
     card = card_line()
@@ -994,18 +1195,40 @@ def main() -> int:
     train_worst = check_training_kernels()
     print(f"[8] one train step, {cfg.name} at full width cut to 2 layers, f32: kernels on "
           f"the card vs plain on the CPU")
-    parity = step_vs_plain(cfg)
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    parity = step_vs_plain(small, per_step_launches(small))
     print(f"[9] training {cfg.name} at full width through the adaptive-(k, beta) loop: "
           f"{cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat!r}, {TRAIN_B} x {TRAIN_S} "
           f"tokens at beta 1")
-    trained = train_full_width(model)
+    trained = train_full_width(model, TRAIN_STEPS)
     print("    the training kernels vs plain PyTorch at each batch shape the loop ran")
     check_loop_shapes(cfg, trained["shapes"], train_worst)
-    worst["rmsnorm"] = max(worst["rmsnorm"], train_worst["rmsnorm"])
     print("[10] training kernels' times (CUDA events, cold L2, median of 30) and one "
           "profiled train step")
     train_times = time_training_kernels(cfg)
     train_profile = profile_train_step(model, trained.pop("params"))
+    del model
+
+    print("[11] the SSD scan (K5) forward and backward vs plain PyTorch on the card")
+    train_worst.update(check_ssd_kernels())
+    zcfg = get_config(ZAMBA_ARCH)
+    zsmall = dataclasses.replace(zcfg, n_layers=2, attn_every=2, dtype="float32")
+    print(f"[12] one train step, {zcfg.name} at full width cut to 2 Mamba2 layers and one "
+          f"shared call, f32: kernels on the card vs plain on the CPU")
+    zparity = step_vs_plain(zsmall, per_step_launches(zsmall))
+    zmodel = Model(zcfg)
+    print(f"[13] training {zcfg.name} at full width through the adaptive-(k, beta) loop: "
+          f"{zcfg.n_layers} Mamba2 layers and {zcfg.n_layers // zcfg.attn_every} shared "
+          f"calls, {zcfg.dtype}, remat {zcfg.remat!r}, {TRAIN_B} x {TRAIN_S} tokens at "
+          f"beta 1, {count_params_analytic(zcfg):,} parameters")
+    ztrained = train_full_width(zmodel, ZAMBA_STEPS)
+    print("    K5, K1 and K2 vs plain PyTorch at each batch shape the loop ran")
+    check_zamba_loop_shapes(zcfg, ztrained["shapes"], train_worst)
+    print("[14] the SSD scan's times (CUDA events, cold L2, median of 30) and one "
+          "profiled zamba2 train step")
+    ssd_times = time_ssd_kernels(zcfg)
+    zamba_profile = profile_train_step(zmodel, ztrained.pop("params"))
+    worst["rmsnorm"] = max(worst["rmsnorm"], train_worst["rmsnorm"])
 
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
@@ -1035,6 +1258,14 @@ def main() -> int:
                                 train_times["flash_attention_bwd"],
                                 train_worst["flash_attention_bwd"],
                                 trained["launches"]["flash_attention_bwd"]),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:74",
+                     ssd_times["ssd_scan"], train_worst["ssd_scan"],
+                     ztrained["launches"]["ssd_scan"]),
+        "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu",
+                         "src/repro/kernels/ssd_scan/kernel.py:74",
+                         ssd_times["ssd_scan_bwd"], train_worst["ssd_scan_bwd"],
+                         ztrained["launches"]["ssd_scan_bwd"]),
     }
     kernels = []
     for kname, (src, replaces, t, err, launches) in sources.items():
@@ -1054,6 +1285,10 @@ def main() -> int:
         "train_loop": trained,
         "train_kernel_shapes": {k: v["shape"] for k, v in train_times.items()},
         "train_profile": train_profile,
+        "zamba_step_parity": zparity,
+        "zamba_train_loop": ztrained,
+        "ssd_kernel_shapes": {k: v["shape"] for k, v in ssd_times.items()},
+        "zamba_train_profile": zamba_profile,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

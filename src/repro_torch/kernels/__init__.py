@@ -10,11 +10,14 @@ wrapper                       replaces (Pallas TPU kernel)
 ``flash_attention_bwd``       (XLA's gradient of the jnp attention)
 ``decode_attention``          ``kernels/decode_attention/kernel.py::decode_attention_fwd``
 ``paged_decode_attention``    ``kernels/decode_attention/kernel.py::paged_decode_attention_fwd``
+``ssd_scan``                  ``kernels/ssd_scan/kernel.py::ssd_scan_fwd``
+``ssd_scan_bwd``              (XLA's gradient of ``mamba2.ssd_chunked``)
 ============================  ==============================================
 
-``rms_norm`` and ``flash_attention`` are differentiable: their backward
-passes are ``rms_norm_bwd`` and ``flash_attention_bwd``. The decode
-kernels have no backward and raise under grad.
+``rms_norm``, ``flash_attention`` and ``ssd_scan`` are differentiable:
+their backward passes are ``rms_norm_bwd``, ``flash_attention_bwd`` and
+``ssd_scan_bwd``. The decode kernels have no backward and raise under
+grad.
 """
 
 from typing import Dict
@@ -33,6 +36,7 @@ from .flash_attention import (
     flash_attention_plain,
 )
 from .rmsnorm import rms_norm, rms_norm_bwd, rms_norm_bwd_plain, rms_norm_plain
+from .ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_fwd, ssd_scan_plain
 
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts",
@@ -41,6 +45,7 @@ __all__ = [
     "flash_attention_bwd", "flash_attention_bwd_plain",
     "decode_attention", "decode_attention_plain",
     "paged_decode_attention", "paged_decode_attention_plain",
+    "ssd_scan", "ssd_scan_fwd", "ssd_scan_plain", "ssd_scan_bwd", "ssd_scan_bwd_plain",
 ]
 
 #: name -> wrapper; each wrapper's ``launches`` counts kernel launches.
@@ -51,6 +56,8 @@ KERNELS = {
     "paged_decode_attention": paged_decode_attention,
     "flash_attention": flash_attention,
     "flash_attention_bwd": flash_attention_bwd,
+    "ssd_scan": ssd_scan,
+    "ssd_scan_bwd": ssd_scan_bwd,
 }
 
 

@@ -128,6 +128,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P, P, P, P, P, I, I, I, I, I, I, I, P
     ]
     lib.repro_paged_decode_attention_fwd.restype = I
+    lib.repro_ssd_scan_fwd.argtypes = [P] * 7 + [I] * 8 + [P]
+    lib.repro_ssd_scan_fwd.restype = I
+    lib.repro_ssd_scan_bwd.argtypes = [P] * 15 + [I] * 8 + [P]
+    lib.repro_ssd_scan_bwd.restype = I
     return lib
 
 

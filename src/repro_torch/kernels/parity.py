@@ -13,17 +13,29 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["FLASH_SHAPES", "NEAR_ULPS", "within", "dscale_bf16_slack"]
+__all__ = ["FLASH_SHAPES", "SSD_SHAPES", "NEAR_ULPS", "within", "ssd_within",
+           "dscale_bf16_slack"]
 
 #: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and
 #: Sq != Skv cases, D != Dv both ways, and llama3.2-1b's training shape at
-#: 4 and at 32 rows (the training loop's largest batch, beta = 1).
+#: 4 and at 32 rows (the training loop's largest batch, beta = 1), and
+#: zamba2-1.2b's shared attention block (MHA, D = 128) at 32 rows.
 FLASH_SHAPES = [
     (2, 128, 128, 4, 2, 64, 64), (1, 256, 256, 8, 8, 64, 64), (1, 200, 200, 4, 1, 64, 64),
     (2, 128, 128, 4, 2, 128, 128), (1, 64, 64, 2, 2, 32, 32), (1, 384, 384, 6, 3, 64, 64),
     (1, 384, 384, 9, 3, 64, 64), (2, 77, 100, 6, 2, 128, 64), (2, 130, 64, 4, 4, 32, 128),
     (4, 512, 512, 32, 8, 64, 64), (32, 512, 512, 32, 8, 64, 64),
+    (32, 512, 512, 32, 32, 128, 128),
+]
+
+#: SSD scan (K5) shapes: B, S, H, P, G, N, chunk. The reference's kernel-
+#: test cases (tests/test_kernels.py: a ragged S 100, one group per head),
+#: the reduced zamba2 the CPU tests run (B 4 x S 64, chunk 32), and
+#: zamba2-1.2b's training shape at 32 rows (the loop's largest batch).
+SSD_SHAPES = [
+    (2, 64, 4, 32, 2, 16, 16), (1, 100, 2, 64, 1, 32, 32), (2, 256, 4, 64, 2, 64, 128),
+    (1, 128, 8, 64, 8, 64, 64), (4, 64, 8, 32, 1, 16, 32), (32, 512, 64, 64, 1, 64, 128),
 ]
 
 #: bf16 tolerance: 2e-2, plus one bf16 step of the reference value
@@ -47,6 +59,35 @@ def within(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype,
     else:
         ok = bool((err <= BF16_ATOL + ref.float().abs() * BF16_RTOL + slack).all())
     return err.max().item(), ok
+
+
+#: Relative f32 rounding allowed on an output that sums terms across
+#: positions or heads (the SSD backward's ddt and dA through a reverse
+#: cumsum within each chunk, dA over every (b, s), dB and dC over the
+#: H / G heads of a group), against the size of what the sum
+#: was formed from (``ssd_scan.ssd_bwd_term_sums``): the kernel and the
+#: plain version add the same f32 values in other orders, each carrying
+#: a few ulps (2^-24 = 6e-8) of its own addends; 1e-6 is ~16 ulps. The
+#: sum itself may be far smaller than its addends, so its largest value
+#: bounds nothing.
+SUM_RTOL = 1e-6
+
+
+def ssd_within(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype,
+               terms=None) -> Tuple[float, bool]:
+    """``within``, plus ``SUM_RTOL`` of ``terms`` (the size each element
+    was formed from, ``ssd_scan.ssd_bwd_term_sums``) for outputs summed across
+    positions or heads. An SSD output that is no such sum (y, dx) passes
+    ``terms=None`` and is held to ``within`` alone."""
+    if terms is None:
+        return within(out, ref, dtype)
+    err = (out.float() - ref.float()).abs()
+    extra = SUM_RTOL * terms.float()
+    if dtype == torch.float32:
+        tol = 1e-4 * max(1.0, ref.float().abs().max().item()) + extra
+    else:
+        tol = BF16_ATOL + ref.float().abs() * BF16_RTOL + extra
+    return err.max().item(), bool((err <= tol).all())
 
 
 #: The RMSNorm backward kernel's rsqrt lies a few f32 ulps from PyTorch's

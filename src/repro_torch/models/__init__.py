@@ -1,4 +1,5 @@
-"""Dense GQA decoder of the port (PyTorch definitions)."""
+"""Models of the port (PyTorch definitions): dense GQA decoders and the
+Mamba2 + shared-attention hybrid."""
 
 from .bridge import params_from_numpy
 from .model import Model, count_params_analytic

@@ -1,15 +1,20 @@
-"""Top-level model (port of ``repro.models.model`` for dense GQA decoders):
-embeddings, the block stack, the tied head, the training entry points
-``hidden`` and ``train_loss``, and the serving entry points
-``prefill_with_cache`` and ``decode_step``.
+"""Top-level model (port of ``repro.models.model`` for dense GQA decoders
+and the Mamba2 hybrids): embeddings, the block stack, the tied head, the
+training entry points ``hidden`` and ``train_loss``, and, for the dense
+decoders, the serving entry points ``prefill_with_cache`` and
+``decode_step``.
 
-Parameters and caches are trees of tensors: ``params["stack"]`` and the
-cache tree hold one list per segment with one dict per layer (the
-reference stacks layers on a leading axis instead). Every RMSNorm runs
+Parameters and caches are trees of tensors. For the dense families
+``params["stack"]`` and the cache tree hold one list per segment with
+one dict per layer (the reference stacks layers on a leading axis
+instead); for ``ssm``/``hybrid`` the stack is ``zamba.zamba_specs``'s
+tree and there are no segments, as in the reference. Every RMSNorm runs
 through kernel K2 (its gradient through K2's backward), every training
-attention through K1 (forward and backward), and every decode attention
-through K3 (contiguous) or K4 (paged); the projections, the MLP and the
-head are plain matrix products, as the reference leaves them to XLA.
+attention through K1 (forward and backward), every SSD scan through K5
+(forward and backward), and every decode attention through K3
+(contiguous) or K4 (paged); the projections, the MLP, the causal
+convolution and the head are plain PyTorch, as the reference leaves them
+to XLA. Serving the hybrids is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import masked_weighted_ce
 from . import attention as attn
+from . import zamba
 from .layers import (
     DTYPES,
     ParamSpec,
@@ -88,12 +94,25 @@ def _zeros_from_specs(specs, device) -> Any:
 
 
 class Model:
-    """A dense GQA decoder. Methods are functions of (params, inputs), like
-    the reference's; cache writes happen in place on the given caches."""
+    """A dense GQA decoder or a Mamba2 hybrid. Methods are functions of
+    (params, inputs), like the reference's; cache writes happen in place
+    on the given caches."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        self.segments: List[Segment] = segment_plan(cfg)
+        self.segments: List[Segment] = (
+            [] if self.is_hybrid else segment_plan(cfg)   # zamba path
+        )
+
+    @property
+    def is_hybrid(self) -> bool:
+        """Mamba2 backbone (family ``ssm`` or ``hybrid``): ``zamba`` runs it."""
+        return self.cfg.family in ("ssm", "hybrid")
+
+    def _no_hybrid_serving(self) -> None:
+        if self.is_hybrid:
+            raise NotImplementedError(
+                f"hybrid serving is not ported yet (family {self.cfg.family!r})")
 
     # -- specs ---------------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -104,8 +123,9 @@ class Model:
         specs: Dict[str, Any] = {
             "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                                "normal", dt),
-            "stack": [[block_specs(cfg, seg.kind) for _ in range(seg.count)]
-                      for seg in self.segments],
+            "stack": (zamba.zamba_specs(cfg) if self.is_hybrid else
+                      [[block_specs(cfg, seg.kind) for _ in range(seg.count)]
+                       for seg in self.segments]),
             "final_norm": norm_specs(cfg.d_model, cfg.norm, dt),
         }
         if not cfg.tie_embeddings:
@@ -131,7 +151,11 @@ class Model:
         """Training forward -> (final-norm hidden states (B, S, D), aux)."""
         cfg = self.cfg
         x = self.embed_inputs(params, inputs)
-        h, aux = run_segments(params["stack"], self.segments, x, cfg, positions=positions)
+        if self.is_hybrid:
+            h, aux = zamba.zamba_apply(params["stack"], x, cfg, positions=positions)
+        else:
+            h, aux = run_segments(params["stack"], self.segments, x, cfg,
+                                  positions=positions)
         return norm_apply(params["final_norm"], h, cfg.norm), aux
 
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
@@ -169,6 +193,7 @@ class Model:
         here, at allocation time. ``block_size`` switches every leaf to
         the paged arena layout (num_blocks + 1, block_size, ...) addressed
         through block tables; row 0 of an arena is the NULL sink."""
+        self._no_hybrid_serving()
         max_len = attn.round_kv_len(max_len)
         page = None if block_size is None else (num_blocks, block_size)
         return [[attn.gqa_cache_spec(self.cfg, batch, max_len, page)
@@ -197,6 +222,7 @@ class Model:
         caches). ``inputs`` may be right-padded to a bucket; pad rows are
         causally inert and their cache rows are masked by decode's length.
         ``start_index > 0`` continues a partially prefilled cache."""
+        self._no_hybrid_serving()
         B, P = inputs.shape
         dev = inputs.device
         if length is None:
@@ -246,6 +272,7 @@ class Model:
         block_tables: Optional[torch.Tensor] = None,  # (B, T): paged KV arenas
     ):
         """One token per sequence -> (logits (B, 1, V), caches)."""
+        self._no_hybrid_serving()
         cfg = self.cfg
         x = self.embed_inputs(params, token)
         idx = torch.as_tensor(cache_index, dtype=torch.long, device=x.device)

@@ -20,7 +20,10 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.configs import get_config
-from repro_torch.kernels.parity import NEAR_ULPS, FLASH_SHAPES, dscale_bf16_slack, within
+from repro_torch.kernels.parity import (
+    FLASH_SHAPES, NEAR_ULPS, SSD_SHAPES, dscale_bf16_slack, ssd_within, within,
+)
+from repro_torch.kernels.ssd_scan import ssd_bwd_term_sums
 from repro_torch.models import Model
 from repro_torch.models.layers import tree_leaves
 from repro_torch.optim import adamw
@@ -100,6 +103,9 @@ def test_wrappers_never_fall_back_to_plain(cuda, monkeypatch):
     monkeypatch.setattr(rn, "rms_norm_bwd_plain", boom)
     monkeypatch.setattr(fa, "flash_attention_plain", boom)
     monkeypatch.setattr(fa, "flash_attention_bwd_plain", boom)
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    monkeypatch.setattr(ss, "_states_plain", boom)
+    monkeypatch.setattr(ss, "ssd_scan_bwd_plain", boom)
     x = torch.randn((2, 64), device=cuda, requires_grad=True)
     K.rms_norm(x, torch.ones(64, device=cuda)).sum().backward()
     qa = torch.randn((1, 16, 4, 32), device=cuda, requires_grad=True)
@@ -107,6 +113,13 @@ def test_wrappers_never_fall_back_to_plain(cuda, monkeypatch):
     K.flash_attention(qa, ka, ka, causal=True).sum().backward()
     with pytest.raises(ValueError, match="contiguous"):
         K.flash_attention(qa.transpose(1, 2), ka, ka, causal=True)
+    xs = torch.randn((1, 40, 2, 16), device=cuda, requires_grad=True)
+    dts = torch.rand((1, 40, 2), device=cuda, requires_grad=True)
+    As = -torch.ones(2, device=cuda, requires_grad=True)
+    bc = torch.randn((1, 40, 1, 16), device=cuda, requires_grad=True)
+    K.ssd_scan(xs, dts, As, bc, bc, chunk=16)[0].sum().backward()
+    with pytest.raises(ValueError, match="contiguous"):
+        K.ssd_scan(xs.transpose(2, 3).contiguous().transpose(2, 3), dts, As, bc, bc, chunk=16)
     x = x.detach()
     q = torch.randn((1, 4, 32), device=cuda)
     kv = torch.randn((1, 32, 2, 32), device=cuda)
@@ -230,7 +243,8 @@ def test_train_step_runs_through_the_kernels(cuda, remat, monkeypatch):
     L, r = cfg.n_layers, 2 if remat == "full" else 1
     assert K.launch_counts() == {
         "rmsnorm": r * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1, "flash_attention": r * L,
-        "flash_attention_bwd": L, "decode_attention": 0, "paged_decode_attention": 0}
+        "flash_attention_bwd": L, "decode_attention": 0, "paged_decode_attention": 0,
+        "ssd_scan": 0, "ssd_scan_bwd": 0}
     assert torch.isfinite(metrics["loss"]) and float(metrics["contributors"]) == 3.0
     # Every norm scale moved: its gradient reached the optimizer.
     scales = [layer[n]["scale"] for layer in new["stack"][0] for n in ("attn_norm", "mlp_norm")]
@@ -255,3 +269,74 @@ def test_norm_scales_get_gradients_on_the_card(cuda):
              for n in ("attn_norm", "mlp_norm")] + [params["final_norm"]["scale"]]
     for s in norms:
         assert s.grad is not None and bool((s.grad != 0).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zamba", [False, True])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SHAPES)
+def test_ssd_scan_kernels_match_plain(cuda, dtype, zamba, B, S, H, P, G, N, chunk):
+    """K5 forward (y and every chunk's state) and backward against their
+    plain versions, by ``parity.ssd_within``: ddt, dA, dB and dC, long
+    sums whose addends may cancel, get a share of the size they were
+    formed from.
+    ``zamba``: zamba2-1.2b's initial decay (A = -e, dt = softplus(N(0, 1)))."""
+    from repro_torch.kernels.ssd_scan import _states_plain, _unlay
+
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((B, S, H, P), generator=g).to(cuda, dtype)
+    if zamba:
+        dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g)).to(cuda)
+        A = torch.full((H,), -2.718281828, device=cuda)
+    else:
+        dt = (0.01 + 0.29 * torch.rand((B, S, H), generator=g)).to(cuda)
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=g)).to(cuda)
+    Bm = torch.randn((B, S, G, N), generator=g).to(cuda, dtype)
+    Cm = torch.randn((B, S, G, N), generator=g).to(cuda, dtype)
+    dy = torch.randn((B, S, H, P), generator=g).to(cuda, dtype)
+    y, states = K.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    ref_y, ref_states = _states_plain(x, dt, A, Bm, Cm, chunk)
+    assert ssd_within(y, _unlay(ref_y, S).to(dtype), dtype)[1]
+    assert ssd_within(states, ref_states, torch.float32)[1]
+    grads = K.ssd_scan_bwd(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
+    refs = K.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
+    terms = (None,) + ssd_bwd_term_sums(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
+    for name, a, b, t in zip(("dx", "ddt", "dA", "dB", "dC"), grads, refs, terms):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        err, ok = ssd_within(a, b, a.dtype, t)
+        assert ok, f"{name}: max |err| {err:.3e}"
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_zamba_train_step_runs_through_the_kernels(cuda, remat, monkeypatch):
+    """A reduced zamba2 train step on the card launches K5 forward once per
+    Mamba2 layer (twice under full remat) and K5 backward once, K1 per
+    shared call, K2 per norm, never a plain version, with a finite loss."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rn = importlib.import_module("repro_torch.kernels.rmsnorm")
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached for a CUDA tensor")
+
+    for mod, name in ((fa, "flash_attention_plain"), (fa, "flash_attention_bwd_plain"),
+                      (rn, "rms_norm_plain"), (rn, "rms_norm_bwd_plain"),
+                      (ss, "_states_plain"), (ss, "ssd_scan_bwd_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    cfg = get_config("zamba2").reduced(remat=remat)
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    g = torch.Generator().manual_seed(7)
+    ids = torch.randint(0, cfg.vocab_size, (4, 65), generator=g).to(cuda)
+    batch = {"inputs": ids[:, :-1], "labels": ids[:, 1:],
+             "worker_mask": torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda), "lr": 1e-3}
+    K.reset_launch_counts()
+    _, _, metrics = make_train_step(model, adamw())(params, adamw().init(params), batch)
+    torch.cuda.synchronize()
+    L, r, calls = cfg.n_layers, 2 if remat == "full" else 1, cfg.n_layers // cfg.attn_every
+    assert K.launch_counts() == {
+        "rmsnorm": r * 2 * (L + calls) + 1, "rmsnorm_bwd": 2 * (L + calls) + 1,
+        "flash_attention": r * calls, "flash_attention_bwd": calls,
+        "decode_attention": 0, "paged_decode_attention": 0,
+        "ssd_scan": r * L, "ssd_scan_bwd": L}
+    assert torch.isfinite(metrics["loss"])

@@ -35,6 +35,9 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
+missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
+           "repro_torch.models.zamba"} - set(sys.modules)
+assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
 
