@@ -8,7 +8,10 @@ runs, in order, and exits non-zero at the first phase that fails:
 
 1. prints the card (name, power limit), the torch and CUDA versions, and
    turns TF32 off for float32 matrix products and convolutions;
-2. builds the port's CUDA kernels from ``src/repro_torch/csrc``;
+2. builds the port's CUDA kernels from ``src/repro_torch/csrc``, prints
+   ptxas's registers and spills, and shows that K1's bf16 kernels on the
+   main paths (forward, dQ and dK/dV at D 64 and D 128) issue tensor-core
+   instructions (HMMA in ``cuobjdump -sass``) and spill nothing;
 3. holds every kernel against its plain PyTorch version on the card, at
    the serving path's shapes, in f32 and bf16;
 4. serves llama3.2-1b at full width in bf16 (random weights from a seed)
@@ -26,7 +29,8 @@ runs, in order, and exits non-zero at the first phase that fails:
 7. holds the training kernels against their plain versions on the card:
    flash attention forward and backward (K1) over the reference's
    kernel-test shapes and the training shape, causal and not, in f32
-   and bf16, and the RMSNorm forward and backward (K2) at the training
+   and bf16, plus the training shape with q and k scaled by 4 (scores
+   near 100), and the RMSNorm forward and backward (K2) at the training
    rows;
 8. takes one train step of llama3.2-1b at full width, cut to 2 layers,
    in f32, through the kernels on the card, and the same step on the
@@ -53,12 +57,15 @@ runs, in order, and exits non-zero at the first phase that fails:
    llama3.2-1b, with the same checks, then holds K5, K1 and K2 against
    their plain versions at every batch shape the loop ran;
 14. times K5 forward and backward at the training shape beside their
-   plain versions and bounds, and profiles one full-width zamba2 train
-   step;
+   plain versions and bounds, and K1 forward and backward at the shared
+   block's shape (MHA, D 128) beside theirs and SDPA, and profiles one
+   full-width zamba2 train step;
 
 and prints the ``kernels`` JSON line (eight kernels; the profiles under
-``profile``, ``train_profile`` and ``zamba_train_profile``), the card line and, last, the ``{"ok": true, ...}``
-line.
+``profile``, ``train_profile`` and ``zamba_train_profile``, K1's times at
+zamba2's shape under ``zamba_flash_times`` and phase 2's tensor-core
+report under ``k1_tensor_cores``), the card line and, last, the
+``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the reference package.
 """
@@ -67,6 +74,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -108,6 +116,79 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: the build, and the tensor cores in K1's bf16 kernels
+# ---------------------------------------------------------------------------
+
+#: K1's bf16 kernels the main paths launch: llama3.2-1b's D 64 and
+#: zamba2-1.2b's shared block's D 128 (D = Dv).
+K1_TC_KERNELS = ("fa_fwd_mma", "fa_bwd_dq_mma", "fa_bwd_dkdv_mma")
+K1_TC_DIMS = (64, 128)
+
+
+def k1_instance(mangled: str):
+    """(kernel, D, Dv) of a mangled K1 bf16 kernel name, else None."""
+    m = re.search(r"(fa_(?:fwd|bwd_dq|bwd_dkdv)_mma)ILi(\d+)ELi(\d+)E", mangled)
+    return (m.group(1), int(m.group(2)), int(m.group(3))) if m else None
+
+
+def ptxas_resources(log: str) -> dict:
+    """{mangled entry: (registers, spill bytes stored + loaded)} from
+    ptxas's ``-v`` report in the build log."""
+    out, entry, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = (int(m.group(1)), spill)
+    return out
+
+
+def hmma_counts(library: Path) -> dict:
+    """{mangled function: count of HMMA instructions} in the library's
+    SASS (``cuobjdump -sass``, from the toolkit that built it)."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\bHMMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def check_tensor_cores(library: Path, log: str) -> dict:
+    """Each K1 bf16 kernel of the main paths issues HMMA and spills
+    nothing; {"kernel D/Dv": {"hmma", "registers", "spill_bytes"}}."""
+    res = {k1_instance(name): r for name, r in ptxas_resources(log).items() if k1_instance(name)}
+    hmma = {k1_instance(name): n for name, n in hmma_counts(library).items()
+            if k1_instance(name)}
+    out = {}
+    for kern in K1_TC_KERNELS:
+        for d in K1_TC_DIMS:
+            key = (kern, d, d)
+            check(key in res and key in hmma, f"{kern}<{d}, {d}> is missing from the build")
+            regs, spill = res[key]
+            out[f"{kern} D{d}/Dv{d}"] = dict(hmma=hmma[key], registers=regs, spill_bytes=spill)
+            print(f"    {kern}<D {d}, Dv {d}>: {hmma[key]} HMMA, {regs} registers, "
+                  f"{spill} bytes spilled")
+            check(hmma[key] > 0, f"{kern}<{d}, {d}> issues no HMMA: no tensor cores")
+            check(spill == 0, f"{kern}<{d}, {d}> spills {spill} bytes")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -519,36 +600,50 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 32, 512, 16
 #: RMSNorm (K2) rows: half the training batch, the training run's largest
 #: (32 x 512 tokens at beta = 1) and a decode-sized one.
 RMS_BWD_SHAPES = ((8192, 2048), (TRAIN_B * TRAIN_S, 2048), (4, 1, 2048))
+#: q and k of K1's harder case are scaled by this: scores |S| reach ~100.
+SCORE_MUL = 4.0
 
 
-def hold_flash(shape, causal: bool, dtype, gen) -> tuple:
+def hold_flash(shape, causal: bool, dtype, gen, mul: float = 1.0) -> tuple:
     """K1 forward and backward vs their plain versions on random inputs
-    of ``shape`` (B, Sq, Skv, H, Hkv, D, Dv); (out err, max dq/dk/dv err)."""
+    of ``shape`` (B, Sq, Skv, H, Hkv, D, Dv), q and k scaled by ``mul``;
+    (out err, max dq/dk/dv err). Held by ``parity.flash_within`` (in bf16
+    the kernels round P and dS to bf16 before their second product) and,
+    at ``mul`` 1, by ``parity.within`` alone as well."""
     from repro_torch.kernels import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_plain,
     )
-    from repro_torch.kernels.parity import within
+    from repro_torch.kernels.flash_attention import flash_attention_rounding_terms
+    from repro_torch.kernels.parity import flash_within, within
 
     B, Sq, Skv, H, Hkv, D, Dv = shape
     dev = torch.device("cuda")
-    q = torch.randn((B, Sq, H, D), generator=gen).to(dev, dtype)
-    k = torch.randn((B, Skv, Hkv, D), generator=gen).to(dev, dtype)
+    q = (torch.randn((B, Sq, H, D), generator=gen) * mul).to(dev, dtype)
+    k = (torch.randn((B, Skv, Hkv, D), generator=gen) * mul).to(dev, dtype)
     v = torch.randn((B, Skv, Hkv, Dv), generator=gen).to(dev, dtype)
     do = torch.randn((B, Sq, H, Dv), generator=gen).to(dev, dtype)
     out, lse = flash_attention_fwd(q, k, v, causal=causal)
     ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
     grads = flash_attention_bwd(q, k, v, ref, ref_lse, do, causal=causal)
     refs = flash_attention_bwd_plain(q, k, v, ref, ref_lse, do, causal=causal)
+    terms = flash_attention_rounding_terms(q, k, v, ref, ref_lse, do, causal=causal)
     torch.cuda.synchronize()
-    e_o, ok_o = within(out, ref, dtype)
+    e_o, ok_o = flash_within(out, ref, dtype, terms[0])
     e_l, ok_l = within(lse, ref_lse, torch.float32)
-    bwd = [within(g, r, dtype) for g, r in zip(grads, refs)]
-    ok = ok_o and ok_l and all(o for _, o in bwd)
+    bwd = [flash_within(g, r, dtype, t) for g, r, t in zip(grads, refs, terms[1:])]
+    # At unit-variance inputs the bf16 rule alone (no slack for the
+    # rounding of P and dS) holds too, and is held; scores near 100 need
+    # the slack.
+    bare = all(within(a, b, dtype)[1] for a, b in zip((out,) + grads, (ref,) + refs))
+    ok = ok_o and ok_l and all(o for _, o in bwd) and (bare or mul != 1)
     name = str(dtype).replace("torch.", "")
+    scaled = (f", q and k x {mul:g} (row LSE up to {ref_lse.max().item():.0f})" if mul != 1
+              else "")
     print(f"  K1 {name} B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} D={D} Dv={Dv} "
-          f"causal={causal}: out {e_o:.2e}, lse {e_l:.2e}, dq/dk/dv "
-          f"{' / '.join(f'{e:.2e}' for e, _ in bwd)} ({'ok' if ok else 'FAIL'})")
+          f"causal={causal}{scaled}: out {e_o:.2e}, lse {e_l:.2e}, dq/dk/dv "
+          f"{' / '.join(f'{e:.2e}' for e, _ in bwd)} ({'ok' if ok else 'FAIL'}"
+          f"{'' if bare else '; within() alone is exceeded'})")
     check(ok, f"flash attention {name} {shape} causal={causal} disagrees with its plain "
               "version")
     return e_o, max(e for e, _ in bwd)
@@ -610,12 +705,16 @@ def check_training_kernels() -> dict:
              "rmsnorm_bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
-        for shape in FLASH_SHAPES:
-            for causal in (True, False):
-                e_o, e_b = hold_flash(shape, causal, dtype, gen)
-                if bf16:
-                    worst["flash_attention"] = max(worst["flash_attention"], e_o)
-                    worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], e_b)
+        cases = [(shape, causal, 1.0) for shape in FLASH_SHAPES for causal in (True, False)]
+        if bf16:
+            # The training shape with scores reaching ~100: the online
+            # rescale and exponentials that underflow.
+            cases.append(((TRAIN_B, TRAIN_S, TRAIN_S, 32, 8, 64, 64), True, SCORE_MUL))
+        for shape, causal, mul in cases:
+            e_o, e_b = hold_flash(shape, causal, dtype, gen, mul)
+            if bf16:
+                worst["flash_attention"] = max(worst["flash_attention"], e_o)
+                worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], e_b)
         for shape in RMS_BWD_SHAPES:
             e_f, e_b = hold_rms_norm(shape, dtype, gen), hold_rms_norm_bwd(shape, dtype, gen)
             if bf16:
@@ -871,17 +970,18 @@ def train_full_width(model, steps: int) -> dict:
 # Phase 10: training kernels' times and one profiled train step
 # ---------------------------------------------------------------------------
 
-def time_training_kernels(cfg) -> dict:
+def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen) -> dict:
+    """K1 forward and backward at q (B, S, H, D), k/v (B, S, Hkv, D), bf16,
+    causal, beside their plain versions, SDPA and their bounds (CUDA
+    events, cold L2, median of 30)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-        flash_attention_plain, rms_norm_bwd, rms_norm_bwd_plain,
+        flash_attention_plain,
     )
 
     dev, dt = torch.device("cuda"), torch.bfloat16
-    gen = torch.Generator().manual_seed(SEED + 3)
-    B, S, H, Hkv, D = TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = torch.randn((B, S, H, D), generator=gen).to(dev, dt)
     k = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
     v = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
@@ -893,12 +993,14 @@ def time_training_kernels(cfg) -> dict:
     out = {}
     b, kind = bound(qkv + o.numel() * 2 + lse.numel() * 4, fwd_flops, BF16_FLOPS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = Hkv != H
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=gqa)
 
+    shape = f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {Hkv}, {D}) bf16, causal"
     out["flash_attention"] = dict(
-        shape=f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {Hkv}, {D}) bf16, causal",
+        shape=shape,
         ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), n=30),
         plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=True), n=30),
         library_ms=time_ms(sdpa, n=30), bound_ms=b, bound_by=kind,
@@ -910,19 +1012,38 @@ def time_training_kernels(cfg) -> dict:
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
 
     def sdpa_fwd_bwd():
-        y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
+        y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=gqa)
         y.backward(do.transpose(1, 2))
 
     lib_fb = time_ms(sdpa_fwd_bwd, n=30)
     lib_f = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
-                                                           enable_gqa=True), n=30)
+                                                           enable_gqa=gqa), n=30)
     out["flash_attention_bwd"] = dict(
-        shape=out["flash_attention"]["shape"],
+        shape=shape + ", with dO",
         ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True), n=30),
         plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
                          n=30),
         library_ms=lib_fb - lib_f, bound_ms=b, bound_by=kind, flops=bwd_flops,
     )
+    return out
+
+
+def print_times(out: dict) -> None:
+    for name, r in out.items():
+        print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f"; {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s" if "flops" in r else ""))
+
+
+def time_training_kernels(cfg) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rms_norm_bwd, rms_norm_bwd_plain
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 3)
+    B, S = TRAIN_B, TRAIN_S
+    out = time_flash(B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, gen)
     rows, dm = B * S, cfg.d_model
     x = torch.randn((rows, dm), generator=gen).to(dev, dt)
     g = torch.randn((rows, dm), generator=gen).to(dev, dt)
@@ -943,10 +1064,7 @@ def time_training_kernels(cfg) -> dict:
         plain_ms=time_ms(lambda: rms_norm_bwd_plain(g, x, scale), n=30),
         library_ms=lib_fb - lib_f, bound_ms=b, bound_by=kind,
     )
-    for name, r in out.items():
-        print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-              + (f"; {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s" if "flops" in r else ""))
+    print_times(out)
     return out
 
 
@@ -1172,6 +1290,8 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line:
             print("    " + line.strip())
+    print("    K1's bf16 kernels on the main paths (cuobjdump -sass, ptxas -v):")
+    tensor_cores = check_tensor_cores(lib, _build.build_log())
 
     print("[3] kernels vs plain PyTorch on the card")
     worst = check_kernels()
@@ -1224,9 +1344,13 @@ def main() -> int:
     ztrained = train_full_width(zmodel, ZAMBA_STEPS)
     print("    K5, K1 and K2 vs plain PyTorch at each batch shape the loop ran")
     check_zamba_loop_shapes(zcfg, ztrained["shapes"], train_worst)
-    print("[14] the SSD scan's times (CUDA events, cold L2, median of 30) and one "
-          "profiled zamba2 train step")
+    print("[14] the SSD scan's and the shared block's K1 times (CUDA events, cold L2, "
+          "median of 30) and one profiled zamba2 train step")
     ssd_times = time_ssd_kernels(zcfg)
+    dw = 2 * zcfg.d_model
+    zamba_flash_times = time_flash(TRAIN_B, TRAIN_S, zcfg.n_heads, zcfg.n_heads,
+                                   dw // zcfg.n_heads, torch.Generator().manual_seed(SEED + 8))
+    print_times(zamba_flash_times)
     zamba_profile = profile_train_step(zmodel, ztrained.pop("params"))
     worst["rmsnorm"] = max(worst["rmsnorm"], train_worst["rmsnorm"])
 
@@ -1288,6 +1412,8 @@ def main() -> int:
         "zamba_step_parity": zparity,
         "zamba_train_loop": ztrained,
         "ssd_kernel_shapes": {k: v["shape"] for k, v in ssd_times.items()},
+        "zamba_flash_times": zamba_flash_times,
+        "k1_tensor_cores": tensor_cores,
         "zamba_train_profile": zamba_profile,
         "seconds": time.perf_counter() - t_start,
     }

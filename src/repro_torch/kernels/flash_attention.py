@@ -16,6 +16,10 @@ plain version for tensors on the CPU and launches its kernel for CUDA
 tensors (or raises); ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count kernel launches (the backward's
 two launches count as one).
+
+In bf16 the kernels run on the tensor cores and round P and dS to bf16
+before their second product; ``flash_attention_rounding_terms`` gives
+what that may move each output by, for ``parity.flash_within``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_plain",
     "flash_attention_bwd_plain",
+    "flash_attention_rounding_terms",
 ]
 
 NEG_INF = -1e30
@@ -75,26 +80,57 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype).contiguous(), lse
 
 
+def _p_ds(q, k, v, o, lse, do, causal: bool):
+    """P = exp(S - LSE) (B, Hkv, G, Sq, Skv), dO in f32 (B, Sq, Hkv, G, Dv)
+    and dS = P * (dO V^T - Delta), Delta = rowsum(dO * O), all f32."""
+    B, Sq, H, _ = q.shape
+    Hkv, Dv = k.shape[2], v.shape[-1]
+    G = H // Hkv
+    s = _scores(q, k, causal)
+    p = torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1))      # masked scores give 0
+    dof = do.float().reshape(B, Sq, Hkv, G, Dv)
+    delta = (dof * o.float().reshape(B, Sq, Hkv, G, Dv)).sum(-1)        # (B, Sq, Hkv, G)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    return p, dof, p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+
+
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool):
     """(dq, dk, dv) in the inputs' dtypes: the backward kernels' recompute
     step by step. P = exp(S - LSE), Delta = rowsum(dO * O),
     dS = P * (dO V^T - Delta); dq = dS K / sqrt(D), dk = dS^T q / sqrt(D),
     dv = P^T dO, all in f32."""
     B, Sq, H, D = q.shape
-    Hkv, Dv = k.shape[2], v.shape[-1]
+    Hkv = k.shape[2]
     G = H // Hkv
     scale = 1.0 / math.sqrt(D)
-    s = _scores(q, k, causal)
-    p = torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1))      # masked scores give 0
-    dof = do.float().reshape(B, Sq, Hkv, G, Dv)
-    delta = (dof * o.float().reshape(B, Sq, Hkv, G, Dv)).sum(-1)        # (B, Sq, Hkv, G)
+    p, dof, ds = _p_ds(q, k, v, o, lse, do, causal)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
-    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
     qf = q.float().reshape(B, Sq, Hkv, G, D) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
     return dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_rounding_terms(q, k, v, o, lse, do, *, causal: bool):
+    """(out, dq, dk, dv)-shaped f32 sums of |term| over each output's
+    second product: P |V| for out (P normalized), P^T |dO| for dv,
+    |dS| |K| / sqrt(D) for dq and |dS|^T |q| / sqrt(D) for dk.
+
+    The bf16 kernels round P and dS to bf16 before those products, a
+    rounding the plain version does not make; it moves each term by at
+    most bf16's unit roundoff of its size, so each output by at most that
+    unit times these sums (``parity.flash_within``)."""
+    B, Sq, H, D = q.shape
+    Hkv, Dv = k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    p, dof, ds = _p_ds(q, k, v, o, lse, do, causal)
+    ds = ds.abs()
+    t_out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float().abs()).reshape(B, Sq, H, Dv)
+    t_dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof.abs())
+    t_dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float().abs()).reshape(B, Sq, H, D) * scale
+    t_dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, q.float().abs().reshape(B, Sq, Hkv, G, D))
+    return t_out, t_dq, t_dk * scale, t_dv
 
 
 def _check(q, k, v, *more) -> Tuple[int, ...]:
@@ -119,6 +155,8 @@ def _check(q, k, v, *more) -> Tuple[int, ...]:
             raise ValueError(f"all inputs must be on {q.device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("flash attention needs contiguous inputs")
+        if t.data_ptr() % 16:
+            raise ValueError("flash attention needs 16-byte aligned inputs (16-byte copies)")
     return B, Sq, Skv, H, Hkv, D, Dv
 
 

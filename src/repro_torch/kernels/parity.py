@@ -13,8 +13,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["FLASH_SHAPES", "SSD_SHAPES", "NEAR_ULPS", "within", "ssd_within",
-           "dscale_bf16_slack"]
+__all__ = ["FLASH_SHAPES", "SSD_SHAPES", "NEAR_ULPS", "BF16_UNIT", "within", "flash_within",
+           "ssd_within", "dscale_bf16_slack"]
 
 #: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and
@@ -59,6 +59,28 @@ def within(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype,
     else:
         ok = bool((err <= BF16_ATOL + ref.float().abs() * BF16_RTOL + slack).all())
     return err.max().item(), ok
+
+
+#: bf16's unit roundoff: rounding a value to bf16 (8 significant bits)
+#: moves it by at most 2^-8 of itself.
+BF16_UNIT = 2.0 ** -8
+
+
+def flash_within(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype,
+                 terms: torch.Tensor) -> Tuple[float, bool]:
+    """K1's rule: ``within``, and in bf16 a slack of ``BF16_UNIT * terms``.
+
+    The bf16 kernels round P (forward, dV) and dS (dQ, dK) to bf16 before
+    their second product, as FlashAttention does and the plain version
+    does not; every term of that product moves by at most ``BF16_UNIT``
+    of its size, so the output by at most ``BF16_UNIT`` times the sum of
+    the terms' sizes (``terms``: ``flash_attention_rounding_terms``).
+    Where scores are large, dS reaches tens and that bound exceeds
+    ``within``'s bf16 rule. The f32 kernels round nothing early: ``within``
+    alone."""
+    if dtype == torch.float32:
+        return within(out, ref, dtype)
+    return within(out, ref, dtype, BF16_UNIT * terms.float())
 
 
 #: Relative f32 rounding allowed on an output that sums terms across

@@ -11,6 +11,7 @@ seeded numpy generator and go to both frameworks.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +29,8 @@ from repro_torch.kernels import (
     rms_norm,
     rms_norm_bwd_plain,
 )
-from repro_torch.kernels.parity import dscale_bf16_slack
+from repro_torch.kernels.flash_attention import _p_ds, flash_attention_rounding_terms
+from repro_torch.kernels.parity import FLASH_SHAPES, dscale_bf16_slack, flash_within, within
 
 RNG = np.random.default_rng(11)
 
@@ -168,3 +170,111 @@ def test_rms_norm_bwd_matches_jax_vjp(shape, dtype):
         for val in (p, got):
             err = np.abs(_f32(val) - _f32(r))
             assert np.all(err <= atol + rtol * np.abs(_f32(r))), (i, err.max())
+
+
+# --- The bf16 kernels' rounding of P and dS, emulated on the CPU ----------
+
+#: FLASH_SHAPES small enough for the CPU (the two B = 32 training shapes
+#: run on the card only).
+SMALL_FLASH_SHAPES = [s for s in FLASH_SHAPES if s[0] < 32]
+#: Shapes with at least two KV and q tiles of 64, for the dropped-tile rule.
+TILED_FLASH_SHAPES = [s for s in SMALL_FLASH_SHAPES if min(s[1], s[2]) > 128]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_case(shape, seed, mul=1.0):
+    g = torch.Generator().manual_seed(seed)
+    B, Sq, Skv, H, Hkv, D, Dv = shape
+    q = (torch.randn((B, Sq, H, D), generator=g) * mul).to(torch.bfloat16)
+    k = (torch.randn((B, Skv, Hkv, D), generator=g) * mul).to(torch.bfloat16)
+    v = torch.randn((B, Skv, Hkv, Dv), generator=g).to(torch.bfloat16)
+    do = torch.randn((B, Sq, H, Dv), generator=g).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def _emulated(q, k, v, o, lse, do, causal, drop_keys=None, drop_queries=None):
+    """(out, dq, dk, dv): the plain versions with P rounded to bf16 before
+    PV and P^T dO, and dS before dS K and dS^T q, where the bf16 kernels
+    round them. The backward takes the plain forward's ``o`` and ``lse``,
+    as the card's checks do. ``drop_keys`` (a slice) leaves those keys'
+    share out of out and dq, ``drop_queries`` those queries' share out of
+    dk and dv: one tile a kernel would have skipped."""
+    B, Sq, H, D = q.shape
+    Hkv, Dv = k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    p, dof, ds = _p_ds(q, k, v, o, lse, do, causal)
+    p, ds = _bf16(p), _bf16(ds)
+    pk, dsk, pq, dsq = p.clone(), ds.clone(), p.clone(), ds.clone()
+    if drop_keys is not None:
+        pk[..., drop_keys] = 0
+        dsk[..., drop_keys] = 0
+    if drop_queries is not None:
+        pq[..., drop_queries, :] = 0
+        dsq[..., drop_queries, :] = 0
+    out = torch.einsum("bhgqk,bkhd->bqhgd", pk, v.float()).reshape(B, Sq, H, Dv)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", dsk, k.float()).reshape(B, Sq, H, D) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", dsq, q.float().reshape(B, Sq, Hkv, G, D)) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pq, dof)
+    return tuple(t.to(torch.bfloat16) for t in (out, dq, dk, dv))
+
+
+def _plain_all(q, k, v, do, causal):
+    o, lse = flash_attention_plain(q, k, v, causal=causal)
+    return o, lse, (o,) + flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SMALL_FLASH_SHAPES)
+def test_bf16_rounding_of_p_and_ds_passes_the_bf16_rule(shape, causal):
+    """Rounding P and dS to bf16 before their second product, as the bf16
+    kernels do, keeps out, dq, dk and dv within ``parity.within``'s bf16
+    rule of the plain versions at unit-variance inputs."""
+    q, k, v, do = _bf16_case(shape, 21)
+    o, lse, refs = _plain_all(q, k, v, do, causal)
+    for name, got, ref in zip(("out", "dq", "dk", "dv"),
+                              _emulated(q, k, v, o, lse, do, causal), refs):
+        err, ok = within(got, ref, torch.bfloat16)
+        assert ok, (name, err)
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 128, 4, 2, 64, 64), (4, 512, 512, 32, 8, 64, 64)])
+def test_bf16_rounding_at_large_scores_needs_the_stated_rule(shape):
+    """With q and k scaled by 4 (scores near 100, as on the card's harder
+    case) dS reaches tens: its rounding moves dq and dk past ``within``'s
+    bf16 rule, but not past ``flash_within``, which adds bf16's unit
+    roundoff of the terms' sizes (``flash_attention_rounding_terms``)."""
+    q, k, v, do = _bf16_case(shape, 22, mul=4.0)
+    o, lse, refs = _plain_all(q, k, v, do, True)
+    terms = flash_attention_rounding_terms(q, k, v, o, lse, do, causal=True)
+    got = _emulated(q, k, v, o, lse, do, True)
+    assert not all(within(a, b, torch.bfloat16)[1] for a, b in zip(got, refs))
+    for name, a, b, t in zip(("out", "dq", "dk", "dv"), got, refs, terms):
+        err, ok = flash_within(a, b, torch.bfloat16, t)
+        assert ok, (name, err)
+
+
+@pytest.mark.parametrize("mul", [1.0, 4.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", TILED_FLASH_SHAPES)
+def test_flash_rule_rejects_a_dropped_tile(shape, causal, mul):
+    """The stated rule has teeth: out and dq less one KV tile's share
+    (keys 64-127), and dk and dv less one q tile's share (queries
+    64-127), each fail ``flash_within``, at unit and at large scores."""
+    q, k, v, do = _bf16_case(shape, 23, mul=mul)
+    o, lse, refs = _plain_all(q, k, v, do, causal)
+    terms = flash_attention_rounding_terms(q, k, v, o, lse, do, causal=causal)
+    tile = slice(64, 128)
+    got = _emulated(q, k, v, o, lse, do, causal, drop_keys=tile, drop_queries=tile)
+    for name, a, b, t in zip(("out", "dq", "dk", "dv"), got, refs, terms):
+        assert not flash_within(a, b, torch.bfloat16, t)[1], name
+    # The f32 rule rejects the same tile dropped in f32.
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    o32, lse32, refs32 = _plain_all(qf, kf, vf, dof, causal)
+    p, _, _ = _p_ds(qf, kf, vf, o32, lse32, dof, causal)
+    p[..., tile] = 0
+    out32 = torch.einsum("bhgqk,bkhd->bqhgd", p, vf).reshape(o32.shape)
+    assert not flash_within(out32, refs32[0], torch.float32, None)[1]

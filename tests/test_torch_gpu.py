@@ -7,7 +7,8 @@ installed:
 Each kernel is held to its plain version on the same CUDA inputs (f32 at
 2e-5; bf16 at 2e-2, plus one bf16 step of the value for RMSNorm; the
 training kernels by ``repro_torch.kernels.parity``, whose shapes and
-tolerances chip_smoke.py shares), the wrappers are shown
+tolerances chip_smoke.py shares: K1 by ``flash_within``, which adds what
+rounding P and dS to bf16 may move each output by), the wrappers are shown
 never to reach a plain version for a CUDA tensor, the decode kernels to
 refuse a gradient, and the reduced model's decode tick and train step to
 run through the kernels.
@@ -20,8 +21,9 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import flash_attention_rounding_terms
 from repro_torch.kernels.parity import (
-    FLASH_SHAPES, NEAR_ULPS, SSD_SHAPES, dscale_bf16_slack, ssd_within, within,
+    FLASH_SHAPES, NEAR_ULPS, SSD_SHAPES, dscale_bf16_slack, flash_within, ssd_within, within,
 )
 from repro_torch.kernels.ssd_scan import ssd_bwd_term_sums
 from repro_torch.models import Model
@@ -166,23 +168,40 @@ def _close(out, ref, dtype, slack=0.0):
     assert ok, f"max |err| {err:.3e} ({dtype})"
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,Dv", FLASH_SHAPES)
-def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, Sq, Skv, H, Hkv, D, Dv):
+def _hold_flash(cuda, dtype, causal, shape, mul=1.0):
+    """K1 forward and backward vs plain, q and k scaled by ``mul``, by
+    ``parity.flash_within`` (bf16: the kernels round P and dS to bf16)
+    and, at ``mul`` 1, by ``parity.within`` alone as well."""
+    B, Sq, Skv, H, Hkv, D, Dv = shape
     g = torch.Generator().manual_seed(3)
-    q = torch.randn((B, Sq, H, D), generator=g).to(cuda, dtype)
-    k = torch.randn((B, Skv, Hkv, D), generator=g).to(cuda, dtype)
+    q = (torch.randn((B, Sq, H, D), generator=g) * mul).to(cuda, dtype)
+    k = (torch.randn((B, Skv, Hkv, D), generator=g) * mul).to(cuda, dtype)
     v = torch.randn((B, Skv, Hkv, Dv), generator=g).to(cuda, dtype)
     do = torch.randn((B, Sq, H, Dv), generator=g).to(cuda, dtype)
     out, lse = K.flash_attention_fwd(q, k, v, causal=causal)
     ref, ref_lse = K.flash_attention_plain(q, k, v, causal=causal)
-    _close(out, ref, dtype)
-    _close(lse, ref_lse, torch.float32)
     grads = K.flash_attention_bwd(q, k, v, ref, ref_lse, do, causal=causal)
     refs = K.flash_attention_bwd_plain(q, k, v, ref, ref_lse, do, causal=causal)
-    for a, b in zip(grads, refs):
-        _close(a, b, dtype)
+    terms = flash_attention_rounding_terms(q, k, v, ref, ref_lse, do, causal=causal)
+    _close(lse, ref_lse, torch.float32)
+    for a, b, t in zip((out,) + grads, (ref,) + refs, terms):
+        err, ok = flash_within(a, b, dtype, t)
+        assert ok, f"max |err| {err:.3e} ({dtype})"
+        if mul == 1.0:
+            _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,Dv", FLASH_SHAPES)
+def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, Sq, Skv, H, Hkv, D, Dv):
+    _hold_flash(cuda, dtype, causal, (B, Sq, Skv, H, Hkv, D, Dv))
+
+
+def test_flash_attention_kernels_at_large_scores(cuda):
+    """llama3.2-1b's training shape with q and k scaled by 4: scores near
+    100 exercise the online rescale and exponentials that underflow."""
+    _hold_flash(cuda, torch.bfloat16, True, (32, 512, 512, 32, 8, 64, 64), mul=4.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
