@@ -11,9 +11,12 @@ runs, in order, and exits non-zero at the first phase that fails:
 2. builds the port's CUDA kernels from ``src/repro_torch/csrc``, prints
    ptxas's registers and spills, and shows that K1's bf16 kernels on the
    main paths (forward, dQ and dK/dV at D 64 and D 128) issue tensor-core
-   instructions (HMMA in ``cuobjdump -sass``) and spill nothing;
+   instructions (HMMA in ``cuobjdump -sass``) and spill nothing, and that
+   no instance of K3's and K4's split and merge kernels spills;
 3. holds every kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, in f32 and bf16;
+   the serving path's shapes, in f32 and bf16: K3 and K4 (split-KV flash
+   decode) at ``parity.DECODE_SHAPES``, each bit for bit equal to the
+   other on identical rows and to a second launch of itself;
 4. serves llama3.2-1b at full width in bf16 (random weights from a seed)
    through ``ServeEngine`` — 8 requests, 4 slots, chunked prefill — once
    over the contiguous pool and once over the paged pool, checks every
@@ -21,8 +24,9 @@ runs, in order, and exits non-zero at the first phase that fails:
    stream, and checks from the kernels' launch counters that the whole
    path ran through them;
 5. times each kernel (CUDA events, cold L2, median of 60 launches)
-   beside its plain version, one library call and its bound, and
-   reports decode tokens/s of each pool;
+   beside its plain version, one library call and its bound, K3 and K4
+   also at two long-context shapes (``LONG_DECODE``), and reports decode
+   tokens/s of each pool;
 6. profiles decode ticks and prefill chunks with ``torch.profiler`` —
    host wall time, device time, the device's idle share, launches, and
    device time by kernel class;
@@ -62,9 +66,11 @@ runs, in order, and exits non-zero at the first phase that fails:
    full-width zamba2 train step;
 
 and prints the ``kernels`` JSON line (eight kernels; the profiles under
-``profile``, ``train_profile`` and ``zamba_train_profile``, K1's times at
+``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
+long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times`` and phase 2's tensor-core
-report under ``k1_tensor_cores``), the card line and, last, the
+report under ``k1_tensor_cores`` and decode-kernel report under
+``decode_kernel_resources``), the card line and, last, the
 ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the reference package.
@@ -191,6 +197,33 @@ def check_tensor_cores(library: Path, log: str) -> dict:
     return out
 
 
+#: A decode kernel's instance in a mangled name: split or merge, dtype,
+#: row functor and, for the split kernel, lanes per row, 16-byte pieces per
+#: lane and the query group it is built for.
+DECODE_ENTRY = re.compile(r"decode_(split|merge)_kernelI(f|13__nv_bfloat16)NS_\d+"
+                          r"(Contiguous|Paged)RowsE(?:Li(\d+)ELi(\d+)ELi(\d+)E)?")
+
+
+def check_decode_resources(log: str) -> dict:
+    """K3's and K4's kernels (split-KV split and merge) spill nothing;
+    {"split bf16 Paged LPR 8 NC 1 G<=4": {"registers", "spill_bytes"}, ...}."""
+    out = {}
+    for name, (regs, spill) in ptxas_resources(log).items():
+        m = DECODE_ENTRY.search(name)
+        if not m:
+            continue
+        kind, dt, rows, lpr, nc, gm = m.groups()
+        key = f"{kind} {'f32' if dt == 'f' else 'bf16'} {rows}"
+        if kind == "split":
+            key += f" LPR {lpr} NC {nc} G<={gm}"
+        out[key] = dict(registers=regs, spill_bytes=spill)
+    check(len(out) == 40, f"{len(out)} decode kernel instances in the build, not 40")
+    for key, r in sorted(out.items()):
+        print(f"    {key}: {r['registers']} registers, {r['spill_bytes']} bytes spilled")
+        check(r["spill_bytes"] == 0, f"decode kernel {key} spills {r['spill_bytes']} bytes")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -236,11 +269,15 @@ def hold_rms_norm(shape, dtype, gen) -> float:
 
 
 def check_kernels() -> dict:
-    """Every kernel vs its plain version; returns {kernel: max |err| in bf16}."""
+    """Every kernel vs its plain version; returns {kernel: max |err| in bf16}.
+    K3 and K4 at ``parity.DECODE_SHAPES``: K3 on live rows (its contract
+    is length >= 1), K4 on all; K3 == K4 bit for bit, a second launch of
+    each gives the same bits, and a length-0 row is exact zeros."""
     from repro_torch.kernels import (
         decode_attention, decode_attention_plain, paged_decode_attention,
         paged_decode_attention_plain,
     )
+    from repro_torch.kernels.parity import DECODE_BLOCK, DECODE_SHAPES
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
@@ -251,37 +288,34 @@ def check_kernels() -> dict:
             err = hold_rms_norm((rows, 2048), dtype, gen)
             if dtype == torch.bfloat16:
                 worst["rmsnorm"] = max(worst["rmsnorm"], err)
-        for H, Hkv in ((32, 8), (9, 3)):
-            for lens in ([1, 15, 16, 17], [1000, 1024, 500, 33], [0, 1, 15, 1000]):
-                B, S, D = len(lens), 1024, 64
-                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-                q = torch.randn((B, H, D), generator=gen).to(dev, dtype)
-                k = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dtype)
-                v = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dtype)
-                k_ar, v_ar, tables = scatter_to_arena(k, v, lens, BLOCK_SIZE, gen)
-                paged = paged_decode_attention(q, k_ar, v_ar, tables, lengths)
-                paged_ref = paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths)
-                torch.cuda.synchronize()
-                perr = (paged.float() - paged_ref.float()).abs().max().item()
-                print(f"  K4 paged_decode {name} H={H} Hkv={Hkv} lengths={lens}: "
-                      f"max|err|={perr:.3e}")
-                check(perr <= TOL[dtype], f"paged decode {name} {lens} disagrees")
-                live = lengths > 0
-                check(bool((paged[~live] == 0).all()), "length-0 row is not exact zeros")
-                if 0 not in lens:   # K3's contract is lengths >= 1
-                    out = decode_attention(q, k, v, lengths)
-                    ref = decode_attention_plain(q, k, v, lengths)
-                    torch.cuda.synchronize()
-                    err = (out.float() - ref.float()).abs().max().item()
-                    print(f"  K3 decode {name} H={H} Hkv={Hkv} lengths={lens}: "
-                          f"max|err|={err:.3e}; K3 == K4 bitwise: "
-                          f"{bool(torch.equal(out, paged))}")
-                    check(err <= TOL[dtype], f"decode {name} {lens} disagrees")
-                    check(torch.equal(out, paged), "K3 and K4 differ on identical rows")
-                    if dtype == torch.bfloat16:
-                        worst["decode_attention"] = max(worst["decode_attention"], err)
-                if dtype == torch.bfloat16:
-                    worst["paged_decode_attention"] = max(worst["paged_decode_attention"], perr)
+        for H, Hkv, D, S, lens in DECODE_SHAPES:
+            B = len(lens)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            live = lengths > 0
+            q = torch.randn((B, H, D), generator=gen).to(dev, dtype)
+            k = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dtype)
+            v = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dtype)
+            k_ar, v_ar, tables = scatter_to_arena(k, v, lens, DECODE_BLOCK, gen)
+            paged = paged_decode_attention(q, k_ar, v_ar, tables, lengths)
+            paged_ref = paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths)
+            out = decode_attention(q, k, v, lengths)
+            ref = decode_attention_plain(q, k, v, lengths)
+            same = (torch.equal(decode_attention(q, k, v, lengths), out)
+                    and torch.equal(paged_decode_attention(q, k_ar, v_ar, tables, lengths), paged))
+            torch.cuda.synchronize()
+            perr = (paged.float() - paged_ref.float()).abs().max().item()
+            err = (out[live].float() - ref[live].float()).abs().max().item()
+            print(f"  K3/K4 decode {name} H={H} Hkv={Hkv} D={D} S={S} lengths={lens}: "
+                  f"K3 max|err|={err:.3e}, K4 max|err|={perr:.3e}; K3 == K4 bitwise: "
+                  f"{bool(torch.equal(out, paged))}; repeat launches bitwise: {same}")
+            check(perr <= TOL[dtype], f"paged decode {name} {lens} disagrees")
+            check(err <= TOL[dtype], f"decode {name} {lens} disagrees")
+            check(bool((paged[~live] == 0).all()), "length-0 row is not exact zeros")
+            check(torch.equal(out, paged), "K3 and K4 differ on identical rows")
+            check(same, "a second launch of K3 or K4 gave other bits")
+            if dtype == torch.bfloat16:
+                worst["decode_attention"] = max(worst["decode_attention"], err)
+                worst["paged_decode_attention"] = max(worst["paged_decode_attention"], perr)
     return worst
 
 
@@ -379,12 +413,15 @@ def serve(model, params) -> dict:
 # Phase 5: timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, n: int = 60, warmup: int = 5) -> float:
+def time_ms(fn, n: int = 60, warmup: int = 5, flush_by_read: bool = False) -> float:
     """Median device time of ``fn`` over ``n`` launches, each bracketed by
-    CUDA events after an L2 flush (a 128 MiB write); a GPU-side sleep
-    before the batch lets the host enqueue ahead, so host launch overhead
-    is not timed."""
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    CUDA events after an L2 flush (a 128 MiB write, which leaves L2 full
+    of dirty lines that the timed work's reads must write back; with
+    ``flush_by_read``, a 128 MiB sum, which leaves it clean); a GPU-side
+    sleep before the batch lets the host enqueue ahead, so host launch
+    overhead is not timed."""
+    flush = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
+    flush_f32 = flush.view(torch.float32)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -392,7 +429,10 @@ def time_ms(fn, n: int = 60, warmup: int = 5) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     torch.cuda._sleep(50_000_000)
     for s, e in zip(starts, ends):
-        flush.zero_()
+        if flush_by_read:
+            flush_f32.sum()
+        else:
+            flush.zero_()
         s.record()
         fn()
         e.record()
@@ -407,14 +447,84 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(cfg, reqs) -> dict:
+#: Long-context decode shapes for llama3.2-1b's heads (32/8, D 64), timed
+#: beside the serving shape: (B, S, lengths).
+LONG_DECODE = {"a": (4, 8192, [8192, 6001, 2048, 4097]), "b": (1, 32768, [32768])}
+
+
+def decode_inputs(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen):
+    """bf16 q (B, H, hd) and caches (B, S, Hkv, hd) at ``lens``, and the
+    same rows in a shuffled arena of BLOCK_SIZE-row blocks."""
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, hd), generator=gen).to(dev, dt)
+    k = torch.randn((B, S, Hkv, hd), generator=gen).to(dev, dt)
+    v = torch.randn((B, S, Hkv, hd), generator=gen).to(dev, dt)
+    k_ar, v_ar, tables = scatter_to_arena(k, v, lens, BLOCK_SIZE, gen)
+    return q, k, v, lengths, k_ar, v_ar, tables
+
+
+def time_decode(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen) -> dict:
+    """K3 and K4 (bf16, block BLOCK_SIZE) at ``lens``: kernel, plain
+    version, one SDPA call (GQA, length mask; on the gathered view for
+    K4) and the bound: every live K/V row read once, q read and out
+    written once (and K4's live table entries)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (
         decode_attention, decode_attention_plain, paged_decode_attention,
-        paged_decode_attention_plain, rms_norm, rms_norm_plain,
+        paged_decode_attention_plain,
     )
-    from repro_torch.kernels.decode_attention import paged_kv_view
+    from repro_torch.kernels.decode_attention import sm_count, paged_kv_view, split_plan
+
+    q, k, v, lengths, k_ar, v_ar, tables = decode_inputs(B, S, H, Hkv, hd, lens, gen)
+    live = sum(lens)
+    io = 2 * (B * H * hd * 2) + B * 4
+    kv = live * Hkv * hd * 2 * 2
+    flops = live * H * (4 * hd + 5)
+    mask = (torch.arange(S, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    kp = paged_kv_view(k_ar, tables).transpose(1, 2)
+    vp = paged_kv_view(v_ar, tables).transpose(1, 2)
+
+    def sdpa(kk, vv):
+        return F.scaled_dot_product_attention(qs, kk, vv, attn_mask=mask, enable_gqa=True)
+
+    splits = split_plan(B, Hkv, S, sm_count(q.device.index))
+    out = {}
+    b, kind = bound(io + kv, flops)
+    out["decode_attention"] = dict(
+        shape=f"q ({B}, {H}, {hd}), cache ({B}, {S}, {Hkv}, {hd}) bf16, lengths {lens}",
+        n_splits=splits,
+        ms=time_ms(lambda: decode_attention(q, k, v, lengths)),
+        plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, lengths)),
+        library_ms=time_ms(lambda: sdpa(ks, vs)), bound_ms=b, bound_by=kind,
+    )
+    n_blocks = sum(-(-n // BLOCK_SIZE) for n in lens)
+    b, kind = bound(io + kv + n_blocks * 4, flops)
+    out["paged_decode_attention"] = dict(
+        shape=f"q ({B}, {H}, {hd}), arenas {tuple(k_ar.shape)} bf16, block {BLOCK_SIZE}, "
+              f"lengths {lens}",
+        n_splits=splits,
+        ms=time_ms(lambda: paged_decode_attention(q, k_ar, v_ar, tables, lengths)),
+        plain_ms=time_ms(lambda: paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths)),
+        library_ms=time_ms(lambda: sdpa(kp, vp)), bound_ms=b, bound_by=kind,
+    )
+    return out
+
+
+def print_kernel_times(out: dict) -> None:
+    for name, r in out.items():
+        print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f", {r['n_splits']} splits" if "n_splits" in r else ""))
+
+
+def time_kernels(cfg, reqs) -> tuple:
+    """(serving-shape times of K2, K3 and K4; K3 and K4 at LONG_DECODE)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rms_norm, rms_norm_plain
 
     dev, dt = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -434,43 +544,15 @@ def time_kernels(cfg, reqs) -> dict:
     # Decode attention at the serving run's geometry: 4 lanes mid-flight,
     # each at its prompt length plus half its new tokens.
     lens = [len(p) + m // 2 for p, m, _ in reqs[:N_SLOTS]]
-    B, H, Hkv, hd, S = N_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, MAX_LEN
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, hd), generator=gen).to(dev, dt)
-    k = torch.randn((B, S, Hkv, hd), generator=gen).to(dev, dt)
-    v = torch.randn((B, S, Hkv, hd), generator=gen).to(dev, dt)
-    k_ar, v_ar, tables = scatter_to_arena(k, v, lens, BLOCK_SIZE, gen)
-    live = sum(lens)
-    io = 2 * (B * H * hd * 2) + B * 4
-    kv = live * Hkv * hd * 2 * 2
-    flops = live * H * (4 * hd + 5)
-    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    kp, vp = paged_kv_view(k_ar, tables).transpose(1, 2), paged_kv_view(v_ar, tables).transpose(1, 2)
-
-    def sdpa(kk, vv):
-        return F.scaled_dot_product_attention(qs, kk, vv, attn_mask=mask, enable_gqa=True)
-
-    b, kind = bound(io + kv, flops)
-    out["decode_attention"] = dict(
-        shape=f"q ({B}, {H}, {hd}), cache ({B}, {S}, {Hkv}, {hd}) bf16, lengths {lens}",
-        ms=time_ms(lambda: decode_attention(q, k, v, lengths)),
-        plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, lengths)),
-        library_ms=time_ms(lambda: sdpa(ks, vs)), bound_ms=b, bound_by=kind,
-    )
-    n_blocks = sum(-(-n // BLOCK_SIZE) for n in lens)
-    b, kind = bound(io + kv + n_blocks * 4, flops)
-    out["paged_decode_attention"] = dict(
-        shape=f"q ({B}, {H}, {hd}), arenas {tuple(k_ar.shape)} bf16, block {BLOCK_SIZE}, "
-              f"lengths {lens}",
-        ms=time_ms(lambda: paged_decode_attention(q, k_ar, v_ar, tables, lengths)),
-        plain_ms=time_ms(lambda: paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths)),
-        library_ms=time_ms(lambda: sdpa(kp, vp)), bound_ms=b, bound_by=kind,
-    )
-    for name, r in out.items():
-        print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    return out
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    out.update(time_decode(N_SLOTS, MAX_LEN, *heads, lens, gen))
+    print_kernel_times(out)
+    long = {}
+    for label, (B, S, lens) in LONG_DECODE.items():
+        long[label] = time_decode(B, S, *heads, lens, gen)
+        print(f"  long-context shape ({label}):")
+        print_kernel_times(long[label])
+    return out, long
 
 
 # ---------------------------------------------------------------------------
@@ -490,10 +572,8 @@ def kernel_class(name: str) -> str:
         return "K5 ssd scan bwd"
     if "ssd_fwd" in name:
         return "K5 ssd scan fwd"
-    if "decode_kernel" in name and "PagedRows" in name:
-        return "K4 paged decode"
-    if "decode_kernel" in name:
-        return "K3 decode"
+    if "decode_split_kernel" in name or "decode_merge_kernel" in name:
+        return "K4 paged decode" if "PagedRows" in name else "K3 decode"
     low = name.lower()
     if any(s in low for s in ("gemm", "xmma", "cutlass", "gemv", "nvjet", "cublas")):
         return "GEMM (cuBLAS)"
@@ -1292,6 +1372,8 @@ def main() -> int:
             print("    " + line.strip())
     print("    K1's bf16 kernels on the main paths (cuobjdump -sass, ptxas -v):")
     tensor_cores = check_tensor_cores(lib, _build.build_log())
+    print("    K3's and K4's split and merge kernels (ptxas -v):")
+    decode_resources = check_decode_resources(_build.build_log())
 
     print("[3] kernels vs plain PyTorch on the card")
     worst = check_kernels()
@@ -1306,7 +1388,7 @@ def main() -> int:
     runs = serve(model, params)
 
     print("[5] timing (CUDA events, cold L2, median of 60)")
-    times = time_kernels(cfg, workload(cfg.vocab_size))
+    times, long_decode = time_kernels(cfg, workload(cfg.vocab_size))
     print("[6] where serving time goes (torch.profiler)")
     profiled = profile_serving(model, params)
     del params
@@ -1403,6 +1485,7 @@ def main() -> int:
         "kernels": kernels,
         "card": name, "power_limit": limit,
         "rmsnorm_prefill_shape": times["rmsnorm_prefill"],
+        "decode_long_context": long_decode,
         "decode_tokens_per_s": {p: runs[p]["stats"].decode_tokens_per_wsec for p in runs},
         "profile": profiled,
         "train_step_parity": parity,
@@ -1414,6 +1497,7 @@ def main() -> int:
         "ssd_kernel_shapes": {k: v["shape"] for k, v in ssd_times.items()},
         "zamba_flash_times": zamba_flash_times,
         "k1_tensor_cores": tensor_cores,
+        "decode_kernel_resources": decode_resources,
         "zamba_train_profile": zamba_profile,
         "seconds": time.perf_counter() - t_start,
     }

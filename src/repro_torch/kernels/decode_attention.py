@@ -14,11 +14,19 @@ its kernel for CUDA tensors (or raises); ``<wrapper>.launches`` counts
 kernel launches. The contiguous kernel's contract is ``lengths >= 1``
 (decode always holds the current token); at length 0 it writes zeros, as
 the paged kernel and its oracle do by convention.
+
+The kernels split each (sequence, kv head)'s rows across ``n_splits``
+blocks (split-KV) and merge the blocks' partial softmaxes in split order.
+``split_plan`` picks ``n_splits`` from the shapes alone (never from
+``lengths``, which stay on the card); ``split_rows`` is the row range
+each split takes, as the kernel computes it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import List, Tuple
 
 import torch
 
@@ -31,10 +39,57 @@ __all__ = [
     "paged_decode_attention",
     "paged_decode_attention_plain",
     "paged_kv_view",
+    "sm_count",
+    "split_plan",
+    "split_rows",
 ]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Split boundaries fall on multiples of this many rows (``kGranule`` in
+#: ``csrc/decode_attention.cu``).
+GRANULE = 16
+#: ``split_plan`` aims at this many blocks per SM, gives no split fewer
+#: than ``MIN_SPLIT_ROWS`` of ``max_rows`` and at most ``MAX_SPLITS``
+#: splits.
+BLOCKS_PER_SM = 2
+MIN_SPLIT_ROWS = 64
+MAX_SPLITS = 128
+
+
+def split_plan(B: int, Hkv: int, max_rows: int, n_sms: int) -> int:
+    """Splits of each (sequence, kv head)'s rows: enough blocks
+    (``n_splits * B * Hkv``) to fill ``n_sms`` SMs about ``BLOCKS_PER_SM``
+    times over, one split where ``B * Hkv`` does so already, and no more
+    than ``max_rows // MIN_SPLIT_ROWS``. A function of shapes only: K3 at
+    ``S`` and K4 at ``T * block_size == S`` get the same plan."""
+    want = -(-BLOCKS_PER_SM * n_sms // (B * Hkv))
+    return max(1, min(want, max_rows // MIN_SPLIT_ROWS, MAX_SPLITS))
+
+
+def split_rows(length: int, n_splits: int) -> List[Tuple[int, int]]:
+    """[begin, end) of each split of ``[0, length)``: an even share of its
+    ``ceil(length / GRANULE)`` granules, in split order (empty where
+    there are fewer granules than splits), as the kernel computes it."""
+    n_gran = -(-length // GRANULE)
+    return [(min(length, n_gran * s // n_splits * GRANULE),
+             min(length, n_gran * (s + 1) // n_splits * GRANULE)) for s in range(n_splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (the plan's ``n_sms``)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _workspace(q: torch.Tensor, n_splits: int):
+    """The f32 scratch of the split partials (B * H * n_splits * (D + 2)
+    values), or None where one split writes the output itself."""
+    if n_splits == 1:
+        return None
+    B, H, D = q.shape
+    return torch.empty(B * H * n_splits * (D + 2), dtype=torch.float32, device=q.device)
 
 
 def paged_kv_view(arena: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
@@ -102,9 +157,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *ints: torch.Tenso
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     B, H, D = q.shape
     Hkv = k.shape[2]
-    if k.shape[3] != D or H % Hkv or H // Hkv > 8 or D > 256:
+    if k.shape[3] != D or H % Hkv or H // Hkv > 8 or D > 256 or D % 8:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)} "
-                         "(need H % Hkv == 0, H / Hkv <= 8, head_dim <= 256)")
+                         "(need H % Hkv == 0, H / Hkv <= 8, head_dim <= 256 and a "
+                         "multiple of 8)")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("decode attention needs 16-byte aligned inputs (16-byte loads)")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,10 +182,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"batch mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"lengths {tuple(lengths.shape)}")
     out = torch.empty_like(q)
+    n_splits = split_plan(B, Hkv, S, sm_count(q.device.index))
+    ws = _workspace(q, n_splits)
     lib = _build.load_library()
     rc = lib.repro_decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, Hkv, D, S, _DTYPES[q.dtype],
+        None if ws is None else ws.data_ptr(), B, H, Hkv, D, S, n_splits, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     decode_attention.launches += 1
@@ -155,10 +216,13 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
         raise ValueError(f"batch mismatch: q {tuple(q.shape)}, tables "
                          f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
     out = torch.empty_like(q)
+    n_splits = split_plan(B, Hkv, T * bs, sm_count(q.device.index))
+    ws = _workspace(q, n_splits)
     lib = _build.load_library()
     rc = lib.repro_paged_decode_attention_fwd(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, H, Hkv, D, bs, T, _DTYPES[q.dtype],
+        lengths.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), B, H, Hkv,
+        D, bs, T, n_splits, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     paged_decode_attention.launches += 1

@@ -13,8 +13,31 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["FLASH_SHAPES", "SSD_SHAPES", "NEAR_ULPS", "BF16_UNIT", "within", "flash_within",
-           "ssd_within", "dscale_bf16_slack"]
+__all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "FLASH_SHAPES", "SSD_SHAPES", "NEAR_ULPS",
+           "BF16_UNIT", "within", "flash_within", "ssd_within", "dscale_bf16_slack"]
+
+#: Flash decode (K3, K4) cases: H, Hkv, D, S, lengths (B = len(lengths));
+#: the paged form reads the same rows through a shuffled arena of
+#: ``DECODE_BLOCK``-row blocks. llama3.2-1b's serving geometry (32/8
+#: heads, D 64, S 1024) and G = 3 (smollm) at lengths around a block
+#: and near S; the old small cases (S 256, G 1 to 8, D 32 to 128); lengths
+#: that land on split boundaries (the plan gives 9 splits at B 4, Hkv 8,
+#: S 1024 on 132 SMs: 9 x k granules of 16 rows, and one row either
+#: side); one row at B 1 long enough for many splits (S 4096: 33); G = 8
+#: at D 128; and G = 3 at D 256, the widest head the kernels take. A
+#: length of 0 is K4's empty row (zeros); K3's contract is length >= 1, so
+#: it is held to plain on live rows only.
+DECODE_BLOCK = 16
+DECODE_SHAPES = [
+    (32, 8, 64, 1024, [1, 15, 16, 17]), (32, 8, 64, 1024, [1000, 1024, 500, 33]),
+    (32, 8, 64, 1024, [0, 1, 15, 1000]), (9, 3, 64, 1024, [1, 15, 16, 17]),
+    (9, 3, 64, 1024, [1000, 1024, 500, 33]), (9, 3, 64, 1024, [0, 1, 15, 1000]),
+    (32, 8, 64, 256, [1, 15, 16, 17, 200, 256]), (9, 3, 64, 256, [1, 15, 16, 17, 200, 256]),
+    (8, 1, 128, 256, [1, 15, 16, 17, 200, 256]), (4, 4, 32, 256, [1, 15, 16, 17, 200, 256]),
+    (32, 8, 64, 1024, [144, 143, 145, 1008]), (32, 8, 64, 1024, [288, 1007, 1009, 9]),
+    (32, 8, 64, 4096, [4096]), (32, 8, 64, 4096, [4001]),
+    (8, 1, 128, 1024, [0, 1, 513, 1024]), (6, 2, 256, 512, [0, 1, 300, 512]),
+]
 
 #: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and

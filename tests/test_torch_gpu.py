@@ -23,7 +23,8 @@ from repro_torch import kernels as K
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention_rounding_terms
 from repro_torch.kernels.parity import (
-    FLASH_SHAPES, NEAR_ULPS, SSD_SHAPES, dscale_bf16_slack, flash_within, ssd_within, within,
+    DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, SSD_SHAPES, dscale_bf16_slack,
+    flash_within, ssd_within, within,
 )
 from repro_torch.kernels.ssd_scan import ssd_bwd_term_sums
 from repro_torch.models import Model
@@ -55,19 +56,24 @@ def test_rms_norm_kernel_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 64), (9, 3, 64), (8, 1, 128), (4, 4, 32)])
-def test_decode_kernels_match_plain(cuda, dtype, H, Hkv, D):
+@pytest.mark.parametrize("H,Hkv,D,S,lens", DECODE_SHAPES)
+def test_decode_kernels_match_plain(cuda, dtype, H, Hkv, D, S, lens):
+    """K3 and K4 against their plain versions at ``parity.DECODE_SHAPES``
+    (K3 on live rows: its contract is length >= 1); K3 == K4 bit for bit
+    on identical rows, a second launch gives the same bits (the splits
+    merge in a fixed order), and a length-0 row is exact zeros."""
     g = torch.Generator().manual_seed(1)
-    S, bs = 256, 16
-    lens = [1, 15, 16, 17, 200, 256]
+    bs = DECODE_BLOCK
     B = len(lens)
     q = torch.randn((B, H, D), generator=g).to(cuda, dtype)
     k = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
     v = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    live = lengths > 0
     atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     out = K.decode_attention(q, k, v, lengths)
-    torch.testing.assert_close(out.float(), K.decode_attention_plain(q, k, v, lengths).float(),
+    torch.testing.assert_close(out[live].float(),
+                               K.decode_attention_plain(q, k, v, lengths)[live].float(),
                                atol=atol, rtol=0)
     # The same rows through a shuffled arena whose other rows are garbage.
     T = S // bs
@@ -84,9 +90,40 @@ def test_decode_kernels_match_plain(cuda, dtype, H, Hkv, D):
         K.paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths).float(),
         atol=atol, rtol=0)
     assert torch.equal(paged, out), "K3 and K4 differ on identical rows"
+    assert torch.equal(K.decode_attention(q, k, v, lengths), out), "K3 is not deterministic"
+    assert torch.equal(K.paged_decode_attention(q, k_ar, v_ar, tables, lengths), paged), \
+        "K4 is not deterministic"
+    assert (paged[~live] == 0).all()
     zero = K.paged_decode_attention(q[:1], k_ar, v_ar, tables[:1],
                                     torch.zeros(1, dtype=torch.int32, device=cuda))
     assert (zero == 0).all()
+
+
+@pytest.mark.parametrize("bs", [1, 12, 48])
+def test_paged_decode_kernel_takes_any_block_size(cuda, bs):
+    """K4 over arenas whose block size is no power of two (or is 1):
+    equal to its plain version, and bit for bit to K3 on the same rows."""
+    g = torch.Generator().manual_seed(8)
+    H, Hkv, D, T = 32, 8, 64, 40
+    S = T * bs
+    lens = [1, bs, S // 2 + 1, S]
+    B = len(lens)
+    q = torch.randn((B, H, D), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((B, S, Hkv, D), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((B, S, Hkv, D), generator=g).to(cuda, torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    perm = torch.randperm(B * T, generator=g) + 1
+    k_ar = torch.randn((B * T + 1, bs, Hkv, D), generator=g).to(cuda, torch.bfloat16)
+    v_ar = torch.randn((B * T + 1, bs, Hkv, D), generator=g).to(cuda, torch.bfloat16)
+    k_ar[perm.to(cuda)] = k.reshape(B * T, bs, Hkv, D)
+    v_ar[perm.to(cuda)] = v.reshape(B * T, bs, Hkv, D)
+    tables = perm.reshape(B, T).to(cuda, torch.int32)
+    paged = K.paged_decode_attention(q, k_ar, v_ar, tables, lengths)
+    torch.testing.assert_close(
+        paged.float(),
+        K.paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths).float(),
+        atol=2e-2, rtol=0)
+    assert torch.equal(paged, K.decode_attention(q, k, v, lengths))
 
 
 def test_wrappers_never_fall_back_to_plain(cuda, monkeypatch):
@@ -232,6 +269,22 @@ def test_decode_kernels_refuse_grad(cuda):
                                                          device=cuda), lengths)
     with torch.no_grad():
         K.decode_attention(q, kv, kv, lengths)
+
+
+def test_decode_kernels_refuse_unsupported_inputs(cuda):
+    """A head_dim that is no multiple of 8, or an input that is not
+    16-byte aligned, raises instead of reaching the 16-byte loads."""
+    lengths = torch.tensor([5], dtype=torch.int32, device=cuda)
+    q, kv = torch.randn((1, 4, 12), device=cuda), torch.randn((1, 32, 2, 12), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K.decode_attention(q, kv, kv, lengths)
+    q = torch.randn(1 + 4 * 32, device=cuda)[1:].view(1, 4, 32)
+    kv = torch.randn((1, 32, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        K.decode_attention(q, kv, kv, lengths)
+    with pytest.raises(ValueError, match="aligned"):
+        K.paged_decode_attention(q, kv, kv, torch.tensor([[0, 0]], dtype=torch.int32,
+                                                         device=cuda), lengths)
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])
