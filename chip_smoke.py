@@ -10,13 +10,16 @@ runs, in order, and exits non-zero at the first phase that fails:
    turns TF32 off for float32 matrix products and convolutions;
 2. builds the port's CUDA kernels from ``src/repro_torch/csrc``, prints
    ptxas's registers and spills, and shows that K1's bf16 kernels on the
-   main paths (forward, dQ and dK/dV at D 64 and D 128) issue tensor-core
-   instructions (HMMA in ``cuobjdump -sass``) and spill nothing, and that
-   no instance of K3's and K4's split and merge kernels spills;
+   main paths (forward, dQ and dK/dV at D 64 and D 128) and every
+   instance of K5's bf16 kernels (the SSD scan's forward and backward)
+   hold tensor-core instructions (HMMA in ``cuobjdump -sass``) and spill
+   nothing, and that no instance of K3's and K4's split and merge kernels
+   spills;
 3. holds every kernel against its plain PyTorch version on the card, at
    the serving path's shapes, in f32 and bf16: K3 and K4 (split-KV flash
    decode) at ``parity.DECODE_SHAPES``, each bit for bit equal to the
-   other on identical rows and to a second launch of itself;
+   other on identical rows, to a second launch of itself, and, row by row,
+   to a launch of that row alone (the split plan reads no batch size);
 4. serves llama3.2-1b at full width in bf16 (random weights from a seed)
    through ``ServeEngine`` — 8 requests, 4 slots, chunked prefill — once
    over the contiguous pool and once over the paged pool, checks every
@@ -52,7 +55,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    full-width train step at beta = 1;
 11. holds the SSD scan (K5) forward and backward against their plain
    versions over the reference's kernel-test shapes, the reduced zamba2
-   shape and zamba2-1.2b's training shape, at two decays, in f32 and bf16;
+   shape and zamba2-1.2b's training shape, at two decays, in f32 and bf16
+   (bf16: the tensor-core kernels), each a second launch bit for bit;
 12. takes one train step of zamba2-1.2b at full width, cut to 2 Mamba2
    layers and one shared call, in f32, through the kernels on the card
    and through the plain versions on the CPU, held as in phase 8;
@@ -69,9 +73,9 @@ and prints the ``kernels`` JSON line (eight kernels; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times`` and phase 2's tensor-core
-report under ``k1_tensor_cores`` and decode-kernel report under
-``decode_kernel_resources``), the card line and, last, the
-``{"ok": true, ...}`` line.
+reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and
+decode-kernel report under ``decode_kernel_resources``), the card line
+and, last, the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the reference package.
 """
@@ -197,6 +201,39 @@ def check_tensor_cores(library: Path, log: str) -> dict:
     return out
 
 
+#: A K5 bf16 kernel's instance in a mangled name: forward or backward, P
+#: and N.
+K5_ENTRY = re.compile(r"(ssd_(?:fwd|bwd)_mma)ILi(\d+)ELi(\d+)E")
+#: Its instances: P and N in {16, 32, 64}, forward and backward.
+K5_TC_INSTANCES = 2 * 9
+
+
+def check_ssd_tensor_cores(library: Path, log: str) -> dict:
+    """Every K5 bf16 kernel instance has HMMA and spills nothing, and the
+    main path's (P = N = 64) are built;
+    {"kernel P/N": {"hmma", "registers", "spill_bytes"}}."""
+
+    def key(name):
+        m = K5_ENTRY.search(name)
+        return (m.group(1), *map(int, m.groups()[1:])) if m else None
+
+    res = {key(n): r for n, r in ptxas_resources(log).items() if key(n)}
+    hmma = {key(n): c for n, c in hmma_counts(library).items() if key(n)}
+    check(len(res) == K5_TC_INSTANCES and set(res) == set(hmma),
+          f"{len(res)} K5 bf16 kernel instances in the build, not {K5_TC_INSTANCES}")
+    for main in (("ssd_fwd_mma", 64, 64), ("ssd_bwd_mma", 64, 64)):
+        check(main in res, f"{main} (the main path's) is missing from the build")
+    out = {}
+    for k in sorted(res):
+        regs, spill = res[k]
+        out[f"{k[0]} P{k[1]}/N{k[2]}"] = dict(hmma=hmma[k], registers=regs, spill_bytes=spill)
+        print(f"    {k[0]}<P {k[1]}, N {k[2]}>: {hmma[k]} HMMA, {regs} registers, "
+              f"{spill} bytes spilled")
+        check(hmma[k] > 0, f"{k} has no HMMA: no tensor cores")
+        check(spill == 0, f"{k} spills {spill} bytes")
+    return out
+
+
 #: A decode kernel's instance in a mangled name: split or merge, dtype,
 #: row functor and, for the split kernel, lanes per row, 16-byte pieces per
 #: lane and the query group it is built for.
@@ -272,7 +309,8 @@ def check_kernels() -> dict:
     """Every kernel vs its plain version; returns {kernel: max |err| in bf16}.
     K3 and K4 at ``parity.DECODE_SHAPES``: K3 on live rows (its contract
     is length >= 1), K4 on all; K3 == K4 bit for bit, a second launch of
-    each gives the same bits, and a length-0 row is exact zeros."""
+    each gives the same bits, each row equals a launch of that row alone
+    bit for bit (K3 on live rows), and a length-0 row is exact zeros."""
     from repro_torch.kernels import (
         decode_attention, decode_attention_plain, paged_decode_attention,
         paged_decode_attention_plain,
@@ -302,17 +340,26 @@ def check_kernels() -> dict:
             ref = decode_attention_plain(q, k, v, lengths)
             same = (torch.equal(decode_attention(q, k, v, lengths), out)
                     and torch.equal(paged_decode_attention(q, k_ar, v_ar, tables, lengths), paged))
+            alone = all(
+                torch.equal(paged_decode_attention(q[b:b + 1], k_ar, v_ar, tables[b:b + 1],
+                                                   lengths[b:b + 1])[0], paged[b])
+                and (lens[b] == 0 or torch.equal(
+                    decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths[b:b + 1])[0],
+                    out[b]))
+                for b in range(B))
             torch.cuda.synchronize()
             perr = (paged.float() - paged_ref.float()).abs().max().item()
             err = (out[live].float() - ref[live].float()).abs().max().item()
             print(f"  K3/K4 decode {name} H={H} Hkv={Hkv} D={D} S={S} lengths={lens}: "
                   f"K3 max|err|={err:.3e}, K4 max|err|={perr:.3e}; K3 == K4 bitwise: "
-                  f"{bool(torch.equal(out, paged))}; repeat launches bitwise: {same}")
+                  f"{bool(torch.equal(out, paged))}; repeat launches bitwise: {same}; each row "
+                  f"== that row alone (B 1) bitwise: {alone}")
             check(perr <= TOL[dtype], f"paged decode {name} {lens} disagrees")
             check(err <= TOL[dtype], f"decode {name} {lens} disagrees")
             check(bool((paged[~live] == 0).all()), "length-0 row is not exact zeros")
             check(torch.equal(out, paged), "K3 and K4 differ on identical rows")
             check(same, "a second launch of K3 or K4 gave other bits")
+            check(alone, "a row of K3 or K4 differs from a launch of that row alone")
             if dtype == torch.bfloat16:
                 worst["decode_attention"] = max(worst["decode_attention"], err)
                 worst["paged_decode_attention"] = max(worst["paged_decode_attention"], perr)
@@ -490,7 +537,7 @@ def time_decode(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen) -> dict:
     def sdpa(kk, vv):
         return F.scaled_dot_product_attention(qs, kk, vv, attn_mask=mask, enable_gqa=True)
 
-    splits = split_plan(B, Hkv, S, sm_count(q.device.index))
+    splits = split_plan(Hkv, S, sm_count(q.device.index))
     out = {}
     b, kind = bound(io + kv, flops)
     out["decode_attention"] = dict(
@@ -1207,8 +1254,8 @@ def ssd_inputs(shape, dtype, gen, zamba: bool):
 def hold_ssd(shape, dtype, gen, zamba: bool) -> tuple:
     """K5 forward (y and every chunk's state) and backward vs their plain
     versions (``parity.ssd_within``: ddt, dA, dB and dC, long sums whose
-    addends may cancel, get 1e-6 of the size they were formed from); (y
-    err, max gradient err)."""
+    addends may cancel, get 1e-6 of the size they were formed from), and
+    a second launch of each bit for bit; (y err, max gradient err)."""
     from repro_torch.kernels import ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_fwd
     from repro_torch.kernels.parity import ssd_within
     from repro_torch.kernels.ssd_scan import _states_plain, _unlay, ssd_bwd_term_sums
@@ -1219,6 +1266,10 @@ def hold_ssd(shape, dtype, gen, zamba: bool) -> tuple:
     ref_y, ref_states = _states_plain(x, dt, A, Bm, Cm, chunk)
     ref_y = _unlay(ref_y, x.shape[1]).to(dtype)
     grads = ssd_scan_bwd(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
+    y2, states2 = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    grads2 = ssd_scan_bwd(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
+    same = (torch.equal(y, y2) and torch.equal(states, states2)
+            and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
     refs = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
     terms = (None,) + ssd_bwd_term_sums(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
     torch.cuda.synchronize()
@@ -1230,8 +1281,10 @@ def hold_ssd(shape, dtype, gen, zamba: bool) -> tuple:
     name = str(dtype).replace("torch.", "")
     print(f"  K5 {name} B,S,H,P,G,N,chunk={shape}{' zamba decay' if zamba else ''}: y "
           f"{e_y:.2e}, states {e_s:.2e}, dx/ddt/dA/dB/dC "
-          f"{' / '.join(f'{e:.2e}' for e, _ in bwd)} ({'ok' if ok else 'FAIL'})")
+          f"{' / '.join(f'{e:.2e}' for e, _ in bwd)}; repeat launches bitwise: {same} "
+          f"({'ok' if ok else 'FAIL'})")
     check(ok, f"ssd scan {name} {shape} disagrees with its plain version")
+    check(same, f"a second launch of the ssd scan {name} {shape} gave other bits")
     return e_y, max(e for e, _ in bwd)
 
 
@@ -1304,6 +1357,24 @@ def ssd_work(shape, dtype) -> tuple:
     return fwd_bytes, flops, bwd_bytes, 2 * flops
 
 
+def ssd_mma_issued(shape) -> tuple:
+    """(forward, backward) flops of the m16n8k16 products the bf16 kernels
+    issue at ``shape`` (4096 flops each, two per multiply-add), counted from
+    their loops in ``csrc/ssd_scan.cu``: per (b, h, chunk) with NB 16-row
+    tiles and NB (NB + 1) / 2 causal 16 x 16 tiles, a product with an f32
+    operand (hi and lo) counting twice and whole diagonal tiles counted.
+    The work ``ssd_work`` counts is the part of this the scan needs."""
+    B, S, H, P, G, N, chunk = shape
+    NB = (min(chunk, 128) + 15) // 16
+    tiles, slab = NB * (NB + 1) // 2, (P // 16) * (N // 8) * NB * 2
+    state = NB * (P // 16) * (N // 8) * 2           # 16 rows against an f32 state
+    fwd = state + tiles * (N // 16 * 2 + P // 16 * 4) + slab
+    bwd = (3 * state + tiles * (N // 16 * 2 + P // 16 * 2 + N // 16 * 4)
+           + tiles * (N // 16 * 2 + P // 16 * 4) + tiles * (P // 16 * 2 + N // 16 * 4) + slab)
+    n = B * H * -(-S // chunk) * 4096
+    return fwd * n, bwd * n
+
+
 def time_ssd_kernels(cfg) -> dict:
     """K5 forward and backward at zamba2-1.2b's training shape (32 x 512
     tokens, bf16) beside their plain versions and bounds. No PyTorch call
@@ -1320,6 +1391,7 @@ def time_ssd_kernels(cfg) -> dict:
     chunk = ssm.chunk
     _, states = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
     fb, ff, bb, bf = ssd_work(shape, dt_)
+    issued = ssd_mma_issued(shape)
     desc = (f"x ({TRAIN_B}, {TRAIN_S}, {H}, {ssm.head_dim}), B/C ({TRAIN_B}, {TRAIN_S}, "
             f"{ssm.n_groups}, {ssm.d_state}) bf16, chunk {chunk}")
     out = {}
@@ -1327,7 +1399,7 @@ def time_ssd_kernels(cfg) -> dict:
     out["ssd_scan"] = dict(
         shape=desc, ms=time_ms(lambda: ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk), n=30),
         plain_ms=time_ms(lambda: _states_plain(x, dt, A, Bm, Cm, chunk), n=30),
-        library_ms=None, bound_ms=b, bound_by=kind, flops=ff, bytes=fb,
+        library_ms=None, bound_ms=b, bound_by=kind, flops=ff, bytes=fb, issued_flops=issued[0],
     )
     b, kind = bound(bb, bf, BF16_FLOPS)
     out["ssd_scan_bwd"] = dict(
@@ -1335,13 +1407,15 @@ def time_ssd_kernels(cfg) -> dict:
         ms=time_ms(lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, chunk=chunk), n=30),
         plain_ms=time_ms(lambda: ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy,
                                                     chunk=chunk), n=30),
-        library_ms=None, bound_ms=b, bound_by=kind, flops=bf, bytes=bb,
+        library_ms=None, bound_ms=b, bound_by=kind, flops=bf, bytes=bb, issued_flops=issued[1],
     )
     for name, r in out.items():
         print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library none (no PyTorch call computes the SSD scan), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e9:.3f} GB, "
-              f"{r['flops'] / 1e9:.1f} GFLOP); {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
+              f"{r['flops'] / 1e9:.1f} GFLOP); {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s; "
+              f"issued mma {r['issued_flops'] / 1e9:.1f} GFLOP, "
+              f"{r['issued_flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
     return out
 
 
@@ -1372,6 +1446,8 @@ def main() -> int:
             print("    " + line.strip())
     print("    K1's bf16 kernels on the main paths (cuobjdump -sass, ptxas -v):")
     tensor_cores = check_tensor_cores(lib, _build.build_log())
+    print("    K5's bf16 kernels (cuobjdump -sass, ptxas -v):")
+    ssd_tensor_cores = check_ssd_tensor_cores(lib, _build.build_log())
     print("    K3's and K4's split and merge kernels (ptxas -v):")
     decode_resources = check_decode_resources(_build.build_log())
 
@@ -1497,6 +1573,7 @@ def main() -> int:
         "ssd_kernel_shapes": {k: v["shape"] for k, v in ssd_times.items()},
         "zamba_flash_times": zamba_flash_times,
         "k1_tensor_cores": tensor_cores,
+        "k5_tensor_cores": ssd_tensor_cores,
         "decode_kernel_resources": decode_resources,
         "zamba_train_profile": zamba_profile,
         "seconds": time.perf_counter() - t_start,

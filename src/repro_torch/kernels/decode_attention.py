@@ -18,8 +18,9 @@ the paged kernel and its oracle do by convention.
 The kernels split each (sequence, kv head)'s rows across ``n_splits``
 blocks (split-KV) and merge the blocks' partial softmaxes in split order.
 ``split_plan`` picks ``n_splits`` from the shapes alone (never from
-``lengths``, which stay on the card); ``split_rows`` is the row range
-each split takes, as the kernel computes it.
+``lengths``, which stay on the card, nor from the batch size);
+``split_rows`` is the row range each split takes, as the kernel
+computes it.
 """
 
 from __future__ import annotations
@@ -50,21 +51,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Split boundaries fall on multiples of this many rows (``kGranule`` in
 #: ``csrc/decode_attention.cu``).
 GRANULE = 16
-#: ``split_plan`` aims at this many blocks per SM, gives no split fewer
-#: than ``MIN_SPLIT_ROWS`` of ``max_rows`` and at most ``MAX_SPLITS``
-#: splits.
+#: ``split_plan`` aims at this many blocks per SM for one sequence, gives
+#: no split fewer than ``MIN_SPLIT_ROWS`` of ``max_rows`` and at most
+#: ``MAX_SPLITS`` splits.
 BLOCKS_PER_SM = 2
-MIN_SPLIT_ROWS = 64
+MIN_SPLIT_ROWS = 128
 MAX_SPLITS = 128
 
 
-def split_plan(B: int, Hkv: int, max_rows: int, n_sms: int) -> int:
-    """Splits of each (sequence, kv head)'s rows: enough blocks
-    (``n_splits * B * Hkv``) to fill ``n_sms`` SMs about ``BLOCKS_PER_SM``
-    times over, one split where ``B * Hkv`` does so already, and no more
-    than ``max_rows // MIN_SPLIT_ROWS``. A function of shapes only: K3 at
-    ``S`` and K4 at ``T * block_size == S`` get the same plan."""
-    want = -(-BLOCKS_PER_SM * n_sms // (B * Hkv))
+def split_plan(Hkv: int, max_rows: int, n_sms: int) -> int:
+    """Splits of each (sequence, kv head)'s rows: enough blocks for one
+    sequence (``n_splits * Hkv``) to fill ``n_sms`` SMs about
+    ``BLOCKS_PER_SM`` times over, and no more than ``max_rows //
+    MIN_SPLIT_ROWS``. A function of shapes only, and never of the batch:
+    a sequence's rows are summed in one order whichever sequences share
+    its launch (a served stream equals its offline decode, and a stream
+    resumed in another batch goes on as it began). K3 at ``S`` and K4 at
+    ``T * block_size == S`` get the same plan."""
+    want = -(-BLOCKS_PER_SM * n_sms // Hkv)
     return max(1, min(want, max_rows // MIN_SPLIT_ROWS, MAX_SPLITS))
 
 
@@ -182,7 +186,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"batch mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"lengths {tuple(lengths.shape)}")
     out = torch.empty_like(q)
-    n_splits = split_plan(B, Hkv, S, sm_count(q.device.index))
+    n_splits = split_plan(Hkv, S, sm_count(q.device.index))
     ws = _workspace(q, n_splits)
     lib = _build.load_library()
     rc = lib.repro_decode_attention_fwd(
@@ -216,7 +220,7 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
         raise ValueError(f"batch mismatch: q {tuple(q.shape)}, tables "
                          f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
     out = torch.empty_like(q)
-    n_splits = split_plan(B, Hkv, T * bs, sm_count(q.device.index))
+    n_splits = split_plan(Hkv, T * bs, sm_count(q.device.index))
     ws = _workspace(q, n_splits)
     lib = _build.load_library()
     rc = lib.repro_paged_decode_attention_fwd(

@@ -21,9 +21,9 @@ __all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "FLASH_SHAPES", "SSD_SHAPES", "NEAR_
 #: ``DECODE_BLOCK``-row blocks. llama3.2-1b's serving geometry (32/8
 #: heads, D 64, S 1024) and G = 3 (smollm) at lengths around a block
 #: and near S; the old small cases (S 256, G 1 to 8, D 32 to 128); lengths
-#: that land on split boundaries (the plan gives 9 splits at B 4, Hkv 8,
-#: S 1024 on 132 SMs: 9 x k granules of 16 rows, and one row either
-#: side); one row at B 1 long enough for many splits (S 4096: 33); G = 8
+#: that land on the boundaries of 9 and of 16 splits (9 x k and 16 x k
+#: granules of 16 rows, and one row either side; the plan gives 8 at Hkv 8,
+#: S 1024 on 132 SMs); one row long enough for many splits (S 4096: 32); G = 8
 #: at D 128; and G = 3 at D 256, the widest head the kernels take. A
 #: length of 0 is K4's empty row (zeros); K3's contract is length >= 1, so
 #: it is held to plain on live rows only.
@@ -35,6 +35,7 @@ DECODE_SHAPES = [
     (32, 8, 64, 256, [1, 15, 16, 17, 200, 256]), (9, 3, 64, 256, [1, 15, 16, 17, 200, 256]),
     (8, 1, 128, 256, [1, 15, 16, 17, 200, 256]), (4, 4, 32, 256, [1, 15, 16, 17, 200, 256]),
     (32, 8, 64, 1024, [144, 143, 145, 1008]), (32, 8, 64, 1024, [288, 1007, 1009, 9]),
+    (32, 8, 64, 1024, [256, 255, 257, 1023]),
     (32, 8, 64, 4096, [4096]), (32, 8, 64, 4096, [4001]),
     (8, 1, 128, 1024, [0, 1, 513, 1024]), (6, 2, 256, 512, [0, 1, 300, 512]),
 ]

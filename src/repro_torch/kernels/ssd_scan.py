@@ -29,6 +29,12 @@ wrapper takes its plain version for tensors on the CPU and launches its
 kernel for CUDA tensors (or raises); ``ssd_scan.launches`` and
 ``ssd_scan_bwd.launches`` count kernel launches (the backward's two
 launches count as one).
+
+In bf16 the kernels run the in-chunk products on the tensor cores and
+take P and N in ``MMA_DIMS`` (they raise on others). Each f32 operand of
+those products is split into two bf16 parts (hi = bf16(v), lo =
+bf16(v - hi)), so every term keeps 16 bits; ``parity.ssd_within`` holds
+them as it holds the f32 kernels.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from . import _build
 
 __all__ = [
     "MAX_CHUNK",
+    "MMA_DIMS",
     "ssd_scan",
     "ssd_scan_fwd",
     "ssd_scan_bwd",
@@ -55,6 +62,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Longest chunk the kernels take: a chunk's (Q, Q) decay matrix and its
 #: x, B, C (and dy) tiles share one block's shared memory.
 MAX_CHUNK = 128
+#: P (head dim) and N (state dim) the bf16 tensor-core kernels take.
+MMA_DIMS = (16, 32, 64)
 
 
 def _per_head_chunks(x, dt, A, Bm, Cm, chunk, *more):
@@ -238,6 +247,17 @@ def _check(x, dt, A, Bm, Cm, chunk, *more) -> Tuple[int, ...]:
     return Bsz, S, H, P, G, N, Q
 
 
+def _check_mma(P: int, N: int, *ts: torch.Tensor) -> None:
+    """The bf16 kernels' extra terms: P and N in ``MMA_DIMS``, and 16-byte
+    aligned tiles (16-byte cp.async)."""
+    if P not in MMA_DIMS or N not in MMA_DIMS:
+        raise ValueError(f"the bf16 ssd_scan kernels take P and N in {MMA_DIMS}, "
+                         f"not P {P}, N {N}")
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("the bf16 ssd_scan kernels need 16-byte aligned inputs")
+
+
 def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5 forward: (y (B, S, H, P) in x's dtype, states (B, H, nc + 1, P, N)
     f32, the state entering each chunk and, last, the final state)."""
@@ -247,6 +267,8 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int) -> Tuple[torch.Tensor, torch.T
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
     Bsz, S, H, P, G, N, Q = _check(x, dt, A, Bm, Cm, chunk)
+    if x.dtype == torch.bfloat16:
+        _check_mma(P, N, x, Bm, Cm)
     nc = math.ceil(S / Q)
     y = torch.empty_like(x)
     states = torch.empty((Bsz, H, nc + 1, P, N), dtype=torch.float32, device=x.device)
@@ -275,6 +297,8 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, *, chunk: int):
             or dy.shape != x.shape or dy.dtype != x.dtype):
         raise ValueError(f"states {tuple(states.shape)} {states.dtype}, dy {tuple(dy.shape)} "
                          f"{dy.dtype} do not match x {tuple(x.shape)} {x.dtype}")
+    if x.dtype == torch.bfloat16:
+        _check_mma(P, N, x, Bm, Cm, states, dy)
     dev = x.device
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dB, dC, dA = torch.empty_like(Bm), torch.empty_like(Cm), torch.empty_like(A)

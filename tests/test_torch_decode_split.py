@@ -13,6 +13,7 @@ generator. Tolerance: 2e-5 in f32, 2e-2 in bf16 (both round once to bf16
 at the end, from f32 sums taken in other orders).
 """
 
+import inspect
 import math
 
 import jax.numpy as jnp
@@ -106,19 +107,19 @@ def _split_merge(q, k, v, lengths, n_splits):
 # ---------------------------------------------------------------------------
 
 PLAN_SHAPES = [
-    # B, Hkv, max_rows
+    # B, Hkv, max_rows (B: the batch beside it, which the plan does not read)
     (4, 8, 1024),        # llama3.2-1b serving: 4 slots, max_len 1024
     (4, 8, 8192),
     (1, 8, 32768),
     (1, 1, 64), (1, 1, 65), (3, 3, 100), (2, 2, 4096),
-    (32, 8, 2048),       # B * Hkv = 256, just short of 2 x 132: two splits
+    (32, 8, 2048),
     (64, 8, 512), (8, 32, 1024), (1, 1, 1 << 20),
 ]
 
 
 @pytest.mark.parametrize("B,Hkv,max_rows", PLAN_SHAPES)
 def test_split_plan_covers_max_rows_in_whole_granules(B, Hkv, max_rows):
-    n = split_plan(B, Hkv, max_rows, H100_SMS)
+    n = split_plan(Hkv, max_rows, H100_SMS)
     assert 1 <= n <= MAX_SPLITS
     if max_rows >= MIN_SPLIT_ROWS:
         assert n <= max_rows // MIN_SPLIT_ROWS
@@ -132,15 +133,50 @@ def test_split_plan_covers_max_rows_in_whole_granules(B, Hkv, max_rows):
         assert r1 % GRANULE == 0 or r1 == max_rows
         # No split of a full row is shorter than a granule.
         assert r1 - r0 >= min(GRANULE, max_rows)
-    # Enough blocks to fill the card about twice, unless capped.
+    # Enough blocks for one sequence to fill the card about twice, unless
+    # capped: whatever the batch B beside it.
     if n < min(max_rows // MIN_SPLIT_ROWS, MAX_SPLITS):
-        assert n * B * Hkv >= 2 * H100_SMS
+        assert n * Hkv >= 2 * H100_SMS
 
 
-@pytest.mark.parametrize("B,Hkv", [(33, 8), (64, 8), (264, 1), (8, 33)])
-def test_split_plan_is_one_split_where_the_pairs_fill_the_card(B, Hkv):
-    assert B * Hkv >= 2 * H100_SMS
-    assert split_plan(B, Hkv, 32768, H100_SMS) == 1
+@pytest.mark.parametrize("Hkv,max_rows", [(8, 1024), (8, 512), (1, 4096), (33, 256),
+                                          (3, 256), (2, 2048)])
+def test_split_plan_is_the_same_for_every_batch_size(Hkv, max_rows):
+    """The plan reads no batch size, so every row of a batch of B is split
+    (and its partial softmaxes merged) exactly as that row alone: for B in
+    {1, 4, 33, 64}, the split-and-merge arithmetic at the plan the wrapper
+    takes for the batch gives, row by row and bit for bit, what it gives
+    for each row alone at the plan the wrapper takes for that row. The
+    engine's B 4 tick and offline decode's B 1 sum a sequence in one
+    order."""
+    assert "B" not in inspect.signature(split_plan).parameters
+    G, D = 2, 16
+    rng = np.random.default_rng(Hkv + max_rows)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # thousands of tiny products: threads only contend
+    try:
+        _each_row_as_alone(Hkv, max_rows, G, D, rng)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _each_row_as_alone(Hkv, max_rows, G, D, rng):
+    """Each row of ``_split_merge`` over batches of 1, 4, 33 and 64 rows
+    equals, bit for bit, that row's ``_split_merge`` alone."""
+    for B in (1, 4, 33, 64):
+        q = torch.from_numpy(rng.normal(size=(B, Hkv * G, D)).astype(np.float32))
+        k, v = (torch.from_numpy(rng.normal(size=(B, max_rows, Hkv, D)).astype(np.float32))
+                for _ in range(2))
+        lengths = rng.integers(0, max_rows + 1, size=B)
+        lengths[0] = max_rows
+        # As decode_attention takes it: from the cache's shape, never from B.
+        n_batch = split_plan(k.shape[2], k.shape[1], H100_SMS)
+        batch = _split_merge(q, k, v, lengths, n_batch)
+        for b in range(B):
+            n_alone = split_plan(k[b:b + 1].shape[2], k[b:b + 1].shape[1], H100_SMS)
+            alone = _split_merge(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths[b:b + 1],
+                                 n_alone)
+            assert torch.equal(batch[b], alone[0]), f"B {B}, row {b}"
 
 
 @pytest.mark.parametrize("bs", [1, 16, 32, 256])
@@ -149,10 +185,10 @@ def test_split_plan_is_the_same_for_k3_and_k4(B, Hkv, S, bs):
     """K3 plans from S, K4 from T * block_size: equal rows, equal plans
     and equal row ranges; the plan reads no lengths."""
     T = S // bs
-    assert split_plan(B, Hkv, S, H100_SMS) == split_plan(B, Hkv, T * bs, H100_SMS)
-    n = split_plan(B, Hkv, S, H100_SMS)
+    assert split_plan(Hkv, S, H100_SMS) == split_plan(Hkv, T * bs, H100_SMS)
+    n = split_plan(Hkv, S, H100_SMS)
     for length in (0, 1, 17, S // 3, S):
-        assert split_rows(length, n) == split_rows(length, split_plan(B, Hkv, T * bs, H100_SMS))
+        assert split_rows(length, n) == split_rows(length, split_plan(Hkv, T * bs, H100_SMS))
 
 
 @pytest.mark.parametrize("length", [0, 1, GRANULE - 1, GRANULE, GRANULE + 1, 543, 4097])
@@ -179,7 +215,7 @@ LENGTHS = [0, 1, GRANULE - 1, GRANULE, GRANULE + 1, S, 100, 203]
 #: One split (the split kernel writes the output), a few, the plan's
 #: choice for these shapes on 132 SMs, and more splits than a short
 #: row has granules (empty splits merge in).
-N_SPLITS = [1, 2, 5, split_plan(len(LENGTHS), HKV, S, H100_SMS), 40]
+N_SPLITS = [1, 2, 5, split_plan(HKV, S, H100_SMS), 40]
 
 
 def _scatter_to_arena(k, v, lengths, block_size, rng):

@@ -99,6 +99,36 @@ def test_decode_kernels_match_plain(cuda, dtype, H, Hkv, D, S, lens):
     assert (zero == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D,S,lens", [c for c in DECODE_SHAPES if len(c[4]) > 1])
+def test_decode_rows_do_not_depend_on_the_batch(cuda, dtype, H, Hkv, D, S, lens):
+    """The split plan reads no batch size: row b of a K3 and of a K4 launch
+    over the batch equals, bit for bit, a launch of row b alone at the
+    same max_rows (K3 on live rows, its contract being length >= 1)."""
+    g = torch.Generator().manual_seed(3)
+    bs, B = DECODE_BLOCK, len(lens)
+    T = S // bs
+    q = torch.randn((B, H, D), generator=g).to(cuda, dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    perm = torch.randperm(B * T, generator=g) + 1
+    k_ar = torch.randn((B * T + 1, bs, Hkv, D), generator=g).to(cuda, dtype)
+    v_ar = torch.randn((B * T + 1, bs, Hkv, D), generator=g).to(cuda, dtype)
+    k_ar[perm.to(cuda)] = k.reshape(B * T, bs, Hkv, D)
+    v_ar[perm.to(cuda)] = v.reshape(B * T, bs, Hkv, D)
+    tables = perm.reshape(B, T).to(cuda, torch.int32)
+    out = K.decode_attention(q, k, v, lengths)
+    paged = K.paged_decode_attention(q, k_ar, v_ar, tables, lengths)
+    for b in range(B):
+        one = K.paged_decode_attention(q[b:b + 1], k_ar, v_ar, tables[b:b + 1],
+                                       lengths[b:b + 1])
+        assert torch.equal(one[0], paged[b]), f"K4 row {b}"
+        if lens[b] > 0:
+            one = K.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths[b:b + 1])
+            assert torch.equal(one[0], out[b]), f"K3 row {b}"
+
+
 @pytest.mark.parametrize("bs", [1, 12, 48])
 def test_paged_decode_kernel_takes_any_block_size(cuda, bs):
     """K4 over arenas whose block size is no power of two (or is 1):
@@ -370,6 +400,10 @@ def test_ssd_scan_kernels_match_plain(cuda, dtype, zamba, B, S, H, P, G, N, chun
     assert ssd_within(y, _unlay(ref_y, S).to(dtype), dtype)[1]
     assert ssd_within(states, ref_states, torch.float32)[1]
     grads = K.ssd_scan_bwd(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
+    y2, states2 = K.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    assert torch.equal(y2, y) and torch.equal(states2, states), "K5 is not deterministic"
+    for a, b in zip(K.ssd_scan_bwd(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk), grads):
+        assert torch.equal(a, b), "K5's backward is not deterministic"
     refs = K.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
     terms = (None,) + ssd_bwd_term_sums(x, dt, A, Bm, Cm, ref_states, dy, chunk=chunk)
     for name, a, b, t in zip(("dx", "ddt", "dA", "dB", "dC"), grads, refs, terms):

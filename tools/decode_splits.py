@@ -100,7 +100,7 @@ def time_shape(libs, label: str, B: int, S: int, lens, heads, gen) -> dict:
 
     lib, loads_only = libs
     q, k, v, lengths, k_ar, v_ar, tables = decode_inputs(B, S, *heads, lens, gen)
-    plan = split_plan(B, heads[1], S, sm_count(q.device.index))
+    plan = split_plan(heads[1], S, sm_count(q.device.index))
     counts = sorted(set(COUNTS) | {plan})
 
     def calls(cdll):
