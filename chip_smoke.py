@@ -14,9 +14,10 @@ runs, in order, and exits non-zero at the first phase that fails:
    instance of K5's bf16 kernels (the SSD scan's forward and backward)
    hold tensor-core instructions (HMMA in ``cuobjdump -sass``) and spill
    nothing, and that no instance of K3's and K4's split and merge kernels
-   spills;
+   and of K2's forward, backward and dscale-sum kernels spills;
 3. holds every kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, in f32 and bf16: K3 and K4 (split-KV flash
+   the serving path's shapes, in f32 and bf16: K2 at the decode tick's 4
+   rows and a prefill chunk's 256, each a second launch bit for bit; K3 and K4 (split-KV flash
    decode) at ``parity.DECODE_SHAPES``, each bit for bit equal to the
    other on identical rows, to a second launch of itself, and, row by row,
    to a launch of that row alone (the split plan reads no batch size);
@@ -27,8 +28,10 @@ runs, in order, and exits non-zero at the first phase that fails:
    stream, and checks from the kernels' launch counters that the whole
    path ran through them;
 5. times each kernel (CUDA events, cold L2, median of 60 launches)
-   beside its plain version, one library call and its bound, K3 and K4
-   also at two long-context shapes (``LONG_DECODE``), and reports decode
+   beside its plain version, one library call and its bound (K2 at the
+   decode tick's and a prefill chunk's rows), K3 and K4 also at two
+   long-context shapes (``LONG_DECODE``), the launch floor (``t.add_(0)``
+   on a one-element tensor under the same timer), and reports decode
    tokens/s of each pool;
 6. profiles decode ticks and prefill chunks with ``torch.profiler`` —
    host wall time, device time, the device's idle share, launches, and
@@ -38,7 +41,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    kernel-test shapes and the training shape, causal and not, in f32
    and bf16, plus the training shape with q and k scaled by 4 (scores
    near 100), and the RMSNorm forward and backward (K2) at the training
-   rows;
+   rows of both models' widths (D 2048 and 4096), each a second launch
+   bit for bit;
 8. takes one train step of llama3.2-1b at full width, cut to 2 layers,
    in f32, through the kernels on the card, and the same step on the
    CPU through the plain versions, and holds loss, gradient norm and
@@ -50,9 +54,9 @@ runs, in order, and exits non-zero at the first phase that fails:
    path, the kernels' launch counts per step and the peak memory; then
    holds the training kernels against their plain versions at every
    batch shape the loop ran;
-10. times the training kernels at the training shape beside their plain
-   versions, one library call and their bounds, and profiles one
-   full-width train step at beta = 1;
+10. times the training kernels at the training shape (K1; K2 forward and
+   backward at D 2048) beside their plain versions, one library call and
+   their bounds, and profiles one full-width train step at beta = 1;
 11. holds the SSD scan (K5) forward and backward against their plain
    versions over the reference's kernel-test shapes, the reduced zamba2
    shape and zamba2-1.2b's training shape, at two decays, in f32 and bf16
@@ -65,16 +69,20 @@ runs, in order, and exits non-zero at the first phase that fails:
    llama3.2-1b, with the same checks, then holds K5, K1 and K2 against
    their plain versions at every batch shape the loop ran;
 14. times K5 forward and backward at the training shape beside their
-   plain versions and bounds, and K1 forward and backward at the shared
-   block's shape (MHA, D 128) beside theirs and SDPA, and profiles one
-   full-width zamba2 train step;
+   plain versions and bounds, K1 forward and backward at the shared
+   block's shape (MHA, D 128) beside theirs and SDPA, and K2 forward and
+   backward at zamba2's 4096-wide norms beside theirs and ``F.rms_norm``,
+   and profiles one full-width zamba2 train step;
 
 and prints the ``kernels`` JSON line (eight kernels; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
-zamba2's shape under ``zamba_flash_times`` and phase 2's tensor-core
-reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and
-decode-kernel report under ``decode_kernel_resources``), the card line
+zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
+``zamba_rmsnorm_times`` and at llama's training rows under
+``rmsnorm_train_forward``, the launch floor, phase 2's tensor-core
+reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
+decode-kernel and K2 reports under ``decode_kernel_resources`` and
+``k2_resources``), the card line
 and, last, the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the reference package.
@@ -261,6 +269,37 @@ def check_decode_resources(log: str) -> dict:
     return out
 
 
+#: A K2 kernel's instance in a mangled name: forward rows, backward rows or
+#: the backward's dscale sum; dtype; 16-byte vectors; for the row kernels,
+#: units per thread, prefetch and the most threads a block.
+K2_ENTRY = re.compile(r"(rmsnorm_(?:fwd_rows|bwd_rows|bwd_reduce))I(f|13__nv_bfloat16)"
+                      r"Lb([01])E(?:Li(\d+)ELb([01])ELi(\d+)E)?")
+#: Its instances (``kInstances`` in ``csrc/rmsnorm.cu``): 18 forward, 13
+#: backward, 4 dscale sums.
+K2_INSTANCES = 35
+
+
+def check_rmsnorm_resources(log: str, fail: bool = True) -> dict:
+    """Every K2 instance is built and (``fail``) spills nothing;
+    {"kernel dtype vec J threads": {"registers", "spill_bytes"}}."""
+    out = {}
+    for name, (regs, spill) in ptxas_resources(log).items():
+        m = K2_ENTRY.search(name)
+        if not m:
+            continue
+        kern, dt, vec, j, pf, threads = m.groups()
+        key = f"{kern} {'f32' if dt == 'f' else 'bf16'} {'vectors' if vec == '1' else 'elements'}"
+        if j:
+            key += f" J {j}, {threads} threads{', prefetch' if pf == '1' else ''}"
+        out[key] = dict(registers=regs, spill_bytes=spill)
+    for key, r in sorted(out.items()):
+        print(f"    {key}: {r['registers']} registers, {r['spill_bytes']} bytes spilled")
+    check(len(out) == K2_INSTANCES, f"{len(out)} K2 instances in the build, not {K2_INSTANCES}")
+    spills = [k for k, r in out.items() if r["spill_bytes"]]
+    check(not (fail and spills), f"K2 instances spill: {spills}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -294,14 +333,16 @@ def hold_rms_norm(shape, dtype, gen) -> float:
     x = torch.randn(shape, generator=gen).to("cuda", dtype)
     scale = (1 + 0.1 * torch.randn(shape[-1:], generator=gen)).to("cuda", dtype)
     out, ref = rms_norm(x, scale), rms_norm_plain(x, scale)
+    same = torch.equal(rms_norm(x, scale), out)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
     rtol = RMS_RTOL_BF16 if dtype == torch.bfloat16 else 0.0
     ok = bool((err <= TOL[dtype] + rtol * ref.float().abs()).all())
     name = str(dtype).replace("torch.", "")
-    print(f"  K2 rmsnorm {name} x {tuple(shape)}: max|err|={err.max().item():.3e}"
-          f" ({'ok' if ok else 'FAIL'})")
+    print(f"  K2 rmsnorm {name} x {tuple(shape)}: max|err|={err.max().item():.3e}; repeat "
+          f"launch bitwise: {same} ({'ok' if ok else 'FAIL'})")
     check(ok, f"rmsnorm {name} {tuple(shape)} disagrees with its plain version")
+    check(same, f"a second launch of rmsnorm {name} {tuple(shape)} gave other bits")
     return err.max().item()
 
 
@@ -322,8 +363,8 @@ def check_kernels() -> dict:
     worst = {"rmsnorm": 0.0, "decode_attention": 0.0, "paged_decode_attention": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for rows in (4, 512):
-            err = hold_rms_norm((rows, 2048), dtype, gen)
+        for shape in ((N_SLOTS, 1, 2048), (PREFILL_CHUNK, 1, 2048), (512, 2048)):
+            err = hold_rms_norm(shape, dtype, gen)
             if dtype == torch.bfloat16:
                 worst["rmsnorm"] = max(worst["rmsnorm"], err)
         for H, Hkv, D, S, lens in DECODE_SHAPES:
@@ -588,12 +629,17 @@ def time_kernels(cfg, reqs) -> tuple:
             library_ms=time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-6)),
             bound_ms=b, bound_by=kind,
         )
+    one = torch.zeros(1, device=dev)
+    floor = time_ms(lambda: one.add_(0))
+    print(f"  launch floor (t.add_(0) on a one-element tensor, the same timer): "
+          f"{floor:.5f} ms")
     # Decode attention at the serving run's geometry: 4 lanes mid-flight,
     # each at its prompt length plus half its new tokens.
     lens = [len(p) + m // 2 for p, m, _ in reqs[:N_SLOTS]]
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     out.update(time_decode(N_SLOTS, MAX_LEN, *heads, lens, gen))
     print_kernel_times(out)
+    out["launch_floor_ms"] = floor
     long = {}
     for label, (B, S, lens) in LONG_DECODE.items():
         long[label] = time_decode(B, S, *heads, lens, gen)
@@ -725,8 +771,10 @@ def profile_serving(model, params) -> list:
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 32, 512, 16
 #: RMSNorm (K2) rows: half the training batch, the training run's largest
-#: (32 x 512 tokens at beta = 1) and a decode-sized one.
-RMS_BWD_SHAPES = ((8192, 2048), (TRAIN_B * TRAIN_S, 2048), (4, 1, 2048))
+#: (32 x 512 tokens at beta = 1) at llama's width and at zamba2's 4096-wide
+#: norms, and a decode-sized one.
+RMS_BWD_SHAPES = ((8192, 2048), (TRAIN_B * TRAIN_S, 2048), (TRAIN_B * TRAIN_S, 4096),
+                  (4, 1, 2048))
 #: q and k of K1's harder case are scaled by this: scores |S| reach ~100.
 SCORE_MUL = 4.0
 
@@ -793,6 +841,8 @@ def hold_rms_norm_bwd(shape, dtype, gen) -> float:
     g = torch.randn(shape, generator=gen).to(dev, dtype)
     scale = (1 + 0.1 * torch.randn(shape[-1:], generator=gen)).to(dev, dtype)
     (dx, ds), (rx, rs) = rms_norm_bwd(g, x, scale), rms_norm_bwd_plain(g, x, scale)
+    dx2, ds2 = rms_norm_bwd(g, x, scale)
+    same = torch.equal(dx, dx2) and torch.equal(ds, ds2)
     torch.cuda.synchronize()
     slack, near = (dscale_bf16_slack(g, x, near_ulps=NEAR_ULPS) if dtype == torch.bfloat16
                    else (0.0, 0))
@@ -803,9 +853,10 @@ def hold_rms_norm_bwd(shape, dtype, gen) -> float:
         extra = (f"; {near} of {x.numel()} elements within {NEAR_ULPS} f32 ulps of a "
                  f"bf16 midpoint, slack <= {float(torch.as_tensor(slack).max()):.3e}")
     print(f"  K2 bwd {name} x {tuple(shape)}: dx {e_x:.2e}, dscale {e_s:.2e} "
-          f"(|dscale| <= {rs.float().abs().max().item():.1f}{extra}) "
-          f"({'ok' if ok_x and ok_s else 'FAIL'})")
+          f"(|dscale| <= {rs.float().abs().max().item():.1f}{extra}); repeat launch bitwise: "
+          f"{same} ({'ok' if ok_x and ok_s else 'FAIL'})")
     check(ok_x and ok_s, f"rmsnorm backward {name} {tuple(shape)} disagrees")
+    check(same, f"a second launch of the rmsnorm backward {name} {tuple(shape)} gave other bits")
     if dtype == torch.bfloat16 and x.numel() >= 4096 * shape[-1]:
         # The tolerance has teeth: the kernel's dscale less one row's share
         # (a dropped row) must fail it.
@@ -1162,35 +1213,52 @@ def print_times(out: dict) -> None:
               + (f"; {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s" if "flops" in r else ""))
 
 
-def time_training_kernels(cfg) -> dict:
+def time_rmsnorm(rows: int, D: int, gen) -> dict:
+    """K2 forward and backward at x, g (rows, D) bf16 beside their plain
+    versions, ``F.rms_norm`` (forward; forward and backward less forward)
+    and their bounds (CUDA events, cold L2, median of 30)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import rms_norm_bwd, rms_norm_bwd_plain
+    from repro_torch.kernels import rms_norm, rms_norm_bwd, rms_norm_bwd_plain, rms_norm_plain
 
     dev, dt = torch.device("cuda"), torch.bfloat16
-    gen = torch.Generator().manual_seed(SEED + 3)
-    B, S = TRAIN_B, TRAIN_S
-    out = time_flash(B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, gen)
-    rows, dm = B * S, cfg.d_model
-    x = torch.randn((rows, dm), generator=gen).to(dev, dt)
-    g = torch.randn((rows, dm), generator=gen).to(dev, dt)
-    scale = (1 + 0.1 * torch.randn(dm, generator=gen)).to(dev, dt)
+    x = torch.randn((rows, D), generator=gen).to(dev, dt)
+    g = torch.randn((rows, D), generator=gen).to(dev, dt)
+    scale = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev, dt)
     xr, sr = x.detach().requires_grad_(True), scale.detach().requires_grad_(True)
 
     def lib_rms_fb():
-        F.rms_norm(xr, (dm,), sr, 1e-6).backward(g)
+        F.rms_norm(xr, (D,), sr, 1e-6).backward(g)
 
     lib_fb = time_ms(lib_rms_fb, n=30)
-    lib_f = time_ms(lambda: F.rms_norm(xr, (dm,), sr, 1e-6), n=30)
+    lib_f = time_ms(lambda: F.rms_norm(xr, (D,), sr, 1e-6), n=30)
+    out = {}
+    # x read and y written (bf16), scale read; ~4 f32 operations per element.
+    b, kind = bound(2 * rows * D * 2 + D * 2, 4 * rows * D)
+    out["rmsnorm"] = dict(
+        shape=f"x ({rows}, {D}) bf16",
+        ms=time_ms(lambda: rms_norm(x, scale), n=30),
+        plain_ms=time_ms(lambda: rms_norm_plain(x, scale), n=30),
+        library_ms=lib_f, bound_ms=b, bound_by=kind,
+    )
     # x and g read, dx written (bf16), scale read and dscale written; ~10
     # f32 operations per element.
-    b, kind = bound(3 * rows * dm * 2 + 2 * dm * 2, 10 * rows * dm)
+    b, kind = bound(3 * rows * D * 2 + 2 * D * 2, 10 * rows * D)
     out["rmsnorm_bwd"] = dict(
-        shape=f"x, g ({rows}, {dm}) bf16",
+        shape=f"x, g ({rows}, {D}) bf16",
         ms=time_ms(lambda: rms_norm_bwd(g, x, scale), n=30),
         plain_ms=time_ms(lambda: rms_norm_bwd_plain(g, x, scale), n=30),
         library_ms=lib_fb - lib_f, bound_ms=b, bound_by=kind,
     )
+    return out
+
+
+def time_training_kernels(cfg) -> dict:
+    """K1 and K2 at llama3.2-1b's training shape (32 x 512 tokens)."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    B, S = TRAIN_B, TRAIN_S
+    out = time_flash(B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, gen)
+    out.update(time_rmsnorm(B * S, cfg.d_model, gen))
     print_times(out)
     return out
 
@@ -1450,6 +1518,8 @@ def main() -> int:
     ssd_tensor_cores = check_ssd_tensor_cores(lib, _build.build_log())
     print("    K3's and K4's split and merge kernels (ptxas -v):")
     decode_resources = check_decode_resources(_build.build_log())
+    print("    K2's forward, backward and dscale-sum kernels (ptxas -v):")
+    rmsnorm_resources = check_rmsnorm_resources(_build.build_log())
 
     print("[3] kernels vs plain PyTorch on the card")
     worst = check_kernels()
@@ -1509,6 +1579,9 @@ def main() -> int:
     zamba_flash_times = time_flash(TRAIN_B, TRAIN_S, zcfg.n_heads, zcfg.n_heads,
                                    dw // zcfg.n_heads, torch.Generator().manual_seed(SEED + 8))
     print_times(zamba_flash_times)
+    zamba_rms_times = time_rmsnorm(TRAIN_B * TRAIN_S, 2 * zcfg.d_model,
+                                   torch.Generator().manual_seed(SEED + 9))
+    print_times(zamba_rms_times)
     zamba_profile = profile_train_step(zmodel, ztrained.pop("params"))
     worst["rmsnorm"] = max(worst["rmsnorm"], train_worst["rmsnorm"])
 
@@ -1561,6 +1634,8 @@ def main() -> int:
         "kernels": kernels,
         "card": name, "power_limit": limit,
         "rmsnorm_prefill_shape": times["rmsnorm_prefill"],
+        "launch_floor_ms": times["launch_floor_ms"],
+        "rmsnorm_train_forward": train_times["rmsnorm"],
         "decode_long_context": long_decode,
         "decode_tokens_per_s": {p: runs[p]["stats"].decode_tokens_per_wsec for p in runs},
         "profile": profiled,
@@ -1572,9 +1647,11 @@ def main() -> int:
         "zamba_train_loop": ztrained,
         "ssd_kernel_shapes": {k: v["shape"] for k, v in ssd_times.items()},
         "zamba_flash_times": zamba_flash_times,
+        "zamba_rmsnorm_times": zamba_rms_times,
         "k1_tensor_cores": tensor_cores,
         "k5_tensor_cores": ssd_tensor_cores,
         "decode_kernel_resources": decode_resources,
+        "k2_resources": rmsnorm_resources,
         "zamba_train_profile": zamba_profile,
         "seconds": time.perf_counter() - t_start,
     }

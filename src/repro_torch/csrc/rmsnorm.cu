@@ -1,17 +1,9 @@
-// RMSNorm over the last dimension, for Hopper (sm_90a).
+// RMSNorm over the last dimension, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `rmsnorm_fwd` in
 // src/repro/kernels/rmsnorm/kernel.py (and the jnp `layers.rms_norm` the
-// reference model actually runs).
-//
-// Bound: bytes. Each row is read and written once and does about four
-// operations per element, far below the card's ~295 operations per byte
-// of bf16 ridge. Design for that: 16-byte vector loads and stores
-// (8 bf16 or 4 f32 values per thread), neighbouring threads on
-// neighbouring addresses, the sum of squares reduced in f32 with warp
-// shuffles, no shared-memory staging of the row. One warp per row for
-// D <= 1024 (four rows per 128-thread block), one block per row above.
-// The second pass re-reads the row, which the first pass left in L1/L2.
+// reference model actually runs). The backward has no TPU kernel: the JAX
+// package differentiates `layers.rms_norm` with XLA.
 //
 // Rounding order: y = x * rsqrt(mean(x^2) + eps) is computed in f32 and
 // rounded to the input dtype, and only then multiplied by `scale` (and
@@ -20,29 +12,61 @@
 // multiplies by `scale` in f32 before a single cast; in f32 the two are
 // identical, in bf16 they differ by one rounding.
 //
-// Backward (no TPU kernel: the JAX package differentiates
-// `layers.rms_norm` with XLA). With r = rsqrt(mean(x^2) + eps), n = x * r
-// in f32, x^ = n rounded to x's dtype (what the forward multiplied by
-// `scale`) and g^ = g * scale rounded to x's dtype (the product's
-// gradient in the input dtype, as JAX forms it):
+// Backward. With r = rsqrt(mean(x^2) + eps), n = x * r in f32, x^ = n
+// rounded to x's dtype (what the forward multiplied by `scale`) and
+// g^ = g * scale rounded to x's dtype (the product's gradient in the
+// input dtype, as JAX forms it):
 //     dx     = r * (g^ - n * mean(g^ * n))
 //     dscale = sum over rows of g * x^
-// Bound: bytes, like the forward (x and g read, dx written, three passes
-// over a row that stays in L1/L2). The same row mapping as the forward:
-// one warp per row for D <= 1024, one block per row above (at most 256
-// threads: each holds 32 f32 dscale accumulators, and 1024 such threads
-// would not fit the SM's registers). Each warp (or
-// block) walks a grid-stride set of rows and keeps its share of dscale
-// in f32 registers (it owns the same columns in every row); at the end
-// it writes them to one row of an f32 (groups, D) scratch, and a second
-// small launch sums that scratch over groups per column. No atomics, so
-// dscale is the same bits on every run.
+// Since n = x * r and g^ does not depend on r, mean(g^ * n) =
+// r * sum(g^ * x) / D: the row's two sums, sum(x^2) and sum(g^ * x), are
+// reduced together as one pair.
+//
+// What bounds it: bytes. A row is read once and written once (forward:
+// x in, y out; backward: x and g in, dx out) with a few operations per
+// element, far below the card's ~295 operations per byte of bf16 ridge.
+// What the design does about that:
+//   * Each row is read from device memory once, in 16-byte vectors
+//     (8 bf16 or 4 f32 values; single elements where D or a pointer does
+//     not allow them), neighbouring threads on neighbouring addresses, and
+//     held in registers: the reduction and the outputs are formed from the
+//     registers, never from a second read. A group of `tpr` threads owns a
+//     row (a warp when tpr is 32, else the whole block); each thread holds
+//     J vectors, units lane, lane + tpr, ..., lane + (J-1) tpr.
+//   * `scale` is loaded once per group, at entry together with its first
+//     row: a thread's columns are the same in every row.
+//   * A persistent grid: a few groups per SM walk the rows in a
+//     grid-stride loop, and each starts the loads of its next row before it
+//     reduces the current one, so a row's trip to memory overlaps the
+//     previous row's reduction and stores (where the registers allow:
+//     `kInstances`; the other instances load the next row after the stores).
+//     The backward's plan asks 512 resident threads an SM, which keeps the
+//     dscale scratch small; the forward's asks 2048, more than its
+//     registers keep resident, so its grid runs in a few waves (the
+//     fastest in tools/rmsnorm_tiles.py's sweep).
+//   * One reduction per row: warp shuffles, then (block groups) one
+//     barrier, with the warps' partial sums in one of two shared slots by
+//     row parity so that the next row's writes cannot race this row's
+//     reads. Every thread sums the warps' partials in warp order, so all
+//     threads of a group hold the same bits.
+//   * dscale: each group keeps its columns' share in f32 registers over all
+//     its rows and writes it to one row of an f32 (groups, D) scratch; a
+//     second launch, `rmsnorm_bwd_reduce`, sums the scratch over groups:
+//     a block takes 16 columns, each of its 64 slices (16 without 16-byte
+//     vectors) sums groups s, s + 64, ... in order, then a halving tree
+//     adds the slices. No atomics: for a given shape and plan, a second
+//     launch gives the same bits for dx and dscale.
+// The launch plan (threads per row, vectors per thread, blocks) is the
+// caller's: `launch_plan` in src/repro_torch/kernels/rmsnorm.py, which
+// reads the table of instances below (`kInstances`). The entry points
+// refuse a plan that no instance takes, that does not cover the row or
+// that asks more threads than the instance was built for.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -55,344 +79,456 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// 16-byte vector of VEC elements of T.
+// 16-byte vector of N elements of T.
 template <typename T>
 struct alignas(16) Vec {
   static constexpr int N = 16 / sizeof(T);
   T v[N];
 };
 
-// One row, reduced by a group of `width` threads starting at `lane0`
-// within the block. `width` is 32 (warp per row) or blockDim.x (block per
-// row); `red` is block shared scratch for the block-per-row case.
+// A thread's unit of a row: one 16-byte vector (VEC) or one element.
 template <typename T, bool VEC>
-__device__ void norm_row(const T* __restrict__ x, const T* __restrict__ scale,
-                         T* __restrict__ out, int dim, float eps, int lane,
-                         int width, bool block_row, float* red) {
-  float ss = 0.f;
-  if (VEC) {
-    constexpr int N = Vec<T>::N;
-    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
-    for (int c = lane; c < dim / N; c += width) {
-      Vec<T> a = xv[c];
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        float f = to_f(a.v[i]);
-        ss += f * f;
-      }
-    }
-  } else {
-    for (int c = lane; c < dim; c += width) {
-      float f = to_f(x[c]);
-      ss += f * f;
-    }
-  }
-  ss = warp_sum(ss);
-  if (block_row) {
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) red[warp] = ss;
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      const int n_warps = (blockDim.x + 31) >> 5;
-      float t = threadIdx.x < n_warps ? red[threadIdx.x] : 0.f;
-      t = warp_sum(t);
-      if (threadIdx.x == 0) red[0] = t;
-    }
-    __syncthreads();
-    ss = red[0];
-  }
-  const float r = rsqrtf(ss / (float)dim + eps);
-  if (VEC) {
-    constexpr int N = Vec<T>::N;
-    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
-    const Vec<T>* sv = reinterpret_cast<const Vec<T>*>(scale);
-    Vec<T>* ov = reinterpret_cast<Vec<T>*>(out);
-    for (int c = lane; c < dim / N; c += width) {
-      Vec<T> a = xv[c];
-      Vec<T> s = sv[c];
-      Vec<T> y;
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float yn = to_f(from_f<T>(to_f(a.v[i]) * r));   // round, then scale
-        y.v[i] = from_f<T>(yn * to_f(s.v[i]));
-      }
-      ov[c] = y;
-    }
-  } else {
-    for (int c = lane; c < dim; c += width) {
-      const float yn = to_f(from_f<T>(to_f(x[c]) * r));
-      out[c] = from_f<T>(yn * to_f(scale[c]));
-    }
-  }
-}
-
-template <typename T, bool VEC>
-__global__ void rmsnorm_warp_rows(const T* __restrict__ x, const T* __restrict__ scale,
-                                  T* __restrict__ out, int rows, int dim, float eps) {
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= rows) return;   // whole warp exits together: no block barrier used
-  const size_t off = (size_t)row * dim;
-  norm_row<T, VEC>(x + off, scale, out + off, dim, eps, threadIdx.x & 31, 32,
-                   false, nullptr);
-}
-
-template <typename T, bool VEC>
-__global__ void rmsnorm_block_rows(const T* __restrict__ x, const T* __restrict__ scale,
-                                   T* __restrict__ out, int rows, int dim, float eps) {
-  __shared__ float red[32];
-  const size_t off = (size_t)blockIdx.x * dim;
-  norm_row<T, VEC>(x + off, scale, out + off, dim, eps, threadIdx.x, blockDim.x,
-                   true, red);
-}
+struct Unit {
+  static constexpr int N = VEC ? Vec<T>::N : 1;
+  using Raw = typename std::conditional<VEC, Vec<T>, T>::type;
+};
 
 template <typename T>
-int launch(const void* x, const void* scale, void* out, int rows, int dim, float eps,
-           cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* sp = static_cast<const T*>(scale);
-  T* op = static_cast<T*>(out);
-  constexpr int N = Vec<T>::N;
-  const bool vec = dim % N == 0 && (reinterpret_cast<uintptr_t>(x) % 16) == 0 &&
-                   (reinterpret_cast<uintptr_t>(scale) % 16) == 0 &&
-                   (reinterpret_cast<uintptr_t>(out) % 16) == 0;
-  if (dim <= 1024) {
-    const int threads = 128;
-    const int rows_per_block = threads / 32;
-    const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-    if (vec)
-      rmsnorm_warp_rows<T, true><<<blocks, threads, 0, stream>>>(xp, sp, op, rows, dim, eps);
-    else
-      rmsnorm_warp_rows<T, false><<<blocks, threads, 0, stream>>>(xp, sp, op, rows, dim, eps);
-  } else {
-    const int units = vec ? dim / N : dim;
-    int threads = ((units + 31) / 32) * 32;
-    if (threads > 1024) threads = 1024;
-    if (vec)
-      rmsnorm_block_rows<T, true><<<rows, threads, 0, stream>>>(xp, sp, op, rows, dim, eps);
-    else
-      rmsnorm_block_rows<T, false><<<rows, threads, 0, stream>>>(xp, sp, op, rows, dim, eps);
-  }
-  return (int)cudaGetLastError();
+__device__ __forceinline__ float elem(const Vec<T>& a, int e) { return to_f(a.v[e]); }
+template <typename T>
+__device__ __forceinline__ float elem(const T& a, int) { return to_f(a); }
+template <typename T>
+__device__ __forceinline__ void set_elem(Vec<T>& a, int e, T v) { a.v[e] = v; }
+template <typename T>
+__device__ __forceinline__ void set_elem(T& a, int, T v) { a = v; }
+
+// The instances built, one line each: kernel (0 forward, 1 backward),
+// element bytes, 16-byte vectors (1) or single elements (0), units per
+// thread J -> the most threads a block of it may have (the registers that
+// __launch_bounds__ allows a thread: 64 at 1024, 128 at 512, 255 at 256)
+// and whether it prefetches the next row (holds it in registers too).
+// Chosen from ptxas's register counts so that no instance spills; the
+// main paths' instances (bf16 vectors, J 1 to 4) prefetch. Rows of single
+// elements (D not a multiple of 16 bytes, or a pointer not aligned to
+// them) reach D 8192 in the forward and D 4096 in the backward. `launch_plan`
+// in kernels/rmsnorm.py reads the same table (`INSTANCES`).
+struct Instance {
+  int bwd, elem, vec, j, threads, prefetch;
+};
+constexpr Instance kInstances[] = {
+    // forward, bf16 and f32 vectors
+    {0, 2, 1, 1, 1024, 1}, {0, 2, 1, 2, 512, 1}, {0, 2, 1, 4, 512, 1}, {0, 2, 1, 8, 256, 0},
+    {0, 4, 1, 1, 1024, 1}, {0, 4, 1, 2, 512, 1}, {0, 4, 1, 4, 512, 1}, {0, 4, 1, 8, 512, 0},
+    // forward, single elements
+    {0, 2, 0, 1, 1024, 1}, {0, 2, 0, 2, 1024, 1}, {0, 2, 0, 4, 1024, 1}, {0, 2, 0, 8, 512, 1},
+    {0, 2, 0, 16, 512, 1},
+    {0, 4, 0, 1, 1024, 1}, {0, 4, 0, 2, 1024, 1}, {0, 4, 0, 4, 1024, 1}, {0, 4, 0, 8, 512, 1},
+    {0, 4, 0, 16, 512, 1},
+    // backward, bf16 and f32 vectors
+    {1, 2, 1, 1, 512, 1}, {1, 2, 1, 2, 512, 1}, {1, 2, 1, 4, 256, 0},
+    {1, 4, 1, 1, 1024, 1}, {1, 4, 1, 4, 512, 0},
+    // backward, single elements
+    {1, 2, 0, 1, 1024, 1}, {1, 2, 0, 2, 1024, 1}, {1, 2, 0, 4, 512, 1}, {1, 2, 0, 8, 512, 1},
+    {1, 4, 0, 1, 1024, 1}, {1, 4, 0, 2, 1024, 1}, {1, 4, 0, 4, 512, 1}, {1, 4, 0, 8, 512, 1},
+};
+
+__host__ __device__ constexpr Instance instance(int bwd, int elem, int vec, int j) {
+  for (const Instance& i : kInstances)
+    if (i.bwd == bwd && i.elem == elem && i.vec == vec && i.j == j) return i;
+  return Instance{bwd, elem, vec, j, 0, 0};
 }
 
-// ---------------------------------------------------------------------------
-// Backward
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxAcc = 32;        // dscale accumulators (f32) per thread
-constexpr int kBwdThreads = 256;   // threads per row in block mode (register budget)
-constexpr int kMaxBwdGroups = 1024;
-
-// N consecutive elements (one 16-byte vector, or one element) as floats.
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_unit(const T* __restrict__ p, int u, float* out) {
-  if constexpr (VEC) {
-    const Vec<T> a = reinterpret_cast<const Vec<T>*>(p)[u];
+// Sum of K values over the row's group, the same bits in every thread:
+// xor shuffles within the warp (each step adds two equal pairs in either
+// order, so every lane ends with the same value), then, for a block group,
+// the warps' partials in warp order from `red` (one barrier).
+template <int K>
+__device__ __forceinline__ void group_sum(float (&v)[K], bool block, float (*red)[32]) {
 #pragma unroll
-    for (int i = 0; i < Vec<T>::N; ++i) out[i] = to_f(a.v[i]);
-  } else {
-    out[0] = to_f(p[u]);
-  }
-}
-
-template <typename T, bool VEC>
-__device__ __forceinline__ void store_unit(T* __restrict__ p, int u, const float* in) {
-  if constexpr (VEC) {
-    Vec<T> a;
+  for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
-    for (int i = 0; i < Vec<T>::N; ++i) a.v[i] = from_f<T>(in[i]);
-    reinterpret_cast<Vec<T>*>(p)[u] = a;
-  } else {
-    p[u] = from_f<T>(in[0]);
+    for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
   }
-}
-
-// Sum over the row's group: a warp, or (BLOCK) the whole block.
-template <bool BLOCK>
-__device__ __forceinline__ float group_sum(float v, float* red) {
-  v = warp_sum(v);
-  if (!BLOCK) return v;
-  __syncthreads();                       // red may still hold the last sum
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    float t = threadIdx.x < n_warps ? red[threadIdx.x] : 0.f;
-    t = warp_sum(t);
-    if (threadIdx.x == 0) red[0] = t;
+  if (!block) return;
+  const int n_warps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k][threadIdx.x >> 5] = v[k];
   }
   __syncthreads();
-  return red[0];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float t = red[k][0];
+#pragma unroll
+    for (int w = 1; w < 32; ++w)
+      if (w < n_warps) t += red[k][w];
+    v[k] = t;
+  }
 }
 
-template <typename T, bool VEC, bool BLOCK>
-__global__ void __launch_bounds__(kBwdThreads) rmsnorm_bwd_rows(const T* __restrict__ g, const T* __restrict__ x,
-                                 const T* __restrict__ scale, T* __restrict__ dx,
-                                 float* __restrict__ part, int rows, int dim, float eps) {
-  constexpr int N = VEC ? Vec<T>::N : 1;
-  constexpr int J = kMaxAcc / N;         // units per thread, upper bound
-  __shared__ float red[32];
-  const int width = BLOCK ? blockDim.x : 32;
-  const int lane = BLOCK ? threadIdx.x : (threadIdx.x & 31);
-  const int group = BLOCK ? blockIdx.x : blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int n_groups = BLOCK ? gridDim.x : gridDim.x * (blockDim.x >> 5);
-  const int units = dim / N;
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.f;
-
-  for (int row = group; row < rows; row += n_groups) {
-    const size_t off = (size_t)row * dim;
-    const T* xr = x + off;
-    const T* gr = g + off;
-    float ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int u = lane + j * width;
-      if (u < units) {
-        float xv[N];
-        load_unit<T, VEC>(xr, u, xv);
-#pragma unroll
-        for (int e = 0; e < N; ++e) ss = fmaf(xv[e], xv[e], ss);
-      }
-    }
-    ss = group_sum<BLOCK>(ss, red);
-    const float r = rsqrtf(ss / (float)dim + eps);
-    float dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int u = lane + j * width;
-      if (u < units) {
-        float xv[N], gv[N], sv[N];
-        load_unit<T, VEC>(xr, u, xv);
-        load_unit<T, VEC>(gr, u, gv);
-        load_unit<T, VEC>(scale, u, sv);
-#pragma unroll
-        for (int e = 0; e < N; ++e) {
-          const float n = xv[e] * r;
-          const float gh = to_f(from_f<T>(gv[e] * sv[e]));
-          dot = fmaf(gh, n, dot);
-          acc[j * N + e] = fmaf(gv[e], to_f(from_f<T>(n)), acc[j * N + e]);
-        }
-      }
-    }
-    const float mean = group_sum<BLOCK>(dot, red) / (float)dim;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int u = lane + j * width;
-      if (u < units) {
-        float xv[N], gv[N], sv[N], out[N];
-        load_unit<T, VEC>(xr, u, xv);
-        load_unit<T, VEC>(gr, u, gv);
-        load_unit<T, VEC>(scale, u, sv);
-#pragma unroll
-        for (int e = 0; e < N; ++e) {
-          const float n = xv[e] * r;
-          const float gh = to_f(from_f<T>(gv[e] * sv[e]));
-          out[e] = r * (gh - n * mean);
-        }
-        store_unit<T, VEC>(dx + off, u, out);
-      }
-    }
+// The row's group: a warp (tpr == 32; a block holds blockDim.x / 32 of
+// them) or the whole block.
+struct Group {
+  bool block;
+  int lane, id, count;
+  __device__ __forceinline__ explicit Group(int tpr) {
+    block = tpr != 32;
+    lane = block ? threadIdx.x : (threadIdx.x & 31);
+    id = block ? blockIdx.x : blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    count = block ? gridDim.x : gridDim.x * (blockDim.x >> 5);
   }
-  float* pr = part + (size_t)group * dim;
+};
+
+template <typename T, bool VEC, int J>
+__device__ __forceinline__ void load_row(typename Unit<T, VEC>::Raw (&a)[J],
+                                         const T* __restrict__ p, int lane, int tpr,
+                                         int units) {
+  using Raw = typename Unit<T, VEC>::Raw;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    const int u = lane + j * width;
-    if (u < units) {
+    const int u = lane + j * tpr;
+    if (u < units) a[j] = reinterpret_cast<const Raw*>(p)[u];
+  }
+}
+
+template <typename T, bool VEC, int J, bool PF, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+rmsnorm_fwd_rows(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ out,
+                 int rows, int dim, float eps, int tpr) {
+  using Raw = typename Unit<T, VEC>::Raw;
+  constexpr int N = Unit<T, VEC>::N;
+  __shared__ __align__(16) float red[2][1][32];
+  const Group grp(tpr);
+  const int units = dim / N;
+  Raw s[J], a[J], b[PF ? J : 1];
+  int row = grp.id;
+  load_row<T, VEC, J>(s, scale, grp.lane, tpr, units);
+  if (row < rows) load_row<T, VEC, J>(a, x + (size_t)row * dim, grp.lane, tpr, units);
+  for (int it = 0; row < rows; ++it) {
+    const int next = row + grp.count;
+    if constexpr (PF) {
+      if (next < rows) load_row<T, VEC, J>(b, x + (size_t)next * dim, grp.lane, tpr, units);
+    }
+    float ss[1] = {0.f};
 #pragma unroll
-      for (int e = 0; e < N; ++e) pr[u * N + e] = acc[j * N + e];
+    for (int j = 0; j < J; ++j) {
+      if (grp.lane + j * tpr < units) {
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float f = elem(a[j], e);
+          ss[0] = fmaf(f, f, ss[0]);
+        }
+      }
+    }
+    group_sum<1>(ss, grp.block, red[it & 1]);
+    const float r = rsqrtf(ss[0] / (float)dim + eps);
+    Raw* o = reinterpret_cast<Raw*>(out + (size_t)row * dim);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int u = grp.lane + j * tpr;
+      if (u < units) {
+        Raw y;
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float yn = to_f(from_f<T>(elem(a[j], e) * r));   // round, then scale
+          set_elem(y, e, from_f<T>(yn * elem(s[j], e)));
+        }
+        o[u] = y;
+      }
+    }
+    if constexpr (PF) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) a[j] = b[j];
+    } else if (next < rows) {
+      load_row<T, VEC, J>(a, x + (size_t)next * dim, grp.lane, tpr, units);
+    }
+    row = next;
+  }
+}
+
+template <typename T, bool VEC, int J, bool PF, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+rmsnorm_bwd_rows(const T* __restrict__ g, const T* __restrict__ x, const T* __restrict__ scale,
+                 T* __restrict__ dx, float* __restrict__ part, int rows, int dim, float eps,
+                 int tpr) {
+  using Raw = typename Unit<T, VEC>::Raw;
+  constexpr int N = Unit<T, VEC>::N;
+  __shared__ __align__(16) float red[2][2][32];
+  const Group grp(tpr);
+  const int units = dim / N;
+  Raw s[J], xa[J], ga[J], xb[PF ? J : 1], gb[PF ? J : 1];
+  float acc[J * N];
+#pragma unroll
+  for (int i = 0; i < J * N; ++i) acc[i] = 0.f;
+  int row = grp.id;
+  load_row<T, VEC, J>(s, scale, grp.lane, tpr, units);
+  if (row < rows) {
+    load_row<T, VEC, J>(xa, x + (size_t)row * dim, grp.lane, tpr, units);
+    load_row<T, VEC, J>(ga, g + (size_t)row * dim, grp.lane, tpr, units);
+  }
+  for (int it = 0; row < rows; ++it) {
+    const int next = row + grp.count;
+    if constexpr (PF) {
+      if (next < rows) {
+        load_row<T, VEC, J>(xb, x + (size_t)next * dim, grp.lane, tpr, units);
+        load_row<T, VEC, J>(gb, g + (size_t)next * dim, grp.lane, tpr, units);
+      }
+    }
+    // The pair (sum x^2, sum g^ x), reduced together.
+    float v[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (grp.lane + j * tpr < units) {
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float xf = elem(xa[j], e);
+          const float gh = to_f(from_f<T>(elem(ga[j], e) * elem(s[j], e)));
+          v[0] = fmaf(xf, xf, v[0]);
+          v[1] = fmaf(gh, xf, v[1]);
+        }
+      }
+    }
+    group_sum<2>(v, grp.block, red[it & 1]);
+    const float r = rsqrtf(v[0] / (float)dim + eps);
+    const float mean = r * (v[1] / (float)dim);       // mean(g^ * n)
+    Raw* o = reinterpret_cast<Raw*>(dx + (size_t)row * dim);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int u = grp.lane + j * tpr;
+      if (u < units) {
+        Raw d;
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float xf = elem(xa[j], e), gf = elem(ga[j], e);
+          const float n = xf * r;
+          const float gh = to_f(from_f<T>(gf * elem(s[j], e)));
+          set_elem(d, e, from_f<T>(r * fmaf(-n, mean, gh)));
+          acc[j * N + e] = fmaf(gf, to_f(from_f<T>(n)), acc[j * N + e]);
+        }
+        o[u] = d;
+      }
+    }
+    if constexpr (PF) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        xa[j] = xb[j];
+        ga[j] = gb[j];
+      }
+    } else if (next < rows) {
+      load_row<T, VEC, J>(xa, x + (size_t)next * dim, grp.lane, tpr, units);
+      load_row<T, VEC, J>(ga, g + (size_t)next * dim, grp.lane, tpr, units);
+    }
+    row = next;
+  }
+  // This group's dscale share: one row of the (groups, dim) scratch.
+  float* pr = part + (size_t)grp.id * dim;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int u = grp.lane + j * tpr;
+    if (u < units) {
+      if constexpr (N % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q)
+          reinterpret_cast<float4*>(pr + u * N)[q] =
+              make_float4(acc[j * N + 4 * q], acc[j * N + 4 * q + 1], acc[j * N + 4 * q + 2],
+                          acc[j * N + 4 * q + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) pr[u * N + e] = acc[j * N + e];
+      }
     }
   }
 }
 
-template <typename T>
-__global__ void rmsnorm_bwd_reduce(const float* __restrict__ part, int n_groups, int dim,
-                                   T* __restrict__ dscale) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= dim) return;
-  float s = 0.f;
-  for (int i = 0; i < n_groups; ++i) s += part[(size_t)i * dim + c];
-  dscale[c] = from_f<T>(s);
-}
+// dscale[c] = sum over groups of part[group][c], in a fixed order: a block
+// takes kReduceCols columns; its threads are CT column lanes (4 columns
+// each with float4, else 1) by S slices; slice s sums groups s, s + S, ...
+// in order, then a halving tree over the slices (s += s + h for h = S/2,
+// ..., 1).
+constexpr int kReduceThreads = 256;
+constexpr int kReduceCols = 16;
 
-// Row groups (warps or blocks) the backward uses for (rows, dim); the
-// caller allocates an f32 (groups, dim) scratch of this many rows.
-int bwd_groups(int rows, int dim) {
-  if (dim <= 1024) {
-    const int blocks = std::min((rows + 3) / 4, kMaxBwdGroups / 4);
-    return 4 * std::max(blocks, 1);
+template <typename T, bool V4>
+__global__ void __launch_bounds__(kReduceThreads)
+rmsnorm_bwd_reduce(const float* __restrict__ part, int groups, int dim, T* __restrict__ dscale) {
+  constexpr int W = V4 ? 4 : 1;                 // columns per thread
+  constexpr int CT = kReduceCols / W;           // column lanes
+  constexpr int S = kReduceThreads / CT;        // group slices
+  __shared__ float sm[S][kReduceCols];
+  const int c = threadIdx.x % CT, s = threadIdx.x / CT;
+  const int col = blockIdx.x * kReduceCols + c * W;
+  float acc[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) acc[i] = 0.f;
+  if (col < dim) {
+#pragma unroll 4
+    for (int gi = s; gi < groups; gi += S) {
+      const float* p = part + (size_t)gi * dim + col;
+      if constexpr (V4) {
+        const float4 f = *reinterpret_cast<const float4*>(p);
+        acc[0] += f.x;
+        acc[1] += f.y;
+        acc[2] += f.z;
+        acc[3] += f.w;
+      } else {
+        acc[0] += *p;
+      }
+    }
   }
-  return std::max(std::min(rows, kMaxBwdGroups / 2), 1);
+#pragma unroll
+  for (int i = 0; i < W; ++i) sm[s][c * W + i] = acc[i];
+  __syncthreads();
+#pragma unroll
+  for (int h = S / 2; h > 0; h >>= 1) {
+    if (s < h) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) sm[s][c * W + i] += sm[s + h][c * W + i];
+    }
+    __syncthreads();
+  }
+  if (s == 0) {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (col + i < dim) dscale[col + i] = from_f<T>(sm[0][c * W + i]);
+  }
 }
 
-template <typename T>
-int launch_bwd(const void* g, const void* x, const void* scale, void* dx, void* dscale,
-               void* part, int rows, int dim, float eps, cudaStream_t stream) {
-  const T* gp = static_cast<const T*>(g);
-  const T* xp = static_cast<const T*>(x);
-  const T* sp = static_cast<const T*>(scale);
-  T* dxp = static_cast<T*>(dx);
-  float* pp = static_cast<float*>(part);
-  constexpr int N = Vec<T>::N;
-  const bool vec = dim % N == 0 && (reinterpret_cast<uintptr_t>(g) % 16) == 0 &&
-                   (reinterpret_cast<uintptr_t>(x) % 16) == 0 &&
-                   (reinterpret_cast<uintptr_t>(scale) % 16) == 0 &&
-                   (reinterpret_cast<uintptr_t>(dx) % 16) == 0;
-  const int groups = bwd_groups(rows, dim);
-  if (dim <= 1024) {
-    if (vec)
-      rmsnorm_bwd_rows<T, true, false><<<groups / 4, 128, 0, stream>>>(gp, xp, sp, dxp, pp, rows, dim, eps);
-    else
-      rmsnorm_bwd_rows<T, false, false><<<groups / 4, 128, 0, stream>>>(gp, xp, sp, dxp, pp, rows, dim, eps);
+// A launch plan, as `launch_plan` in kernels/rmsnorm.py makes it.
+struct Plan {
+  int vec;         // 16-byte vectors (1) or single elements (0)
+  int tpr;         // threads per row: 32 (a warp) or the block's threads
+  int j;           // units per thread
+  int rpb;         // rows (warps) per block when tpr == 32
+  int blocks;      // grid size
+  int groups() const { return tpr == 32 ? blocks * rpb : blocks; }
+  int threads() const { return tpr == 32 ? 32 * rpb : tpr; }
+};
+
+bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Whether the plan covers a row of `dim` with an instance of up to
+// `max_t` threads a block.
+template <typename T, bool VEC, int J>
+bool plan_ok(const Plan& p, int dim, int max_t) {
+  constexpr int N = Unit<T, VEC>::N;
+  if (max_t == 0 || p.tpr < 32 || p.tpr % 32 != 0 || p.tpr > max_t) return false;
+  if (p.tpr == 32 && (p.rpb < 1 || 32 * p.rpb > max_t)) return false;
+  if (p.blocks < 1 || (VEC && dim % N != 0)) return false;
+  return (long long)p.tpr * J * N >= dim;
+}
+
+template <typename T, bool VEC, int J>
+int fwd_j(const void* x, const void* scale, void* out, int rows, int dim, float eps,
+          const Plan& p, cudaStream_t stream) {
+  constexpr Instance inst = instance(0, sizeof(T), VEC, J);
+  if constexpr (inst.threads == 0) {
+    return -1;
   } else {
-    const int units = vec ? dim / N : dim;
-    int threads = ((units + 31) / 32) * 32;
-    if (threads > kBwdThreads) threads = kBwdThreads;
-    if (vec)
-      rmsnorm_bwd_rows<T, true, true><<<groups, threads, 0, stream>>>(gp, xp, sp, dxp, pp, rows, dim, eps);
-    else
-      rmsnorm_bwd_rows<T, false, true><<<groups, threads, 0, stream>>>(gp, xp, sp, dxp, pp, rows, dim, eps);
+    if (!plan_ok<T, VEC, J>(p, dim, inst.threads)) return -1;
+    rmsnorm_fwd_rows<T, VEC, J, inst.prefetch != 0, inst.threads><<<p.blocks, p.threads(), 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<T*>(out), rows,
+        dim, eps, p.tpr);
+    return (int)cudaGetLastError();
   }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rmsnorm_bwd_reduce<T><<<(dim + 255) / 256, 256, 0, stream>>>(pp, groups, dim,
-                                                               static_cast<T*>(dscale));
-  return (int)cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+int fwd_vec(const void* x, const void* scale, void* out, int rows, int dim, float eps,
+            const Plan& p, cudaStream_t s) {
+  switch (p.j) {
+    case 1: return fwd_j<T, VEC, 1>(x, scale, out, rows, dim, eps, p, s);
+    case 2: return fwd_j<T, VEC, 2>(x, scale, out, rows, dim, eps, p, s);
+    case 4: return fwd_j<T, VEC, 4>(x, scale, out, rows, dim, eps, p, s);
+    case 8: return fwd_j<T, VEC, 8>(x, scale, out, rows, dim, eps, p, s);
+    case 16: return fwd_j<T, VEC, 16>(x, scale, out, rows, dim, eps, p, s);
+  }
+  return -1;
+}
+
+template <typename T>
+int fwd(const void* x, const void* scale, void* out, int rows, int dim, float eps,
+        const Plan& p, cudaStream_t s) {
+  if (p.vec) {
+    if (!aligned(x) || !aligned(scale) || !aligned(out)) return -1;
+    return fwd_vec<T, true>(x, scale, out, rows, dim, eps, p, s);
+  }
+  return fwd_vec<T, false>(x, scale, out, rows, dim, eps, p, s);
+}
+
+template <typename T, bool VEC, int J>
+int bwd_j(const void* g, const void* x, const void* scale, void* dx, void* dscale, void* part,
+          int rows, int dim, float eps, const Plan& p, cudaStream_t stream) {
+  constexpr Instance inst = instance(1, sizeof(T), VEC, J);
+  if constexpr (inst.threads == 0) {
+    return -1;
+  } else {
+    if (!plan_ok<T, VEC, J>(p, dim, inst.threads)) return -1;
+    float* pp = static_cast<float*>(part);
+    rmsnorm_bwd_rows<T, VEC, J, inst.prefetch != 0, inst.threads><<<p.blocks, p.threads(), 0, stream>>>(
+        static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(scale),
+        static_cast<T*>(dx), pp, rows, dim, eps, p.tpr);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (dim + kReduceCols - 1) / kReduceCols;
+    T* ds = static_cast<T*>(dscale);
+    if (dim % 4 == 0)
+      rmsnorm_bwd_reduce<T, true><<<blocks, kReduceThreads, 0, stream>>>(pp, p.groups(), dim, ds);
+    else
+      rmsnorm_bwd_reduce<T, false><<<blocks, kReduceThreads, 0, stream>>>(pp, p.groups(), dim, ds);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <typename T, bool VEC>
+int bwd_vec(const void* g, const void* x, const void* scale, void* dx, void* dscale,
+            void* part, int rows, int dim, float eps, const Plan& p, cudaStream_t s) {
+  switch (p.j) {
+    case 1: return bwd_j<T, VEC, 1>(g, x, scale, dx, dscale, part, rows, dim, eps, p, s);
+    case 2: return bwd_j<T, VEC, 2>(g, x, scale, dx, dscale, part, rows, dim, eps, p, s);
+    case 4: return bwd_j<T, VEC, 4>(g, x, scale, dx, dscale, part, rows, dim, eps, p, s);
+    case 8: return bwd_j<T, VEC, 8>(g, x, scale, dx, dscale, part, rows, dim, eps, p, s);
+    case 16: return bwd_j<T, VEC, 16>(g, x, scale, dx, dscale, part, rows, dim, eps, p, s);
+  }
+  return -1;
+}
+
+template <typename T>
+int bwd(const void* g, const void* x, const void* scale, void* dx, void* dscale, void* part,
+        int rows, int dim, float eps, const Plan& p, cudaStream_t s) {
+  if (!aligned(part)) return -1;
+  if (p.vec) {
+    if (!aligned(g) || !aligned(x) || !aligned(scale) || !aligned(dx)) return -1;
+    return bwd_vec<T, true>(g, x, scale, dx, dscale, part, rows, dim, eps, p, s);
+  }
+  return bwd_vec<T, false>(g, x, scale, dx, dscale, part, rows, dim, eps, p, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched), or -1 for arguments the kernel does not take.
+// dtype: 0 = float32, 1 = bfloat16. The plan (vec, tpr, j, rpb, blocks) is
+// `launch_plan`'s. Returns cudaGetLastError() after the launch (0 =
+// launched), or -1 for arguments or a plan the kernels do not take.
 extern "C" int repro_rmsnorm_fwd(const void* x, const void* scale, void* out, int rows,
-                                 int dim, float eps, int dtype, void* stream) {
+                                 int dim, float eps, int dtype, int vec, int tpr, int j,
+                                 int rpb, int blocks, void* stream) {
   if (rows <= 0 || dim <= 0) return -1;
+  const Plan p{vec, tpr, j, rpb, blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, scale, out, rows, dim, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, scale, out, rows, dim, eps, s);
+  if (dtype == 0) return fwd<float>(x, scale, out, rows, dim, eps, p, s);
+  if (dtype == 1) return fwd<__nv_bfloat16>(x, scale, out, rows, dim, eps, p, s);
   return -1;
 }
 
-extern "C" int repro_rmsnorm_bwd_groups(int rows, int dim) { return bwd_groups(rows, dim); }
-
-// Backward: dx (rows, dim) and dscale (dim,) from the output gradient g.
-// `part` is f32 scratch of repro_rmsnorm_bwd_groups(rows, dim) x dim.
-// dim must be at most 32 * 256 (32 dscale accumulators per thread, at
-// most 256 threads per row).
+// Backward: dx (rows, dim) and dscale (dim,) from the output gradient g;
+// `part` is f32 scratch of (the plan's groups) x dim.
 extern "C" int repro_rmsnorm_bwd(const void* g, const void* x, const void* scale, void* dx,
                                  void* dscale, void* part, int rows, int dim, float eps,
-                                 int dtype, void* stream) {
-  if (rows <= 0 || dim <= 0 || dim > kMaxAcc * kBwdThreads) return -1;
+                                 int dtype, int vec, int tpr, int j, int rpb, int blocks,
+                                 void* stream) {
+  if (rows <= 0 || dim <= 0) return -1;
+  const Plan p{vec, tpr, j, rpb, blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<float>(g, x, scale, dx, dscale, part, rows, dim, eps, s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(g, x, scale, dx, dscale, part, rows, dim, eps, s);
+  if (dtype == 0) return bwd<float>(g, x, scale, dx, dscale, part, rows, dim, eps, p, s);
+  if (dtype == 1) return bwd<__nv_bfloat16>(g, x, scale, dx, dscale, part, rows, dim, eps, p, s);
   return -1;
 }

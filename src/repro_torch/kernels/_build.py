@@ -110,11 +110,9 @@ def _build(target: Path) -> None:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_rmsnorm_fwd.argtypes = [P, P, P, I, I, F, I, P]
+    lib.repro_rmsnorm_fwd.argtypes = [P, P, P, I, I, F] + [I] * 6 + [P]
     lib.repro_rmsnorm_fwd.restype = I
-    lib.repro_rmsnorm_bwd_groups.argtypes = [I, I]
-    lib.repro_rmsnorm_bwd_groups.restype = I
-    lib.repro_rmsnorm_bwd.argtypes = [P, P, P, P, P, P, I, I, F, I, P]
+    lib.repro_rmsnorm_bwd.argtypes = [P] * 6 + [I, I, F] + [I] * 6 + [P]
     lib.repro_rmsnorm_bwd.restype = I
     lib.repro_flash_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P]
     lib.repro_flash_attention_fwd.restype = I

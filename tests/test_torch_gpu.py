@@ -44,7 +44,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 1, 2048), (3, 100, 576), (7, 64)])
+@pytest.mark.parametrize("shape", [(4, 1, 2048), (3, 100, 576), (7, 64), (16384, 2048),
+                                   (16384, 4096), (64, 16384), (5, 8191)])
 def test_rms_norm_kernel_matches_plain(cuda, dtype, shape):
     g = torch.Generator().manual_seed(0)
     x = torch.randn(shape, generator=g).to(cuda, dtype)
@@ -273,7 +274,7 @@ def test_flash_attention_kernels_at_large_scores(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 1, 2048), (8192, 2048), (16384, 2048), (3, 100, 576),
-                                   (7, 64), (5, 33)])
+                                   (7, 64), (5, 33), (16384, 4096), (4096, 8192)])
 def test_rms_norm_bwd_kernel_matches_plain(cuda, dtype, shape):
     g = torch.Generator().manual_seed(4)
     x = torch.randn(shape, generator=g).to(cuda, dtype)
@@ -286,6 +287,21 @@ def test_rms_norm_bwd_kernel_matches_plain(cuda, dtype, shape):
     # for each of those.
     slack = dscale_bf16_slack(dy, x, near_ulps=NEAR_ULPS)[0] if dtype == torch.bfloat16 else 0.0
     _close(ds, rs, dtype, slack)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16384, 2048), (16384, 4096), (5, 33), (4, 1, 2048)])
+def test_rms_norm_kernels_repeat_bit_for_bit(cuda, dtype, shape):
+    """A second launch gives the forward's output, dx and dscale bit for
+    bit: each row's sums run in a fixed order, and the groups' dscale
+    partials are summed in a fixed order without atomics."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    dy = torch.randn(shape, generator=g).to(cuda, dtype)
+    scale = (1 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda, dtype)
+    assert torch.equal(K.rms_norm(x, scale), K.rms_norm(x, scale))
+    (dx, ds), (dx2, ds2) = K.rms_norm_bwd(dy, x, scale), K.rms_norm_bwd(dy, x, scale)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
 def test_decode_kernels_refuse_grad(cuda):
