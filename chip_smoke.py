@@ -16,9 +16,12 @@ runs, in order, and exits non-zero at the first phase that fails:
    nothing, and that no instance of K3's and K4's split and merge kernels
    and of K2's forward, backward and dscale-sum kernels spills;
 3. holds every kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, in f32 and bf16: K2 at the decode tick's 4
-   rows and a prefill chunk's 256, each a second launch bit for bit; K3 and K4 (split-KV flash
-   decode) at ``parity.DECODE_SHAPES``, each bit for bit equal to the
+   the serving path's shapes, in f32 and bf16: K2 at a decode step's 1
+   and 4 rows at D 2048 and 4096 (``parity.RMS_DECODE_SHAPES``, printing
+   each one's launch plan) and a prefill chunk's 256, each a second launch
+   bit for bit; K3 and K4 (split-KV flash
+   decode) at ``parity.DECODE_SHAPES`` (zamba2's G = 1, D 128 among them),
+   each bit for bit equal to the
    other on identical rows, to a second launch of itself, and, row by row,
    to a launch of that row alone (the split plan reads no batch size);
 4. serves llama3.2-1b at full width in bf16 (random weights from a seed)
@@ -73,13 +76,27 @@ runs, in order, and exits non-zero at the first phase that fails:
    block's shape (MHA, D 128) beside theirs and SDPA, and K2 forward and
    backward at zamba2's 4096-wide norms beside theirs and ``F.rms_norm``,
    and profiles one full-width zamba2 train step;
+15. serves zamba2-1.2b: first, cut to 2 Mamba2 layers and one shared call
+   at full width in f32, one right-padded prefill chunk and 4 decode ticks
+   with a lane masked off through the kernels on the card against the
+   plain versions on the CPU, over each pool (logits, recurrent states,
+   K/V rows); then at full width (38 Mamba2 layers, 6 shared calls, bf16)
+   6 requests through ``ServeEngine`` over each pool (4 slots of 512 rows,
+   64-token chunks), every stream position held to teacher-forced
+   ``generate_offline`` and each decode step's launches counted (K2 89
+   times, K3 or K4 6 times, nothing else); times K3 and K4 at the tick's
+   shape and K2 at its 4 rows of 4096, and profiles a decode tick of each
+   pool and the scanned prefill per prompt token;
 
-and prints the ``kernels`` JSON line (eight kernels; the profiles under
+and prints the ``kernels`` JSON line (eight kernels, each with its
+launches on the zamba2 serving path under ``zamba_serve_launches``; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
 ``zamba_rmsnorm_times`` and at llama's training rows under
-``rmsnorm_train_forward``, the launch floor, phase 2's tensor-core
+``rmsnorm_train_forward``, phase 15's results under ``zamba_serve``,
+``zamba_serve_streams``, ``zamba_decode_parity``, ``zamba_decode_times``
+and ``zamba_serve_profile``, the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
 ``k2_resources``), the card line
@@ -356,15 +373,21 @@ def check_kernels() -> dict:
         decode_attention, decode_attention_plain, paged_decode_attention,
         paged_decode_attention_plain,
     )
-    from repro_torch.kernels.parity import DECODE_BLOCK, DECODE_SHAPES
+    from repro_torch.kernels.decode_attention import sm_count
+    from repro_torch.kernels.parity import DECODE_BLOCK, DECODE_SHAPES, RMS_DECODE_SHAPES
+    from repro_torch.kernels.rmsnorm import launch_plan
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     worst = {"rmsnorm": 0.0, "decode_attention": 0.0, "paged_decode_attention": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for shape in ((N_SLOTS, 1, 2048), (PREFILL_CHUNK, 1, 2048), (512, 2048)):
+        for shape in RMS_DECODE_SHAPES + [(PREFILL_CHUNK, 1, 2048), (512, 2048)]:
             err = hold_rms_norm(shape, dtype, gen)
+            if shape in RMS_DECODE_SHAPES:
+                es = torch.tensor([], dtype=dtype).element_size()
+                plan = launch_plan(False, shape[0], shape[-1], es, True, sm_count(0))
+                print(f"    launch plan: {plan} (phase 2: no K2 instance spills)")
             if dtype == torch.bfloat16:
                 worst["rmsnorm"] = max(worst["rmsnorm"], err)
         for H, Hkv, D, S, lens in DECODE_SHAPES:
@@ -423,7 +446,7 @@ def workload(vocab: int):
 
 def serve(model, params) -> dict:
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serve import Scheduler, ServeEngine, generate_offline
+    from repro_torch.serve import Scheduler, ServeEngine
 
     cfg = model.cfg
     reqs = workload(cfg.vocab_size)
@@ -463,12 +486,18 @@ def serve(model, params) -> dict:
                   f"{pool}: request {rid} produced a malformed stream")
         runs[pool] = {"tokens": [results[r].tokens for r in rids], "stats": st,
                       "launches": counts}
+    check_streams(model, params, reqs, runs, MAX_LEN)
+    return runs
 
-    # Offline decode is fed each served stream (teacher forcing), so every
-    # position is checked: the engine's token equals offline's choice on
-    # the same prefix, or offline's top-2 gap there is a near-tie. Where
-    # paged and contiguous part on a shared prefix, offline's one choice
-    # differs from one of them, so the check also covers that split.
+
+def check_streams(model, params, reqs, runs: dict, max_len: int) -> dict:
+    """Offline decode is fed each served stream (teacher forcing), so every
+    position is checked: the engine's token equals offline's choice on
+    the same prefix, or offline's top-2 gap there is a near-tie. Where
+    paged and contiguous part on a shared prefix, offline's one choice
+    differs from one of them, so the check also covers that split."""
+    from repro_torch.serve import generate_offline
+
     compared = near_ties = identical = 0
     for i, (p, m, _) in enumerate(reqs):
         scored = {}
@@ -476,7 +505,7 @@ def serve(model, params) -> dict:
             got = runs[pool]["tokens"][i]
             key = tuple(got)
             if key not in scored:
-                scored[key] = generate_offline(model, params, p, m, MAX_LEN, forced=got)
+                scored[key] = generate_offline(model, params, p, m, max_len, forced=got)
             choice, margins = scored[key]
             ties = [j for j in range(m) if got[j] != choice[j]]
             for j in ties:
@@ -494,7 +523,9 @@ def serve(model, params) -> dict:
           f"{identical} of {2 * len(reqs)} streams identical, {near_ties} near-ties "
           f"accepted (top-2 gap < {TIE_TOL}); paged == contiguous for {same} of "
           f"{len(reqs)}")
-    return runs
+    return {"positions_compared": compared, "near_ties": near_ties,
+            "identical_streams": identical, "streams": 2 * len(reqs),
+            "paged_equals_contiguous": same}
 
 
 # ---------------------------------------------------------------------------
@@ -608,27 +639,34 @@ def print_kernel_times(out: dict) -> None:
               + (f", {r['n_splits']} splits" if "n_splits" in r else ""))
 
 
-def time_kernels(cfg, reqs) -> tuple:
-    """(serving-shape times of K2, K3 and K4; K3 and K4 at LONG_DECODE)."""
+def time_rmsnorm_rows(rows: int, D: int, gen) -> dict:
+    """K2 forward at x (rows, 1, D) bf16 beside its plain version,
+    ``F.rms_norm`` and its bound (x read and y written, the scale read; ~4
+    f32 operations an element)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import rms_norm, rms_norm_plain
 
     dev, dt = torch.device("cuda"), torch.bfloat16
+    x = torch.randn((rows, 1, D), generator=gen).to(dev, dt)
+    scale = torch.ones(D, dtype=dt, device=dev)
+    b, kind = bound(2 * rows * D * 2 + D * 2, 4 * rows * D)
+    return dict(
+        shape=f"x ({rows}, 1, {D}) bf16",
+        ms=time_ms(lambda: rms_norm(x, scale)),
+        plain_ms=time_ms(lambda: rms_norm_plain(x, scale)),
+        library_ms=time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-6)),
+        bound_ms=b, bound_by=kind,
+    )
+
+
+def time_kernels(cfg, reqs) -> tuple:
+    """(serving-shape times of K2, K3 and K4; K3 and K4 at LONG_DECODE)."""
+    dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 1)
     out = {}
-    D = cfg.d_model
     for rows, label in ((N_SLOTS, "decode"), (PREFILL_CHUNK, "prefill")):
-        x = torch.randn((rows, 1, D), generator=gen).to(dev, dt)
-        scale = torch.ones(D, dtype=dt, device=dev)
-        b, kind = bound(2 * rows * D * 2 + D * 2, 4 * rows * D)
-        out[f"rmsnorm_{label}"] = dict(
-            shape=f"x ({rows}, 1, {D}) bf16",
-            ms=time_ms(lambda: rms_norm(x, scale)),
-            plain_ms=time_ms(lambda: rms_norm_plain(x, scale)),
-            library_ms=time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-6)),
-            bound_ms=b, bound_by=kind,
-        )
+        out[f"rmsnorm_{label}"] = time_rmsnorm_rows(rows, cfg.d_model, gen)
     one = torch.zeros(1, device=dev)
     floor = time_ms(lambda: one.add_(0))
     print(f"  launch floor (t.add_(0) on a one-element tensor, the same timer): "
@@ -1488,6 +1526,243 @@ def time_ssd_kernels(cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: serve zamba2-1.2b through both pools
+# ---------------------------------------------------------------------------
+
+#: zamba2-1.2b serving: 4 slots of 512 rows, 64-token prefill chunks (a
+#: prompt over 64 tokens continues a prefilled state), 6 requests of
+#: 16-128 prompt and 8-32 new tokens; the scanned prefill costs one
+#: decode step a prompt token, so the traffic is smaller than llama's.
+Z_SLOTS, Z_MAX_LEN, Z_CHUNK, Z_REQUESTS = 4, 512, 64, 6
+
+
+def zamba_workload(vocab: int):
+    rng = np.random.default_rng(SEED + 10)
+    reqs = []
+    for i in range(Z_REQUESTS):
+        p = int(rng.integers(16, 129))
+        m = int(rng.integers(8, 33))
+        reqs.append((rng.integers(0, vocab, size=p).astype(np.int32), m, i * 0.02))
+    return reqs
+
+
+def hybrid_step_launches(cfg, steps: int, paged: bool) -> dict:
+    """Kernel launches of ``steps`` hybrid decode steps (ticks, or prompt
+    tokens of the scanned prefill): per step K2 once per norm (a pre-norm
+    and a gated norm per Mamba2 layer, two per shared call, the final
+    norm) and K3 (contiguous) or K4 (paged) once per shared call; no
+    other kernel."""
+    from repro_torch.kernels import KERNELS
+
+    calls = cfg.n_layers // cfg.attn_every
+    counts = dict.fromkeys(KERNELS, 0)
+    counts["rmsnorm"] = (2 * cfg.n_layers + 2 * calls + 1) * steps
+    counts["paged_decode_attention" if paged else "decode_attention"] = calls * steps
+    return counts
+
+
+def zamba_decode_vs_plain(zcfg) -> dict:
+    """zamba2-1.2b at full width cut to 2 Mamba2 layers and one shared
+    call, f32, over each pool: one right-padded prefill chunk into blank
+    caches (4 rows of 16, 9, 12 and 5 tokens), then 4 decode ticks with
+    lane 2 masked off (its position stays), through the kernels on the
+    card (whose launches must be ``hybrid_step_launches``) and through the
+    plain versions on the CPU, from the same parameters (the LoRA
+    up-projections drawn at random, not zeros) and tokens. The chunk's and
+    every tick's logits, every recurrent state and each shared-call K/V
+    row below its row's length are held by ``parity.within`` (f32)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.parity import within
+    from repro_torch.models import Model
+    from repro_torch.models.attention import paged_kv_view
+    from repro_torch.models.layers import tree_map
+
+    small = dataclasses.replace(zcfg, n_layers=2, attn_every=2, dtype="float32")
+    model = Model(small)
+    cpu_params = model.init(SEED, device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 12)
+    shared = cpu_params["stack"]["shared"]
+    for name in ("lora_qkv_b", "lora_mlp_b"):
+        shared[name] = 0.05 * torch.randn(shared[name].shape, generator=gen)
+    gpu_params = tree_map(lambda t: t.to("cuda"), cpu_params, is_leaf=torch.is_tensor)
+    B, P, rows, bs, n_ticks = 4, 16, 64, 16, 4
+    lens = torch.tensor([16, 9, 12, 5])
+    lanes = torch.tensor([True, True, False, True])
+    V = small.vocab_size
+    chunk = torch.randint(0, V, (B, P), generator=gen)
+    chunk[torch.arange(P)[None, :] >= lens[:, None]] = 0          # the bucket's padding
+    ticks = torch.randint(0, V, (n_ticks, B, 1), generator=gen)
+    tables = (torch.randperm(B * rows // bs, generator=gen) + 1).reshape(B, -1).int()
+    steps = int(lens.max()) + n_ticks
+    out, ok = {}, True
+    for pool, paged in (("contiguous", False), ("paged", True)):
+        kw = dict(block_size=bs, num_blocks=B * rows // bs) if paged else {}
+        res = {}
+        for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+            caches = model.blank_caches(B, rows, device=dev, **kw)
+            tt = tables.to(dev) if paged else None
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            lg, caches = model.prefill_with_cache(params, chunk.to(dev), caches,
+                                                  length=lens.to(dev), start_index=0,
+                                                  block_tables=tt)
+            logits, pos = [lg], lens.clone()
+            for t in range(n_ticks):
+                lg, caches = model.decode_step(params, ticks[t].to(dev), caches, pos.to(dev),
+                                               block_tables=tt, mask=lanes.to(dev))
+                logits.append(lg)
+                pos = pos + lanes.long()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            res[dev] = (logits, caches, time.perf_counter() - t0)
+        expect = hybrid_step_launches(small, steps, paged)
+        check(counts == expect, f"{pool}: launches {counts}, expected {expect}")
+        (lg_g, c_g, s_g), (lg_c, c_c, s_c) = res["cuda"], res["cpu"]
+        errs = {"logits": max(within(a.cpu(), b, torch.float32)[0] for a, b in zip(lg_g, lg_c))}
+        ok &= all(within(a.cpu(), b, torch.float32)[1] for a, b in zip(lg_g, lg_c))
+        for name in ("conv", "ssm"):
+            e, o = within(c_g["mamba"][name].cpu(), c_c["mamba"][name], torch.float32)
+            errs[name] = e
+            ok &= o
+        for name in ("k", "v"):
+            e_max = 0.0
+            for call in range(c_c["attn"][name].shape[0]):
+                g, c = c_g["attn"][name][call].cpu(), c_c["attn"][name][call]
+                if paged:
+                    g, c = paged_kv_view(g, tables), paged_kv_view(c, tables)
+                for b in range(B):
+                    e, o = within(g[b, :pos[b]], c[b, :pos[b]], torch.float32)
+                    e_max = max(e_max, e)
+                    ok &= o
+            errs[name] = e_max
+        print(f"  {pool}: {steps} decode steps ({int(lens.max())} of the scanned chunk, "
+              f"{n_ticks} ticks with lane 2 masked), card {s_g:.2f} s vs CPU plain {s_c:.2f} s; "
+              f"max |err|: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; launches {dict((k, v) for k, v in counts.items() if v)} "
+              f"({'ok' if ok else 'FAIL'})")
+        out[pool] = {"max_abs_err": errs, "launches": counts, "steps": steps}
+    check(ok, "the cut-down zamba2 decode: card vs plain on the CPU")
+    return out
+
+
+def serve_zamba(model, params) -> tuple:
+    """zamba2-1.2b through ``ServeEngine`` over each pool: the launches of
+    every decode step, well-formed streams, every stream position held to
+    teacher-forced offline decode (``check_streams``), and the pool's
+    recurrent-state and KV bytes."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Scheduler, ServeEngine
+
+    cfg = model.cfg
+    reqs = zamba_workload(cfg.vocab_size)
+    runs = {}
+    for pool, block_size in (("contiguous", None), ("paged", BLOCK_SIZE)):
+        eng = ServeEngine(model, params, n_slots=Z_SLOTS, max_len=Z_MAX_LEN,
+                          block_size=block_size,
+                          scheduler=Scheduler(Z_SLOTS, prefill_chunk=Z_CHUNK))
+        rids = [eng.submit(p, m, arrival=a) for p, m, a in reqs]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        results = eng.run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        st = eng.stats
+        steps = st.decode_ticks + st.prefill_tokens
+        expect = hybrid_step_launches(cfg, steps, block_size is not None)
+        mem = {"state_bytes_per_slot": eng.pool.state_bytes_per_slot(),
+               "kv_bytes_high_water": eng.pool.kv_bytes_high_water(),
+               "kv_bytes_contiguous": eng.pool.kv_bytes_contiguous()}
+        print(f"  {pool}: {st.prefill_calls} prefill calls ({st.prefill_tokens} prompt tokens, "
+              f"one decode step each), {st.decode_ticks} decode ticks, {st.generated_tokens} "
+              f"tokens in {st.wall_seconds:.2f} s; decode {st.decode_tokens_per_wsec:.1f} "
+              f"tokens/s; recurrent state {mem['state_bytes_per_slot'] / 2**20:.2f} MiB a slot; "
+              f"KV high-water {mem['kv_bytes_high_water'] / 2**20:.2f} MiB of "
+              f"{mem['kv_bytes_contiguous'] / 2**20:.2f} MiB contiguous; launches "
+              f"{dict((k, v) for k, v in counts.items() if v)} over {steps} steps")
+        check(counts == expect, f"{pool}: launches {counts}, expected {expect}")
+        for rid, (p, m, _) in zip(rids, reqs):
+            toks = results[rid].tokens
+            check(len(toks) == m and all(0 <= t < cfg.vocab_size for t in toks),
+                  f"{pool}: request {rid} produced a malformed stream")
+        runs[pool] = {"tokens": [results[r].tokens for r in rids], "stats": st,
+                      "launches": counts, "steps": steps, **mem}
+    streams = check_streams(model, params, reqs, runs, Z_MAX_LEN)
+    return runs, streams
+
+
+#: The profiled zamba2 windows: ticks (after a warm-up of half as many)
+#: and the prompt of the scanned prefill. Kept short: a zamba2 step is
+#: ~2100 launches, and reading a window's profiler events takes longer
+#: than running it.
+Z_PROFILE_TICKS, Z_PROFILE_PROMPT = 10, 32
+
+
+def profile_zamba_serving(model, params) -> list:
+    """A steady window of ``Z_PROFILE_TICKS`` decode ticks of 4 lanes
+    (prompts of 16-32 tokens) over each pool, and the scanned prefill of
+    a ``Z_PROFILE_PROMPT``-token prompt, per token, after a warm-up
+    prompt: host wall time, device time, idle share, launches, and device
+    time by kernel class."""
+    from repro_torch.serve import Scheduler, ServeEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 13)
+    results = []
+
+    def engine(block_size):
+        return ServeEngine(model, params, n_slots=Z_SLOTS, max_len=Z_MAX_LEN,
+                           block_size=block_size,
+                           scheduler=Scheduler(Z_SLOTS, prefill_chunk=Z_CHUNK))
+
+    for pool, bsz in (("contiguous", None), ("paged", BLOCK_SIZE)):
+        eng = engine(bsz)
+        for _ in range(Z_SLOTS):
+            eng.submit(rng.integers(0, cfg.vocab_size, size=int(rng.integers(16, 33))), 100)
+        while not eng._decoding.all():        # admit and prefill all lanes
+            eng.step()
+
+        def ticks(n, eng=eng):
+            for _ in range(n):
+                eng.step()
+
+        n = Z_PROFILE_TICKS
+        ticks(n // 2)                         # warm-up
+        results.append(window(f"zamba2 decode tick, {pool} pool, 4 lanes",
+                              lambda: ticks(n), lambda: ticks(n), n, "tick"))
+
+    def prefill_fresh():
+        eng = engine(None)
+        eng.submit(rng.integers(0, cfg.vocab_size, size=Z_PROFILE_PROMPT), 2)
+        return eng
+
+    def prefill_all(eng):
+        while eng.sched.running or eng.sched.waiting:
+            eng.step()
+
+    prefill_all(prefill_fresh())              # warm-up
+    a, b = prefill_fresh(), prefill_fresh()
+    results.append(window(f"zamba2 scanned prefill, {Z_PROFILE_PROMPT}-token prompt, per "
+                          "prompt token", lambda: prefill_all(a), lambda: prefill_all(b),
+                          Z_PROFILE_PROMPT, "token"))
+    return results
+
+
+def time_zamba_kernels(cfg, reqs) -> dict:
+    """K3 and K4 at the zamba2 tick's shape (4 lanes of 512 rows, 32 heads
+    over 32 kv heads, D 128; each lane at its prompt length plus half its
+    new tokens) and K2 at the tick's 4 rows of 4096, beside their plain
+    versions, a library call and their bounds."""
+    gen = torch.Generator().manual_seed(SEED + 14)
+    lens = [len(p) + m // 2 for p, m, _ in reqs[:Z_SLOTS]]
+    hd = 2 * cfg.d_model // cfg.n_heads
+    out = time_decode(Z_SLOTS, Z_MAX_LEN, cfg.n_heads, cfg.n_heads, hd, lens, gen)
+    out["rmsnorm"] = time_rmsnorm_rows(Z_SLOTS, 2 * cfg.d_model, gen)
+    print_kernel_times(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1585,6 +1860,26 @@ def main() -> int:
     zamba_profile = profile_train_step(zmodel, ztrained.pop("params"))
     worst["rmsnorm"] = max(worst["rmsnorm"], train_worst["rmsnorm"])
 
+    t15 = time.perf_counter()
+    print(f"[15] serving {zcfg.name} at full width: {zcfg.n_layers} Mamba2 layers, "
+          f"{zcfg.n_layers // zcfg.attn_every} shared calls of {zcfg.n_heads} x "
+          f"{dw // zcfg.n_heads}, vocab {zcfg.vocab_size}, {zcfg.dtype}")
+    print(f"    cut to 2 Mamba2 layers and one shared call, f32: a prefill chunk and 4 "
+          f"ticks with a lane masked, kernels on the card vs plain on the CPU")
+    zdecode_parity = zamba_decode_vs_plain(zcfg)
+    zmodel = Model(zcfg)
+    zparams = zmodel.init(SEED, device="cuda")
+    print(f"    {Z_REQUESTS} requests through ServeEngine, {Z_SLOTS} slots of {Z_MAX_LEN} "
+          f"rows, {Z_CHUNK}-token prefill chunks")
+    zruns, zstreams = serve_zamba(zmodel, zparams)
+    print("    timing (CUDA events, cold L2, median of 60)")
+    zamba_decode_times = time_zamba_kernels(zcfg, zamba_workload(zcfg.vocab_size))
+    print("    where zamba2 serving time goes (torch.profiler)")
+    zamba_serve_profile = profile_zamba_serving(zmodel, zparams)
+    del zparams
+    zamba_serve_seconds = time.perf_counter() - t15
+    print(f"    phase 15 took {zamba_serve_seconds:.1f} s")
+
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:26",
@@ -1629,6 +1924,7 @@ def main() -> int:
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "zamba_serve_launches": sum(r["launches"][kname] for r in zruns.values()),
         })
     report = {
         "kernels": kernels,
@@ -1653,6 +1949,22 @@ def main() -> int:
         "decode_kernel_resources": decode_resources,
         "k2_resources": rmsnorm_resources,
         "zamba_train_profile": zamba_profile,
+        "zamba_serve": {
+            pool: {"steps": r["steps"], "launches": r["launches"],
+                   "prefill_calls": r["stats"].prefill_calls,
+                   "prefill_tokens": r["stats"].prefill_tokens,
+                   "decode_ticks": r["stats"].decode_ticks,
+                   "wall_seconds": r["stats"].wall_seconds,
+                   "decode_tokens_per_s": r["stats"].decode_tokens_per_wsec,
+                   "state_bytes_per_slot": r["state_bytes_per_slot"],
+                   "kv_bytes_high_water": r["kv_bytes_high_water"],
+                   "kv_bytes_contiguous": r["kv_bytes_contiguous"]}
+            for pool, r in zruns.items()},
+        "zamba_serve_streams": zstreams,
+        "zamba_decode_parity": zdecode_parity,
+        "zamba_decode_times": zamba_decode_times,
+        "zamba_serve_profile": zamba_serve_profile,
+        "zamba_serve_seconds": zamba_serve_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

@@ -49,8 +49,9 @@
 // No tensor cores: G <= 8 query rows per kv head do not fill an mma tile.
 //
 // The query scale is applied in q's dtype before the f32 cast, as
-// `attention.decode_attention` does: (q * scale) rounds to bf16 for a
-// bf16 query (exact for head_dim 64, where scale = 1/8).
+// `attention.decode_attention` does in jnp: the scale is rounded to q's
+// dtype, and so is the product (both exact for head_dim 64, where
+// scale = 1/8; at head_dim 128 neither is).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -242,6 +243,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   // Grouped queries of this kv head (heads h*G .. h*G+G-1), scaled in q's
   // dtype, then by log2(e) in f32; lane li holds pieces li + n * LPR.
+  const float qscale = Vec<T>::to_dtype(scale);
   float qf[GM][NA];
   const T* qb = q + ((int64_t)b * n_heads + (int64_t)h * G) * D;
 #pragma unroll
@@ -253,7 +255,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       if (g < G && c < n_vec) {
         Vec<T>::unpack(*reinterpret_cast<const uint4*>(qb + g * D + c * VEC), f);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) f[e] = Vec<T>::to_dtype(f[e] * scale) * kLog2e;
+        for (int e = 0; e < VEC; ++e) f[e] = Vec<T>::to_dtype(f[e] * qscale) * kLog2e;
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) f[e] = 0.f;

@@ -40,6 +40,7 @@ __all__ = [
     "paged_decode_attention",
     "paged_decode_attention_plain",
     "paged_kv_view",
+    "scale_query",
     "sm_count",
     "split_plan",
     "split_rows",
@@ -105,16 +106,26 @@ def paged_kv_view(arena: torch.Tensor, block_table: torch.Tensor) -> torch.Tenso
     return g.reshape(block_table.shape[0], -1, *arena.shape[2:])
 
 
+def scale_query(q: torch.Tensor) -> torch.Tensor:
+    """``q * (1 / sqrt(head_dim))`` in q's dtype, rounded as the reference's
+    jnp ``q * scale`` rounds: the scale to q's dtype first (a weakly typed
+    Python float), then the f32 product. PyTorch's ``q * scale`` keeps the
+    scale in f32 instead; the two differ in bf16 where the scale is no
+    power of two (head_dim 128). The decode kernels scale the same way."""
+    scale = float(torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype))
+    return (q.float() * scale).to(q.dtype)
+
+
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
     """Mirror of ``attention.decode_attention`` in kernel shapes: q (B, H, D),
-    k/v (B, S, Hkv, D). ``q * scale`` is taken in q's dtype before the
-    f32 cast, then masked softmax over all S rows in f32."""
+    k/v (B, S, Hkv, D). The query is scaled in its own dtype
+    (``scale_query``) before the f32 cast, then masked softmax over all S
+    rows in f32."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    scale = 1.0 / math.sqrt(D)
-    qf = (q * scale).float().reshape(B, Hkv, G, D)
+    qf = scale_query(q).float().reshape(B, Hkv, G, D)
     s = torch.einsum("bhgd,bshd->bhgs", qf, k.float())
     pos = torch.arange(S, device=q.device)
     valid = pos[None, None, None, :] < lengths.to(q.device)[:, None, None, None]

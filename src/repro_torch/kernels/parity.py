@@ -13,8 +13,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "FLASH_SHAPES", "SSD_SHAPES", "NEAR_ULPS",
-           "BF16_UNIT", "within", "flash_within", "ssd_within", "dscale_bf16_slack"]
+__all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "RMS_DECODE_SHAPES", "FLASH_SHAPES", "SSD_SHAPES",
+           "NEAR_ULPS", "BF16_UNIT", "within", "flash_within", "ssd_within", "dscale_bf16_slack"]
 
 #: Flash decode (K3, K4) cases: H, Hkv, D, S, lengths (B = len(lengths));
 #: the paged form reads the same rows through a shuffled arena of
@@ -24,7 +24,11 @@ __all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "FLASH_SHAPES", "SSD_SHAPES", "NEAR_
 #: that land on the boundaries of 9 and of 16 splits (9 x k and 16 x k
 #: granules of 16 rows, and one row either side; the plan gives 8 at Hkv 8,
 #: S 1024 on 132 SMs); one row long enough for many splits (S 4096: 32); G = 8
-#: at D 128; and G = 3 at D 256, the widest head the kernels take. A
+#: at D 128; G = 3 at D 256, the widest head the kernels take; and
+#: zamba2-1.2b's shared block (32 heads over 32 kv heads, G = 1, at D 128,
+#: S 512, where the plan gives 4 splits): lengths of about one granule, of
+#: fewer granules than splits and of as many, and either side of each
+#: split boundary of a full row (128, 256, 384). A
 #: length of 0 is K4's empty row (zeros); K3's contract is length >= 1, so
 #: it is held to plain on live rows only.
 DECODE_BLOCK = 16
@@ -38,7 +42,15 @@ DECODE_SHAPES = [
     (32, 8, 64, 1024, [256, 255, 257, 1023]),
     (32, 8, 64, 4096, [4096]), (32, 8, 64, 4096, [4001]),
     (8, 1, 128, 1024, [0, 1, 513, 1024]), (6, 2, 256, 512, [0, 1, 300, 512]),
+    (32, 32, 128, 512, [1, 15, 16, 17, 512]), (32, 32, 128, 512, [47, 48, 49, 64, 65, 0]),
+    (32, 32, 128, 512, [127, 128, 129, 255, 256, 257, 383, 384, 385]),
 ]
+
+#: RMSNorm (K2) forward at the rows of a decode step: one (the hybrid's
+#: scanned prefill) or four (a tick of four lanes), at d_model 2048 and at
+#: zamba2-1.2b's 4096-wide norms (its gated Mamba2 norm and the shared
+#: block's two).
+RMS_DECODE_SHAPES = [(1, 1, 2048), (4, 1, 2048), (1, 1, 4096), (4, 1, 4096)]
 
 #: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and

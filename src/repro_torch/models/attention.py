@@ -32,12 +32,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import decode_attention as _decode_kernel
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import paged_decode_attention as _paged_decode_kernel
-from repro_torch.kernels.decode_attention import NEG_INF, paged_kv_view
+from repro_torch.kernels.decode_attention import NEG_INF, paged_kv_view, scale_query
 from .layers import ParamSpec, apply_rope, norm_apply, norm_specs
 
 __all__ = [
     "NEG_INF", "KV_SEQ_ALIGN", "NULL_BLOCK", "round_kv_len", "paged_kv_view",
-    "cache_row_update", "cache_rows_update", "decode_lengths", "gqa_specs",
+    "cache_row_update", "cache_rows_update", "decode_lengths", "cached_decode", "gqa_specs",
     "mea_attention", "decode_attention", "gqa_apply", "gqa_prefill",
     "gqa_cache_spec",
 ]
@@ -212,8 +212,7 @@ def mea_attention(
     Dv = v.shape[-1]
     G = H // Hkv
     dev = q.device
-    scale = 1.0 / math.sqrt(D)
-    qf = (q * scale).float().reshape(B, Sq, Hkv, G, D)
+    qf = scale_query(q).float().reshape(B, Sq, Hkv, G, D)
 
     chunk = min(chunk, Skv)
     n_chunks = math.ceil(Skv / chunk)
@@ -266,7 +265,6 @@ def gqa_apply(
     decode — write the token's K/V row at ``cache_index`` (scalar or
     (B,)) and attend against the cache, K4 over the arena with
     ``block_table``, else K3."""
-    B = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg, positions)
     if cache is None:
         # RoPE hands back fresh tensors; the projections may be strided
@@ -274,17 +272,33 @@ def gqa_apply(
         out = _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=cfg.causal and not cfg.is_encoder)
         return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
+    out, new_cache = cached_decode(q, k, v, cache, cache_index, block_table=block_table)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), new_cache
+
+
+def cached_decode(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cache: Dict,
+    cache_index,
+    *,
+    block_table: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """One decode token q (B, 1, H, D), k/v (B, 1, Hkv, D): write its K/V
+    row at ``cache_index`` (scalar or (B,)), in place, and attend against
+    the cache through K4 over the arena with ``block_table``, else K3 ->
+    (out (B, 1, H, D), {"k", "v"})."""
     ck = cache_row_update(cache["k"], k, cache_index, block_table=block_table)
     cv = cache_row_update(cache["v"], v, cache_index, block_table=block_table)
-    lengths = decode_lengths(cache_index, B, x.device)
+    lengths = decode_lengths(cache_index, q.shape[0], q.device)
     if block_table is not None:
         out = _paged_decode_kernel(
             q[:, 0].contiguous(), ck, cv, block_table.to(torch.int32), lengths
         )[:, None]
     else:
         out = decode_attention(q, ck, cv, length=lengths)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, {"k": ck, "v": cv}
+    return out, {"k": ck, "v": cv}
 
 
 def gqa_prefill(

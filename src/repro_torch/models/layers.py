@@ -37,6 +37,7 @@ __all__ = [
     "slot_write",
     "slot_reset",
     "slot_take",
+    "slot_mask_select_",
     "rms_norm",
     "norm_apply",
     "norm_specs",
@@ -186,6 +187,23 @@ def slot_take(caches, specs, perm: torch.Tensor):
             return c
         return torch.index_select(c, batch_axis_of(s), perm.to(c.device))
     return tree_map(take, caches, specs)
+
+
+def slot_mask_select_(state: torch.Tensor, new: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's ``slot_mask_select`` for one recurrent state leaf
+    (batch on axis 0), in place: lanes where ``mask`` (B,) is True take
+    ``new``, the others keep ``state``; ``mask`` None takes every lane.
+
+    The reference selects every contiguous leaf after the tick. The port
+    selects only the recurrent states (no sequence axis), inside the layer
+    that updates them: a K/V row a masked lane writes lies at or past its
+    length and is rewritten before anything reads it, but a recurrent
+    state would absorb the lane's token for good."""
+    if mask is None:
+        return state.copy_(new)
+    keep = mask.to(state.device).reshape(-1, *([1] * (state.dim() - 1)))
+    return state.copy_(torch.where(keep, new.to(state.dtype), state))
 
 
 # ---------------------------------------------------------------------------

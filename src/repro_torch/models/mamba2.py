@@ -1,20 +1,23 @@
-"""Mamba2 (SSD) block, training path (port of ``repro.models.mamba2``).
+"""Mamba2 (SSD) block (port of ``repro.models.mamba2``).
 
 Shapes follow the reference: d_inner = expand * d_model, H = d_inner / P
 heads of size P = head_dim, G groups sharing the B/C projections, state
 size N = d_state.
 
-  * ``ssd_chunked``   — training: the chunked scan through kernel K5
-                        (forward and backward) for CUDA tensors, its plain
-                        version on the CPU;
-  * ``ssd_recurrent`` — the step-by-step recurrence, plain PyTorch (the
-                        tests' oracle; finite at any decay);
-  * ``mamba2_apply``  — one block's training forward; its gated RMSNorm
-                        runs through K2.
+  * ``ssd_chunked``       — training: the chunked scan through kernel K5
+                            (forward and backward) for CUDA tensors, its
+                            plain version on the CPU;
+  * ``ssd_recurrent``     — the step-by-step recurrence, plain PyTorch:
+                            the serving step (as the reference serves
+                            with it) and the tests' oracle;
+  * ``mamba2_apply``      — one block's training forward;
+  * ``mamba2_decode``     — one token against the carried conv and SSM
+                            states, updated in place (lanes outside the
+                            tick's mask keep theirs);
+  * ``mamba2_state_spec`` — those states' spec for one layer.
 
-The depthwise causal convolution stays plain PyTorch, as the reference
-leaves it to XLA. The decode path (``mamba2_decode``,
-``mamba2_state_spec``) waits for the hybrid serving slice.
+Both gated RMSNorms run through K2. The depthwise causal convolution
+stays plain PyTorch, as the reference leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -26,11 +29,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ssd_scan as _ssd_kernel
-from .layers import ParamSpec, norm_specs, rms_norm
+from .layers import ParamSpec, norm_specs, rms_norm, slot_mask_select_
 
 __all__ = [
     "mamba2_specs",
     "mamba2_apply",
+    "mamba2_decode",
+    "mamba2_state_spec",
     "ssd_chunked",
     "ssd_recurrent",
 ]
@@ -64,13 +69,23 @@ def mamba2_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv along time, training form: x (B, S, D),
-    w (W, D); left-pad W - 1 zeros, sum the W shifted windows, SiLU."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv along time: x (B, S, D), w (W, D); sum the W
+    shifted windows, SiLU.
+
+    Training form (no ``state``): left-pad W - 1 zeros -> y. Decode form:
+    prepend the cached last W - 1 inputs ``state`` (B, W - 1, D), cast to
+    x's dtype -> (y, the new last W - 1 inputs)."""
     W, S = w.shape[0], x.shape[1]
-    x_pad = F.pad(x, (0, 0, W - 1, 0))
-    y = sum(x_pad[:, i:i + S] * w[i] for i in range(W)) + b
-    return F.silu(y)
+    if state is None:
+        x_pad = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        x_pad = torch.cat([state.to(x.dtype), x], dim=1)
+    y = F.silu(sum(x_pad[:, i:i + S] * w[i] for i in range(W)) + b)
+    if state is None:
+        return y
+    return y, x_pad[:, x_pad.shape[1] - (W - 1):]
 
 
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
@@ -138,3 +153,40 @@ def mamba2_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     y = y.reshape(Bsz, S, -1)
     y = rms_norm(y * F.silu(z), params["norm"]["scale"])
     return y @ params["w_out"]
+
+
+def mamba2_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  state: Dict[str, torch.Tensor],
+                  mask: Optional[torch.Tensor] = None):
+    """One token x (B, 1, d_model) of one Mamba2 block against its carried
+    ``state`` {"conv": (B, W - 1, conv_dim), "ssm": (B, H, P, N) f32} ->
+    (out (B, 1, d_model), state). The states are updated in place; lanes
+    where ``mask`` (B,) is False keep theirs (``slot_mask_select_``)."""
+    proj = x @ params["w_in"]
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                   state=state["conv"])
+    xh, Bm, Cm = _split_xbc(cfg, xbc)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    A = -torch.exp(params["a_log"])
+    y, ssm_state = ssd_recurrent(xh, dt, A, Bm, Cm, state=state["ssm"])
+    y = y + params["d_skip"].to(y.dtype)[:, None] * xh
+    y = y.reshape(x.shape[0], 1, -1)
+    y = rms_norm(y * F.silu(z), params["norm"]["scale"])
+    slot_mask_select_(state["conv"], conv_state, mask)
+    slot_mask_select_(state["ssm"], ssm_state, mask)
+    return y @ params["w_out"], state
+
+
+def mamba2_state_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:
+    """One layer's decode state: the last d_conv - 1 conv inputs in the
+    model's dtype and the SSM state in f32, batch on the "act_batch" axis."""
+    ssm: SSMConfig = cfg.ssm
+    d_inner, H, P, G, N = _dims(cfg)
+    conv_dim = d_inner + 2 * G * N
+    return {
+        "conv": ParamSpec((batch, ssm.d_conv - 1, conv_dim),
+                          ("act_batch", None, "ssm_inner"), "zeros", cfg.dtype),
+        "ssm": ParamSpec((batch, H, P, N),
+                         ("act_batch", "ssm_heads", None, None), "zeros", "float32"),
+    }

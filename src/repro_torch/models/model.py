@@ -1,20 +1,25 @@
 """Top-level model (port of ``repro.models.model`` for dense GQA decoders
 and the Mamba2 hybrids): embeddings, the block stack, the tied head, the
-training entry points ``hidden`` and ``train_loss``, and, for the dense
-decoders, the serving entry points ``prefill_with_cache`` and
-``decode_step``.
+training entry points ``hidden`` and ``train_loss``, and the serving
+entry points ``cache_specs`` / ``blank_caches``, ``prefill_with_cache``
+and ``decode_step``.
 
 Parameters and caches are trees of tensors. For the dense families
 ``params["stack"]`` and the cache tree hold one list per segment with
 one dict per layer (the reference stacks layers on a leading axis
 instead); for ``ssm``/``hybrid`` the stack is ``zamba.zamba_specs``'s
-tree and there are no segments, as in the reference. Every RMSNorm runs
+tree and the cache ``zamba.zamba_cache_specs``'s, stacked as in the
+reference. Every RMSNorm runs
 through kernel K2 (its gradient through K2's backward), every training
 attention through K1 (forward and backward), every SSD scan through K5
 (forward and backward), and every decode attention through K3
 (contiguous) or K4 (paged); the projections, the MLP, the causal
-convolution and the head are plain PyTorch, as the reference leaves them
-to XLA. Serving the hybrids is not ported yet.
+convolution, the serving SSM step and the head are plain PyTorch, as
+the reference leaves them to XLA.
+
+The dense prefill runs the whole chunk at once. The hybrid's prefill is
+the reference's fallback: it scans the decode step over the chunk, one
+token at a time, and masks each row's state and logits past its length.
 """
 
 from __future__ import annotations
@@ -109,11 +114,6 @@ class Model:
         """Mamba2 backbone (family ``ssm`` or ``hybrid``): ``zamba`` runs it."""
         return self.cfg.family in ("ssm", "hybrid")
 
-    def _no_hybrid_serving(self) -> None:
-        if self.is_hybrid:
-            raise NotImplementedError(
-                f"hybrid serving is not ported yet (family {self.cfg.family!r})")
-
     # -- specs ---------------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -192,10 +192,13 @@ class Model:
         tokens. The sequence axis is rounded up to ``attn.KV_SEQ_ALIGN``
         here, at allocation time. ``block_size`` switches every leaf to
         the paged arena layout (num_blocks + 1, block_size, ...) addressed
-        through block tables; row 0 of an arena is the NULL sink."""
-        self._no_hybrid_serving()
+        through block tables; row 0 of an arena is the NULL sink. The
+        hybrid's recurrent states have no sequence axis and stay
+        contiguous per slot in both modes."""
         max_len = attn.round_kv_len(max_len)
         page = None if block_size is None else (num_blocks, block_size)
+        if self.is_hybrid:
+            return zamba.zamba_cache_specs(self.cfg, batch, max_len, page)
         return [[attn.gqa_cache_spec(self.cfg, batch, max_len, page)
                  for _ in range(seg.count)] for seg in self.segments]
 
@@ -221,12 +224,15 @@ class Model:
         """Batched cache-writing prefill -> (last-valid logits (B, 1, V),
         caches). ``inputs`` may be right-padded to a bucket; pad rows are
         causally inert and their cache rows are masked by decode's length.
-        ``start_index > 0`` continues a partially prefilled cache."""
-        self._no_hybrid_serving()
+        ``start_index > 0`` continues a partially prefilled cache. The
+        hybrid scans the decode step instead (``_scanned_prefill``)."""
         B, P = inputs.shape
         dev = inputs.device
         if length is None:
             length = torch.full((B,), P, dtype=torch.long, device=dev)
+        if self.is_hybrid:
+            return self._scanned_prefill(params, inputs, caches, length.to(dev),
+                                         start_index, block_tables)
         start = torch.as_tensor(start_index, dtype=torch.long, device=dev)
         positions = start + torch.arange(P, device=dev)
         h, new_caches = self._fused_prefill_stack(
@@ -236,6 +242,25 @@ class Model:
         last = (length.to(dev).long() - 1).clamp(0, P - 1)
         h_last = h[torch.arange(B, device=dev), last][:, None]
         return self.logits(params, h_last), new_caches
+
+    def _scanned_prefill(self, params: Dict, inputs: torch.Tensor, caches,
+                         length: torch.Tensor, start_index, block_tables):
+        """The reference's recurrent fallback: ``decode_step`` over the
+        chunk's tokens from ``start_index``; row b's states and logits
+        move only while t < length[b] (its K/V rows past its length are
+        masked by every read). The scan stops at max(length): a step in
+        which no row is valid changes nothing."""
+        B = inputs.shape[0]
+        last = torch.zeros((B, 1, self.cfg.vocab_size), dtype=params["embed"].dtype,
+                           device=inputs.device)
+        for t in range(int(length.max())):
+            valid = t < length
+            logits, caches = self.decode_step(
+                params, inputs[:, t:t + 1], caches, start_index + t,
+                block_tables=block_tables, mask=valid,
+            )
+            last = torch.where(valid[:, None, None], logits, last)
+        return last, caches
 
     def _fused_prefill_stack(
         self,
@@ -270,13 +295,22 @@ class Model:
         caches,
         cache_index,               # current length: scalar or (B,)
         block_tables: Optional[torch.Tensor] = None,  # (B, T): paged KV arenas
+        mask: Optional[torch.Tensor] = None,          # (B,) bool: lanes to update
     ):
-        """One token per sequence -> (logits (B, 1, V), caches)."""
-        self._no_hybrid_serving()
+        """One token per sequence -> (logits (B, 1, V), caches). ``mask``
+        (None: every lane) marks the lanes whose recurrent states the step
+        may change (the hybrid's); the dense families have none and ignore
+        it."""
         cfg = self.cfg
         x = self.embed_inputs(params, token)
         idx = torch.as_tensor(cache_index, dtype=torch.long, device=x.device)
         positions = idx.reshape(1) if idx.dim() == 0 else idx[:, None]
+        if self.is_hybrid:
+            h, caches = zamba.zamba_decode(
+                params["stack"], x, cfg, caches, positions=positions, cache_index=idx,
+                block_tables=block_tables, mask=mask,
+            )
+            return self.logits(params, norm_apply(params["final_norm"], h, cfg.norm)), caches
         new_caches = []
         h = x
         for seg_params, seg_cache in zip(params["stack"], caches):

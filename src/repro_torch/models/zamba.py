@@ -1,5 +1,5 @@
-"""Zamba2-style hybrid, training path (port of ``repro.models.zamba``):
-a Mamba2 backbone with ONE shared attention + MLP block.
+"""Zamba2-style hybrid (port of ``repro.models.zamba``): a Mamba2
+backbone with ONE shared attention + MLP block.
 
   * ``n_layers`` Mamba2 blocks (pre-norm, residual) form the backbone;
   * the shared block (width 2 * d_model, fed concat([hidden, original
@@ -24,23 +24,33 @@ not a power of two).
 
 Remat follows the reference exactly: every Mamba block and every shared
 call is checkpointed when ``cfg.remat != "none"``, so ``"selective"``
-means full checkpointing here. The cache-carrying paths (``zamba_decode``,
-``zamba_cache_specs``) wait for the hybrid serving slice.
+means full checkpointing here.
+
+Serving: ``zamba_decode`` takes one token through every Mamba2 step
+(``mamba2.mamba2_decode``, its recurrent states updated in place) and
+every shared call, which writes the call's K/V row and attends through
+K3 (contiguous) or K4 (paged). ``zamba_cache_specs`` stacks the caches
+as the reference does: ``{"mamba": {"conv", "ssm"}}`` on a leading
+layer axis, contiguous per slot in both pool modes, and
+``{"attn": {"k", "v"}}`` on a leading call axis, per-slot stripes or one
+block arena per call.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as _flash_kernel
+from . import attention as attn
 from . import mamba2
 from .layers import ParamSpec, activation, apply_rope, norm_apply, norm_specs
 
-__all__ = ["LORA_RANK", "n_shared_invocations", "zamba_specs", "zamba_apply"]
+__all__ = ["LORA_RANK", "n_shared_invocations", "zamba_specs", "zamba_apply",
+           "zamba_decode", "zamba_cache_specs"]
 
 LORA_RANK = 64
 
@@ -90,10 +100,14 @@ def _lora_slice(shared: Dict, idx) -> Dict:
 
 
 def _shared_block(params: Dict, h: torch.Tensor, x0: torch.Tensor, cfg: ModelConfig,
-                  lora: Dict, *, positions: torch.Tensor) -> torch.Tensor:
-    """One call of the shared attention + MLP block (no cache) -> its
-    delta to the residual stream (B, S, d_model). ``lora`` holds this
-    call's adapters."""
+                  lora: Dict, *, positions: torch.Tensor, cache: Optional[Dict] = None,
+                  cache_index=None, block_table: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """One call of the shared attention + MLP block -> its delta to the
+    residual stream (B, S, d_model). ``lora`` holds this call's adapters.
+    Without a cache (training) it attends over the sequence through K1;
+    with one it decodes one token, writing the call's K/V row in place
+    (``attn.cached_decode``: K3, or K4 with ``block_table``)."""
     dw = _shared_width(cfg)
     H, hd = cfg.n_heads, dw // cfg.n_heads
     Bsz, S = h.shape[0], h.shape[1]
@@ -105,9 +119,14 @@ def _shared_block(params: Dict, h: torch.Tensor, x0: torch.Tensor, cfg: ModelCon
     qkv = qkv.reshape(Bsz, S, 3, H, hd)
     q = apply_rope(qkv[:, :, 0], positions, cfg.rope_theta)
     k = apply_rope(qkv[:, :, 1], positions, cfg.rope_theta)
-    # RoPE hands back fresh tensors; v is a strided view, and K1 takes only
-    # contiguous inputs.
-    o = _flash_kernel(q.contiguous(), k.contiguous(), qkv[:, :, 2].contiguous(), causal=True)
+    if cache is None:
+        # RoPE hands back fresh tensors; v is a strided view, and K1 takes
+        # only contiguous inputs.
+        o = _flash_kernel(q.contiguous(), k.contiguous(), qkv[:, :, 2].contiguous(),
+                          causal=True)
+    else:
+        o, _ = attn.cached_decode(q, k, qkv[:, :, 2], cache, cache_index,
+                                  block_table=block_table)
     t = t + o.reshape(Bsz, S, H * hd) @ params["wo"].reshape(H * hd, dw)
 
     tn = norm_apply(params["mlp_norm"], t, cfg.norm)
@@ -151,3 +170,56 @@ def zamba_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     for layer in layers[groups * ae:]:
         h = run_mamba(layer, h)
     return h, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def zamba_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig, caches: Dict, *,
+                 positions: torch.Tensor, cache_index,
+                 block_tables: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """One token x (B, 1, d_model) per sequence -> (hidden (B, 1, d_model),
+    caches): each Mamba2 layer's step, and after every ``attn_every``-th
+    the next shared call with its own LoRA slice. ``caches`` (the
+    ``zamba_cache_specs`` tree) are updated in place; lanes where ``mask``
+    (B,) is False keep their recurrent states."""
+    h = x
+    n_inv = n_shared_invocations(cfg)
+    mamba, kv = caches["mamba"], caches["attn"]
+    inv = 0
+    for i, layer in enumerate(params["mamba"]):
+        state = {"conv": mamba["conv"][i], "ssm": mamba["ssm"][i]}
+        delta, _ = mamba2.mamba2_decode(layer["mixer"], norm_apply(layer["norm"], h, cfg.norm),
+                                        cfg, state, mask)
+        h = h + delta
+        if cfg.attn_every and (i + 1) % cfg.attn_every == 0 and inv < n_inv:
+            h = h + _shared_block(
+                params["shared"], h, x, cfg, _lora_slice(params["shared"], inv),
+                positions=positions, cache={"k": kv["k"][inv], "v": kv["v"][inv]},
+                cache_index=cache_index, block_table=block_tables,
+            )
+            inv += 1
+    return h, caches
+
+
+def zamba_cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                      page: Optional[Tuple[int, int]] = None) -> Dict:
+    """The hybrid's cache: each Mamba2 layer's recurrent states, stacked on
+    a leading layer axis and contiguous per slot in every mode (no
+    sequence axis to page), and the shared calls' K/V, stacked on a
+    leading call axis: per-slot (batch, max_len) stripes, or with
+    ``page=(num_blocks, block_size)`` one arena (num_blocks + 1,
+    block_size) per call, row 0 the NULL sink."""
+    n_inv = n_shared_invocations(cfg)
+    hd = _shared_width(cfg) // cfg.n_heads
+    mamba = {
+        name: ParamSpec((cfg.n_layers, *s.shape), ("layers", *s.axes), s.init, s.dtype)
+        for name, s in mamba2.mamba2_state_spec(cfg, batch).items()
+    }
+    if page is not None:
+        num_blocks, block_size = page
+        front = (n_inv, num_blocks + 1, block_size)
+        axes = ("layers", "kv_blocks", "kv_block", "heads", "head_dim")
+    else:
+        front = (n_inv, batch, max_len)
+        axes = ("layers", "act_batch", "act_kv_seq", "heads", "head_dim")
+    kv = ParamSpec((*front, cfg.n_heads, hd), axes, "zeros", cfg.dtype)
+    return {"mamba": mamba, "attn": {"k": kv, "v": kv}}

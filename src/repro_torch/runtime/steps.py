@@ -144,18 +144,20 @@ def make_slot_prefill_step(model: Model) -> Callable:
 def make_slot_decode_step(model: Model) -> Callable:
     """One decode tick over the whole slot pool.
 
-    ``cache_index`` is the per-slot position vector (n_slots,). Free and
-    mid-prefill lanes ride along and need no mask: each writes one row at
-    its own position, which nothing reads before it is rewritten. A
-    mid-prefill lane's position is where its next prefill chunk starts; a
-    free lane is reset at admission; a dead paged lane's NULL table sends
-    its write to the sink. (The reference selects the old state back
-    after the tick for recurrent caches, which this slice does not have.)"""
+    ``cache_index`` is the per-slot position vector (n_slots,) and
+    ``mask`` (n_slots,) bool marks the decoding lanes. Free and
+    mid-prefill lanes ride along: each writes one K/V row at its own
+    position, which nothing reads before it is rewritten (a mid-prefill
+    lane's position is where its next prefill chunk starts; a free lane is
+    reset at admission; a dead paged lane's NULL table sends its write to
+    the sink). A recurrent state (the hybrid's) would keep such a lane's
+    token, so the model keeps the old state wherever ``mask`` is False; a
+    dense model ignores ``mask``, and the engine sends None for it."""
 
     @torch.no_grad()
-    def slot_decode_step(params, tokens, caches, cache_index, block_tables=None):
+    def slot_decode_step(params, tokens, caches, cache_index, block_tables=None, mask=None):
         return model.decode_step(
-            params, tokens, caches, cache_index, block_tables=block_tables,
+            params, tokens, caches, cache_index, block_tables=block_tables, mask=mask,
         )
 
     return slot_decode_step

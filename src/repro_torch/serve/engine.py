@@ -16,6 +16,11 @@ arena addressed through per-slot block tables, admission requires enough
 free blocks for the request's whole token budget (admit-by-budget), and
 KV memory tracks live tokens. Decode then runs kernel K4 instead of K3.
 
+The Mamba2 hybrid serves through the same engine: its recurrent states
+are contiguous per slot in both modes, the tick hands the model the
+decoding lanes' mask so that no other lane's state moves, and its
+prefill scans the decode step token by token (``Model.prefill_with_cache``).
+
 ``run_static`` is the static-batching baseline: same pool and kernels,
 but admissions barrier until the whole previous batch drains.
 """
@@ -230,8 +235,10 @@ class ServeEngine:
         positions = torch.as_tensor(
             np.clip(pool.positions, 0, pool.max_len - 1), device=self.device
         )
+        # Only recurrent states need the lane mask (a dense tick sends none).
+        lanes = torch.as_tensor(mask, device=self.device) if pool.recurrent else None
         logits, pool.caches = self._decode(
-            self.params, tokens, pool.caches, positions, pool.tables_device(),
+            self.params, tokens, pool.caches, positions, pool.tables_device(), lanes,
         )
         self.sched.on_decode_tick()
         self.stats.decode_ticks += 1

@@ -1,15 +1,18 @@
-"""Slot-based KV cache pool, contiguous or paged (port of
+"""Slot-based cache pool, contiguous or paged (port of
 ``repro.serve.kv_pool``: ``SlotPool`` in its contiguous and
 commit-at-admission paged modes, and a copy of ``BlockManager``; prefix
-sharing and migration snapshots are not ported yet).
+sharing and migration snapshots are not ported yet). It holds the dense
+decoders' KV caches and the Mamba2 hybrid's recurrent states beside its
+shared block's KV.
 
 The pool owns one device-resident cache tree shaped for ``n_slots``
 sequences of up to ``max_len`` tokens, built from ``model.cache_specs``.
 Slot occupancy is host-side bookkeeping; device mutation goes through
 the spec-driven slot helpers in ``repro_torch.models.layers``, in place.
 
-With ``block_size`` set, every cache leaf becomes a global BLOCK ARENA
-shared by all slots, and a ``BlockManager`` maps each slot's rows to
+With ``block_size`` set, every leaf with a sequence axis becomes a
+global BLOCK ARENA shared by all slots (recurrent states, which have no
+sequence axis, stay per-slot stripes), and a ``BlockManager`` maps each slot's rows to
 arena blocks through a block table, so decode memory tracks live tokens
 instead of ``n_slots * max_len`` reserved stripes.
 
@@ -45,6 +48,11 @@ from repro_torch.models.layers import (
 )
 
 __all__ = ["BlockManager", "SlotPool"]
+
+
+def _is_state(spec) -> bool:
+    """A recurrent state leaf: per slot, with no sequence axis."""
+    return not is_paged_spec(spec) and "act_kv_seq" not in spec.axes
 
 
 class BlockManager:
@@ -238,6 +246,9 @@ class SlotPool:
         )
         self._spec_leaves = tree_leaves(self.specs)
         self._any_contiguous = any(not is_paged_spec(s) for s in self._spec_leaves)
+        #: Whether the caches carry recurrent state (leaves with a slot
+        #: axis and no sequence axis), which the decode tick must mask.
+        self.recurrent = any(_is_state(s) for s in self._spec_leaves)
         # Host-side occupancy. Free slots are handed out lowest-index
         # first so the engine's active lanes stay dense without defrag.
         self.positions = np.zeros(n_slots, np.int32)
@@ -320,6 +331,11 @@ class SlotPool:
             return self.kv_bytes_per_block() * (self.rows // self.block_size) * self.n_slots
         return sum(s.size * DTYPES[s.dtype].itemsize for s in self._spec_leaves
                    if "act_kv_seq" in s.axes)
+
+    def state_bytes_per_slot(self) -> int:
+        """Bytes of recurrent state one slot holds (0 for KV-only caches)."""
+        return sum(s.size * DTYPES[s.dtype].itemsize for s in self._spec_leaves
+                   if _is_state(s)) // self.n_slots
 
     def kv_bytes_high_water(self) -> int:
         """High-water mark of arena bytes actually reserved (+ the NULL

@@ -14,7 +14,6 @@ at the end, from f32 sums taken in other orders).
 """
 
 import inspect
-import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +28,7 @@ from repro_torch.kernels.decode_attention import (
     MIN_SPLIT_ROWS,
     NEG_INF,
     paged_kv_view,
+    scale_query,
     split_plan,
     split_rows,
 )
@@ -90,7 +90,7 @@ def _split_merge(q, k, v, lengths, n_splits):
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    qf = (q * (1.0 / math.sqrt(D))).float().reshape(B, Hkv, G, D) * LOG2E
+    qf = scale_query(q).float().reshape(B, Hkv, G, D) * LOG2E
     out = torch.empty(B, Hkv, G, D)
     for b in range(B):
         length = min(int(lengths[b]), S)
@@ -114,6 +114,7 @@ PLAN_SHAPES = [
     (1, 1, 64), (1, 1, 65), (3, 3, 100), (2, 2, 4096),
     (32, 8, 2048),
     (64, 8, 512), (8, 32, 1024), (1, 1, 1 << 20),
+    (4, 32, 512),        # zamba2-1.2b serving: 4 slots, max_len 512, MHA
 ]
 
 

@@ -23,7 +23,8 @@ from repro_torch import kernels as K
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention_rounding_terms
 from repro_torch.kernels.parity import (
-    DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, SSD_SHAPES, dscale_bf16_slack,
+    DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, RMS_DECODE_SHAPES, SSD_SHAPES,
+    dscale_bf16_slack,
     flash_within, ssd_within, within,
 )
 from repro_torch.kernels.ssd_scan import ssd_bwd_term_sums
@@ -31,7 +32,7 @@ from repro_torch.models import Model
 from repro_torch.models.layers import tree_leaves
 from repro_torch.optim import adamw
 from repro_torch.runtime import make_train_step
-from repro_torch.serve import Scheduler, ServeEngine
+from repro_torch.serve import Scheduler, ServeEngine, generate_offline
 
 pytestmark = pytest.mark.gpu
 
@@ -54,6 +55,19 @@ def test_rms_norm_kernel_matches_plain(cuda, dtype, shape):
     rtol = 1 / 128 if dtype == torch.bfloat16 else 0.0
     atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RMS_DECODE_SHAPES)
+def test_rms_norm_kernel_at_decode_rows(cuda, dtype, shape):
+    """K2 forward at a decode step's rows (one or four, at D 2048 and at
+    zamba2's 4096): plain's value, and a second launch bit for bit."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    scale = (1 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda, dtype)
+    out = K.rms_norm(x, scale)
+    _close(out, K.rms_norm_plain(x, scale), dtype)
+    assert torch.equal(K.rms_norm(x, scale), out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -229,6 +243,37 @@ def test_engine_runs_through_the_kernels(cuda, block_size):
     # before, and never a training kernel.
     assert sum(counts.values()) == counts["rmsnorm"] + counts[attn]
     assert all(len(r.tokens) == 6 for r in results.values())
+
+
+@pytest.mark.parametrize("block_size", [None, 16])
+def test_zamba_engine_runs_through_the_kernels(cuda, block_size):
+    """A reduced zamba2 served on the card: every decode step (a tick, or
+    one token of the scanned prefill) launches K2 once per norm (2 per
+    Mamba2 layer, 2 per shared call, the final one) and K3 (contiguous) or
+    K4 (paged) once per shared call; no training kernel runs, and every
+    stream equals its offline decode on the card."""
+    cfg = get_config("zamba2").reduced()
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    eng = ServeEngine(model, params, n_slots=3, max_len=64, block_size=block_size,
+                      scheduler=Scheduler(3, prefill_chunk=8))
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (int(5 + 4 * i),), generator=g).numpy()
+               for i in range(5)]
+    rids = [eng.submit(p, 6, arrival=0.002 * i) for i, p in enumerate(prompts)]
+    K.reset_launch_counts()
+    results = eng.run()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    st = eng.stats
+    steps = st.decode_ticks + st.prefill_tokens
+    calls = cfg.n_layers // cfg.attn_every
+    attn = "paged_decode_attention" if block_size else "decode_attention"
+    assert counts["rmsnorm"] == (2 * cfg.n_layers + 2 * calls + 1) * steps
+    assert counts[attn] == calls * steps > 0
+    assert sum(counts.values()) == counts["rmsnorm"] + counts[attn]
+    for rid, p in zip(rids, prompts):
+        assert results[rid].tokens == generate_offline(model, params, p, 6, 64)
 
 
 def _close(out, ref, dtype, slack=0.0):

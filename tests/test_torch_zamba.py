@@ -260,14 +260,3 @@ def test_resume_of_a_mixed_dtype_tree_replays_exactly():
     for a, b in zip(_leaves(out1["opt_state"]), _leaves(out2["opt_state"])):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
-
-def test_hybrid_serving_is_not_ported_yet():
-    _, _, cfg, tp = _pair()
-    model = Model(cfg)
-    assert model.segments == [] and model.is_hybrid
-    with pytest.raises(NotImplementedError, match="hybrid serving"):
-        model.cache_specs(2, 16)
-    with pytest.raises(NotImplementedError, match="hybrid serving"):
-        model.decode_step(tp, torch.zeros((1, 1), dtype=torch.long), None, 0)
-    with pytest.raises(NotImplementedError, match="hybrid serving"):
-        model.prefill_with_cache(tp, torch.zeros((1, 4), dtype=torch.long), None)
