@@ -17,7 +17,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    and of K2's forward, backward and dscale-sum kernels spills;
 3. holds every kernel against its plain PyTorch version on the card, at
    the serving path's shapes, in f32 and bf16: K2 at a decode step's 1
-   and 4 rows at D 2048 and 4096 (``parity.RMS_DECODE_SHAPES``, printing
+   and 4 rows at D 2048 and 4096 (``parity.RMS_DECODE_SHAPES``), a llama
+   verify's 8 to 28 rows (``parity.RMS_VERIFY_SHAPES``; both printing
    each one's launch plan) and a prefill chunk's 256, each a second launch
    bit for bit; K3 and K4 (split-KV flash
    decode) at ``parity.DECODE_SHAPES`` (zamba2's G = 1, D 128 among them),
@@ -87,6 +88,24 @@ runs, in order, and exits non-zero at the first phase that fails:
    times, K3 or K4 6 times, nothing else); times K3 and K4 at the tick's
    shape and K2 at its 4 rows of 4096, and profiles a decode tick of each
    pool and the scanned prefill per prompt token;
+16. serves speculatively (a draft model's masked ticks, one target verify
+   over the pool, exact-argmax acceptance and a rollback, gamma adapted to
+   the acceptance rate): first the 2-layer f32 cuts of both models run
+   ``verify_with_cache`` (per-row starts, n_input 0, 1 and 4, a rejected
+   tail) and the replay on the card against plain on the CPU over both
+   pools; then llama3.2-1b at full width serves phase 4's traffic with
+   gamma <= 6 over both pools with a draft of the target plus noise 3e-4
+   and with the target itself (whose every rejection must sit at a
+   near-tie of offline decode), and with a poor draft (noise 2e-2) that
+   drives the controller to gamma = 0 rounds; zamba2-1.2b serves 3
+   requests with gamma <= 3 over both pools, and every round that
+   speculates on its contiguous pool is held to ``decode_step`` run token
+   by token over the committed tokens. Every call's launches are counted (a llama
+   draft tick K2 33 and K3 16 times, a verify K2 33 times and nothing
+   else; a zamba2 scan step K2 89 and K3/K4 6 times), and so is each
+   round's sequence of calls; every stream is held to teacher-forced
+   offline decode; K2 is timed at a verify's 8 and 28 rows, and one
+   steady llama round is profiled;
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``; the profiles under
@@ -96,7 +115,11 @@ zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
 ``zamba_rmsnorm_times`` and at llama's training rows under
 ``rmsnorm_train_forward``, phase 15's results under ``zamba_serve``,
 ``zamba_serve_streams``, ``zamba_decode_parity``, ``zamba_decode_times``
-and ``zamba_serve_profile``, the launch floor, phase 2's tensor-core
+and ``zamba_serve_profile``, phase 16's under ``spec_parity``,
+``spec_serve``, ``spec_serve_streams``, ``spec_state_check``,
+``spec_rmsnorm_times``, ``spec_snapshot`` and ``spec_profile`` (each
+kernel's launches there under ``spec_serve_launches``), the launch
+floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
 ``k2_resources``), the card line
@@ -374,7 +397,9 @@ def check_kernels() -> dict:
         paged_decode_attention_plain,
     )
     from repro_torch.kernels.decode_attention import sm_count
-    from repro_torch.kernels.parity import DECODE_BLOCK, DECODE_SHAPES, RMS_DECODE_SHAPES
+    from repro_torch.kernels.parity import (
+        DECODE_BLOCK, DECODE_SHAPES, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES,
+    )
     from repro_torch.kernels.rmsnorm import launch_plan
 
     dev = torch.device("cuda")
@@ -382,11 +407,13 @@ def check_kernels() -> dict:
     worst = {"rmsnorm": 0.0, "decode_attention": 0.0, "paged_decode_attention": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for shape in RMS_DECODE_SHAPES + [(PREFILL_CHUNK, 1, 2048), (512, 2048)]:
+        for shape in (RMS_DECODE_SHAPES + RMS_VERIFY_SHAPES
+                      + [(PREFILL_CHUNK, 1, 2048), (512, 2048)]):
             err = hold_rms_norm(shape, dtype, gen)
-            if shape in RMS_DECODE_SHAPES:
+            if shape in RMS_DECODE_SHAPES + RMS_VERIFY_SHAPES:
                 es = torch.tensor([], dtype=dtype).element_size()
-                plan = launch_plan(False, shape[0], shape[-1], es, True, sm_count(0))
+                plan = launch_plan(False, shape[0] * shape[1], shape[-1], es, True,
+                                   sm_count(0))
                 print(f"    launch plan: {plan} (phase 2: no K2 instance spills)")
             if dtype == torch.bfloat16:
                 worst["rmsnorm"] = max(worst["rmsnorm"], err)
@@ -490,6 +517,12 @@ def serve(model, params) -> dict:
     return runs
 
 
+#: Teacher-forced offline decodes, (model name, request index, stream) ->
+#: (offline's choices, their top-2 gaps): a stream served again (by
+#: another pool, or speculatively) is not decoded twice.
+OFFLINE = {}
+
+
 def check_streams(model, params, reqs, runs: dict, max_len: int) -> dict:
     """Offline decode is fed each served stream (teacher forcing), so every
     position is checked: the engine's token equals offline's choice on
@@ -500,13 +533,12 @@ def check_streams(model, params, reqs, runs: dict, max_len: int) -> dict:
 
     compared = near_ties = identical = 0
     for i, (p, m, _) in enumerate(reqs):
-        scored = {}
         for pool in runs:
             got = runs[pool]["tokens"][i]
-            key = tuple(got)
-            if key not in scored:
-                scored[key] = generate_offline(model, params, p, m, max_len, forced=got)
-            choice, margins = scored[key]
+            key = (model.cfg.name, i, tuple(got))
+            if key not in OFFLINE:
+                OFFLINE[key] = generate_offline(model, params, p, m, max_len, forced=got)
+            choice, margins = OFFLINE[key]
             ties = [j for j in range(m) if got[j] != choice[j]]
             for j in ties:
                 check(margins[j] < TIE_TOL,
@@ -518,14 +550,17 @@ def check_streams(model, params, reqs, runs: dict, max_len: int) -> dict:
             compared += m
             near_ties += len(ties)
             identical += not ties
-    same = sum(a == b for a, b in zip(runs["contiguous"]["tokens"], runs["paged"]["tokens"]))
-    print(f"  streams vs teacher-forced offline: {compared} positions compared, "
-          f"{identical} of {2 * len(reqs)} streams identical, {near_ties} near-ties "
-          f"accepted (top-2 gap < {TIE_TOL}); paged == contiguous for {same} of "
-          f"{len(reqs)}")
-    return {"positions_compared": compared, "near_ties": near_ties,
-            "identical_streams": identical, "streams": 2 * len(reqs),
-            "paged_equals_contiguous": same}
+    out = {"positions_compared": compared, "near_ties": near_ties,
+           "identical_streams": identical, "streams": len(runs) * len(reqs)}
+    line = (f"  streams vs teacher-forced offline: {compared} positions compared, "
+            f"{identical} of {len(runs) * len(reqs)} streams identical, {near_ties} near-ties "
+            f"accepted (top-2 gap < {TIE_TOL})")
+    if "contiguous" in runs and "paged" in runs:
+        out["paged_equals_contiguous"] = sum(
+            a == b for a, b in zip(runs["contiguous"]["tokens"], runs["paged"]["tokens"]))
+        line += f"; paged == contiguous for {out['paged_equals_contiguous']} of {len(reqs)}"
+    print(line)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1536,13 +1571,14 @@ def time_ssd_kernels(cfg) -> dict:
 Z_SLOTS, Z_MAX_LEN, Z_CHUNK, Z_REQUESTS = 4, 512, 64, 6
 
 
-def zamba_workload(vocab: int):
-    rng = np.random.default_rng(SEED + 10)
+def zamba_workload(vocab: int, n: int = Z_REQUESTS, prompt=(16, 129), new=(8, 33),
+                   seed: int = SEED + 10, gap: float = 0.02):
+    rng = np.random.default_rng(seed)
     reqs = []
-    for i in range(Z_REQUESTS):
-        p = int(rng.integers(16, 129))
-        m = int(rng.integers(8, 33))
-        reqs.append((rng.integers(0, vocab, size=p).astype(np.int32), m, i * 0.02))
+    for i in range(n):
+        p = int(rng.integers(*prompt))
+        m = int(rng.integers(*new))
+        reqs.append((rng.integers(0, vocab, size=p).astype(np.int32), m, i * gap))
     return reqs
 
 
@@ -1763,6 +1799,486 @@ def time_zamba_kernels(cfg, reqs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: speculative serving (draft, then verify)
+# ---------------------------------------------------------------------------
+
+#: llama3.2-1b speculation: phase 4's traffic, draft length up to 6, and a
+#: draft made of the target's weights plus noise of 3e-4 (f32 draws from a
+#: seeded generator on the card, cast back to bf16); and, on the
+#: contiguous pool, a poor draft (noise 2e-2, about the weights' own
+#: scale) whose rejections make the controller fall back to gamma = 0
+#: rounds (a target tick and a draft tick), probing gamma = 1 every 16
+#: rounds. zamba2-1.2b: 3
+#: requests of 16-32 prompt and 8-16 new tokens, 4 slots of 512 rows,
+#: 64-token chunks, draft length up to 3 (its verify and replay scan the
+#: decode step, so a round costs 2 (1 + gamma) + gamma decode steps), all
+#: arriving at once so that rounds speculate on several lanes.
+SPEC_GAMMA, SPEC_NOISE, SPEC_POOR = 6, 3e-4, 2e-2
+Z_SPEC_GAMMA, Z_SPEC_REQUESTS = 3, 3
+
+
+def noisy_params(params, noise: float, seed: int):
+    """The parameters plus ``noise`` times standard normals drawn in f32 from
+    a seeded generator on their device, each leaf cast back to its dtype."""
+    from repro_torch.models.layers import tree_map
+
+    gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    return tree_map(lambda t: (t.float() + noise * torch.randn(
+        t.shape, generator=gen, device=t.device)).to(t.dtype), params, is_leaf=torch.is_tensor)
+
+
+def cut_for_parity(cfg):
+    """The 2-layer f32 cut of a full-width config (the hybrid: 2 Mamba2
+    layers and one shared call)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return dataclasses.replace(cfg, n_layers=2, attn_every=2, dtype="float32")
+    return dataclasses.replace(cfg, n_layers=2, dtype="float32")
+
+
+def step_launches(cfg, paged: bool, steps: int = 1) -> dict:
+    """Kernel launches of one dense call over the stack (a prefill chunk, a
+    tick, a verify: K2 once a norm; a tick also K3 or K4 once a layer) or
+    of ``steps`` hybrid decode steps (``hybrid_step_launches``). Returns
+    the dense tick's; callers drop the attention for a prefill or verify."""
+    if cfg.family in ("ssm", "hybrid"):
+        return hybrid_step_launches(cfg, steps, paged)
+    from repro_torch.kernels import KERNELS
+
+    counts = dict.fromkeys(KERNELS, 0)
+    counts["rmsnorm"] = 2 * cfg.n_layers + 1
+    counts["paged_decode_attention" if paged else "decode_attention"] = cfg.n_layers
+    return counts
+
+
+def verify_vs_plain(cfg, device: str = "cuda") -> dict:
+    """``verify_with_cache`` and the replay step of the 2-layer f32 cut of
+    ``cfg`` through the kernels on the card against the plain versions on
+    the CPU, from the same parameters (the hybrid's LoRA up-projections
+    drawn at random), over each pool (paged: every block allocated, in a
+    shuffled order): 4 lanes prefilled with 16, 9, 12 and 5 tokens, then
+    one window of S = 4 at per-row starts with n_input 0, 1, 4 and 4, lane
+    2 accepting two draft tokens then rejecting, lane 3 rejecting at once.
+    Held by ``parity.within`` (f32): the logits at every position, the
+    recurrent states and each lane's K/V rows below its committed
+    position, after the verify and after the replay of the committed
+    tokens. The verify's launches: dense, K2 once a norm and no K3/K4;
+    the hybrid, ``hybrid_step_launches`` for S steps."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.parity import within
+    from repro_torch.models import Model
+    from repro_torch.models.attention import paged_kv_view
+    from repro_torch.models.layers import tree_map
+
+    small = cut_for_parity(cfg)
+    hybrid = small.family in ("ssm", "hybrid")
+    model = Model(small)
+    cpu_params = model.init(SEED, device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 21)
+    if hybrid:
+        shared = cpu_params["stack"]["shared"]
+        for name in ("lora_qkv_b", "lora_mlp_b"):
+            shared[name] = 0.05 * torch.randn(shared[name].shape, generator=gen)
+    gpu_params = tree_map(lambda t: t.to(device), cpu_params, is_leaf=torch.is_tensor)
+    B, P, S, rows, bs = 4, 16, 4, 64, 16
+    lens = torch.tensor([16, 9, 12, 5])
+    n_input = torch.tensor([0, 1, 4, 4])
+    V = small.vocab_size
+    chunk = torch.randint(0, V, (B, P), generator=gen)
+    chunk[torch.arange(P)[None, :] >= lens[:, None]] = 0
+    inputs = torch.randint(0, V, (B, S), generator=gen)
+    tables = (torch.randperm(B * rows // bs, generator=gen) + 1).reshape(B, -1).int()
+
+    def prefilled(dev, params, paged):
+        kw = dict(block_size=bs, num_blocks=B * rows // bs) if paged else {}
+        caches = model.blank_caches(B, rows, device=dev, **kw)
+        tt = tables.to(dev) if paged else None
+        _, caches = model.prefill_with_cache(params, chunk.to(dev), caches,
+                                             length=lens.to(dev), start_index=0,
+                                             block_tables=tt)
+        return caches, tt
+
+    # Lane 2 takes the CPU's own greedy tokens as its first two drafts.
+    for t in range(2):
+        caches, _ = prefilled("cpu", cpu_params, False)
+        logits, _ = model.verify_with_cache(cpu_params, inputs, caches, n_input, lens)
+        inputs[2, t + 1] = int(torch.argmax(logits[2, t]))
+    out, ok = {}, True
+    for pool, paged in (("contiguous", False), ("paged", True)):
+        res = {}
+        for dev, params in ((device, gpu_params), ("cpu", cpu_params)):
+            caches, tt = prefilled(dev, params, paged)
+            reset_launch_counts()
+            logits, caches = model.verify_with_cache(params, inputs.to(dev), caches,
+                                                     n_input.to(dev), lens.to(dev), tt)
+            counts = launch_counts() if params is gpu_params else None
+            greedy = torch.argmax(logits, -1).cpu()
+            acc = []
+            for b in range(B):
+                a = 0
+                while a < int(n_input[b]) - 1 and int(greedy[b, a]) == int(inputs[b, a + 1]):
+                    a += 1
+                acc.append(a)
+            commit = torch.where(n_input > 0, torch.tensor(acc) + 1, 0) if hybrid else n_input
+            replayed, _ = prefilled(dev, params, paged)
+            replayed = model.verify_with_cache(params, inputs.to(dev), replayed,
+                                               commit.to(dev), lens.to(dev), tt,
+                                               greedy_commit=False)[1]
+            res[params is gpu_params] = (logits, caches, replayed, acc, commit, counts)
+        (lg_g, c_g, r_g, acc_g, commit, counts), (lg_c, c_c, r_c, acc_c, _, _) = \
+            res[True], res[False]
+        expect = step_launches(small, paged, S)
+        if not hybrid:
+            expect["paged_decode_attention" if paged else "decode_attention"] = 0
+        check(counts == expect, f"{small.family} {pool} verify: launches {counts}, "
+                                f"expected {expect}")
+        check(acc_g == acc_c == [0, 0, 2, 0],
+              f"{pool}: accepted drafts {acc_g} (card) / {acc_c} (CPU), expected [0, 0, 2, 0]")
+        errs = {"logits": within(lg_g.cpu(), lg_c, torch.float32)[0]}
+        ok &= within(lg_g.cpu(), lg_c, torch.float32)[1]
+        for label, got, want in (("verify", c_g, c_c), ("replay", r_g, r_c)):
+            if hybrid:
+                for name in ("conv", "ssm"):
+                    e, o = within(got["mamba"][name].cpu(), want["mamba"][name], torch.float32)
+                    errs[f"{label} {name}"] = e
+                    ok &= o
+                pairs = [(got["attn"][n][c].cpu(), want["attn"][n][c])
+                         for n in ("k", "v") for c in range(want["attn"][n].shape[0])]
+            else:
+                pairs = [(g[n].cpu(), w[n]) for sg, sw in zip(got, want)
+                         for g, w in zip(sg, sw) for n in ("k", "v")]
+            e_max = 0.0
+            for g, w in pairs:
+                if paged:
+                    g, w = paged_kv_view(g, tables), paged_kv_view(w, tables)
+                for b in range(B):
+                    upto = int(lens[b] + commit[b])
+                    e, o = within(g[b, :upto], w[b, :upto], torch.float32)
+                    e_max = max(e_max, e)
+                    ok &= o
+            errs[f"{label} K/V"] = e_max
+        print(f"  {small.family}, {pool}: S {S}, n_input {n_input.tolist()}, accepted "
+              f"{acc_g}; max |err|: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; verify launches {dict((k, v) for k, v in counts.items() if v)} "
+              f"({'ok' if ok else 'FAIL'})")
+        out[pool] = {"max_abs_err": errs, "launches": counts, "accepted": acc_g}
+    check(ok, f"the cut-down {small.family} verify: card vs plain on the CPU")
+    return out
+
+
+class CallProbe:
+    """Wraps an engine's step functions (and its draft's) to record each
+    call's kind, its decode steps (a window's S, a hybrid prefill's tokens;
+    else 1) and the kernels it launched; ``round()`` marks the start of
+    each round. Reading the host-side counters adds no device work."""
+
+    KINDS = {"_prefill": "prefill", "_decode": "tick", "_verify": "verify"}
+    DRAFT_KINDS = {"_prefill": "draft prefill", "_decode": "draft", "_replay": "replay"}
+
+    def __init__(self, eng):
+        self.calls = []
+        for attr, kind in self.KINDS.items():
+            self._wrap(eng, attr, kind)
+        for attr, kind in self.DRAFT_KINDS.items():
+            self._wrap(eng.draft, attr, kind)
+        do_round = eng._do_spec_round
+
+        def marked():
+            self.calls.append(("round", 0, {}))
+            do_round()
+            self.calls.append(("end", 0, {}))
+        eng._do_spec_round = marked
+
+    def _wrap(self, obj, attr, kind):
+        from repro_torch.kernels import launch_counts
+
+        fn = getattr(obj, attr)
+
+        def probed(*args, **kw):
+            before = launch_counts()
+            out = fn(*args, **kw)
+            after = launch_counts()
+            if kind in ("prefill", "draft prefill"):
+                steps = int(args[3][0])
+            elif kind in ("verify", "replay"):
+                steps = args[1].shape[1]
+            else:
+                steps = 1
+            self.calls.append((kind, steps, {k: after[k] - before[k] for k in after
+                                             if after[k] != before[k]}))
+            return out
+        setattr(obj, attr, probed)
+
+    def rounds(self):
+        """The calls of each round, in order."""
+        out, inside = [], False
+        for kind, steps, launched in self.calls:
+            if kind in ("round", "end"):
+                inside = kind == "round"
+                if inside:
+                    out.append([])
+            elif inside:
+                out[-1].append((kind, steps, launched))
+        return out
+
+
+def check_spec_launches(cfg, probe: CallProbe, counts: dict, paged: bool, label: str) -> dict:
+    """Every probed call launched what its kind should, and nothing ran
+    outside them; a gamma = 0 round is one target tick and at most one
+    draft tick; a speculating round is draft ticks, one verify and (the
+    hybrid) one replay or (dense) at most one more draft tick. Returns
+    {kind: {"calls": n, "launches": {kernel: n}}}."""
+    hybrid = cfg.family in ("ssm", "hybrid")
+    total = defaultdict(int)
+    per_kind = {}
+    for kind, steps, launched in probe.calls:
+        if kind in ("round", "end"):
+            continue
+        entry = per_kind.setdefault(kind, {"calls": 0, "launches": defaultdict(int)})
+        entry["calls"] += 1
+        for k, v in launched.items():
+            entry["launches"][k] += v
+        on_target = kind in ("prefill", "tick", "verify")
+        expect = step_launches(cfg, paged and on_target, steps if hybrid else 1)
+        if not hybrid and kind in ("prefill", "draft prefill", "verify"):
+            expect = dict(expect, decode_attention=0, paged_decode_attention=0)
+        expect = {k: v for k, v in expect.items() if v}
+        check(launched == expect, f"{label}: a {kind} call ({steps} steps) launched "
+                                  f"{launched}, expected {expect}")
+        for k, v in launched.items():
+            total[k] += v
+    check({k: v for k, v in counts.items() if v} == dict(total),
+          f"{label}: the run launched {counts}, its calls {dict(total)}")
+    for calls in probe.rounds():
+        kinds = [k for k, _, _ in calls]
+        if "tick" in kinds:
+            check(kinds in (["tick"], ["tick", "draft"]),
+                  f"{label}: a gamma = 0 round ran {kinds}")
+        else:
+            n = kinds.index("verify")
+            tail = kinds[n + 1:]
+            check(set(kinds[:n]) <= {"draft"}
+                  and tail in ((["replay"],) if hybrid else ([], ["draft"])),
+                  f"{label}: a speculating round ran {kinds}")
+    return {k: {"calls": v["calls"], "launches": dict(v["launches"])} for k, v in per_kind.items()}
+
+
+class RejectionLog:
+    """Records (request id, stream index) of each position where a round
+    rejected a draft token: the token the verify emitted there in place
+    of the draft's."""
+
+    def __init__(self, eng):
+        self.positions = []
+        self.offered = self.accepted = 0
+        observe, emit = eng.spec.observe, eng._emit
+        state = []
+
+        def observed(a, offered):
+            observe(a, offered)
+            self.offered += offered
+            self.accepted += a
+            state[:] = [a, offered, a + 1]
+
+        def emitted(req, tok):
+            emit(req, tok)
+            if state and state[2] > 0:
+                state[2] -= 1
+                if state[2] == 0 and state[0] < state[1]:
+                    self.positions.append((req.rid, len(req.tokens) - 1))
+        eng.spec.observe, eng._emit = observed, emitted
+
+
+def spec_round_state_check(eng) -> dict:
+    """Wraps the engine's verify so that every call in which a lane
+    speculates (n_input >= 2) is checked: the recurrent states it commits,
+    and each lane's K/V rows below its committed position, against
+    ``decode_step`` run token by token from a copy of the caches taken
+    before the call over each lane's committed tokens (lanes past their
+    count masked off). The copy's launches are not the run's: they are
+    taken off the counters. Returns the result, filled in as rounds run:
+    each round's n_input and commits, whether all matched bit for bit, the
+    largest errors, and whether all held by ``parity.within``."""
+    from repro_torch.kernels import KERNELS, launch_counts
+    from repro_torch.kernels.parity import within
+    from repro_torch.models.layers import tree_map
+
+    verify, model = eng._verify, eng.model
+    result = {"rounds": [], "bitwise": True, "ok": True, "max_abs_err": {}}
+
+    def checked(params, tokens, caches, n_input, positions, tables=None):
+        if int(n_input.max()) < 2:
+            return verify(params, tokens, caches, n_input, positions, tables)
+        before = tree_map(lambda t: t.clone(), caches, is_leaf=torch.is_tensor)
+        greedy, caches = verify(params, tokens, caches, n_input, positions, tables)
+        counts = launch_counts()
+        g, x, ni = greedy.cpu(), tokens.cpu(), n_input.cpu()
+        commit = []
+        for b in range(x.shape[0]):
+            a = 0
+            while a < int(ni[b]) - 1 and int(g[b, a]) == int(x[b, a + 1]):
+                a += 1
+            commit.append(a + 1 if int(ni[b]) > 0 else 0)
+        commit_t = torch.tensor(commit, device=tokens.device)
+        seq = before
+        for t in range(max(commit)):
+            _, seq = model.decode_step(params, tokens[:, t:t + 1], seq, positions + t,
+                                       block_tables=tables, mask=t < commit_t)
+        for name, fn in KERNELS.items():
+            fn.launches = counts[name]
+        pairs = [(name, caches["mamba"][name], seq["mamba"][name]) for name in ("conv", "ssm")]
+        pairs += [(name, caches["attn"][name][:, b, :int(positions[b]) + n],
+                   seq["attn"][name][:, b, :int(positions[b]) + n])
+                  for name in ("k", "v") for b, n in enumerate(commit) if n]
+        errs = result["max_abs_err"]
+        for name, got, want in pairs:
+            result["bitwise"] &= bool(torch.equal(got, want))
+            e, o = within(got, want, got.dtype)
+            errs[name] = max(errs.get(name, 0.0), e)
+            result["ok"] &= o
+        result["rounds"].append({"n_input": ni.tolist(), "committed": commit})
+        check(result["ok"], f"round {len(result['rounds'])}: the verify's committed state "
+                            f"differs from a sequential decode_step")
+        return greedy, caches
+
+    eng._verify = checked
+    return result
+
+
+def serve_speculative(model, params, reqs, drafts: dict, *, n_slots: int, max_len: int,
+                      chunk: int, gamma_max: int, plain_runs=None,
+                      state_check: bool = False) -> dict:
+    """Serve ``reqs`` through ``ServeEngine`` with each draft ({name:
+    (params, pools)}) over each of its pools, probing every call's launches
+    (``check_spec_launches``) and logging rejected drafts; then every
+    stream is held to teacher-forced offline decode (``check_streams``)
+    and, where ``plain_runs`` (the non-speculative engine's runs, by pool)
+    are given, compared with the same pool's. With the "perfect" draft
+    (the target's own weights) every rejection must sit at a near-tie of
+    offline decode. ``state_check``: the first run's rounds are held to
+    token-by-token decode (``spec_round_state_check``)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Scheduler, ServeEngine
+
+    cfg = model.cfg
+    runs, state = {}, None
+    for draft_name, (dparams, pools) in drafts.items():
+        for pool in pools:
+            block_size = BLOCK_SIZE if pool == "paged" else None
+            label = f"{draft_name} draft, {pool}"
+            eng = ServeEngine(model, params, n_slots=n_slots, max_len=max_len,
+                              block_size=block_size,
+                              scheduler=Scheduler(n_slots, prefill_chunk=chunk),
+                              draft_model=model, draft_params=dparams, gamma_max=gamma_max)
+            probe, rejected = CallProbe(eng), RejectionLog(eng)
+            if state_check and state is None:
+                state = spec_round_state_check(eng)
+            rids = [eng.submit(p, m, arrival=a) for p, m, a in reqs]
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            results = eng.run()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            st = eng.stats
+            calls = check_spec_launches(cfg, probe, counts, block_size is not None, label)
+            rate = rejected.accepted / max(rejected.offered, 1)
+            print(f"  {label}: {st.prefill_calls} prefill calls, {st.spec_rounds} rounds, "
+                  f"{st.decode_ticks} gamma = 0 ticks, {st.draft_ticks} draft ticks, "
+                  f"{rejected.accepted} / {rejected.offered} drafts accepted ({rate:.3f}), "
+                  f"{st.generated_tokens} tokens in {st.wall_seconds:.2f} s; decode "
+                  f"{st.decode_tokens_per_wsec:.1f} tokens/s (host clock); calls "
+                  f"{dict((k, v['calls']) for k, v in calls.items())}; "
+                  f"launches {dict((k, v) for k, v in counts.items() if v)}")
+            for rid, (p, m, _) in zip(rids, reqs):
+                toks = results[rid].tokens
+                check(len(toks) == m and all(0 <= t < cfg.vocab_size for t in toks),
+                      f"{label}: request {rid} produced a malformed stream")
+            check(st.spec_rounds > 0, f"{label}: no round speculated")
+            runs[label] = {"pool": pool, "tokens": [results[r].tokens for r in rids], "stats": st,
+                           "launches": counts, "calls": calls, "offered": rejected.offered,
+                           "accepted": rejected.accepted, "rejections": rejected.positions,
+                           "hist": eng.spec.hist.tolist()}
+    streams = check_streams(model, params, reqs, runs, max_len)
+    for label, r in runs.items():
+        if plain_runs is not None:
+            r["equal_to_plain"] = sum(a == b for a, b in
+                                      zip(r["tokens"], plain_runs[r["pool"]]["tokens"]))
+        if label.startswith("perfect"):
+            margins = [OFFLINE[(cfg.name, i, tuple(r["tokens"][i]))][1][j]
+                       for i, j in r["rejections"]]
+            for (i, j), gap in zip(r["rejections"], margins):
+                check(gap < TIE_TOL, f"{label}: request {i} rejected the target's own "
+                                     f"token {j} at an offline top-2 gap {gap:.4f}")
+            print(f"  {label}: {r['accepted']} of {r['offered']} offered tokens accepted; "
+                  f"the {len(margins)} lane-rounds that rejected one (the rest of their "
+                  f"windows unjudged) each did so at a near-tie (offline top-2 gaps "
+                  f"{[round(g, 4) for g in margins]} < {TIE_TOL})")
+            r["rejection_gaps"] = margins
+    if plain_runs is not None:
+        print("  streams equal to the non-speculative engine's on the same pool: "
+              + ", ".join(f"{k} {r['equal_to_plain']} of {len(reqs)}" for k, r in runs.items()))
+    if state_check:
+        multi = sum(sum(n >= 2 for n in r["n_input"]) >= 2 for r in state["rounds"])
+        accepted = sum(any(c >= 2 for c in r["committed"]) for r in state["rounds"])
+        print(f"  {len(state['rounds'])} speculating rounds on the contiguous pool ({multi} of "
+              f"them on two lanes or more, {accepted} with an accepted draft) held to "
+              f"decode_step token by token: recurrent states and K/V rows bitwise "
+              f"{state['bitwise']}, max |err| "
+              + ", ".join(f"{k} {v:.2e}" for k, v in state["max_abs_err"].items()))
+        check(multi > 0, "no round speculated on two lanes")
+    return {"runs": runs, "streams": streams, "state_check": state}
+
+
+def time_snapshot(model, params) -> dict:
+    """The draft's snapshot at zamba2's serving pool (``Z_SLOTS`` slots of
+    ``Z_MAX_LEN`` rows): a clone of every recurrent state leaf, timed as a
+    kernel (CUDA events, cold L2, median of 60) beside its bound, the
+    state's bytes read once and written once."""
+    from repro_torch.serve import DraftRunner
+
+    dr = DraftRunner(model, params, Z_SLOTS, Z_MAX_LEN)
+    nbytes = dr.pool.state_bytes_per_slot() * Z_SLOTS
+    b, kind = bound(2 * nbytes, 0)
+    out = dict(shape=f"{Z_SLOTS} slots x {dr.pool.state_bytes_per_slot() / 2**20:.2f} MiB of "
+                     f"recurrent state", bytes=nbytes, ms=time_ms(dr.snapshot),
+               bound_ms=b, bound_by=kind)
+    print(f"  draft snapshot: {out['shape']}: {out['ms']:.4f} ms, bound {b:.4f} ms ({kind})")
+    return out
+
+
+def profile_spec_round(model, params, dparams, n_rounds: int = 3) -> dict:
+    """A steady window of ``n_rounds`` speculative rounds of 4 lanes
+    (prompts of 400-600 tokens, the contiguous pool, the noisy draft),
+    after a warm-up of two: host wall time, device time, idle share,
+    launches, and device time by kernel class, per round."""
+    from repro_torch.serve import Scheduler, ServeEngine
+
+    rng = np.random.default_rng(SEED + 22)
+    eng = ServeEngine(model, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+                      scheduler=Scheduler(N_SLOTS, prefill_chunk=PREFILL_CHUNK),
+                      draft_model=model, draft_params=dparams, gamma_max=SPEC_GAMMA)
+    for _ in range(N_SLOTS):
+        eng.submit(rng.integers(0, model.cfg.vocab_size, size=int(rng.integers(400, 600))),
+                   200)
+    while not eng._decoding.all():            # admit and prefill all lanes
+        eng.step()
+
+    def rounds(n=n_rounds):
+        for _ in range(n):
+            eng.step()
+
+    rounds(2)                                 # warm-up
+    st = eng.stats
+    r0, t0 = st.spec_rounds, st.generated_tokens
+    out = window(f"speculative round, contiguous pool, 4 lanes, gamma <= {SPEC_GAMMA}",
+                 rounds, rounds, n_rounds, "round")
+    out["rounds"] = st.spec_rounds - r0
+    out["tokens_per_round"] = (st.generated_tokens - t0) / (2 * n_rounds)
+    print(f"    {out['rounds']} of {2 * n_rounds} steps were speculating rounds; "
+          f"{out['tokens_per_round']:.2f} tokens a round (4 lanes)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1876,9 +2392,54 @@ def main() -> int:
     zamba_decode_times = time_zamba_kernels(zcfg, zamba_workload(zcfg.vocab_size))
     print("    where zamba2 serving time goes (torch.profiler)")
     zamba_serve_profile = profile_zamba_serving(zmodel, zparams)
-    del zparams
     zamba_serve_seconds = time.perf_counter() - t15
     print(f"    phase 15 took {zamba_serve_seconds:.1f} s")
+
+    t16 = time.perf_counter()
+    print("[16] speculative serving: draft ticks, one verify, exact-argmax acceptance and "
+          "a rollback, gamma adapted to the acceptance rate")
+    print("    cut to 2 layers (zamba2: 2 Mamba2 layers, one shared call), f32: "
+          "verify_with_cache and the replay, kernels on the card vs plain on the CPU")
+    spec_parity = {"dense": verify_vs_plain(cfg), "hybrid": verify_vs_plain(zcfg)}
+    model = Model(cfg)
+    params = model.init(SEED, device="cuda")
+    reqs = workload(cfg.vocab_size)
+    print(f"    {cfg.name}: phase 4's {len(reqs)} requests, {N_SLOTS} slots of {MAX_LEN} rows, "
+          f"gamma <= {SPEC_GAMMA}, drafts: the target plus noise {SPEC_NOISE} (noisy), "
+          f"the target itself (perfect), and plus noise {SPEC_POOR} (poor; contiguous pool)")
+    noisy = noisy_params(params, SPEC_NOISE, SEED + 20)
+    both = ("contiguous", "paged")
+    spec = serve_speculative(model, params, reqs,
+                             {"noisy": (noisy, both), "perfect": (params, both),
+                              "poor": (noisy_params(params, SPEC_POOR, SEED + 26),
+                                       ("contiguous",))},
+                             n_slots=N_SLOTS, max_len=MAX_LEN, chunk=PREFILL_CHUNK,
+                             gamma_max=SPEC_GAMMA, plain_runs=runs)
+    check("tick" in spec["runs"]["poor draft, contiguous"]["calls"],
+          "the poor draft never made the controller fall back to gamma = 0")
+    zreqs = zamba_workload(zcfg.vocab_size, Z_SPEC_REQUESTS, (16, 33), (8, 17), SEED + 24,
+                           gap=0.0)
+    print(f"    {zcfg.name}: {len(zreqs)} requests, {Z_SLOTS} slots of {Z_MAX_LEN} rows, "
+          f"{Z_CHUNK}-token chunks, gamma <= {Z_SPEC_GAMMA}, a draft of the target plus "
+          f"noise {SPEC_NOISE}")
+    zspec = serve_speculative(zmodel, zparams, zreqs,
+                              {"noisy": (noisy_params(zparams, SPEC_NOISE, SEED + 23), both)},
+                              n_slots=Z_SLOTS, max_len=Z_MAX_LEN, chunk=Z_CHUNK,
+                              gamma_max=Z_SPEC_GAMMA, state_check=True)
+    print("    timing (CUDA events, cold L2, median of 60): the zamba2 draft's snapshot, K2 "
+          "at a verify's rows")
+    spec_snapshot = time_snapshot(zmodel, zparams)
+    del zparams
+    gen = torch.Generator().manual_seed(SEED + 25)
+    spec_rms_times = {f"rmsnorm_verify_{4 * (1 + g)}": time_rmsnorm_rows(4 * (1 + g),
+                                                                         cfg.d_model, gen)
+                      for g in (1, SPEC_GAMMA)}
+    print_kernel_times(spec_rms_times)
+    print("    one steady speculative round (torch.profiler)")
+    spec_profile = profile_spec_round(model, params, noisy)
+    del params, noisy
+    spec_serve_seconds = time.perf_counter() - t16
+    print(f"    phase 16 took {spec_serve_seconds:.1f} s")
 
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
@@ -1925,6 +2486,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "zamba_serve_launches": sum(r["launches"][kname] for r in zruns.values()),
+            "spec_serve_launches": sum(r["launches"][kname] for s in (spec, zspec)
+                                       for r in s["runs"].values()),
         })
     report = {
         "kernels": kernels,
@@ -1965,6 +2528,27 @@ def main() -> int:
         "zamba_decode_times": zamba_decode_times,
         "zamba_serve_profile": zamba_serve_profile,
         "zamba_serve_seconds": zamba_serve_seconds,
+        "spec_parity": spec_parity,
+        "spec_serve": {
+            f"{arch}, {label}": {
+                "rounds": r["stats"].spec_rounds, "gamma0_ticks": r["stats"].decode_ticks,
+                "draft_ticks": r["stats"].draft_ticks, "offered": r["offered"],
+                "accepted": r["accepted"], "acceptance_hist": r["hist"],
+                "prefill_calls": r["stats"].prefill_calls,
+                "generated_tokens": r["stats"].generated_tokens,
+                "wall_seconds": r["stats"].wall_seconds,
+                "decode_tokens_per_s": r["stats"].decode_tokens_per_wsec,
+                "calls": r["calls"], "launches": r["launches"],
+                "rejection_gaps": r.get("rejection_gaps"),
+                "equal_to_plain": r.get("equal_to_plain")}
+            for arch, s in ((cfg.name, spec), (zcfg.name, zspec))
+            for label, r in s["runs"].items()},
+        "spec_serve_streams": {cfg.name: spec["streams"], zcfg.name: zspec["streams"]},
+        "spec_state_check": zspec["state_check"],
+        "spec_rmsnorm_times": spec_rms_times,
+        "spec_profile": spec_profile,
+        "spec_snapshot": spec_snapshot,
+        "spec_serve_seconds": spec_serve_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

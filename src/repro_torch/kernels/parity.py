@@ -13,7 +13,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "RMS_DECODE_SHAPES", "FLASH_SHAPES", "SSD_SHAPES",
+__all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "RMS_DECODE_SHAPES", "RMS_VERIFY_SHAPES",
+           "FLASH_SHAPES", "SSD_SHAPES",
            "NEAR_ULPS", "BF16_UNIT", "within", "flash_within", "ssd_within", "dscale_bf16_slack"]
 
 #: Flash decode (K3, K4) cases: H, Hkv, D, S, lengths (B = len(lengths));
@@ -51,6 +52,11 @@ DECODE_SHAPES = [
 #: zamba2-1.2b's 4096-wide norms (its gated Mamba2 norm and the shared
 #: block's two).
 RMS_DECODE_SHAPES = [(1, 1, 2048), (4, 1, 2048), (1, 1, 4096), (4, 1, 4096)]
+
+#: RMSNorm (K2) forward at a llama3.2-1b speculative verify's rows: 4
+#: lanes of a window of 1 + gamma tokens, gamma 1 to 6 (8 to 28 rows of
+#: D 2048).
+RMS_VERIFY_SHAPES = [(4, 1 + gamma, 2048) for gamma in range(1, 7)]
 
 #: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and

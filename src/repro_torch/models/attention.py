@@ -310,15 +310,20 @@ def gqa_prefill(
     cache: Dict,
     start_index,
     block_table: Optional[torch.Tensor] = None,
+    n_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Cache-writing batched prefill: project the whole (B, S) chunk once,
     write its K/V rows at ``start_index``, and attend causally against the
     cache (rows past the chunk are masked by causality, rows before it are
     an earlier chunk's prefix). Paged mode scatters the rows through the
-    block table and attends against the gathered view."""
+    block table and attends against the gathered view. ``start_index``
+    may be per row (B,), with ``n_valid`` (B,) marking each row's real
+    token count (the speculative verify; see ``cache_rows_update``)."""
     q, k, v = _project_qkv(params, x, cfg, positions)
-    ck = cache_rows_update(cache["k"], k, start_index, block_table=block_table)
-    cv = cache_rows_update(cache["v"], v, start_index, block_table=block_table)
+    ck = cache_rows_update(cache["k"], k, start_index, block_table=block_table,
+                           n_valid=n_valid)
+    cv = cache_rows_update(cache["v"], v, start_index, block_table=block_table,
+                           n_valid=n_valid)
     if block_table is not None:
         kv_k, kv_v = paged_kv_view(ck, block_table), paged_kv_view(cv, block_table)
     else:

@@ -1,8 +1,8 @@
 """Top-level model (port of ``repro.models.model`` for dense GQA decoders
 and the Mamba2 hybrids): embeddings, the block stack, the tied head, the
 training entry points ``hidden`` and ``train_loss``, and the serving
-entry points ``cache_specs`` / ``blank_caches``, ``prefill_with_cache``
-and ``decode_step``.
+entry points ``cache_specs`` / ``blank_caches``, ``prefill_with_cache``,
+``decode_step`` and the speculative ``verify_with_cache``.
 
 Parameters and caches are trees of tensors. For the dense families
 ``params["stack"]`` and the cache tree hold one list per segment with
@@ -17,9 +17,10 @@ attention through K1 (forward and backward), every SSD scan through K5
 convolution, the serving SSM step and the head are plain PyTorch, as
 the reference leaves them to XLA.
 
-The dense prefill runs the whole chunk at once. The hybrid's prefill is
-the reference's fallback: it scans the decode step over the chunk, one
-token at a time, and masks each row's state and logits past its length.
+The dense prefill and verify run the whole chunk at once. The hybrid's
+are the reference's fallback: they scan the decode step over the chunk,
+one token at a time, and mask each row's state past its length (the
+verify: past its accepted prefix).
 """
 
 from __future__ import annotations
@@ -77,13 +78,14 @@ def _block_prefill(
     cache: Dict,
     start_index,
     block_tables: Optional[torch.Tensor] = None,
+    n_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Multi-token block forward that also writes the block's cache rows
-    (the serving prefill; mirrors ``_block_decode`` with S > 1)."""
+    (the serving prefill and verify; mirrors ``_block_decode`` with S > 1)."""
     h = norm_apply(params["attn_norm"], x, cfg.norm)
     a, new_cache = attn.gqa_prefill(
         params["attn"], h, cfg, positions=positions, cache=cache,
-        start_index=start_index, block_table=block_tables,
+        start_index=start_index, block_table=block_tables, n_valid=n_valid,
     )
     x = x + a
     h = norm_apply(params["mlp_norm"], x, cfg.norm)
@@ -113,6 +115,13 @@ class Model:
     def is_hybrid(self) -> bool:
         """Mamba2 backbone (family ``ssm`` or ``hybrid``): ``zamba`` runs it."""
         return self.cfg.family in ("ssm", "hybrid")
+
+    @property
+    def fused_prefill(self) -> bool:
+        """True when every block has a multi-token cache-writing prefill
+        (the dense attention stacks); the hybrid scans the decode step in
+        ``prefill_with_cache`` and ``verify_with_cache`` instead."""
+        return not self.is_hybrid
 
     # -- specs ---------------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -230,7 +239,7 @@ class Model:
         dev = inputs.device
         if length is None:
             length = torch.full((B,), P, dtype=torch.long, device=dev)
-        if self.is_hybrid:
+        if not self.fused_prefill:
             return self._scanned_prefill(params, inputs, caches, length.to(dev),
                                          start_index, block_tables)
         start = torch.as_tensor(start_index, dtype=torch.long, device=dev)
@@ -271,9 +280,11 @@ class Model:
         positions: torch.Tensor,
         start_index,
         block_tables: Optional[torch.Tensor] = None,
+        n_valid: Optional[torch.Tensor] = None,
     ):
         """Cache-writing stack walk of the fused path -> (final-norm hidden
-        states (B, S, D), caches)."""
+        states (B, S, D), caches): the one walk of ``prefill_with_cache``
+        and ``verify_with_cache``, whose streams must not part."""
         cfg = self.cfg
         h = self.embed_inputs(params, inputs)
         new_caches = []
@@ -283,10 +294,77 @@ class Model:
                 h, nc = _block_prefill(
                     layer, h, cfg, positions=positions, cache=cache,
                     start_index=start_index, block_tables=block_tables,
+                    n_valid=n_valid,
                 )
                 seg_new.append(nc)
             new_caches.append(seg_new)
         return norm_apply(params["final_norm"], h, cfg.norm), new_caches
+
+    def verify_with_cache(
+        self,
+        params: Dict,
+        inputs: torch.Tensor,                      # (B, S) int draft windows
+        caches,
+        n_input: torch.Tensor,                     # (B,) valid inputs a row
+        start_indices: torch.Tensor,               # (B,) first write position
+        block_tables: Optional[torch.Tensor] = None,
+        greedy_commit: bool = True,
+    ):
+        """Batched multi-token verify of speculative decoding ->
+        (all-position logits (B, S, V), caches).
+
+        Row b scores ``inputs[b, :n_input[b]]`` (the pending token, then
+        the draft's proposals) from its own cache position
+        ``start_indices[b]``; positions past ``n_input`` are pad, and
+        their logits are garbage the caller ignores. On return the caches
+        hold a committed prefix of any length ``a + 1 <= n_input[b]`` that
+        the caller derives from the logits by the exact-argmax rule:
+
+          * dense stacks (fused path) write K/V rows for all ``n_input``
+            inputs; rows past the accepted prefix are dead (every read
+            masks by the caller's position), so rollback is a position
+            rewind. Pad rows are dropped or sunk (``cache_rows_update``).
+          * the hybrid (scanned path) cannot rewind its recurrent state,
+            so step t commits its state update only while the greedy chain
+            holds, ``argmax(logits_{t-1}) == inputs[t]``, decided on the
+            card as the caller decides it on the host. ``greedy_commit``
+            False commits all ``n_input`` tokens (the draft's replay).
+            Where the reference selects the K/V rows by the chain as
+            well, the port writes them at every step, in place: a row at
+            or past a lane's committed position is dead. A pad step's
+            position is clamped onto the last row, which no lane reads (a
+            lane's rows end at its budget minus 2): past it, a contiguous
+            write would clamp there anyway, and a paged one would wrap
+            onto a row of the lane's last block.
+        """
+        B, S = inputs.shape
+        dev = inputs.device
+        start = torch.as_tensor(start_indices, dtype=torch.long, device=dev)
+        n_input = torch.as_tensor(n_input, dtype=torch.long, device=dev)
+        if self.fused_prefill:
+            positions = start[:, None] + torch.arange(S, device=dev)   # (B, S)
+            h, new_caches = self._fused_prefill_stack(
+                params, inputs, caches, positions=positions, start_index=start,
+                block_tables=block_tables, n_valid=n_input,
+            )
+            return self.logits(params, h), new_caches
+        # The chain stays on the card: no step reads a value back.
+        nxt = torch.cat([inputs[:, 1:], torch.zeros_like(inputs[:, :1])], dim=1)
+        last = zamba.zamba_kv_rows(caches, block_tables) - 1
+        pos = (start[:, None] + torch.arange(S, device=dev)).clamp(max=last)
+        acc = torch.ones(B, dtype=torch.bool, device=dev)
+        ys = []
+        for t in range(S):
+            commit = acc & (t < n_input)
+            logits, caches = self.decode_step(
+                params, inputs[:, t:t + 1], caches, pos[:, t],
+                block_tables=block_tables, mask=commit,
+            )
+            if greedy_commit:
+                g = torch.argmax(logits[:, -1], dim=-1)
+                acc = acc & ((g == nxt[:, t].long()) | (t + 1 >= n_input))
+            ys.append(logits[:, 0])
+        return torch.stack(ys, dim=1), caches
 
     def decode_step(
         self,

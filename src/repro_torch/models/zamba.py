@@ -200,6 +200,13 @@ def zamba_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig, caches: Dict, 
     return h, caches
 
 
+def zamba_kv_rows(caches: Dict, block_tables: Optional[torch.Tensor] = None) -> int:
+    """Rows one sequence's shared-call K/V holds: its contiguous stripe's,
+    or its block table's (``zamba_cache_specs``'s layouts)."""
+    rows = caches["attn"]["k"].shape[2]
+    return rows if block_tables is None else rows * block_tables.shape[1]
+
+
 def zamba_cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                       page: Optional[Tuple[int, int]] = None) -> Dict:
     """The hybrid's cache: each Mamba2 layer's recurrent states, stacked on

@@ -1,5 +1,6 @@
 """Step functions (port of ``repro.runtime.steps``): the train step and
-the serving slot steps.
+the serving slot steps (prefill, decode, and the speculative verify and
+replay).
 
 Plain functions, no tracing: PyTorch runs eagerly, so each step is the
 model call itself. The fastest-k worker mask, occupancy and ragged
@@ -24,7 +25,8 @@ from repro_torch.optim.optimizers import (
     global_norm,
 )
 
-__all__ = ["make_train_step", "make_slot_prefill_step", "make_slot_decode_step"]
+__all__ = ["make_train_step", "make_slot_prefill_step", "make_slot_decode_step",
+           "make_slot_verify_step", "make_slot_replay_step"]
 
 
 def _unflatten(like, leaves: List[torch.Tensor]):
@@ -161,3 +163,42 @@ def make_slot_decode_step(model: Model) -> Callable:
         )
 
     return slot_decode_step
+
+
+def make_slot_verify_step(model: Model) -> Callable:
+    """Speculative verify over the whole slot pool: one call scores every
+    lane's draft window at its own position.
+
+    (params, tokens (B, S), caches, n_input (B,), positions (B,),
+    [block_tables]) -> (greedy tokens (B, S) int32, caches). Per-lane
+    draft lengths ride along as data (``n_input``: 0 = a free or
+    mid-prefill lane, 1 = plain decode, 1 + gamma = speculating). The
+    caches come back committed as ``Model.verify_with_cache`` says: the
+    caller applies the exact-argmax rule to the greedy tokens and rewinds
+    its per-slot positions to the accepted prefix."""
+
+    @torch.no_grad()
+    def slot_verify_step(params, tokens, caches, n_input, positions, block_tables=None):
+        logits, caches = model.verify_with_cache(
+            params, tokens, caches, n_input, positions, block_tables=block_tables,
+        )
+        return torch.argmax(logits, dim=-1).to(torch.int32), caches
+
+    return slot_verify_step
+
+
+def make_slot_replay_step(model: Model) -> Callable:
+    """The draft's resync after a verify round: commit exactly
+    ``n_input`` known tokens a lane into the caches (no acceptance chain:
+    the tokens are the committed stream). Same arguments as
+    ``make_slot_verify_step``; returns only the caches."""
+
+    @torch.no_grad()
+    def slot_replay_step(params, tokens, caches, n_input, positions, block_tables=None):
+        _, caches = model.verify_with_cache(
+            params, tokens, caches, n_input, positions, block_tables=block_tables,
+            greedy_commit=False,
+        )
+        return caches
+
+    return slot_replay_step

@@ -1,6 +1,6 @@
 """Continuous-batching inference engine over a fixed slot pool (port of
-``repro.serve.engine`` without speculation, prefix sharing, migration and
-observability hooks).
+``repro.serve.engine`` with speculative decoding, and without prefix
+sharing, migration and observability hooks).
 
 The pool's ``n_slots`` lanes decode together in one pool-wide tick; slot
 occupancy enters as DATA (a per-slot position vector; a host-side lane
@@ -21,6 +21,12 @@ are contiguous per slot in both modes, the tick hands the model the
 decoding lanes' mask so that no other lane's state moves, and its
 prefill scans the decode step token by token (``Model.prefill_with_cache``).
 
+Speculative mode (``draft_model=...``): decode actions become
+draft-then-verify rounds (``serve.speculative``): gamma masked draft
+ticks, one target verify over the pool, exact-argmax acceptance and a
+rollback, with gamma adapted to the acceptance rate. The streams stay
+those of offline decode; speculation only moves throughput.
+
 ``run_static`` is the static-batching baseline: same pool and kernels,
 but admissions barrier until the whole previous batch drains.
 """
@@ -34,9 +40,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.runtime.steps import make_slot_decode_step, make_slot_prefill_step
+from repro_torch.runtime.steps import (
+    make_slot_decode_step,
+    make_slot_prefill_step,
+    make_slot_verify_step,
+)
 from .kv_pool import SlotPool
 from .scheduler import CostModel, EventClock, Request, Scheduler, next_bucket
+from .speculative import DraftRunner, SpecController
 
 __all__ = ["ServeEngine", "EngineStats", "generate_offline", "run_static"]
 
@@ -45,13 +56,16 @@ __all__ = ["ServeEngine", "EngineStats", "generate_offline", "run_static"]
 class EngineStats:
     generated_tokens: int = 0
     decode_ticks: int = 0
-    decode_tokens: int = 0        # tokens emitted by decode ticks
+    decode_tokens: int = 0        # tokens emitted by decode ticks and rounds
     prefill_calls: int = 0
     prefill_tokens: int = 0
+    spec_rounds: int = 0          # speculation rounds (draft + verify)
+    draft_ticks: int = 0          # sequential draft decode ticks
+    spec_accepted: int = 0        # draft tokens the target accepted
     cancelled_requests: int = 0   # deadline expiries + explicit cancels
     virtual_seconds: float = 0.0
     wall_seconds: float = 0.0
-    decode_wall_seconds: float = 0.0   # host clock around decode ticks
+    decode_wall_seconds: float = 0.0   # host clock around decode ticks and rounds
 
     @property
     def decode_tokens_per_wsec(self) -> float:
@@ -70,10 +84,19 @@ class ServeEngine:
         prefill_bucket: int = 16,
         block_size: Optional[int] = None,
         arena_blocks: Optional[int] = None,
+        draft_model=None,
+        draft_params=None,
+        gamma_max: int = 4,
+        spec_controller: Optional[SpecController] = None,
     ):
         """The engine runs on the device of ``params``. ``block_size``
         turns on paged KV; ``arena_blocks`` caps the arena below full
-        capacity to serve under an explicit memory budget."""
+        capacity to serve under an explicit memory budget.
+
+        ``draft_model`` / ``draft_params`` turn on speculative decoding:
+        decode actions become draft-then-verify rounds whose draft length
+        ``spec_controller`` (default ``SpecController(gamma_max)``)
+        adapts. The draft pool lives on the device of ``draft_params``."""
         if model.cfg.is_encoder:
             raise ValueError("serving needs a causal decoder architecture")
         self.model = model
@@ -94,6 +117,25 @@ class ServeEngine:
         self._decoding = np.zeros(n_slots, bool)      # prefill done, generating
         self._prefill = make_slot_prefill_step(model)
         self._decode = make_slot_decode_step(model)
+        self._verify = make_slot_verify_step(model)
+        # -- speculation (optional) ------------------------------------------
+        self.draft: Optional[DraftRunner] = None
+        self.spec: Optional[SpecController] = None
+        if draft_model is not None:
+            if draft_params is None:
+                raise ValueError("draft_model needs draft_params")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    "draft and target models must share a vocabulary "
+                    f"({draft_model.cfg.vocab_size} != {model.cfg.vocab_size})"
+                )
+            self.draft = DraftRunner(draft_model, draft_params, n_slots, max_len)
+            self.spec = spec_controller or SpecController(gamma_max)
+            self.spec.draft_fused = draft_model.fused_prefill
+
+    @property
+    def speculative(self) -> bool:
+        return self.draft is not None
 
     # -- submission ----------------------------------------------------------
     def submit(
@@ -138,7 +180,7 @@ class ServeEngine:
         if rid in self.pool.owner:              # holds a slot (prefill/decode)
             slot = self._slot_of(rid)
             self._decoding[slot] = False
-            self.pool.free(slot)
+            self._free_slot(slot)
         req.t_cancelled = self.sched.clock.now
         req.cancel_reason = reason
         self.stats.cancelled_requests += 1
@@ -200,15 +242,20 @@ class ServeEngine:
         # Grow the slot's block table to cover the chunk's real rows (pad
         # overhang past them falls into the NULL sink).
         pool.ensure_rows(slot, start + n_tok)
+        chunk = torch.as_tensor(chunk, device=self.device)
         logits, slot_caches = self._prefill(
             self.params,
-            torch.as_tensor(chunk, device=self.device),
+            chunk,
             pool.read_slot(slot),
             torch.tensor([n_tok], device=self.device),
             start,
             pool.tables_device(slot),
         )
         pool.write_slot(slot, slot_caches, position=start + n_tok)
+        if self.speculative:
+            # The draft cache must hold the same prefix (the same chunk).
+            self.draft.prefill_chunk(slot, chunk, n_tok, start, owner=req.rid)
+            sched.on_draft_prefill(n_tok)
         done = start + n_tok >= req.prefill_len
         sched.on_prefill_chunk(req, n_tok, done)
         self.stats.prefill_calls += 1
@@ -217,7 +264,7 @@ class ServeEngine:
             tok = int(torch.argmax(logits[0, -1]))
             self._emit(req, tok)
             if self._finished(req):     # max_new_tokens == 1
-                pool.free(slot)
+                self._free_slot(slot)
             else:
                 self._pending[slot] = tok
                 self._decoding[slot] = True
@@ -252,10 +299,124 @@ class ServeEngine:
             self._emit(req, int(next_tok[slot]))
             if self._finished(req):
                 self._decoding[slot] = False
-                pool.free(slot)
+                self._free_slot(slot)
             else:
                 self._pending[slot] = next_tok[slot]
         self.events.append(("decode", self.sched.clock.now, -1))
+
+    def _free_slot(self, slot: int) -> None:
+        self.pool.free(slot)
+        if self.speculative:
+            self.draft.pool.free(slot)
+
+    def _do_spec_round(self) -> None:
+        """One draft-then-verify round over the whole pool (in place of a
+        decode tick when a draft model is attached).
+
+        Per-lane draft budgets enter the fixed-shape verify as data
+        (``n_input``: 0 = a free or mid-prefill lane, 1 = plain decode for
+        a lane one token from its budget, 1 + gamma_b = speculating). The
+        verify commits only what the acceptance rule allows
+        (``Model.verify_with_cache``), the target rewinds its positions,
+        and the draft resyncs (``DraftRunner.resync``). One host read of
+        the verify's greedy tokens a round; the draft reads its
+        proposals once a tick."""
+        pool, sched, draft = self.pool, self.sched, self.draft
+        t0 = time.perf_counter()
+        n_slots = pool.n_slots
+        decoding = self._decoding.copy()
+        slots = np.nonzero(decoding)[0]
+        gamma = self.spec.choose_gamma(sched.clock.cost).gamma
+        if gamma == 0 or slots.size == 0:
+            # A plain tick; the draft consumes the same tokens in one masked
+            # tick (proposal discarded) so that it stays on the committed
+            # stream. Lanes that finished were freed in both pools.
+            old_pending = self._pending.copy()
+            self._do_decode()
+            live = decoding & self._decoding
+            if live.any():
+                t1 = time.perf_counter()
+                draft.decode_tick(old_pending, live)
+                sched.on_draft_decode()
+                self.stats.draft_ticks += 1
+                self.stats.decode_wall_seconds += time.perf_counter() - t1
+            return
+        # Never draft past a request's remaining budget (its last token
+        # needs no successor): every verify write stays inside the budget.
+        remaining = np.zeros(n_slots, np.int64)
+        for slot in slots:
+            req = self._requests[pool.owner[slot]]
+            remaining[slot] = req.max_new_tokens - len(req.tokens)
+        gamma_b = np.minimum(gamma, np.maximum(remaining - 1, 0))
+        S = gamma + 1
+        inputs = np.zeros((n_slots, S), np.int32)
+        inputs[:, 0] = self._pending
+        n_input = np.zeros(n_slots, np.int32)
+        n_input[slots] = 1 + gamma_b[slots]
+
+        # -- draft: gamma masked sequential ticks ----------------------------
+        draft.snapshot()
+        tokens = self._pending.copy()
+        draft_ticks = 0
+        for j in range(gamma):
+            mask_j = decoding & (gamma_b > j)
+            if not mask_j.any():
+                break
+            proposed = draft.decode_tick(tokens, mask_j)
+            tokens = np.where(mask_j, proposed, tokens)
+            inputs[mask_j, j + 1] = proposed[mask_j]
+            draft_ticks += 1
+
+        # -- verify: one target call over the pool ---------------------------
+        starts = pool.positions.copy()
+        for slot in slots:
+            pool.ensure_rows(int(slot), int(starts[slot]) + int(n_input[slot]))
+        greedy, pool.caches = self._verify(
+            self.params, torch.as_tensor(inputs, device=self.device), pool.caches,
+            torch.as_tensor(n_input, device=self.device),
+            torch.as_tensor(np.clip(starts, 0, pool.max_len - 1), device=self.device),
+            pool.tables_device(),
+        )
+        greedy = greedy.cpu().numpy()
+
+        # -- acceptance: the exact argmax chain, then emit and rewind --------
+        n_commit = np.zeros(n_slots, np.int32)
+        emitted_live: List[int] = []   # commits of lanes still decoding
+        emitted_all: List[int] = []
+        for slot in slots:
+            slot = int(slot)
+            ni = int(n_input[slot])
+            a = 0
+            while a < ni - 1 and greedy[slot, a] == inputs[slot, a + 1]:
+                a += 1
+            self.spec.observe(a, ni - 1)
+            self.stats.spec_accepted += a
+            req = self._requests[pool.owner[slot]]
+            for i in range(a + 1):
+                self._emit(req, int(greedy[slot, i]))
+            pool.positions[slot] = int(starts[slot]) + a + 1
+            n_commit[slot] = a + 1
+            emitted_all.append(a + 1)
+            if self._finished(req):
+                self._decoding[slot] = False
+                self._free_slot(slot)
+                n_commit[slot] = 0      # a freed draft lane is left alone
+            else:
+                self._pending[slot] = greedy[slot, a]
+                emitted_live.append(a + 1)
+
+        # -- draft resync: roll back to the committed stream -----------------
+        extra_ticks, replayed = draft.resync(inputs, n_commit)
+        draft_ticks += extra_ticks
+        # The interleave's credit is the weakest live lane's progress (an
+        # all-finished round credits its largest commit).
+        emitted = min(emitted_live) if emitted_live else max(emitted_all)
+        sched.on_spec_round(draft_ticks, S, emitted, replay=replayed)
+        self.stats.spec_rounds += 1
+        self.stats.draft_ticks += draft_ticks
+        self.stats.decode_tokens += sum(emitted_all)
+        self.stats.decode_wall_seconds += time.perf_counter() - t0
+        self.events.append(("spec", sched.clock.now, -1))
 
     def _emit(self, req: Request, tok: int) -> None:
         if not req.tokens:
@@ -273,8 +434,15 @@ class ServeEngine:
     def defrag(self) -> Dict[int, int]:
         """Compact the pool's live slots and remap the engine's per-slot
         decode state to match — safe mid-flight (bare ``pool.defrag()``
-        would silently desync ``_pending``/``_decoding``)."""
+        would silently desync ``_pending``/``_decoding``). A draft pool
+        compacts with the same permutation (its occupancy mirrors the
+        target's), keeping the two in slot-index lockstep."""
         moves = self.pool.defrag()
+        if self.speculative:
+            draft_moves = self.draft.pool.defrag()
+            assert draft_moves == moves, (
+                f"draft pool desync under defrag: {draft_moves} != {moves}"
+            )
         if moves:
             inv = {new: old for old, new in moves.items()}
             pending, decoding = self._pending, self._decoding
@@ -298,7 +466,10 @@ class ServeEngine:
         if kind == "prefill":
             self._do_prefill(req)
         elif kind == "decode":
-            self._do_decode()
+            if self.speculative:
+                self._do_spec_round()
+            else:
+                self._do_decode()
         elif kind == "idle":
             self.sched.on_idle()
             self.events.append(("idle", self.sched.clock.now, -1))

@@ -3,7 +3,9 @@
 commit-at-admission paged modes, and a copy of ``BlockManager``; prefix
 sharing and migration snapshots are not ported yet). It holds the dense
 decoders' KV caches and the Mamba2 hybrid's recurrent states beside its
-shared block's KV.
+shared block's KV; a speculative engine keeps a second, contiguous pool
+for its draft (``serve.speculative.DraftRunner``), whose snapshot clones
+the leaves ``is_state_spec`` picks.
 
 The pool owns one device-resident cache tree shaped for ``n_slots``
 sequences of up to ``max_len`` tokens, built from ``model.cache_specs``.
@@ -47,10 +49,10 @@ from repro_torch.models.layers import (
     tree_leaves,
 )
 
-__all__ = ["BlockManager", "SlotPool"]
+__all__ = ["BlockManager", "SlotPool", "is_state_spec"]
 
 
-def _is_state(spec) -> bool:
+def is_state_spec(spec) -> bool:
     """A recurrent state leaf: per slot, with no sequence axis."""
     return not is_paged_spec(spec) and "act_kv_seq" not in spec.axes
 
@@ -248,7 +250,7 @@ class SlotPool:
         self._any_contiguous = any(not is_paged_spec(s) for s in self._spec_leaves)
         #: Whether the caches carry recurrent state (leaves with a slot
         #: axis and no sequence axis), which the decode tick must mask.
-        self.recurrent = any(_is_state(s) for s in self._spec_leaves)
+        self.recurrent = any(is_state_spec(s) for s in self._spec_leaves)
         # Host-side occupancy. Free slots are handed out lowest-index
         # first so the engine's active lanes stay dense without defrag.
         self.positions = np.zeros(n_slots, np.int32)
@@ -335,7 +337,7 @@ class SlotPool:
     def state_bytes_per_slot(self) -> int:
         """Bytes of recurrent state one slot holds (0 for KV-only caches)."""
         return sum(s.size * DTYPES[s.dtype].itemsize for s in self._spec_leaves
-                   if _is_state(s)) // self.n_slots
+                   if is_state_spec(s)) // self.n_slots
 
     def kv_bytes_high_water(self) -> int:
         """High-water mark of arena bytes actually reserved (+ the NULL

@@ -1,8 +1,10 @@
 """Admission + prefill/decode interleaving with a deterministic event clock.
 
 A copy of the reference scheduler (``repro.serve.scheduler``) for the
-port's engine, without the observability hooks and without the
-speculation and preemption callbacks, which arrive with those features.
+port's engine, with its speculation pricing and callbacks (the draft
+mirror of a prefill, the draft lockstep tick, the draft-then-verify
+round), without the observability hooks and without the preemption
+economics, which arrive with prefix sharing.
 
 Every tick the scheduler picks ONE action — admit-and-prefill a waiting
 request (possibly one chunk of it), run a decode tick over the whole
@@ -81,17 +83,46 @@ class Request:
 class CostModel:
     """Virtual seconds per engine action: a per-launch constant plus a
     per-token term for prefill; decode ticks cost the same regardless of
-    how many slots are live (the whole pool is one fixed-shape call)."""
+    how many slots are live (the whole pool is one fixed-shape call).
+
+    Speculation pricing: ``draft_ratio`` is the draft/target cost ratio
+    (one draft action costs ``draft_ratio`` times the target's), and a
+    verify call scoring a window of S tokens a lane costs one decode tick
+    plus ``verify_per_token * S``."""
 
     prefill_base: float = 1e-3
     prefill_per_token: float = 1e-4
     decode_tick: float = 1e-3
+    draft_ratio: float = 0.3
+    verify_per_token: float = 1e-4
 
     def prefill(self, n_tokens: int) -> float:
         return self.prefill_base + self.prefill_per_token * n_tokens
 
     def decode(self) -> float:
         return self.decode_tick
+
+    # -- speculation ---------------------------------------------------------
+    def draft_decode(self) -> float:
+        return self.draft_ratio * self.decode_tick
+
+    def draft_prefill(self, n_tokens: int) -> float:
+        return self.draft_ratio * self.prefill(n_tokens)
+
+    def verify(self, n_tokens: int) -> float:
+        """One batched verify call scoring ``n_tokens`` positions a lane."""
+        return self.decode_tick + self.verify_per_token * n_tokens
+
+    def spec_round(self, draft_ticks: int, verify_tokens: int,
+                   replay: bool = False) -> float:
+        """One speculation round: sequential draft ticks (any resync tick
+        included), one target verify, and, for drafts with recurrent
+        state (which cannot rewind), a draft-scale replay scan over the
+        same window (``replay``)."""
+        c = draft_ticks * self.draft_decode() + self.verify(verify_tokens)
+        if replay:
+            c += self.draft_ratio * self.verify(verify_tokens)
+        return c
 
 
 class EventClock:
@@ -104,6 +135,13 @@ class EventClock:
 
     def advance_decode(self) -> None:
         self.now += self.cost.decode()
+
+    def advance_draft_prefill(self, n_tokens: int) -> None:
+        self.now += self.cost.draft_prefill(n_tokens)
+
+    def advance_spec_round(self, draft_ticks: int, verify_tokens: int,
+                           replay: bool = False) -> None:
+        self.now += self.cost.spec_round(draft_ticks, verify_tokens, replay)
 
     def advance_to(self, t: float) -> None:
         self.now = max(self.now, t)
@@ -220,6 +258,26 @@ class Scheduler:
 
     def on_decode_tick(self) -> None:
         self.clock.advance_decode()
+
+    def on_draft_prefill(self, n_tokens: int) -> None:
+        """The draft mirrors every admission prefill (its cache must hold
+        the same prefix); priced at the draft cost ratio."""
+        self.clock.advance_draft_prefill(n_tokens)
+
+    def on_draft_decode(self) -> None:
+        """One draft lockstep tick of a non-speculating (gamma = 0) round:
+        the draft consumes what the target consumed."""
+        self.clock.now += self.clock.cost.draft_decode()
+
+    def on_spec_round(self, draft_ticks: int, verify_tokens: int, emitted: int,
+                      replay: bool = False) -> None:
+        """One speculation round in place of a decode tick. The interleave
+        owes in-flight requests decode PROGRESS between prefill chunks: a
+        round is worth ``emitted`` ticks of it (the engine reports its
+        weakest live lane's committed tokens). ``next_action`` paid 1 when
+        it issued the round; the other ``emitted - 1`` are paid here."""
+        self.clock.advance_spec_round(draft_ticks, verify_tokens, replay)
+        self._decode_debt = max(0, self._decode_debt - max(emitted - 1, 0))
 
     def on_idle(self) -> None:
         nxt = self._next_arrival()

@@ -14,6 +14,7 @@ refuse a gradient, and the reduced model's decode tick and train step to
 run through the kernels.
 """
 
+import dataclasses
 import importlib
 
 import pytest
@@ -23,13 +24,14 @@ from repro_torch import kernels as K
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention_rounding_terms
 from repro_torch.kernels.parity import (
-    DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, RMS_DECODE_SHAPES, SSD_SHAPES,
-    dscale_bf16_slack,
+    DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES,
+    SSD_SHAPES, dscale_bf16_slack,
     flash_within, ssd_within, within,
 )
 from repro_torch.kernels.ssd_scan import ssd_bwd_term_sums
 from repro_torch.models import Model
-from repro_torch.models.layers import tree_leaves
+from repro_torch.models.attention import paged_kv_view
+from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.optim import adamw
 from repro_torch.runtime import make_train_step
 from repro_torch.serve import Scheduler, ServeEngine, generate_offline
@@ -214,6 +216,107 @@ def test_wrappers_never_fall_back_to_plain(cuda, monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         K.rms_norm(x.t(), torch.ones(2, device=cuda))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RMS_VERIFY_SHAPES)
+def test_rms_norm_kernel_at_verify_rows(cuda, dtype, shape):
+    """K2 forward at a llama3.2-1b verify's rows (4 lanes of 1 + gamma,
+    gamma 1 to 6): plain's value, and a second launch bit for bit."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    scale = (1 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda, dtype)
+    out = K.rms_norm(x, scale)
+    _close(out, K.rms_norm_plain(x, scale), dtype)
+    assert torch.equal(K.rms_norm(x, scale), out)
+
+
+def _cut(arch):
+    """The 2-layer f32 cut of a full-width config (zamba2: 2 Mamba2 layers
+    and one shared call), its model and CPU parameters (zamba2's LoRA
+    up-projections drawn at random)."""
+    cfg = get_config(arch)
+    over = dict(n_layers=2, dtype="float32")
+    if cfg.family in ("ssm", "hybrid"):
+        over["attn_every"] = 2
+    cfg = dataclasses.replace(cfg, **over)
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    if cfg.family in ("ssm", "hybrid"):
+        g = torch.Generator().manual_seed(4)
+        shared = params["stack"]["shared"]
+        for name in ("lora_qkv_b", "lora_mlp_b"):
+            shared[name] = 0.05 * torch.randn(shared[name].shape, generator=g)
+    return model, params
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+def test_verify_on_the_card_matches_the_cpu(cuda, arch, paged):
+    """``verify_with_cache`` and the replay of the 2-layer f32 cut at full
+    width: 4 lanes prefilled with 16, 9, 12 and 5 tokens, one window of 4
+    at per-row starts with n_input 0, 1, 4 and 4 (random drafts: the
+    chain breaks at once), through the kernels on the card and the plain
+    versions on the CPU. The logits at every position, the recurrent
+    states and each lane's K/V rows below its committed position agree
+    by ``parity.within`` (f32); the dense verify launches K2 once a norm
+    and no K3/K4, the hybrid's each scan step as a decode step."""
+    model, cpu_params = _cut(arch)
+    cfg = model.cfg
+    hybrid = cfg.family in ("ssm", "hybrid")
+    card, cpu = cuda, torch.device("cpu")
+    params = {card: tree_map(lambda t: t.to(card), cpu_params, is_leaf=torch.is_tensor),
+              cpu: cpu_params}
+    B, P, S, rows, bs = 4, 16, 4, 64, 16
+    g = torch.Generator().manual_seed(5)
+    lens = torch.tensor([16, 9, 12, 5])
+    n_input = torch.tensor([0, 1, 4, 4])
+    chunk = torch.randint(0, cfg.vocab_size, (B, P), generator=g)
+    inputs = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    tables = (torch.randperm(B * rows // bs, generator=g) + 1).reshape(B, -1).int()
+    out = []
+    for dev in (card, cpu):
+        kw = dict(block_size=bs, num_blocks=B * rows // bs) if paged else {}
+        tt = tables.to(dev) if paged else None
+        res = []
+        for commit in (None, torch.where(n_input > 0, 1, 0) if hybrid else n_input):
+            caches = model.blank_caches(B, rows, device=dev, **kw)
+            _, caches = model.prefill_with_cache(params[dev], chunk.to(dev), caches,
+                                                 length=lens.to(dev), block_tables=tt)
+            K.reset_launch_counts()
+            ni = n_input if commit is None else commit
+            logits, caches = model.verify_with_cache(
+                params[dev], inputs.to(dev), caches, ni.to(dev), lens.to(dev), tt,
+                greedy_commit=commit is None)
+            res.append((logits, caches, K.launch_counts()))
+        out.append(res)
+    calls = cfg.n_layers // cfg.attn_every if hybrid else 0
+    attn = "paged_decode_attention" if paged else "decode_attention"
+    launches = out[0][0][2]
+    if hybrid:
+        assert launches["rmsnorm"] == (2 * cfg.n_layers + 2 * calls + 1) * S
+        assert launches[attn] == calls * S
+    else:
+        assert launches["rmsnorm"] == 2 * cfg.n_layers + 1
+    assert sum(launches.values()) == launches["rmsnorm"] + (launches[attn] if hybrid else 0)
+    _close(out[0][0][0].cpu(), out[1][0][0], torch.float32)
+    # Random drafts: the hybrid commits the pending token only.
+    commit = torch.where(n_input > 0, 1, 0) if hybrid else n_input
+    for (_, got, _), (_, want, _) in zip(*out):
+        if hybrid:
+            for name in ("conv", "ssm"):
+                _close(got["mamba"][name].cpu(), want["mamba"][name], torch.float32)
+            pairs = [(got["attn"][n][c].cpu(), want["attn"][n][c])
+                     for n in ("k", "v") for c in range(calls)]
+        else:
+            pairs = [(gl[n].cpu(), wl[n]) for gs, ws in zip(got, want)
+                     for gl, wl in zip(gs, ws) for n in ("k", "v")]
+        for a, b in pairs:
+            if paged:
+                a, b = paged_kv_view(a, tables), paged_kv_view(b, tables)
+            for lane in range(B):
+                upto = int(lens[lane] + commit[lane])
+                _close(a[lane, :upto], b[lane, :upto], torch.float32)
 
 
 @pytest.mark.parametrize("block_size", [None, 16])

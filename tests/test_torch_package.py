@@ -36,7 +36,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
-           "repro_torch.models.zamba"} - set(sys.modules)
+           "repro_torch.models.zamba", "repro_torch.serve.speculative"} - set(sys.modules)
 assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
