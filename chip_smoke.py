@@ -25,6 +25,9 @@ runs, in order, and exits non-zero at the first phase that fails:
    each bit for bit equal to the
    other on identical rows, to a second launch of itself, and, row by row,
    to a launch of that row alone (the split plan reads no batch size);
+   and K4 over the block tables prefix sharing leaves
+   (``parity.SHARED_DECODE_SHAPES``: two rows naming the same first
+   blocks, a third naming a fork of one of them), held the same way;
 4. serves llama3.2-1b at full width in bf16 (random weights from a seed)
    through ``ServeEngine`` — 8 requests, 4 slots, chunked prefill — once
    over the contiguous pool and once over the paged pool, checks every
@@ -106,9 +109,30 @@ runs, in order, and exits non-zero at the first phase that fails:
    round's sequence of calls; every stream is held to teacher-forced
    offline decode; K2 is timed at a verify's 8 and 28 rows, and one
    steady llama round is profiled;
+17. serves with copy-on-write prefix sharing, preempt-and-requeue and
+   migration: llama3.2-1b (paged, block 16) serves 8 requests sharing a
+   512-token prefix and two identical block-aligned prompts (a full
+   match that re-feeds its last token through a forked block) with and
+   without sharing — at least 6 admissions adopt, and the prefill tokens
+   fall by exactly the rows shared (the streams compared with the
+   unshared run's); phase 4's traffic on a 64-block sharing arena,
+   which must preempt and replay (compared with phase 4's paged
+   streams); and 2 of phase 4's
+   requests exported after 8 tokens to a second engine, contiguous to
+   contiguous and paged to paged (sharing), compared with the same
+   requests served unmigrated token for token, and a ticket with one
+   byte flipped refused with the destination unchanged; zamba2-1.2b
+   serves 3 requests on a 4-block sharing arena (preempted, never
+   sharing) and migrates one (its 38.92 MiB recurrent state moves).
+   Every call's launches are counted as in phase 16 (a llama tick K2 33
+   and K3 or K4 16 times, a prefill chunk K2 33; a zamba2 step K2 89 and
+   K3/K4 6), every arena drains clean, every stream is held to
+   teacher-forced offline decode, and ``snapshot_slot`` and
+   ``restore_slot`` of a llama slot are timed against their byte bound;
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
-launches on the zamba2 serving path under ``zamba_serve_launches``; the profiles under
+launches on the zamba2 serving path under ``zamba_serve_launches`` and in
+phase 17 under ``phase17_launches``; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
@@ -118,7 +142,8 @@ zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
 and ``zamba_serve_profile``, phase 16's under ``spec_parity``,
 ``spec_serve``, ``spec_serve_streams``, ``spec_state_check``,
 ``spec_rmsnorm_times``, ``spec_snapshot`` and ``spec_profile`` (each
-kernel's launches there under ``spec_serve_launches``), the launch
+kernel's launches there under ``spec_serve_launches``), phase 17's under
+``prefix_serve``, ``preempt_serve``, ``migration`` and ``zamba_preempt``, the launch
 floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
@@ -391,14 +416,16 @@ def check_kernels() -> dict:
     K3 and K4 at ``parity.DECODE_SHAPES``: K3 on live rows (its contract
     is length >= 1), K4 on all; K3 == K4 bit for bit, a second launch of
     each gives the same bits, each row equals a launch of that row alone
-    bit for bit (K3 on live rows), and a length-0 row is exact zeros."""
+    bit for bit (K3 on live rows), and a length-0 row is exact zeros; K4
+    also over the shared block tables of ``parity.SHARED_DECODE_SHAPES``
+    (``hold_shared_tables``)."""
     from repro_torch.kernels import (
         decode_attention, decode_attention_plain, paged_decode_attention,
         paged_decode_attention_plain,
     )
     from repro_torch.kernels.decode_attention import sm_count
     from repro_torch.kernels.parity import (
-        DECODE_BLOCK, DECODE_SHAPES, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES,
+        DECODE_BLOCK, DECODE_SHAPES, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES, SHARED_DECODE_SHAPES,
     )
     from repro_torch.kernels.rmsnorm import launch_plan
 
@@ -454,7 +481,49 @@ def check_kernels() -> dict:
             if dtype == torch.bfloat16:
                 worst["decode_attention"] = max(worst["decode_attention"], err)
                 worst["paged_decode_attention"] = max(worst["paged_decode_attention"], perr)
+        for H, Hkv, D, S, lens, shared in SHARED_DECODE_SHAPES:
+            perr = hold_shared_tables(H, Hkv, D, S, lens, shared, dtype, gen)
+            if dtype == torch.bfloat16:
+                worst["paged_decode_attention"] = max(worst["paged_decode_attention"], perr)
     return worst
+
+
+def hold_shared_tables(H, Hkv, D, S, lens, shared, dtype, gen) -> float:
+    """K4 over block tables that prefix sharing leaves
+    (``parity.shared_block_arena``: rows 0 and 1 name the same first
+    ``shared`` blocks, row 2 a fork of the last of them): plain's value, a
+    second launch bit for bit, each row bit for bit equal to a launch of
+    that row alone, and K3 on the gathered rows bit for bit."""
+    from repro_torch.kernels import (
+        decode_attention, paged_decode_attention, paged_decode_attention_plain,
+    )
+    from repro_torch.kernels.parity import shared_block_arena
+    from repro_torch.models.attention import paged_kv_view
+
+    dev = torch.device("cuda")
+    k_ar, v_ar, tables = shared_block_arena(Hkv, D, S, lens, shared, gen, dtype, dev)
+    q = torch.randn((len(lens), H, D), generator=gen).to(dev, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = paged_decode_attention(q, k_ar, v_ar, tables, lengths)
+    ref = paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths)
+    same = torch.equal(paged_decode_attention(q, k_ar, v_ar, tables, lengths), out)
+    alone = all(torch.equal(paged_decode_attention(q[b:b + 1], k_ar, v_ar, tables[b:b + 1],
+                                                   lengths[b:b + 1])[0], out[b])
+                for b in range(len(lens)))
+    k3 = torch.equal(decode_attention(q, paged_kv_view(k_ar, tables),
+                                      paged_kv_view(v_ar, tables), lengths), out)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    name = str(dtype).replace("torch.", "")
+    print(f"  K4 over shared tables {name} H={H} Hkv={Hkv} D={D} S={S} lengths={lens}, "
+          f"{shared} shared blocks and a fork: max|err|={err:.3e}; repeat launch bitwise: "
+          f"{same}; each row == that row alone bitwise: {alone}; == K3 on the gathered rows "
+          f"bitwise: {k3}")
+    check(err <= TOL[dtype], f"paged decode {name} over shared tables disagrees")
+    check(same, "a second launch of K4 over shared tables gave other bits")
+    check(alone, "a row of K4 over shared tables differs from a launch of that row alone")
+    check(k3, "K4 over shared tables differs from K3 on the gathered rows")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -1966,20 +2035,27 @@ def verify_vs_plain(cfg, device: str = "cuda") -> dict:
 
 
 class CallProbe:
-    """Wraps an engine's step functions (and its draft's) to record each
-    call's kind, its decode steps (a window's S, a hybrid prefill's tokens;
-    else 1) and the kernels it launched; ``round()`` marks the start of
-    each round. Reading the host-side counters adds no device work."""
+    """Wraps the step functions of each engine (and of its draft, if it has
+    one) to record each call's kind, its decode steps (a window's S, a
+    hybrid prefill's tokens; else 1) and the kernels it launched; each
+    speculative round is marked. Reading the host-side counters adds no
+    device work."""
 
     KINDS = {"_prefill": "prefill", "_decode": "tick", "_verify": "verify"}
     DRAFT_KINDS = {"_prefill": "draft prefill", "_decode": "draft", "_replay": "replay"}
 
-    def __init__(self, eng):
+    def __init__(self, *engines):
         self.calls = []
-        for attr, kind in self.KINDS.items():
-            self._wrap(eng, attr, kind)
-        for attr, kind in self.DRAFT_KINDS.items():
-            self._wrap(eng.draft, attr, kind)
+        for eng in engines:
+            for attr, kind in self.KINDS.items():
+                self._wrap(eng, attr, kind)
+            if eng.draft is None:
+                continue
+            for attr, kind in self.DRAFT_KINDS.items():
+                self._wrap(eng.draft, attr, kind)
+            self._mark_rounds(eng)
+
+    def _mark_rounds(self, eng):
         do_round = eng._do_spec_round
 
         def marked():
@@ -2022,8 +2098,10 @@ class CallProbe:
 
 
 def check_spec_launches(cfg, probe: CallProbe, counts: dict, paged: bool, label: str) -> dict:
-    """Every probed call launched what its kind should, and nothing ran
-    outside them; a gamma = 0 round is one target tick and at most one
+    """Every probed call launched what its kind should (a dense prefill K2
+    once a norm; a dense tick that and K3 or K4 once a layer; a hybrid
+    call ``hybrid_step_launches`` for its steps), and nothing ran outside
+    them; a gamma = 0 round is one target tick and at most one
     draft tick; a speculating round is draft ticks, one verify and (the
     hybrid) one replay or (dense) at most one more draft tick. Returns
     {kind: {"calls": n, "launches": {kernel: n}}}."""
@@ -2279,6 +2357,315 @@ def profile_spec_round(model, params, dparams, n_rounds: int = 3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: prefix sharing, preempt-and-requeue and migration
+# ---------------------------------------------------------------------------
+
+#: llama3.2-1b shared-prefix traffic: ``PREFIX_REQUESTS`` prompts of one
+#: common ``PREFIX_LEN``-token prefix (32 full blocks of 16) plus 16-64
+#: unique tokens, 16-48 new tokens each; the first arrives alone and the
+#: others once its prefill (3 chunks, ~0.056 virtual s) has registered the
+#: prefix, while it still decodes. Then two requests with identical
+#: prompts of the prefix plus 32
+#: tokens (34 full blocks): the second matches its whole prompt and
+#: re-feeds its last token through a forked tail block.
+PREFIX_LEN, PREFIX_REQUESTS = 512, 8
+#: Preemption: phase 4's traffic on a 64-block sharing arena. Its
+#: requests need 6-36 blocks of 16 each; 64 blocks admit the first two
+#: prefills (33 and 28 blocks), not both lanes' decode growth.
+PREEMPT_BLOCKS = 64
+#: Migration: the first two of phase 4's requests, exported after 8
+#: emitted tokens each; zamba2's first request after 4.
+MIGRATE_REQUESTS, MIGRATE_AFTER, Z_MIGRATE_AFTER = 2, 8, 4
+#: zamba2-1.2b preemption: 3 requests of 16-32 prompt and 8-16 new tokens
+#: (each ends needing 2-3 blocks of 16) on a sharing arena of 4 blocks.
+Z_PREEMPT_BLOCKS = 4
+
+
+def prefix_workload(vocab: int):
+    rng = np.random.default_rng(SEED + 30)
+    prefix = rng.integers(0, vocab, size=PREFIX_LEN).astype(np.int32)
+    reqs = []
+    for i in range(PREFIX_REQUESTS):
+        tail = rng.integers(0, vocab, size=int(rng.integers(16, 65))).astype(np.int32)
+        reqs.append((np.concatenate([prefix, tail]), int(rng.integers(16, 49)),
+                     0.0 if i == 0 else 0.06 + 0.005 * i))
+    twin = np.concatenate([prefix, rng.integers(0, vocab, size=2 * BLOCK_SIZE).astype(np.int32)])
+    return reqs + [(twin, 24, 0.2), (twin.copy(), 24, 0.21)]
+
+
+def serve_probed(model, params, reqs, label: str, *, n_slots: int, max_len: int, chunk: int,
+                 **kw) -> dict:
+    """Serve ``reqs`` through one ``ServeEngine`` (``kw``: its pool
+    options), probing every call's launches (``check_spec_launches``) and
+    counting copy-on-write forks; the streams must be well formed and a
+    paged arena must drain with its invariants intact."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Scheduler, ServeEngine
+
+    cfg = model.cfg
+    eng = ServeEngine(model, params, n_slots=n_slots, max_len=max_len,
+                      scheduler=Scheduler(n_slots, prefill_chunk=chunk), **kw)
+    probe = CallProbe(eng)
+    mgr = eng.pool.manager
+    forks = []
+    if mgr is not None:
+        fork = mgr.fork
+        mgr.fork = lambda *a: forks.append(fork(*a)) or forks[-1]
+    rids = [eng.submit(p, m, arrival=a) for p, m, a in reqs]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    results = eng.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    calls = check_spec_launches(cfg, probe, counts, mgr is not None, label)
+    for rid, (p, m, _) in zip(rids, reqs):
+        toks = results[rid].tokens
+        check(len(toks) == m and all(0 <= t < cfg.vocab_size for t in toks),
+              f"{label}: request {rid} produced a malformed stream")
+    if mgr is not None:
+        check(not mgr.audit(), f"{label}: block manager audit {mgr.audit()}")
+        check(mgr.n_used_blocks == 0, f"{label}: {mgr.n_used_blocks} blocks held at the drain")
+    st = eng.stats
+    out = {"tokens": [results[r].tokens for r in rids], "stats": st, "launches": counts,
+           "calls": {k: v["calls"] for k, v in calls.items()}, "forks": len(forks),
+           "kv_bytes_high_water": eng.pool.kv_bytes_high_water(),
+           "preempt_events": sum(kind == "preempt" for kind, _, _ in eng.events)}
+    print(f"  {label}: {st.prefill_calls} prefill calls ({st.prefill_tokens} tokens), "
+          f"{st.decode_ticks} decode ticks, {st.generated_tokens} tokens in "
+          f"{st.wall_seconds:.2f} s; prefix hits {st.prefix_hits} ({st.prefix_rows_shared} rows "
+          f"shared), {len(forks)} forks, {st.preempted_requests} preemptions; KV high-water "
+          f"{out['kv_bytes_high_water'] / 2**20:.2f} MiB; calls {out['calls']}; launches "
+          f"{dict((k, v) for k, v in counts.items() if v)}")
+    return out
+
+
+def run_summary(r: dict) -> dict:
+    st = r["stats"]
+    return {"prefill_calls": st.prefill_calls, "prefill_tokens": st.prefill_tokens,
+            "decode_ticks": st.decode_ticks, "generated_tokens": st.generated_tokens,
+            "wall_seconds": st.wall_seconds, "decode_tokens_per_s": st.decode_tokens_per_wsec,
+            "prefix_hits": st.prefix_hits, "prefix_rows_shared": st.prefix_rows_shared,
+            "preempted_requests": st.preempted_requests, "forks": r["forks"],
+            "kv_bytes_high_water": r["kv_bytes_high_water"], "calls": r["calls"],
+            "launches": r["launches"]}
+
+
+def serve_shared_prefix(model, params) -> dict:
+    """``prefix_workload`` over a paged pool with and without sharing: at
+    least 6 admissions adopt the prefix, the prefill tokens fall by
+    exactly the rows shared, the full match forks its tail block, and
+    every stream holds by the near-tie rule."""
+    reqs = prefix_workload(model.cfg.vocab_size)
+    runs = {label: serve_probed(model, params, reqs, f"{label} prefix", n_slots=N_SLOTS,
+                                max_len=MAX_LEN, chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE,
+                                prefix_sharing=sharing)
+            for label, sharing in (("shared", True), ("unshared", False))}
+    sh, un = runs["shared"]["stats"], runs["unshared"]["stats"]
+    check(sh.prefix_hits >= 6, f"only {sh.prefix_hits} admissions adopted the prefix")
+    check(un.prefix_hits == 0, "the unshared run adopted a prefix")
+    check(un.prefill_tokens - sh.prefill_tokens == sh.prefix_rows_shared,
+          f"prefill tokens fell by {un.prefill_tokens - sh.prefill_tokens}, rows shared "
+          f"{sh.prefix_rows_shared}")
+    check(runs["shared"]["forks"] >= 1, "the full-match re-feed forked no block")
+    equal = sum(a == b for a, b in zip(runs["shared"]["tokens"], runs["unshared"]["tokens"]))
+    print(f"  prefill tokens {un.prefill_tokens} -> {sh.prefill_tokens} (-{sh.prefix_rows_shared} "
+          f"rows shared); KV high-water {runs['unshared']['kv_bytes_high_water'] / 2**20:.2f} "
+          f"-> {runs['shared']['kv_bytes_high_water'] / 2**20:.2f} MiB; streams equal to the "
+          f"unshared run's: {equal} of {len(reqs)}")
+    streams = check_streams(model, params, reqs, runs, MAX_LEN)
+    return {"runs": {k: run_summary(v) for k, v in runs.items()}, "streams": streams,
+            "requests": len(reqs), "shared_equals_unshared": equal}
+
+
+def serve_preempted(model, params, reqs, label: str, *, n_slots: int, max_len: int, chunk: int,
+                    arena_blocks: int, unpreempted=None) -> dict:
+    """``reqs`` on a small sharing arena: lanes are preempted and replayed,
+    every stream holds by the near-tie rule, and the arena drains clean.
+    ``unpreempted``: the same requests' streams from a run without
+    preemption, which the positions departing from are counted against."""
+    need = max(-(-(len(p) + m) // BLOCK_SIZE) for p, m, _ in reqs)
+    print(f"  {len(reqs)} requests on {arena_blocks} blocks of {BLOCK_SIZE}; the largest "
+          f"needs {need}")
+    r = serve_probed(model, params, reqs, label, n_slots=n_slots, max_len=max_len,
+                     chunk=chunk, block_size=BLOCK_SIZE, arena_blocks=arena_blocks,
+                     prefix_sharing=True)
+    check(r["stats"].preempted_requests >= 1, f"{label}: no lane was preempted")
+    check(r["preempt_events"] == r["stats"].preempted_requests, f"{label}: preempt events")
+    streams = check_streams(model, params, reqs, {label: r}, max_len)
+    out = {"run": run_summary(r), "streams": streams, "largest_blocks": need}
+    if unpreempted is not None:
+        out["departures_from_unpreempted"] = sum(
+            a != b for got, want in zip(r["tokens"], unpreempted) for a, b in zip(got, want))
+        out["equal_to_unpreempted"] = sum(a == b for a, b in zip(r["tokens"], unpreempted))
+        print(f"  {label}: {out['equal_to_unpreempted']} of {len(reqs)} streams equal to the "
+              f"unpreempted run's; {out['departures_from_unpreempted']} positions depart")
+    return out
+
+
+def migrate(model, params, reqs, label: str, *, n_slots: int, max_len: int, chunk: int,
+            after: int, **kw) -> dict:
+    """Serve ``reqs`` through one engine (unmigrated), and again through a
+    source engine that exports each request after ``after`` emitted tokens
+    into a second engine that finishes it; every call's launches probed.
+    The migrated streams hold by the near-tie rule and are compared with
+    the unmigrated ones token for token (departures counted). Then a ticket
+    with one byte of its first K leaf flipped must raise
+    ``TicketIntegrityError`` and leave the destination's pool unchanged."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.serve import Scheduler, ServeEngine, TicketIntegrityError
+
+    base = serve_probed(model, params, reqs, f"{label}, unmigrated", n_slots=n_slots,
+                        max_len=max_len, chunk=chunk, **kw)
+
+    def engine():
+        return ServeEngine(model, params, n_slots=n_slots, max_len=max_len,
+                           scheduler=Scheduler(n_slots, prefill_chunk=chunk), **kw)
+
+    src, dst = engine(), engine()
+    probe = CallProbe(src, dst)
+    rids = [src.submit(p, m, arrival=a) for p, m, a in reqs]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    tickets, t0 = {}, time.perf_counter()
+    while len(tickets) < len(reqs):
+        check(src.step() != "done", f"{label}: the source drained before every export")
+        for i, rid in enumerate(rids):
+            if i not in tickets and len(src.request(rid).tokens) == after:
+                tickets[i] = src.export_request(rid)
+    check(src.pool.n_active == 0, f"{label}: the source still holds a slot")
+    if src.pool.paged:
+        check(src.pool.manager.n_used_blocks == 0, f"{label}: the source still holds blocks")
+    new = {i: dst.import_request(t) for i, t in tickets.items()}
+    check(None not in new.values(), f"{label}: the destination refused a ticket")
+    results = dst.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    paged = src.pool.paged
+    check_spec_launches(model.cfg, probe, counts, paged, f"{label}, migrated")
+    tokens = [results[new[i]].tokens for i in range(len(reqs))]
+    departures = sum(a != b for got, want in zip(tokens, base["tokens"])
+                     for a, b in zip(got, want))
+    snap_bytes = [sum(t.numel() * t.element_size()
+                      for t in tree_leaves(t.snapshot.data, is_leaf=torch.is_tensor))
+                  for t in tickets.values()]
+    print(f"  {label}: {len(tickets)} requests exported after {after} tokens "
+          f"(snapshots of {[round(b / 2**20, 2) for b in snap_bytes]} MiB) and finished on a "
+          f"second engine in {seconds:.2f} s; {departures} positions depart from the "
+          f"unmigrated streams; launches {dict((k, v) for k, v in counts.items() if v)}")
+    streams = check_streams(model, params, reqs, {"migrated": {"tokens": tokens},
+                                                  "unmigrated": base}, max_len)
+    # A corrupt ticket: one byte of the first K leaf of the snapshot flipped.
+    ticket = tickets[0]
+    flipped = []
+
+    def flip_first(t):
+        if not flipped:
+            t = t.clone()
+            t.reshape(-1)[:1].view(torch.uint8)[0] ^= 1
+            flipped.append(t)
+        return t
+    bad = dataclasses.replace(ticket, snapshot=dataclasses.replace(
+        ticket.snapshot, data=tree_map(flip_first, ticket.snapshot.data,
+                                       is_leaf=torch.is_tensor)))
+    before = [t.clone() for t in tree_leaves(dst.pool.caches, is_leaf=torch.is_tensor)]
+    used = dst.pool.manager.n_used_blocks if paged else 0
+    try:
+        dst.import_request(bad)
+        rejected = False
+    except TicketIntegrityError:
+        rejected = True
+    unchanged = (dst.pool.n_active == 0
+                 and (not paged or dst.pool.manager.n_used_blocks == used)
+                 and all(torch.equal(a, b) for a, b in
+                         zip(before, tree_leaves(dst.pool.caches, is_leaf=torch.is_tensor))))
+    print(f"  {label}: a ticket with one byte of a K leaf flipped raises TicketIntegrityError: "
+          f"{rejected}; destination pool unchanged: {unchanged}")
+    check(rejected and unchanged, f"{label}: the corrupt ticket was not refused cleanly")
+    return {"unmigrated": run_summary(base), "migrated_seconds": seconds,
+            "launches": counts, "departures": departures, "snapshot_bytes": snap_bytes,
+            "streams": streams, "corrupt_ticket_rejected": rejected,
+            "destination_unchanged": unchanged}
+
+
+def time_shared_decode(gen) -> dict:
+    """K4 over the shared block tables of ``parity.SHARED_DECODE_SHAPES[0]``
+    (llama3.2-1b's geometry, a 512-token common prefix, bf16) beside its
+    plain version, SDPA on the gathered rows and its bound: every live
+    arena row read once however many tables name it, q read, out written
+    and the live table entries read."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_decode_attention, paged_decode_attention_plain
+    from repro_torch.kernels.parity import (
+        DECODE_BLOCK, SHARED_DECODE_SHAPES, shared_block_arena,
+    )
+    from repro_torch.models.attention import paged_kv_view
+
+    H, Hkv, D, S, lens, shared = SHARED_DECODE_SHAPES[0]
+    dev = torch.device("cuda")
+    k_ar, v_ar, tables = shared_block_arena(Hkv, D, S, lens, shared, gen, torch.bfloat16, dev)
+    B = len(lens)
+    q = torch.randn((B, H, D), generator=gen).to(dev, torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    t = tables.cpu()
+    rows = {(int(t[b, i // DECODE_BLOCK]), i % DECODE_BLOCK) for b in range(B)
+            for i in range(lens[b])}
+    n_entries = sum(-(-n // DECODE_BLOCK) for n in lens)
+    nbytes = len(rows) * Hkv * D * 2 * 2 + 2 * B * H * D * 2 + B * 4 + n_entries * 4
+    b, kind = bound(nbytes, sum(lens) * H * (4 * D + 5))
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    kp = paged_kv_view(k_ar, tables).transpose(1, 2)
+    vp = paged_kv_view(v_ar, tables).transpose(1, 2)
+    out = {"shared_paged_decode_attention": dict(
+        shape=f"q ({B}, {H}, {D}), arenas {tuple(k_ar.shape)} bf16, block {DECODE_BLOCK}, "
+              f"lengths {lens}, rows 0-1 sharing {shared} blocks, row 2 a fork of the last",
+        unique_rows=len(rows),
+        ms=time_ms(lambda: paged_decode_attention(q, k_ar, v_ar, tables, lengths)),
+        plain_ms=time_ms(lambda: paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kp, vp, attn_mask=mask, enable_gqa=True)),
+        bound_ms=b, bound_by=kind)}
+    print_kernel_times(out)
+    return out
+
+
+def time_slot_copies(model, rows: int) -> dict:
+    """``snapshot_slot`` and ``restore_slot`` of one llama slot holding
+    ``rows`` rows (32 KiB of KV a row) over each pool of phase 4's
+    geometry, timed with CUDA events (cold L2, median of 60) beside their
+    byte bound: the snapshot's bytes read once and written once. A paged
+    call uploads its block ids first, which waits for the device, so its
+    time holds that host round trip too."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve import SlotPool
+
+    out = {}
+    for pool, bsz in (("contiguous", None), ("paged", BLOCK_SIZE)):
+        src, dst = (SlotPool(model, N_SLOTS, MAX_LEN, block_size=bsz, device="cuda")
+                    for _ in range(2))
+        slot = src.allocate(0, MAX_LEN)
+        src.ensure_rows(slot, rows)
+        src.positions[slot] = rows
+        snap = src.snapshot_slot(slot)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(snap.data, is_leaf=torch.is_tensor))
+
+        def restore(dst=dst, snap=snap):
+            dst.free(dst.restore_slot(snap, owner=0, n_tokens=MAX_LEN))
+
+        b, kind = bound(2 * nbytes, 0)
+        out[pool] = {"rows": rows, "bytes": nbytes,
+                     "snapshot_ms": time_ms(lambda: src.snapshot_slot(slot)),
+                     "restore_ms": time_ms(restore), "bound_ms": b, "bound_by": kind}
+        print(f"  {pool}: a slot of {rows} rows, snapshot {nbytes / 2**20:.2f} MiB: "
+              f"snapshot_slot {out[pool]['snapshot_ms']:.4f} ms, restore_slot "
+              f"{out[pool]['restore_ms']:.4f} ms, bound {b:.4f} ms ({kind})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2441,6 +2828,53 @@ def main() -> int:
     spec_serve_seconds = time.perf_counter() - t16
     print(f"    phase 16 took {spec_serve_seconds:.1f} s")
 
+    t17 = time.perf_counter()
+    print("[17] prefix sharing (copy-on-write blocks), preempt-and-requeue and migration")
+    params = model.init(SEED, device="cuda")
+    print(f"    {cfg.name}: {PREFIX_REQUESTS} requests sharing a {PREFIX_LEN}-token prefix and "
+          f"two identical block-aligned prompts, {N_SLOTS} slots of {MAX_LEN} rows, block "
+          f"{BLOCK_SIZE}, {PREFILL_CHUNK}-token chunks, with and without sharing")
+    prefix_serve = serve_shared_prefix(model, params)
+    print("    timing (CUDA events, cold L2, median of 60): K4 over shared block tables")
+    prefix_serve["k4_shared_tables"] = time_shared_decode(torch.Generator().manual_seed(SEED + 32))
+    print(f"    {cfg.name}: phase 4's {len(reqs)} requests with sharing on {PREEMPT_BLOCKS} "
+          f"blocks")
+    preempt_serve = serve_preempted(model, params, reqs, "preempted", n_slots=N_SLOTS,
+                                    max_len=MAX_LEN, chunk=PREFILL_CHUNK,
+                                    arena_blocks=PREEMPT_BLOCKS,
+                                    unpreempted=runs["paged"]["tokens"])
+    print(f"    {cfg.name}: {MIGRATE_REQUESTS} of phase 4's requests exported after "
+          f"{MIGRATE_AFTER} tokens, contiguous to contiguous and paged to paged (sharing)")
+    migration = {pool: migrate(model, params, reqs[:MIGRATE_REQUESTS], f"{pool} migration",
+                               n_slots=N_SLOTS, max_len=MAX_LEN, chunk=PREFILL_CHUNK,
+                               after=MIGRATE_AFTER, **kw)
+                 for pool, kw in (("contiguous", {}),
+                                  ("paged", dict(block_size=BLOCK_SIZE, prefix_sharing=True)))}
+    print("    timing (CUDA events, cold L2, median of 60): snapshot_slot and restore_slot")
+    migration["slot_copies"] = time_slot_copies(
+        model, max(len(p) for p, _, _ in reqs[:MIGRATE_REQUESTS]) + MIGRATE_AFTER - 1)
+    del params
+    zparams = zmodel.init(SEED, device="cuda")
+    zreqs = zamba_workload(zcfg.vocab_size, 3, (16, 33), (8, 17), SEED + 31, gap=0.0)
+    print(f"    {zcfg.name}: {len(zreqs)} requests with sharing on {Z_PREEMPT_BLOCKS} blocks, "
+          f"{Z_SLOTS} slots of {Z_MAX_LEN} rows, {Z_CHUNK}-token chunks (preemption only: "
+          f"recurrent states cannot be adopted)")
+    zamba_preempt = serve_preempted(zmodel, zparams, zreqs, "zamba2 preempted", n_slots=Z_SLOTS,
+                                    max_len=Z_MAX_LEN, chunk=Z_CHUNK,
+                                    arena_blocks=Z_PREEMPT_BLOCKS)
+    check(zamba_preempt["run"]["prefix_hits"] == 0, "zamba2 adopted a prefix")
+    zamba_preempt["migration"] = migrate(zmodel, zparams, zreqs[:1], "zamba2 contiguous migration",
+                                         n_slots=Z_SLOTS, max_len=Z_MAX_LEN, chunk=Z_CHUNK,
+                                         after=Z_MIGRATE_AFTER)
+    del zparams
+    migrations = (migration["contiguous"], migration["paged"], zamba_preempt["migration"])
+    phase17 = [r["launches"] for r in prefix_serve["runs"].values()]
+    phase17 += [preempt_serve["run"]["launches"], zamba_preempt["run"]["launches"]]
+    phase17 += [m["launches"] for m in migrations]
+    phase17 += [m["unmigrated"]["launches"] for m in migrations]
+    phase17_seconds = time.perf_counter() - t17
+    print(f"    phase 17 took {phase17_seconds:.1f} s")
+
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:26",
@@ -2488,6 +2922,7 @@ def main() -> int:
             "zamba_serve_launches": sum(r["launches"][kname] for r in zruns.values()),
             "spec_serve_launches": sum(r["launches"][kname] for s in (spec, zspec)
                                        for r in s["runs"].values()),
+            "phase17_launches": sum(c[kname] for c in phase17),
         })
     report = {
         "kernels": kernels,
@@ -2549,6 +2984,11 @@ def main() -> int:
         "spec_profile": spec_profile,
         "spec_snapshot": spec_snapshot,
         "spec_serve_seconds": spec_serve_seconds,
+        "prefix_serve": prefix_serve,
+        "preempt_serve": preempt_serve,
+        "migration": migration,
+        "zamba_preempt": zamba_preempt,
+        "phase17_seconds": phase17_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

@@ -13,7 +13,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "RMS_DECODE_SHAPES", "RMS_VERIFY_SHAPES",
+__all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "SHARED_DECODE_SHAPES", "shared_block_arena",
+           "RMS_DECODE_SHAPES", "RMS_VERIFY_SHAPES",
            "FLASH_SHAPES", "SSD_SHAPES",
            "NEAR_ULPS", "BF16_UNIT", "within", "flash_within", "ssd_within", "dscale_bf16_slack"]
 
@@ -46,6 +47,48 @@ DECODE_SHAPES = [
     (32, 32, 128, 512, [1, 15, 16, 17, 512]), (32, 32, 128, 512, [47, 48, 49, 64, 65, 0]),
     (32, 32, 128, 512, [127, 128, 129, 255, 256, 257, 383, 384, 385]),
 ]
+
+#: Paged flash decode (K4) over SHARED block tables, as prefix sharing
+#: leaves them: H, Hkv, D, S, lengths, shared blocks. Rows 0 and 1 name
+#: the same first ``shared`` blocks; row 2 names the first ``shared - 1``
+#: and, in place of the last, a fork of it (a copy whose last row was
+#: rewritten: the full-match re-feed); row 3 owns all of its blocks.
+#: llama3.2-1b's serving geometry with a 512-token common prefix (32
+#: blocks), and zamba2-1.2b's shared block with a 128-token one.
+SHARED_DECODE_SHAPES = [
+    (32, 8, 64, 1024, [576, 552, 530, 240], 32),
+    (32, 32, 128, 512, [160, 140, 150, 77], 8),
+]
+
+
+def shared_block_arena(Hkv: int, D: int, S: int, lens, shared: int, gen: torch.Generator,
+                       dtype: torch.dtype, device) -> Tuple[torch.Tensor, ...]:
+    """K and V arenas of ``DECODE_BLOCK``-row blocks (random everywhere,
+    the NULL block 0 included) and the (4, S / DECODE_BLOCK) int32 block
+    tables of a ``SHARED_DECODE_SHAPES`` case, from ``gen`` (on the CPU)."""
+    bs, T = DECODE_BLOCK, S // DECODE_BLOCK
+    need = [-(-n // bs) for n in lens]
+    tables = torch.zeros((len(lens), T), dtype=torch.int32)
+    nxt = 1
+
+    def own(row, first):
+        nonlocal nxt
+        for t in range(first, need[row]):
+            tables[row, t] = nxt
+            nxt += 1
+    own(0, 0)
+    tables[1, :shared] = tables[0, :shared]
+    own(1, shared)
+    tables[2, :shared - 1] = tables[0, :shared - 1]
+    own(2, shared - 1)
+    own(3, 0)
+    k = torch.randn((nxt, bs, Hkv, D), generator=gen)
+    v = torch.randn((nxt, bs, Hkv, D), generator=gen)
+    src, fork = int(tables[0, shared - 1]), int(tables[2, shared - 1])
+    for arena in (k, v):
+        arena[fork, :bs - 1] = arena[src, :bs - 1]
+    return k.to(device, dtype), v.to(device, dtype), tables.to(device)
+
 
 #: RMSNorm (K2) forward at the rows of a decode step: one (the hybrid's
 #: scanned prefill) or four (a tick of four lanes), at d_model 2048 and at

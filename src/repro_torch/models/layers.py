@@ -37,6 +37,7 @@ __all__ = [
     "slot_write",
     "slot_reset",
     "slot_take",
+    "slot_block_copy",
     "slot_mask_select_",
     "rms_norm",
     "norm_apply",
@@ -187,6 +188,20 @@ def slot_take(caches, specs, perm: torch.Tensor):
             return c
         return torch.index_select(c, batch_axis_of(s), perm.to(c.device))
     return tree_map(take, caches, specs)
+
+
+def slot_block_copy(caches, specs, src: int, dst: int):
+    """Copy arena block ``src`` into block ``dst`` on every paged leaf, in
+    place: the device half of a copy-on-write fork. The BlockManager swaps
+    the writer's table entry to ``dst`` on the host; after this copy a
+    write through the writer's table lands in the private clone, never in
+    the shared original. Contiguous leaves are never shared and stay."""
+    def cp(c, s):
+        if is_paged_spec(s):
+            ax = s.axes.index("kv_blocks")
+            c.select(ax, dst).copy_(c.select(ax, src))
+        return c
+    return tree_map(cp, caches, specs)
 
 
 def slot_mask_select_(state: torch.Tensor, new: torch.Tensor,

@@ -1,6 +1,7 @@
 """Continuous-batching inference engine over a fixed slot pool (port of
-``repro.serve.engine`` with speculative decoding, and without prefix
-sharing, migration and observability hooks).
+``repro.serve.engine`` with speculative decoding, copy-on-write prefix
+sharing with preempt-and-requeue, and request migration; without the
+observability hooks).
 
 The pool's ``n_slots`` lanes decode together in one pool-wide tick; slot
 occupancy enters as DATA (a per-slot position vector; a host-side lane
@@ -27,6 +28,18 @@ ticks, one target verify over the pool, exact-argmax acceptance and a
 rollback, with gamma adapted to the acceptance rate. The streams stay
 those of offline decode; speculation only moves throughput.
 
+Prefix sharing (``prefix_sharing=True``, paged only): an admission adopts
+the trie-matched full blocks of its prompt instead of recomputing them,
+a shared block is forked before any write, and arena pressure preempts
+the lane cheapest to recompute (priced by the cost model), whose request
+requeues and later replays its prompt and emitted tokens from the
+longest still-resident prefix. The hybrid's recurrent states cannot be
+adopted, so it preempts but never shares. Migration
+(``export_request`` / ``import_request``) moves a decoding request's slot
+to another engine of the same geometry as a checksummed
+:class:`MigrationTicket` holding copies of its cache leaves.
+In every mode a resumed stream equals the uninterrupted one.
+
 ``run_static`` is the static-batching baseline: same pool and kernels,
 but admissions barrier until the whole previous batch drains.
 """
@@ -34,22 +47,81 @@ but admissions barrier until the whole previous batch drains.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.models.layers import tree_leaves
 from repro_torch.runtime.steps import (
     make_slot_decode_step,
     make_slot_prefill_step,
     make_slot_verify_step,
 )
-from .kv_pool import SlotPool
+from .kv_pool import ArenaExhausted, SlotPool, SlotSnapshot
 from .scheduler import CostModel, EventClock, Request, Scheduler, next_bucket
 from .speculative import DraftRunner, SpecController
 
-__all__ = ["ServeEngine", "EngineStats", "generate_offline", "run_static"]
+__all__ = [
+    "ServeEngine", "EngineStats", "MigrationTicket", "TicketIntegrityError",
+    "ticket_checksum", "generate_offline", "run_static",
+]
+
+
+class TicketIntegrityError(ValueError):
+    """A :class:`MigrationTicket` failed its integrity check at import:
+    the payload changed between ``export_request`` (which seals the
+    checksum) and ``import_request`` (which verifies it). Resuming from it
+    would silently part the stream, so the importer rejects it before
+    allocating anything."""
+
+
+@dataclasses.dataclass(frozen=True)
+class MigrationTicket:
+    """Everything needed to resume a mid-decode request on ANOTHER engine
+    of the same model and pool geometry: the submission, the tokens
+    emitted so far, the next token to feed (``pending``), and the slot's
+    cache state as a :class:`SlotSnapshot` of copies. Restoring re-admits
+    the request with its prefix in cache, with no re-prefill."""
+
+    prompt: np.ndarray
+    max_new_tokens: int
+    arrival: float
+    deadline: Optional[float]
+    tokens: Tuple[int, ...]       # emitted so far (the stream's prefix)
+    pending: int                  # next token to feed (the last emitted)
+    snapshot: SlotSnapshot
+    #: integrity seal over every resume-relevant field, computed at export
+    #: (``ticket_checksum``) and verified at import; None = unsealed.
+    checksum: Optional[str] = None
+
+
+#: Same-width integer views for hashing a leaf's raw bytes through numpy,
+#: which has no bf16.
+_INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def ticket_checksum(ticket: MigrationTicket) -> str:
+    """SHA-256 over the ticket's resume-relevant content: the prompt, the
+    budget, the emitted tokens, the pending token, the snapshot's position
+    and block count, and every snapshot leaf (shape, dtype and raw
+    bytes). ``deadline`` is left out: the owner rewrites it in flight
+    (deadlines are clock-local)."""
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(np.asarray(ticket.prompt, np.int32)).tobytes())
+    h.update(np.int64(ticket.max_new_tokens).tobytes())
+    h.update(np.asarray(ticket.tokens, np.int64).tobytes())
+    h.update(np.int64(ticket.pending).tobytes())
+    snap = ticket.snapshot
+    h.update(np.int64(snap.position).tobytes())
+    h.update(np.int64(snap.n_blocks).tobytes())
+    for leaf in tree_leaves(snap.data, is_leaf=torch.is_tensor):
+        h.update(str((tuple(leaf.shape), str(leaf.dtype))).encode())
+        raw = leaf.detach().contiguous().view(_INT_OF_WIDTH[leaf.element_size()])
+        h.update(raw.cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 @dataclasses.dataclass
@@ -63,6 +135,11 @@ class EngineStats:
     draft_ticks: int = 0          # sequential draft decode ticks
     spec_accepted: int = 0        # draft tokens the target accepted
     cancelled_requests: int = 0   # deadline expiries + explicit cancels
+    preempted_requests: int = 0   # evict-and-requeue events (prefix sharing)
+    prefix_hits: int = 0          # admissions that adopted a trie chain
+    prefix_rows_shared: int = 0   # cache rows skipped through adoption
+    migrated_out: int = 0         # requests exported as MigrationTickets
+    migrated_in: int = 0          # tickets restored into this engine
     virtual_seconds: float = 0.0
     wall_seconds: float = 0.0
     decode_wall_seconds: float = 0.0   # host clock around decode ticks and rounds
@@ -84,6 +161,7 @@ class ServeEngine:
         prefill_bucket: int = 16,
         block_size: Optional[int] = None,
         arena_blocks: Optional[int] = None,
+        prefix_sharing: bool = False,
         draft_model=None,
         draft_params=None,
         gamma_max: int = 4,
@@ -93,18 +171,40 @@ class ServeEngine:
         turns on paged KV; ``arena_blocks`` caps the arena below full
         capacity to serve under an explicit memory budget.
 
+        ``prefix_sharing`` (paged only) switches the arena to copy-on-write
+        sharing with preempt-and-requeue: admissions adopt trie-matched
+        prompt blocks, shared blocks fork before any write, and arena
+        pressure evicts the lane cheapest to recompute rather than
+        queuing.
+
         ``draft_model`` / ``draft_params`` turn on speculative decoding:
         decode actions become draft-then-verify rounds whose draft length
         ``spec_controller`` (default ``SpecController(gamma_max)``)
         adapts. The draft pool lives on the device of ``draft_params``."""
         if model.cfg.is_encoder:
             raise ValueError("serving needs a causal decoder architecture")
+        if prefix_sharing and draft_model is not None:
+            raise ValueError(
+                "prefix_sharing and speculative decoding are mutually "
+                "exclusive: the draft twin pool does not track the target's "
+                "copy-on-write forks, so lockstep would silently break"
+            )
+        if prefix_sharing and model.cfg.moe is not None and not model.cfg.moe.dropless:
+            raise ValueError(
+                "prefix_sharing requires dropless MoE routing "
+                "(cfg.moe.dropless=True): adopting a prefix changes how "
+                "many tokens share the suffix prefill call, and "
+                "capacity-dropped routing makes logits depend on that "
+                "count — byte-identity to offline decode would silently "
+                "break"
+            )
         self.model = model
         self.params = params
         self.device = params["embed"].device
+        self.prefix_sharing = bool(prefix_sharing)
         self.pool = SlotPool(
             model, n_slots, max_len, block_size=block_size,
-            arena_blocks=arena_blocks, device=self.device,
+            arena_blocks=arena_blocks, prefix_sharing=prefix_sharing, device=self.device,
         )
         self.sched = scheduler or Scheduler(n_slots)
         self.prefill_bucket = prefill_bucket
@@ -200,9 +300,98 @@ class ServeEngine:
             self.cancel(rid, reason="deadline")
         return expired
 
+    # -- migration -----------------------------------------------------------
+    def export_request(self, rid: int) -> MigrationTicket:
+        """Snapshot a decoding request into a sealed :class:`MigrationTicket`
+        and release everything it holds here (reason ``"migrated"``).
+
+        Only DECODING requests carry cache state worth handing off;
+        waiting or mid-prefill requests migrate by resubmission. A
+        speculative engine refuses: its draft pool is not in the snapshot.
+        After ``m`` emitted tokens the slot has ``prompt_len + m - 1`` rows
+        written and ``pending`` is token ``m``, so the importer's next tick
+        emits token ``m + 1`` of the same stream."""
+        if self.speculative:
+            raise ValueError("cannot export from a speculative engine "
+                             "(draft twin state is not snapshotted)")
+        req = self._requests.get(rid)
+        if req is None or req.t_done is not None or req.cancelled:
+            raise ValueError(f"request {rid} is not live")
+        slot = self._slot_of(rid)
+        if not self._decoding[slot]:
+            raise ValueError(f"request {rid} is not decoding "
+                             "(migrate queued requests by resubmission)")
+        expect = req.prompt_len + len(req.tokens) - 1
+        if int(self.pool.positions[slot]) != expect:
+            raise RuntimeError(f"slot {slot} position {self.pool.positions[slot]} != {expect}")
+        ticket = MigrationTicket(
+            prompt=req.prompt,
+            max_new_tokens=req.max_new_tokens,
+            arrival=req.arrival,
+            deadline=req.deadline,
+            tokens=tuple(req.tokens),
+            pending=int(self._pending[slot]),
+            snapshot=self.pool.snapshot_slot(slot),
+        )
+        ticket = dataclasses.replace(ticket, checksum=ticket_checksum(ticket))
+        self._decoding[slot] = False
+        self._free_slot(slot)
+        req.t_cancelled = self.sched.clock.now
+        req.cancel_reason = "migrated"
+        self.stats.migrated_out += 1
+        self.events.append(("migrate_out", self.sched.clock.now, rid))
+        return ticket
+
+    def import_request(self, ticket: MigrationTicket) -> Optional[int]:
+        """Re-admit a migrated request with its cache prefix restored (no
+        re-prefill). Returns the new local rid, or None when the pool
+        cannot admit it now (no free slot or not enough blocks): the caller
+        keeps the ticket and retries. A sealed ticket whose content changed
+        raises :class:`TicketIntegrityError` before anything is allocated."""
+        if self.speculative:
+            raise ValueError("cannot import into a speculative engine "
+                             "(draft twin state is not snapshotted)")
+        if ticket.checksum is not None:
+            expect = ticket_checksum(ticket)
+            if expect != ticket.checksum:
+                raise TicketIntegrityError(
+                    f"migration ticket failed integrity check: sealed "
+                    f"{ticket.checksum[:12]}…, recomputed {expect[:12]}…"
+                )
+        budget = int(ticket.prompt.size) + int(ticket.max_new_tokens)
+        if budget > self.pool.max_len:
+            raise ValueError("ticket exceeds this engine's max_len")
+        rid = self._next_rid
+        slot = self.pool.restore_slot(ticket.snapshot, owner=rid, n_tokens=budget)
+        if slot is None:
+            return None
+        self._next_rid += 1
+        req = Request(rid, ticket.prompt, int(ticket.max_new_tokens),
+                      float(ticket.arrival), deadline=ticket.deadline)
+        req.tokens = list(ticket.tokens)
+        req.prefilled = req.prompt_len
+        req.t_admit = self.sched.clock.now
+        req.t_first_token = self.sched.clock.now
+        self._requests[rid] = req
+        self._pending[slot] = np.int32(ticket.pending)
+        self._decoding[slot] = True
+        self.stats.migrated_in += 1
+        self.events.append(("migrate_in", self.sched.clock.now, rid))
+        return rid
+
     # -- introspection -------------------------------------------------------
     def request(self, rid: int) -> Request:
         return self._requests[rid]
+
+    def live_rids(self) -> List[int]:
+        """Requests neither finished nor cancelled (queued, mid-prefill,
+        or decoding)."""
+        return [rid for rid, r in self._requests.items()
+                if r.t_done is None and not r.cancelled]
+
+    def decoding_rids(self) -> List[int]:
+        """Requests mid-decode: the ones ``export_request`` can move."""
+        return [self.pool.owner[int(s)] for s in np.nonzero(self._decoding)[0]]
 
     # -- actions -------------------------------------------------------------
     def _slot_of(self, rid: int) -> int:
@@ -215,7 +404,19 @@ class ServeEngine:
         return req.prompt_len + req.max_new_tokens
 
     def _can_admit(self, req: Request) -> bool:
-        return self.pool.can_admit(self._budget(req))
+        if not self.prefix_sharing:
+            return self.pool.can_admit(self._budget(req))
+        # Sharing: no whole-budget commitment. Admit when the prefill, less
+        # what the trie already holds, fits the live free list with at
+        # least one block to spare; decode-time growth is covered by
+        # preemption, not by reservation.
+        pool = self.pool
+        mgr = pool.manager
+        if pool.n_free == 0 or not mgr.can_commit(self._budget(req)):
+            return False
+        matched = 0 if pool._any_contiguous else len(pool.prefix.match(req.prefill_target()))
+        need = mgr.blocks_for(req.prefill_len) - matched
+        return mgr.n_free_blocks >= max(need, 1)
 
     def _do_prefill(self, req: Request) -> None:
         sched, pool = self.sched, self.pool
@@ -229,6 +430,18 @@ class ServeEngine:
             # A fresh slot starts from spec-initialized rows, as the
             # reference's blank batch-1 caches do.
             pool.reset_slot(slot)
+            if self.prefix_sharing:
+                matched = pool.adopt_prefix(slot, target)
+                if matched:
+                    if matched == len(target):
+                        # A full-block full match: re-feed the last token,
+                        # whose write forks the shared tail block, for the
+                        # logits that pick the first new token.
+                        matched -= 1
+                        pool.positions[slot] = matched
+                    req.prefilled = matched
+                    self.stats.prefix_hits += 1
+                    self.stats.prefix_rows_shared += matched
         else:
             slot = self._slot_of(req.rid)
 
@@ -240,8 +453,15 @@ class ServeEngine:
         chunk = np.zeros((1, bucket), np.int32)
         chunk[0, :n_tok] = target[start:start + n_tok]
         # Grow the slot's block table to cover the chunk's real rows (pad
-        # overhang past them falls into the NULL sink).
-        pool.ensure_rows(slot, start + n_tok)
+        # overhang past them falls into the NULL sink), and fork any shared
+        # block the write would touch (only the full-match re-feed row can
+        # be: adopted blocks lie below the write start). Under sharing
+        # either may preempt another lane. The fork's block copy is
+        # enqueued before the prefill, which reads the table afterwards.
+        self._ensure_preempting(slot, lambda: pool.ensure_rows(slot, start + n_tok))
+        if self.prefix_sharing:
+            self._ensure_preempting(
+                slot, lambda: pool.ensure_writable(slot, start, start + n_tok))
         chunk = torch.as_tensor(chunk, device=self.device)
         logits, slot_caches = self._prefill(
             self.params,
@@ -261,22 +481,41 @@ class ServeEngine:
         self.stats.prefill_calls += 1
         self.stats.prefill_tokens += n_tok
         if done:
-            tok = int(torch.argmax(logits[0, -1]))
-            self._emit(req, tok)
-            if self._finished(req):     # max_new_tokens == 1
-                self._free_slot(slot)
-            else:
-                self._pending[slot] = tok
+            if self.prefix_sharing:
+                pool.register_prefix(slot, req.prompt)
+            if req.tokens:
+                # The replay of a preempted request: its emitted tokens are
+                # in the stream already, so decode resumes feeding the last
+                # one, and nothing is emitted here.
+                self._pending[slot] = np.int32(req.tokens[-1])
                 self._decoding[slot] = True
+            else:
+                tok = int(torch.argmax(logits[0, -1]))
+                self._emit(req, tok)
+                if self._finished(req):     # max_new_tokens == 1
+                    self._free_slot(slot)
+                else:
+                    self._pending[slot] = tok
+                    self._decoding[slot] = True
         self.events.append(("prefill", self.sched.clock.now, req.rid))
 
     def _do_decode(self) -> None:
         pool = self.pool
         t0 = time.perf_counter()
         # Each decoding lane writes one row at its position: grow its block
-        # table first (never fails: the whole budget was committed).
+        # table (and, sharing, fork a shared block there) BEFORE taking the
+        # lane mask. Without sharing this never fails (the whole budget was
+        # committed); under sharing it may preempt other decoding lanes,
+        # which then drop out of this tick.
         for slot in np.nonzero(self._decoding)[0]:
-            pool.ensure_rows(int(slot), int(pool.positions[slot]) + 1)
+            slot = int(slot)
+            if not self._decoding[slot]:
+                continue                # preempted by an earlier lane's ensure
+            pos = int(pool.positions[slot])
+            self._ensure_preempting(slot, lambda s=slot, p=pos: pool.ensure_rows(s, p + 1))
+            if self.prefix_sharing and self._decoding[slot]:
+                self._ensure_preempting(
+                    slot, lambda s=slot, p=pos: pool.ensure_writable(s, p, p + 1))
         mask = self._decoding.copy()
         tokens = torch.as_tensor(self._pending[:, None], device=self.device)
         positions = torch.as_tensor(
@@ -308,6 +547,84 @@ class ServeEngine:
         self.pool.free(slot)
         if self.speculative:
             self.draft.pool.free(slot)
+
+    # -- preemption (prefix sharing) -----------------------------------------
+    def _recompute_cost(self, req: Request, slot: int) -> float:
+        """Price of evicting ``slot`` now: prefill over the replay sequence
+        less the prefix that stays trie-resident after the victim's own
+        references drop (it re-adopts that part on requeue)."""
+        replay = req.prompt_len + max(len(req.tokens) - 1, 0)
+        resident = self.pool.match_resident(req.prefill_target(), exclude_slot=slot)
+        return self.sched.clock.cost.recompute(replay - resident)
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Evict ``slot``'s request and requeue it: blocks freed now,
+        emitted tokens kept; its next admission replays from the longest
+        still-resident prefix."""
+        req = self._requests[self.pool.owner[slot]]
+        self._decoding[slot] = False
+        self._pending[slot] = 0
+        self._free_slot(slot)
+        self.sched.requeue(req)
+        self.stats.preempted_requests += 1
+        self.events.append(("preempt", self.sched.clock.now, req.rid))
+
+    def _preempt_for(self, needy_slot: int) -> None:
+        """FORCED eviction: ``needy_slot``'s write found the free list empty
+        and must proceed. Evict the OTHER lane cheapest to recompute,
+        decoding lanes first (a mid-prefill lane is the one the scheduler
+        is committed to)."""
+        best, best_rank = None, None
+        for s in np.nonzero(self.pool.active)[0]:
+            s = int(s)
+            if s == needy_slot:
+                continue
+            rc = self._recompute_cost(self._requests[self.pool.owner[s]], s)
+            rank = (0 if self._decoding[s] else 1, rc)
+            if best_rank is None or rank < best_rank:
+                best, best_rank = s, rank
+        if best is None:
+            raise RuntimeError(
+                f"arena exhausted with no preemptable lane (slot {needy_slot} "
+                f"alone holds the arena) — raise arena_blocks"
+            )
+        self._preempt_slot(best)
+
+    def _ensure_preempting(self, slot: int, fn) -> None:
+        """Run a block-allocating pool op, evicting lanes until it fits
+        (only sharing raises ArenaExhausted)."""
+        while True:
+            try:
+                return fn()
+            except ArenaExhausted:
+                self._preempt_for(slot)
+
+    def _maybe_preempt_for_admission(self) -> None:
+        """PRICED eviction at admission: when the queue head is blocked on
+        blocks (not on slots), evict the lane cheapest to recompute, if
+        recompute undercuts holding it to completion, and only among
+        requests strictly YOUNGER than the head, so two queued requests
+        never evict each other. At most one eviction a step."""
+        sched = self.sched
+        if sched.running:
+            return                      # finish the in-flight prefill first
+        req = sched._eligible()
+        if req is None or self.pool.n_free == 0 or self._can_admit(req):
+            return
+        cost = sched.clock.cost
+        head_key = (req.arrival, req.rid)
+        best, best_rc = None, None
+        for s in np.nonzero(self.pool.active)[0]:
+            s = int(s)
+            victim = self._requests[self.pool.owner[s]]
+            if (victim.arrival, victim.rid) <= head_key:
+                continue                # never evict an older request
+            rc = self._recompute_cost(victim, s)
+            hold = cost.hold(victim.max_new_tokens - len(victim.tokens))
+            if rc < hold and (best_rc is None or rc < best_rc):
+                best, best_rc = s, rc
+        if best is not None:
+            self._preempt_slot(best)
 
     def _do_spec_round(self) -> None:
         """One draft-then-verify round over the whole pool (in place of a
@@ -460,6 +777,8 @@ class ServeEngine:
         policed first, so an expired request's slot (and blocks) are free
         by the time admission is priced."""
         self._expire_deadlines()
+        if self.prefix_sharing:
+            self._maybe_preempt_for_admission()
         kind, req = self.sched.next_action(
             self.pool.n_active, self.pool.n_free, self._can_admit
         )

@@ -1,11 +1,12 @@
 """Slot-based cache pool, contiguous or paged (port of
-``repro.serve.kv_pool``: ``SlotPool`` in its contiguous and
-commit-at-admission paged modes, and a copy of ``BlockManager``; prefix
-sharing and migration snapshots are not ported yet). It holds the dense
-decoders' KV caches and the Mamba2 hybrid's recurrent states beside its
-shared block's KV; a speculative engine keeps a second, contiguous pool
-for its draft (``serve.speculative.DraftRunner``), whose snapshot clones
-the leaves ``is_state_spec`` picks.
+``repro.serve.kv_pool``: ``SlotPool`` in its contiguous, commit-at-admission
+paged and copy-on-write prefix-sharing modes, with slot snapshots for
+migration; ``BlockManager`` with refcounts, adopt and fork; and
+``PrefixIndex``). It holds the dense decoders' KV caches and the Mamba2
+hybrid's recurrent states beside its shared block's KV; a speculative
+engine keeps a second, contiguous pool for its draft
+(``serve.speculative.DraftRunner``), whose snapshot clones the leaves
+``is_state_spec`` picks.
 
 The pool owns one device-resident cache tree shaped for ``n_slots``
 sequences of up to ``max_len`` tokens, built from ``model.cache_specs``.
@@ -27,12 +28,33 @@ Invariants (tested in tests/test_torch_serve.py):
     (never allocated, absorbs masked-lane writes);
   * ``defrag()`` compacts active slots to the lowest indices, gathering
     only contiguous leaves — paged leaves never move.
+
+Copy-on-write prefix sharing (``prefix_sharing=True``): every block
+carries a REFCOUNT, the number of slot tables naming it. A
+:class:`PrefixIndex` trie maps full-block prompt prefixes to resident
+blocks, so a new request ADOPTS a matching chain instead of recomputing
+it, and a write into a block with refcount > 1 must FORK it first: a
+fresh block, an in-place device copy (``slot_block_copy``) and a table
+swap, so the writer scatters into a private clone while readers keep the
+original. ``append`` and ``fork`` can then raise :class:`ArenaExhausted`,
+and the engine answers by preempting a lane. Invariants (tested in
+tests/test_torch_prefix.py against the reference, randomized):
+  * refcount[b] == number of live table references to b, for every b;
+  * a block written through a slot's table has refcount 1;
+  * a block returns to the free list exactly once, when its LAST
+    reference drops (free and referenced partition {1..num_blocks});
+  * ``used_high_water`` tracks the max of UNIQUE live blocks.
+
+A :class:`SlotSnapshot` holds COPIES of one slot's leaves (the pool's
+caches change in place, so a view would be rewritten by the slot's next
+tenant): its contiguous leaves cloned, its owned arena blocks gathered.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,20 +63,125 @@ from repro_torch import resolve_device
 from repro_torch.models.attention import NULL_BLOCK, round_kv_len
 from repro_torch.models.layers import (
     DTYPES,
+    batch_axis_of,
     is_paged_spec,
+    slot_block_copy,
     slot_read,
     slot_reset,
     slot_take,
     slot_write,
     tree_leaves,
+    tree_map,
 )
 
-__all__ = ["BlockManager", "SlotPool", "is_state_spec"]
+__all__ = [
+    "ArenaExhausted", "BlockManager", "PrefixIndex", "SlotPool", "SlotSnapshot",
+    "is_state_spec",
+]
 
 
 def is_state_spec(spec) -> bool:
     """A recurrent state leaf: per slot, with no sequence axis."""
     return not is_paged_spec(spec) and "act_kv_seq" not in spec.axes
+
+
+class ArenaExhausted(RuntimeError):
+    """A sharing-mode allocation (a lazy append or a copy-on-write fork)
+    found the free list empty. Never raised in commit-at-admission mode,
+    where the admission-time budget check makes exhaustion impossible;
+    under prefix sharing the engine catches it and preempts a lane."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotSnapshot:
+    """One slot's cache state, detached from any pool: the unit of
+    in-flight request migration between engines.
+
+    ``data`` mirrors the pool's spec tree: contiguous leaves (recurrent
+    states, or KV rows of an unpaged pool) are batch-1 copies; paged
+    leaves are the slot's OWNED ARENA BLOCKS gathered block-major along
+    the ``kv_blocks`` axis (``n_blocks`` on that axis). Restoring into a
+    pool of the same geometry scatters those blocks into freshly
+    allocated destination blocks: a block-table handoff, not a
+    recompute. Every leaf is a copy, never a view of the pool."""
+
+    data: Any                 # tree matching the pool's spec tree
+    position: int             # next cache write index of the slot
+    n_blocks: int             # owned arena blocks captured (0 = unpaged)
+    block_size: Optional[int]
+    rows: int                 # per-slot row capacity (geometry check)
+
+
+class _TrieNode:
+    __slots__ = ("key", "bid", "parent", "children")
+
+    def __init__(self, key, bid, parent):
+        self.key = key          # tuple of block_size tokens (root: None)
+        self.bid = bid          # arena block holding these rows (root: None)
+        self.parent = parent
+        self.children: Dict[tuple, "_TrieNode"] = {}
+
+
+class PrefixIndex:
+    """Radix-style trie over FULL prompt blocks: each node is one
+    ``block_size``-token chunk, its path from the root is the full token
+    prefix, and its payload is the resident arena block holding exactly
+    those rows. At admission the longest root chain matching a new prompt
+    is adopted into the request's block table instead of being recomputed.
+
+    Only full PROMPT blocks are registered (generated tokens are private
+    to their stream), and a node dies the moment its block's last
+    reference drops (``forget``, driven by the pool's ``free``). Adopters
+    take whole root chains, so a live descendant implies live ancestors."""
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        self.root = _TrieNode(None, None, None)
+        self._by_bid: Dict[int, _TrieNode] = {}
+
+    def __len__(self) -> int:
+        return len(self._by_bid)
+
+    def _chunks(self, tokens) -> List[tuple]:
+        toks = [int(t) for t in tokens]
+        bs = self.block_size
+        return [tuple(toks[i:i + bs]) for i in range(0, len(toks) - len(toks) % bs, bs)]
+
+    def match(self, tokens) -> List[int]:
+        """Block ids of the longest resident full-block prefix of
+        ``tokens`` (root-down chain; possibly empty)."""
+        node, bids = self.root, []
+        for key in self._chunks(tokens):
+            node = node.children.get(key)
+            if node is None:
+                break
+            bids.append(node.bid)
+        return bids
+
+    def register(self, tokens, bids: Sequence[int]) -> int:
+        """Record that ``bids[k]`` holds the k-th full block of ``tokens``.
+        Chunks already present keep their incumbent block (of two identical
+        prompts racing through prefill the first registration wins and the
+        other's blocks stay private). Returns how many nodes were created."""
+        node, created = self.root, 0
+        for key, bid in zip(self._chunks(tokens), bids):
+            child = node.children.get(key)
+            if child is None:
+                child = _TrieNode(key, int(bid), node)
+                node.children[key] = child
+                self._by_bid[int(bid)] = child
+                created += 1
+            node = child
+        return created
+
+    def forget(self, bid: int) -> None:
+        """Evict the node holding ``bid`` (its block's last reference
+        dropped and it returned to the free list)."""
+        node = self._by_bid.pop(int(bid), None)
+        if node is None:
+            return
+        if node.parent is not None and node.parent.children.get(node.key) is node:
+            del node.parent.children[node.key]
 
 
 class BlockManager:
@@ -71,9 +198,18 @@ class BlockManager:
       * **append** — blocks are physically allocated lazily, one block at
         a time, as rows are actually written, so the used high-water
         tracks LIVE tokens, not reserved budgets.
+
+    With ``sharing=True`` the arena-level half of the commit guarantee is
+    traded for copy-on-write prefix sharing: ``adopt`` maps a slot's table
+    onto resident blocks (refcount++), ``fork`` clones a shared block into
+    the writer's table before a write, and ``append`` / ``fork`` raise
+    :class:`ArenaExhausted`: the engine's preemption is the valve.
+    ``refcount`` is kept in BOTH modes (blocks never exceed 1 without
+    sharing), so ``sum(refcount) == live table references`` always.
     """
 
-    def __init__(self, n_slots: int, n_rows: int, block_size: int, num_blocks: int):
+    def __init__(self, n_slots: int, n_rows: int, block_size: int, num_blocks: int, *,
+                 sharing: bool = False):
         if n_rows % block_size:
             raise ValueError(
                 f"block_size={block_size} must divide the (aligned) cache "
@@ -81,13 +217,18 @@ class BlockManager:
             )
         self.block_size = block_size
         self.num_blocks = num_blocks
+        self.sharing = bool(sharing)
         self.table_width = n_rows // block_size
         #: (n_slots, T) int32 arena indices; NULL_BLOCK marks unallocated.
         self.tables = np.full((n_slots, self.table_width), NULL_BLOCK, np.int32)
         # LIFO free list over ids 1..num_blocks (0 is the sink).
         self._free: List[int] = list(range(num_blocks, 0, -1))
+        #: per-slot referenced block ids in table order (under sharing a
+        #: block adopted by several slots is in each one's list).
         self._owned: List[List[int]] = [[] for _ in range(n_slots)]
         self._budget: List[int] = [0] * n_slots   # committed blocks per slot
+        #: refcount[bid] = number of live table references to bid.
+        self.refcount = np.zeros(num_blocks + 1, np.int32)
         self.used_high_water = 0
 
     # -- accounting ----------------------------------------------------------
@@ -108,24 +249,28 @@ class BlockManager:
 
     def can_commit(self, n_tokens: int) -> bool:
         """Admission test: the request's whole budget must fit beside
-        every already-committed budget, and inside one slot's table."""
+        every already-committed budget, and inside one slot's table. Under
+        sharing only the table-width half holds: the engine prices
+        admission against live free blocks, with preemption as the valve."""
         need = self.blocks_for(n_tokens)
         if need > self.table_width:
             return False
-        return self.n_committed_blocks + need <= self.num_blocks
+        return self.sharing or self.n_committed_blocks + need <= self.num_blocks
 
     # -- commit / append / free ----------------------------------------------
     def commit(self, slot: int, n_tokens: int) -> None:
         """Charge ``slot``'s lifetime token budget against the arena (no
         blocks move yet). Raises when over-committed — callers gate
-        admission on :meth:`can_commit`."""
+        admission on :meth:`can_commit`. Under sharing the budget caps
+        the slot's table only."""
         need = self.blocks_for(n_tokens)
         if need > self.table_width:
             raise ValueError(
                 f"{n_tokens} tokens need {need} blocks > table width "
                 f"{self.table_width} (slot capacity)"
             )
-        if self.n_committed_blocks - self._budget[slot] + need > self.num_blocks:
+        if (not self.sharing
+                and self.n_committed_blocks - self._budget[slot] + need > self.num_blocks):
             raise ValueError(
                 f"arena over-committed: budget {need} blocks on top of "
                 f"{self.n_committed_blocks - self._budget[slot]} committed "
@@ -136,7 +281,9 @@ class BlockManager:
     def append(self, slot: int, n_rows: int) -> None:
         """Grow ``slot``'s table to physically cover ``n_rows`` rows
         (append-only; no-op when covered). Never exceeds the slot's
-        committed budget, so the free list cannot run dry."""
+        committed budget. Without sharing the free list cannot run dry;
+        under sharing an empty one raises :class:`ArenaExhausted` after
+        keeping the blocks taken so far."""
         want = self.blocks_for(n_rows)
         owned = self._owned[slot]
         if want > self._budget[slot]:
@@ -144,21 +291,87 @@ class BlockManager:
                 f"slot {slot}: {n_rows} rows need {want} blocks > "
                 f"committed budget {self._budget[slot]}"
             )
-        while len(owned) < want:
-            bid = self._free.pop()
+        try:
+            while len(owned) < want:
+                if not self._free:
+                    raise ArenaExhausted(
+                        f"slot {slot} needs {want - len(owned)} more block(s) "
+                        f"but the arena free list is empty"
+                    )
+                bid = self._free.pop()
+                self.tables[slot, len(owned)] = bid
+                owned.append(bid)
+                self.refcount[bid] = 1
+        finally:
+            self.used_high_water = max(self.used_high_water, self.n_used_blocks)
+
+    # -- sharing: adopt / fork -----------------------------------------------
+    def adopt(self, slot: int, bids: Sequence[int]) -> None:
+        """Map an empty slot's table prefix onto resident blocks (a trie
+        match at admission): refcount++ per block, no device work."""
+        if not self.sharing:
+            raise ValueError("adopt requires a sharing-mode manager")
+        owned = self._owned[slot]
+        if owned:
+            raise ValueError(f"slot {slot} must adopt before any append")
+        if len(bids) > self._budget[slot]:
+            raise ValueError(
+                f"adopting {len(bids)} blocks exceeds slot {slot}'s "
+                f"budget {self._budget[slot]}"
+            )
+        for bid in bids:
+            bid = int(bid)
+            if not (NULL_BLOCK < bid <= self.num_blocks) or self.refcount[bid] < 1:
+                raise ValueError(f"cannot adopt non-resident block {bid}")
             self.tables[slot, len(owned)] = bid
             owned.append(bid)
-        self.used_high_water = max(self.used_high_water, self.n_used_blocks)
+            self.refcount[bid] += 1
 
-    def free(self, slot: int) -> None:
-        """Return every block ``slot`` owns to the free list, release its
-        budget, and point its table at the NULL sink. (Stale rows are never
-        read again: reads mask by length, and reallocation overwrites.)"""
+    def is_shared(self, bid: int) -> bool:
+        return self.refcount[int(bid)] > 1
+
+    def fork(self, slot: int, block_index: int) -> Tuple[int, int]:
+        """Copy-on-write: give ``slot`` a private clone of the shared block
+        at ``block_index`` of its table. Pops a fresh block (raises
+        :class:`ArenaExhausted` when none is free), swaps the table entry
+        and moves one reference. Returns ``(src_bid, dst_bid)``: the pool
+        must copy the rows on the device before any write."""
+        if not self.sharing:
+            raise ValueError("fork requires a sharing-mode manager")
         owned = self._owned[slot]
-        self._free.extend(reversed(owned))
+        if not 0 <= block_index < len(owned):
+            raise ValueError(f"slot {slot} has no block at {block_index}")
+        src = owned[block_index]
+        if self.refcount[src] < 2:
+            raise ValueError(f"block {src} is not shared — nothing to fork")
+        if not self._free:
+            raise ArenaExhausted(f"fork of shared block {src} needs a free block")
+        dst = self._free.pop()
+        self.refcount[src] -= 1
+        self.refcount[dst] = 1
+        self.tables[slot, block_index] = dst
+        owned[block_index] = dst
+        self.used_high_water = max(self.used_high_water, self.n_used_blocks)
+        return src, dst
+
+    def free(self, slot: int) -> List[int]:
+        """Drop every reference ``slot`` holds, release its budget, and
+        point its table at the NULL sink. A block returns to the free list
+        exactly when its LAST reference drops; those ids are returned, so
+        that the pool can evict them from the prefix index. (Stale rows
+        are never read again: reads mask by length, reallocation
+        overwrites.)"""
+        owned = self._owned[slot]
+        released: List[int] = []
+        for bid in reversed(owned):
+            self.refcount[bid] -= 1
+            if self.refcount[bid] == 0:
+                self._free.append(bid)
+                released.append(bid)
         owned.clear()
         self._budget[slot] = 0
         self.tables[slot, :] = NULL_BLOCK
+        return released
 
     def permute(self, order: np.ndarray) -> None:
         """Remap slot indices (pool defrag) — pure host bookkeeping."""
@@ -170,12 +383,12 @@ class BlockManager:
         """Every allocator-invariant violation as a message list (empty
         = healthy)."""
         errs: List[str] = []
-        owned_all: Dict[int, int] = {}
+        refs: Dict[int, int] = {}
         for slot, owned in enumerate(self._owned):
             if len(owned) > self._budget[slot]:
                 errs.append(f"slot {slot} holds {len(owned)} blocks over "
                             f"its budget {self._budget[slot]}")
-            if list(self.tables[slot, : len(owned)]) != owned:
+            if list(self.tables[slot, :len(owned)]) != owned:
                 errs.append(f"slot {slot} table/owned mismatch")
             if any(t != NULL_BLOCK for t in self.tables[slot, len(owned):]):
                 errs.append(f"slot {slot} has table entries past its owned blocks")
@@ -183,19 +396,27 @@ class BlockManager:
                 if not (NULL_BLOCK < b <= self.num_blocks):
                     errs.append(f"bad block id {b}")
                     continue
-                owned_all[b] = owned_all.get(b, 0) + 1
-        for b, n in owned_all.items():
-            if n > 1:
+                refs[b] = refs.get(b, 0) + 1
+        for b, n in refs.items():
+            if int(self.refcount[b]) != n:
+                errs.append(f"block {b}: refcount {int(self.refcount[b])} "
+                            f"!= {n} live table references")
+            if not self.sharing and n > 1:
                 errs.append(f"block {b} owned twice")
         free = set(self._free)
         if len(free) != len(self._free):
             errs.append("duplicate ids in free list")
-        if not free.isdisjoint(owned_all):
+        if not free.isdisjoint(refs):
             errs.append("block both free and owned")
-        if free | set(owned_all) != set(range(1, self.num_blocks + 1)):
+        if free | set(refs) != set(range(1, self.num_blocks + 1)):
             errs.append("leaked blocks: free + owned != capacity")
-        if self.n_committed_blocks > self.num_blocks:
+        for b in self._free:
+            if int(self.refcount[b]) != 0:
+                errs.append(f"free block {b} carries refcount {int(self.refcount[b])}")
+        if not self.sharing and self.n_committed_blocks > self.num_blocks:
             errs.append("over-committed")
+        if self.n_used_blocks != len(refs):
+            errs.append(f"used {self.n_used_blocks} != {len(refs)} unique live blocks")
         if self.used_high_water < self.n_used_blocks:
             errs.append("high-water below current live blocks")
         return errs
@@ -216,29 +437,42 @@ class SlotPool:
         *,
         block_size: Optional[int] = None,
         arena_blocks: Optional[int] = None,
+        prefix_sharing: bool = False,
         device="cuda",
     ):
         """``block_size`` switches the cache leaves to a paged arena of
         ``arena_blocks`` blocks (default: full capacity,
         ``n_slots * rows / block_size`` — undersize it to serve under an
-        explicit memory budget with admit-by-budget queuing)."""
+        explicit memory budget with admit-by-budget queuing).
+
+        ``prefix_sharing`` (paged only) turns on copy-on-write block
+        sharing: new requests adopt trie-matched prompt blocks
+        (:meth:`adopt_prefix`) and :meth:`ensure_writable` forks shared
+        blocks before a write. Allocation can then raise
+        :class:`ArenaExhausted`; the caller runs a preemption policy."""
         if n_slots < 1:
             raise ValueError("need at least one slot")
+        if prefix_sharing and block_size is None:
+            raise ValueError("prefix_sharing requires a paged pool (block_size set)")
         self.device = resolve_device(device)
         self.n_slots = n_slots
         self.max_len = max_len
         self.rows = round_kv_len(max_len)   # aligned per-slot row capacity
         self.block_size = block_size
         self.paged = block_size is not None
+        self.prefix_sharing = bool(prefix_sharing)
         if self.paged:
             if arena_blocks is None:
                 arena_blocks = n_slots * math.ceil(self.rows / block_size)
             self.manager: Optional[BlockManager] = BlockManager(
-                n_slots, self.rows, block_size, arena_blocks
+                n_slots, self.rows, block_size, arena_blocks, sharing=self.prefix_sharing,
             )
         else:
             arena_blocks = 0
             self.manager = None
+        self.prefix: Optional[PrefixIndex] = (
+            PrefixIndex(block_size) if self.prefix_sharing else None
+        )
         self.specs = model.cache_specs(
             n_slots, max_len, block_size=block_size, num_blocks=arena_blocks
         )
@@ -305,7 +539,73 @@ class SlotPool:
         self.owner[slot] = None
         self.positions[slot] = 0
         if self.paged:
-            self.manager.free(slot)
+            released = self.manager.free(slot)
+            if self.prefix is not None:
+                for bid in released:
+                    self.prefix.forget(bid)
+
+    # -- prefix sharing (copy-on-write) --------------------------------------
+    def adopt_prefix(self, slot: int, prompt) -> int:
+        """Map ``slot``'s table onto the longest resident full-block prefix
+        of ``prompt`` (refcount++, no device work). Returns the number of
+        cache ROWS adopted: the engine skips prefill for exactly those.
+
+        Returns 0 for pools with ANY contiguous leaf: recurrent state is a
+        running function of every token, so a block chain cannot stand in
+        for the skipped compute; such families keep preemption only."""
+        if self.prefix is None or self._any_contiguous:
+            return 0
+        bids = self.prefix.match(prompt)
+        if not bids:
+            return 0
+        self.manager.adopt(slot, bids)
+        rows = len(bids) * self.block_size
+        self.positions[slot] = rows
+        return rows
+
+    def register_prefix(self, slot: int, prompt) -> int:
+        """Publish ``slot``'s full PROMPT blocks into the trie once its
+        prefill completed (generated tokens stay private). No-op without
+        sharing and for recurrent hybrids. Returns new trie nodes."""
+        if self.prefix is None or self._any_contiguous:
+            return 0
+        n_full = len(prompt) // self.block_size
+        return self.prefix.register(prompt, self.manager._owned[slot][:n_full])
+
+    def match_resident(self, prompt, exclude_slot: Optional[int] = None) -> int:
+        """Rows of ``prompt`` that would stay trie-resident if
+        ``exclude_slot`` dropped its references: what a preempted request
+        could re-adopt on replay (the engine prices recompute with it).
+        The chain is cut at the first block that would die with the
+        excluded slot."""
+        if self.prefix is None or self._any_contiguous:
+            return 0
+        excl = [] if exclude_slot is None else self.manager._owned[exclude_slot]
+        rows = 0
+        for bid in self.prefix.match(prompt):
+            if int(self.manager.refcount[bid]) - excl.count(bid) < 1:
+                break
+            rows += self.block_size
+        return rows
+
+    def ensure_writable(self, slot: int, row_start: int, row_end: int) -> None:
+        """Copy-on-write gate: fork every SHARED block backing rows
+        ``[row_start, row_end)`` of ``slot`` (host table swap, then an
+        in-place device block copy), so the upcoming write cannot be seen
+        by other sharers. A host no-op when nothing in range is shared.
+        May raise :class:`ArenaExhausted`. The copy is enqueued before any
+        later write on the same stream; a caller reads the block table
+        (``tables_device``) after this call."""
+        if self.prefix is None or row_end <= row_start:
+            return
+        mgr = self.manager
+        owned = mgr._owned[slot]
+        lo = row_start // self.block_size
+        hi = min((row_end - 1) // self.block_size, len(owned) - 1)
+        for idx in range(lo, hi + 1):
+            if mgr.refcount[owned[idx]] > 1:
+                src, dst = mgr.fork(slot, idx)
+                slot_block_copy(self.caches, self.specs, src, dst)
 
     # -- paged bookkeeping ---------------------------------------------------
     def tables_device(self, slot: Optional[int] = None) -> Optional[torch.Tensor]:
@@ -364,6 +664,82 @@ class SlotPool:
         place. Paged leaves are untouched — stale blocks are recycled."""
         slot_reset(self.caches, self.specs, slot)
         self.positions[slot] = 0
+
+    # -- migration (KV block handoff) ----------------------------------------
+    def snapshot_slot(self, slot: int) -> SlotSnapshot:
+        """Capture one active slot as a :class:`SlotSnapshot` of COPIES:
+        contiguous leaves cloned batch-1, paged leaves the slot's owned
+        blocks gathered from the arena (``index_select`` copies). The slot
+        itself is untouched (the caller frees it after the handoff)."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        owned = list(self.manager._owned[slot]) if self.paged else []
+        if self.paged:
+            ids = torch.as_tensor(owned, dtype=torch.long, device=self.device)
+
+        def snap(c, s):
+            if is_paged_spec(s):
+                return torch.index_select(c, s.axes.index("kv_blocks"), ids)
+            return c.narrow(batch_axis_of(s), slot, 1).clone()
+
+        return SlotSnapshot(
+            data=tree_map(snap, self.caches, self.specs),
+            position=int(self.positions[slot]),
+            n_blocks=len(owned),
+            block_size=self.block_size,
+            rows=self.rows,
+        )
+
+    def restore_slot(self, snap: SlotSnapshot, owner: Optional[int] = None,
+                     n_tokens: Optional[int] = None) -> Optional[int]:
+        """Re-admit a migrated slot: allocate a slot (committing the
+        request's remaining lifetime budget ``n_tokens``, paged pools),
+        append destination blocks to cover the snapshot's rows and scatter
+        the snapshot's blocks into them; contiguous leaves are copied into
+        the slot. Returns the slot, or None when this pool cannot admit
+        the request now (no free slot, arena over-committed, or under
+        sharing no free blocks): the caller keeps the ticket and retries."""
+        if snap.block_size != self.block_size or snap.rows != self.rows:
+            raise ValueError(
+                f"snapshot geometry (block_size={snap.block_size}, "
+                f"rows={snap.rows}) does not match pool "
+                f"(block_size={self.block_size}, rows={self.rows})"
+            )
+        budget = snap.position if n_tokens is None else int(n_tokens)
+        if budget < snap.position:
+            raise ValueError(f"budget {budget} tokens below snapshot position "
+                             f"{snap.position}")
+        if self.paged and self.manager.blocks_for(budget) < snap.n_blocks:
+            raise ValueError(
+                f"budget {budget} tokens ({self.manager.blocks_for(budget)} "
+                f"blocks) cannot hold the snapshot's {snap.n_blocks} blocks"
+            )
+        slot = self.allocate(owner=owner, n_tokens=budget)
+        if slot is None:
+            return None
+        if self.paged and snap.n_blocks:
+            try:
+                self.manager.append(slot, snap.n_blocks * self.block_size)
+            except ArenaExhausted:
+                # A sharing-mode arena too full to land the migration now:
+                # "busy", like a full pool; the caller requeues.
+                self.free(slot)
+                return None
+        if self.paged and snap.n_blocks:
+            dest = torch.as_tensor(self.manager._owned[slot][:snap.n_blocks],
+                                   dtype=torch.long, device=self.device)
+
+        def rest(c, s, v):
+            if is_paged_spec(s):
+                if snap.n_blocks:
+                    c.index_copy_(s.axes.index("kv_blocks"), dest, v.to(c.device, c.dtype))
+            else:
+                c.narrow(batch_axis_of(s), slot, 1).copy_(v)
+            return c
+
+        tree_map(rest, self.caches, self.specs, snap.data)
+        self.positions[slot] = snap.position
+        return slot
 
     def defrag(self) -> Dict[int, int]:
         """Compact active slots to the lowest indices (one gather over the

@@ -3,8 +3,8 @@
 A copy of the reference scheduler (``repro.serve.scheduler``) for the
 port's engine, with its speculation pricing and callbacks (the draft
 mirror of a prefill, the draft lockstep tick, the draft-then-verify
-round), without the observability hooks and without the preemption
-economics, which arrive with prefix sharing.
+round) and its preemption economics (``CostModel.recompute`` / ``hold``,
+``Scheduler.requeue``), without the observability hooks.
 
 Every tick the scheduler picks ONE action — admit-and-prefill a waiting
 request (possibly one chunk of it), run a decode tick over the whole
@@ -52,7 +52,7 @@ class Request:
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
     t_cancelled: Optional[float] = None
-    cancel_reason: Optional[str] = None   # "deadline" | "cancelled"
+    cancel_reason: Optional[str] = None   # "deadline" | "cancelled" | "migrated"
     prefilled: int = 0            # prompt tokens already in cache (chunked)
 
     @property
@@ -62,8 +62,9 @@ class Request:
     @property
     def prefill_len(self) -> int:
         """Tokens the next prefill phase must put in cache: the prompt,
-        plus every emitted token but the last for a request that resumes
-        with tokens already emitted."""
+        plus, for a PREEMPTED request, every emitted token but the last
+        (the first decode tick after the replay feeds that one, so the
+        resumed stream equals the uninterrupted one)."""
         return self.prompt_len + max(len(self.tokens) - 1, 0)
 
     def prefill_target(self) -> np.ndarray:
@@ -112,6 +113,17 @@ class CostModel:
     def verify(self, n_tokens: int) -> float:
         """One batched verify call scoring ``n_tokens`` positions a lane."""
         return self.decode_tick + self.verify_per_token * n_tokens
+
+    # -- preemption economics -------------------------------------------------
+    def recompute(self, n_tokens: int) -> float:
+        """Price of evicting a lane and replaying ``n_tokens`` of prefix
+        later (prefill from the longest still-resident prefix)."""
+        return self.prefill(n_tokens) if n_tokens > 0 else 0.0
+
+    def hold(self, remaining_tokens: int) -> float:
+        """Price of keeping a lane's blocks until it finishes on its own:
+        the decode ticks it still needs."""
+        return self.decode_tick * max(int(remaining_tokens), 0)
 
     def spec_round(self, draft_ticks: int, verify_tokens: int,
                    replay: bool = False) -> float:
@@ -224,12 +236,27 @@ class Scheduler:
 
     # -- engine callbacks ----------------------------------------------------
     def chunk_for(self, req: Request) -> Tuple[int, int]:
-        """(start, n_tokens) of the next prefill chunk for ``req``."""
+        """(start, n_tokens) of the next prefill chunk for ``req``,
+        measured against ``prefill_len``, so a preempted request's replay
+        chunks like a long prompt."""
         start = req.prefilled
         remaining = req.prefill_len - start
         if self.prefill_chunk is None:
             return start, remaining
         return start, min(self.prefill_chunk, remaining)
+
+    def requeue(self, req: Request) -> None:
+        """Put a PREEMPTED request back in the arrival queue: its slot and
+        blocks were taken, its emitted tokens are kept, and its next
+        admission replays from the longest still-resident prefix.
+        ``arrival`` stays as it was: the request's latency includes the
+        eviction, and FIFO order re-admits it first."""
+        if req in self.running:
+            self.running.remove(req)
+        req.prefilled = 0
+        req.t_admit = None
+        self.waiting.append(req)
+        self.waiting.sort(key=lambda r: (r.arrival, r.rid))
 
     def on_admit(self, req: Request) -> None:
         self.waiting.remove(req)

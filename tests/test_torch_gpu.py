@@ -11,7 +11,9 @@ tolerances chip_smoke.py shares: K1 by ``flash_within``, which adds what
 rounding P and dS to bf16 may move each output by), the wrappers are shown
 never to reach a plain version for a CUDA tensor, the decode kernels to
 refuse a gradient, and the reduced model's decode tick and train step to
-run through the kernels.
+run through the kernels. Paged flash decode is also held over the block
+tables prefix sharing leaves, and the sharing pool's block copy, snapshot
+and restore on CUDA to the same copies on the CPU, bit for bit.
 """
 
 import dataclasses
@@ -25,8 +27,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention_rounding_terms
 from repro_torch.kernels.parity import (
     DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES,
-    SSD_SHAPES, dscale_bf16_slack,
-    flash_within, ssd_within, within,
+    SHARED_DECODE_SHAPES, SSD_SHAPES, dscale_bf16_slack,
+    flash_within, shared_block_arena, ssd_within, within,
 )
 from repro_torch.kernels.ssd_scan import ssd_bwd_term_sums
 from repro_torch.models import Model
@@ -34,7 +36,7 @@ from repro_torch.models.attention import paged_kv_view
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.optim import adamw
 from repro_torch.runtime import make_train_step
-from repro_torch.serve import Scheduler, ServeEngine, generate_offline
+from repro_torch.serve import Scheduler, ServeEngine, SlotPool, generate_offline
 
 pytestmark = pytest.mark.gpu
 
@@ -144,6 +146,65 @@ def test_decode_rows_do_not_depend_on_the_batch(cuda, dtype, H, Hkv, D, S, lens)
         if lens[b] > 0:
             one = K.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths[b:b + 1])
             assert torch.equal(one[0], out[b]), f"K3 row {b}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D,S,lens,shared", SHARED_DECODE_SHAPES)
+def test_paged_decode_over_shared_tables(cuda, dtype, H, Hkv, D, S, lens, shared):
+    """K4 where two rows name the same first blocks and a third names a
+    fork of one of them (``parity.shared_block_arena``): plain's value, a
+    second launch bit for bit, each row bit for bit equal to a launch of
+    that row alone, and K3 on the gathered rows bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    k_ar, v_ar, tables = shared_block_arena(Hkv, D, S, lens, shared, g, dtype, cuda)
+    q = torch.randn((len(lens), H, D), generator=g).to(cuda, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = K.paged_decode_attention(q, k_ar, v_ar, tables, lengths)
+    _close(out, K.paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths), dtype)
+    assert torch.equal(K.paged_decode_attention(q, k_ar, v_ar, tables, lengths), out)
+    for b in range(len(lens)):
+        alone = K.paged_decode_attention(q[b:b + 1], k_ar, v_ar, tables[b:b + 1],
+                                         lengths[b:b + 1])
+        assert torch.equal(alone[0], out[b]), b
+    k, v = paged_kv_view(k_ar, tables), paged_kv_view(v_ar, tables)
+    assert torch.equal(K.decode_attention(q, k, v, lengths), out)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2"])
+def test_block_copy_snapshot_and_restore_on_the_card(cuda, arch):
+    """The sharing pool's device copies on CUDA, bit for bit against the
+    same copies of the same bytes on the CPU: a fork's ``slot_block_copy``
+    (every other block untouched), ``snapshot_slot`` (a slot's owned blocks
+    and its recurrent states) and ``restore_slot`` into a second pool."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    model = Model(cfg)
+
+    def pools(device):
+        return [SlotPool(model, 3, 64, block_size=8, prefix_sharing=True, device=device)
+                for _ in range(2)]
+
+    runs = {}
+    for device in ("cpu", cuda):
+        src, dst = pools(device)
+        for i, leaf in enumerate(tree_leaves(src.caches, is_leaf=torch.is_tensor)):
+            leaf.copy_(torch.randn(leaf.shape, generator=torch.Generator().manual_seed(i)))
+        s0, s1 = src.allocate(0, 40), src.allocate(1, 40)
+        src.ensure_rows(s0, 33)
+        src.manager.adopt(s1, src.manager._owned[s0][:4])
+        src.ensure_writable(s1, 31, 32)              # forks the shared block 3
+        assert src.manager._owned[s1][:3] == src.manager._owned[s0][:3]
+        src.positions[s0], src.positions[s1] = 33, 32
+        snap = src.snapshot_slot(s1)
+        dst.allocate(0, 16)
+        dst.ensure_rows(0, 16)
+        slot = dst.restore_slot(snap, owner=7, n_tokens=40)
+        runs[str(device)] = (src.caches, snap.data, dst.caches, slot,
+                             list(src.manager._owned[s1]), list(dst.manager._owned[slot]))
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    assert cpu[3:] == card[3:]
+    for a, b in zip(tree_leaves(cpu[:3], is_leaf=torch.is_tensor),
+                    tree_leaves(card[:3], is_leaf=torch.is_tensor)):
+        assert torch.equal(a, b.cpu())
 
 
 @pytest.mark.parametrize("bs", [1, 12, 48])
