@@ -129,10 +129,25 @@ runs, in order, and exits non-zero at the first phase that fails:
    K3/K4 6), every arena drains clean, every stream is held to
    teacher-forced offline decode, and ``snapshot_slot`` and
    ``restore_slot`` of a llama slot are timed against their byte bound;
+18. observability and the multi-replica fleet: (a) phase 4's traffic on
+   both pools again with ``Observability()``, whose streams, stats and
+   every call's launches must equal phase 4's, whose trace must validate
+   with no span left open, and whose engine counters must equal the
+   ``EngineStats``; (b) phase 4's 8 requests through a ``Frontend`` over
+   3 paged replicas (block 16, 4 slots of 1024, 256-token chunks) sharing
+   one params dict, hedged at 0.001 a copy, with replica 1 failing while
+   it decodes and rejoining, replica 2 draining while it decodes, and a
+   transport plan of a drop, a duplicate and a corruption of the drain's
+   first ticket: every request completes, at least one ticket lands and
+   one is refused, every stream holds by the near-tie rule, every pool,
+   arena and router count drains, the trace validates, every call of
+   every replica launches what phase 4's do, and each ticket's seal and
+   verify are timed;
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
-launches on the zamba2 serving path under ``zamba_serve_launches`` and in
-phase 17 under ``phase17_launches``; the profiles under
+launches on the zamba2 serving path under ``zamba_serve_launches``, in
+phase 17 under ``phase17_launches`` and in phase 18 under
+``phase18_launches``; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
@@ -143,8 +158,8 @@ and ``zamba_serve_profile``, phase 16's under ``spec_parity``,
 ``spec_serve``, ``spec_serve_streams``, ``spec_state_check``,
 ``spec_rmsnorm_times``, ``spec_snapshot`` and ``spec_profile`` (each
 kernel's launches there under ``spec_serve_launches``), phase 17's under
-``prefix_serve``, ``preempt_serve``, ``migration`` and ``zamba_preempt``, the launch
-floor, phase 2's tensor-core
+``prefix_serve``, ``preempt_serve``, ``migration`` and ``zamba_preempt``, phase 18's
+under ``observed_serve`` and ``fleet``, the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
 ``k2_resources``), the card line
@@ -2666,6 +2681,172 @@ def time_slot_copies(model, rows: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: observability and the multi-replica fleet
+# ---------------------------------------------------------------------------
+
+#: The fleet: 3 paged replicas of phase 4's geometry over one params dict.
+#: Node faults, on the plane's ticks (one engine action a tick): replica
+#: 1 fails while it decodes, rejoins at 140, and replica 2 drains at 170,
+#: while it decodes copies dispatched during the failure, so the drain's
+#: tickets go to the rejoined replica 1 (a peer that already holds a copy
+#: of a request is never offered its ticket). The steps were chosen by
+#: running the fleet with the same traffic at a 1-layer width on the CPU:
+#: the plane's timeline depends on lengths and virtual costs, not on the
+#: tokens.
+FLEET_REPLICAS = 3
+FLEET_EVENTS = ((80, "fail", 1), (140, "rejoin", 1), (170, "drain", 2))
+#: Transport faults: a drop and a duplicate early on, and a corruption of
+#: the drain's first ticket (the 52nd transmission on fe -> r1), which
+#: replica 1's import must refuse.
+FLEET_DIRECTIVES = (("fe", "r0", "drop", 5), ("r0", "fe", "dup", 9), ("fe", "r1", "corrupt", 51))
+
+
+def serve_observed(model, params, reqs, runs: dict) -> dict:
+    """(a) Phase 4's traffic again on both pools with ``Observability()``:
+    the streams, the stats and every call's launches equal phase 4's
+    (``runs``), the trace validates with no span left open, and the
+    engine's counters equal its ``EngineStats``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import Observability, validate_trace
+    from repro_torch.serve import Scheduler, ServeEngine
+
+    out = {}
+    for pool, block_size in (("contiguous", None), ("paged", BLOCK_SIZE)):
+        label = f"{pool}, obs on"
+        obs = Observability()
+        eng = ServeEngine(model, params, n_slots=N_SLOTS, max_len=MAX_LEN, block_size=block_size,
+                          scheduler=Scheduler(N_SLOTS, prefill_chunk=PREFILL_CHUNK), obs=obs)
+        probe = CallProbe(eng)
+        rids = [eng.submit(p, m, arrival=a) for p, m, a in reqs]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        results = eng.run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        calls = check_spec_launches(model.cfg, probe, counts, block_size is not None, label)
+        st, base = eng.stats, runs[pool]["stats"]
+        check(counts == runs[pool]["launches"],
+              f"{label}: launched {counts}, phase 4 {runs[pool]['launches']}")
+        check([results[r].tokens for r in rids] == runs[pool]["tokens"],
+              f"{label}: a stream differs from phase 4's obs-off stream")
+        for k in ("prefill_calls", "prefill_tokens", "decode_ticks", "generated_tokens"):
+            check(getattr(st, k) == getattr(base, k), f"{label}: {k} differs from phase 4's")
+        errors = validate_trace(obs.tracer.events)
+        check(errors == [] and obs.tracer.open_spans == [],
+              f"{label}: trace errors {errors[:3]}, open spans {obs.tracer.open_spans}")
+        snap = obs.metrics.snapshot()
+        for k in ("decode_ticks", "generated_tokens", "prefill_tokens"):
+            check(snap[f"engine.{k}"] == getattr(st, k),
+                  f"{label}: engine.{k} {snap[f'engine.{k}']} != {getattr(st, k)}")
+        out[pool] = {"wall_seconds": st.wall_seconds, "obs_off_wall_seconds": base.wall_seconds,
+                     "trace_events": len(obs.tracer.events),
+                     "calls": {k: v["calls"] for k, v in calls.items()}, "launches": counts}
+        print(f"  {label}: streams, stats and launches equal phase 4's; "
+              f"{len(obs.tracer.events)} trace events, valid, no open span; host wall "
+              f"{st.wall_seconds:.2f} s with obs, {base.wall_seconds:.2f} s without (phase 4; "
+              f"not claimed)")
+    return out
+
+
+def serve_fleet(model, params, reqs) -> dict:
+    """(b) ``reqs`` through a ``Frontend`` over ``FLEET_REPLICAS`` paged
+    replicas sharing ``params``, hedged (cost 0.001 a copy), under
+    ``FLEET_EVENTS`` and ``FLEET_DIRECTIVES``. Every request completes
+    (none dropped), at least one ticket lands and one is refused, the
+    streams hold by the near-tie rule, every pool and arena drains, the
+    router holds nothing, the trace validates with no open span, and every
+    call of every replica launches what phase 4's calls do. The seal and
+    the verify of each ticket (``ticket_checksum``, which copies the
+    snapshot to the host) are timed on the host clock."""
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.core import SimplifiedDelayModel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import Observability, validate_trace
+    from repro_torch.runtime import FaultEvent
+    from repro_torch.serve import FaultDirective, Frontend, Replica, TransportFaults
+
+    cfg = model.cfg
+    obs = Observability()
+    replicas = [Replica(i, model, params, n_slots=N_SLOTS, max_len=MAX_LEN, block_size=BLOCK_SIZE,
+                        prefill_chunk=PREFILL_CHUNK, obs=obs) for i in range(FLEET_REPLICAS)]
+    probe = CallProbe(*(rep.engine for rep in replicas))
+    fe = Frontend(replicas, SimplifiedDelayModel(lambda_y=2.0), cost_per_replica=0.001,
+                  retry_budget=3, events=[FaultEvent(*e) for e in FLEET_EVENTS],
+                  transport_faults=TransportFaults([FaultDirective(*d)
+                                                    for d in FLEET_DIRECTIVES]),
+                  obs=obs)
+    landed = {}                        # node fault -> decoding copies it found
+
+    def noting(key, rep, fn):
+        def wrapped(*a):
+            landed[key] = len(rep.engine.decoding_rids())
+            return fn(*a)
+        return wrapped
+
+    for rep in replicas:
+        rep.fail = noting(f"fail {rep.id}", rep, rep.fail)
+    drain = fe.drain
+    fe.drain = lambda r: noting(f"drain {r}", replicas[r], drain)(r)
+    checksum, stamps = engine_mod.ticket_checksum, []
+
+    def timed(ticket):
+        t0 = time.perf_counter()
+        digest = checksum(ticket)
+        stamps.append(("seal" if ticket.checksum is None else "verify",
+                       (time.perf_counter() - t0) * 1e3))
+        return digest
+
+    gids = [fe.submit(p, m, arrival=a) for p, m, a in reqs]
+    engine_mod.ticket_checksum = timed
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = fe.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        engine_mod.ticket_checksum = checksum
+    counts = launch_counts()
+    calls = {k: v["calls"] for k, v in check_spec_launches(cfg, probe, counts, True,
+                                                           "fleet").items()}
+    s = fe.summary()
+    print(f"  events {FLEET_EVENTS}; transport {FLEET_DIRECTIVES}; decoding copies each node "
+          f"fault found: {landed}")
+    print(f"  {len(reqs)} requests in {seconds:.2f} s, {fe.ticks} plane ticks; summary {s}")
+    seals = [ms for kind, ms in stamps if kind == "seal"]
+    verifies = [ms for kind, ms in stamps if kind == "verify"]
+    print(f"  tickets: seal ms {[round(x, 3) for x in seals]}, verify ms "
+          f"{[round(x, 3) for x in verifies]} (ticket_checksum on the host clock, the "
+          f"snapshot's copy to the host included); calls {calls}; launches "
+          f"{dict((k, v) for k, v in counts.items() if v)}")
+    check(landed.get("fail 1", 0) >= 1, f"the fail found no decoding copy on replica 1: {landed}")
+    check(landed.get("drain 2", 0) >= 1, f"the drain found no decoding copy on replica 2: {landed}")
+    check(s["completed"] == len(reqs) and s["dropped"] == 0,
+          f"fleet: {s['completed']} completed, {s['dropped']} dropped")
+    check(s["migrations"] >= 1 and s["ticket_rejects"] >= 1,
+          f"fleet: {s['migrations']} migrations, {s['ticket_rejects']} rejected tickets")
+    check(s["transport_dropped"] >= 1 and s["transport_duplicated"] >= 1
+          and s["transport_corrupted"] == 1, "fleet: a transport fault did not land")
+    for rep in replicas:
+        mgr = rep.engine.pool.manager
+        check(rep.engine.pool.n_active == 0 and rep.engine.live_rids() == []
+              and mgr.n_free_blocks == mgr.num_blocks and not mgr.audit(),
+              f"replica {rep.id} holds slots or blocks at the end")
+    check(not fe.router.inflight.any() and not fe.transport.busy(),
+          f"router in flight {fe.router.inflight.tolist()} at the end")
+    errors = validate_trace(obs.tracer.events)
+    check(errors == [] and obs.tracer.open_spans == [],
+          f"fleet: trace errors {errors[:3]}, open spans {obs.tracer.open_spans}")
+    streams = check_streams(model, params, reqs,
+                            {"fleet": {"tokens": [results[g].tokens for g in gids]}}, MAX_LEN)
+    return {"summary": s, "seconds": seconds, "ticks": fe.ticks, "landed": landed,
+            "events": FLEET_EVENTS, "directives": FLEET_DIRECTIVES, "seal_ms": seals,
+            "verify_ms": verifies, "trace_events": len(obs.tracer.events),
+            "calls": calls, "launches": counts, "streams": streams}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2875,6 +3056,21 @@ def main() -> int:
     phase17_seconds = time.perf_counter() - t17
     print(f"    phase 17 took {phase17_seconds:.1f} s")
 
+    t18 = time.perf_counter()
+    print("[18] observability and the multi-replica fleet")
+    params = model.init(SEED, device="cuda")
+    print(f"    {cfg.name}: phase 4's {len(reqs)} requests on both pools with Observability()")
+    observed = serve_observed(model, params, reqs, runs)
+    print(f"    {cfg.name}: phase 4's {len(reqs)} requests through a Frontend over "
+          f"{FLEET_REPLICAS} paged replicas (block {BLOCK_SIZE}, {N_SLOTS} slots of {MAX_LEN}, "
+          f"{PREFILL_CHUNK}-token chunks) sharing one params dict, hedged, with "
+          f"Observability()")
+    fleet = serve_fleet(model, params, reqs)
+    del params
+    phase18 = [r["launches"] for r in observed.values()] + [fleet["launches"]]
+    phase18_seconds = time.perf_counter() - t18
+    print(f"    phase 18 took {phase18_seconds:.1f} s; card {card}")
+
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:26",
@@ -2923,6 +3119,7 @@ def main() -> int:
             "spec_serve_launches": sum(r["launches"][kname] for s in (spec, zspec)
                                        for r in s["runs"].values()),
             "phase17_launches": sum(c[kname] for c in phase17),
+            "phase18_launches": sum(c[kname] for c in phase18),
         })
     report = {
         "kernels": kernels,
@@ -2989,6 +3186,9 @@ def main() -> int:
         "migration": migration,
         "zamba_preempt": zamba_preempt,
         "phase17_seconds": phase17_seconds,
+        "observed_serve": observed,
+        "fleet": fleet,
+        "phase18_seconds": phase18_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

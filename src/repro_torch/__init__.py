@@ -3,8 +3,10 @@ training paths.
 
 A second package beside the JAX reference: the same configs, model math
 (dense GQA decoders and the Mamba2 + shared-attention hybrid), slot pool,
-scheduler and continuous-batching engine, which serves both, and the
-paper's adaptive-(k, beta) training loop with its controller, masked
+scheduler and continuous-batching engine, which serves both, the
+multi-replica fleet (hedged router, faultable transport, replicas and
+frontend), the observability plane (trace, metrics, decisions, log), and
+the paper's adaptive-(k, beta) training loop with its controller, masked
 fastest-k step, optimizer and checkpoints, written for PyTorch. The
 reference's Pallas TPU kernels on these paths (flash attention, RMSNorm,
 flash decode, paged flash decode, the SSD chunked scan) are rewritten by

@@ -1,6 +1,5 @@
 """Worker response-time telemetry: censoring-aware EWMA + straggler detection
-(the port's copy of ``repro.runtime.telemetry``, numpy only; the
-``repro.obs`` metrics hook waits for the observability slice).
+(the port's copy of ``repro.runtime.telemetry``, numpy only).
 
 The controller consumes raw response times for delay-model fitting; this
 module adds the ops-level view: per-worker mean-response-time estimates,
@@ -57,7 +56,13 @@ class StragglerTracker:
         alpha: float = 0.1,
         warmup: int = 16,
         min_expected_wins: float = 4.0,
+        metrics=None,
     ):
+        """``metrics``: an optional ``repro_torch.obs.MetricsRegistry``.
+        When set, every ``observe`` feeds the
+        ``telemetry.censored_fraction`` histogram: the fraction of
+        eligible workers whose time was a censor level, the quantity the
+        censored MLE's accuracy hinges on."""
         self.n = n_workers
         self.alpha = alpha
         self.warmup = warmup
@@ -67,6 +72,10 @@ class StragglerTracker:
         self.rounds = np.zeros(n_workers, np.int64)  # eligible rounds per worker
         self.wins = np.zeros(n_workers, np.int64)    # actual observations
         self.expw = np.zeros(n_workers)     # expected wins under fairness
+        self._h_censored = (
+            metrics.histogram("telemetry.censored_fraction")
+            if metrics is not None else None
+        )
 
     def observe(
         self,
@@ -115,6 +124,10 @@ class StragglerTracker:
             n_t = int(eligible.sum())
             if n_t:
                 self.expw[eligible] += float(observed.sum()) / n_t
+        if self._h_censored is not None:
+            n_e = int(eligible.sum())
+            if n_e:
+                self._h_censored.observe(1.0 - float(observed[eligible].sum()) / n_e)
 
     def reset_worker(self, w: int) -> None:
         """Forget a worker's history (e.g. it rejoined after recovery)."""

@@ -23,12 +23,11 @@ are sampled from the paper's delay models with numpy, in the same RNG
 streams and order as the reference, so the two loops make the same
 control decisions from the same seed.
 
-Two deliberate differences from the reference: ``train`` takes an
+One deliberate difference from the reference: ``train`` takes an
 optional initial ``params`` (default ``model.init(seed, device=...)``,
 drawn from a torch generator), so a test can hand it the reference's own
-initial parameters; and the ``repro.obs`` hooks (trace spans, metrics,
-decision log) wait for the observability slice, so there is no ``obs``
-parameter yet.
+initial parameters. With ``obs`` it emits the reference's trace events,
+metrics, decisions and structured-log records (``repro_torch.obs``).
 """
 
 from __future__ import annotations
@@ -45,6 +44,7 @@ from repro_torch.core.order_stats import DelayModel
 from repro_torch.data.pipeline import StagedBatcher
 from repro_torch.dist.collectives import check_worker_major
 from repro_torch.models.model import Model
+from repro_torch.obs import NULL_OBS, Observability
 from repro_torch.optim.optimizers import Optimizer
 from .checkpoint import CheckpointManager
 from .faults import FaultEvent, schedule_by_step
@@ -87,12 +87,24 @@ def train(
     *,
     params: Optional[Dict[str, Any]] = None,
     device="cuda",
+    obs: Optional[Observability] = None,
 ) -> Dict[str, Any]:
     """Run the adaptive-(k,beta) training loop on ``device``. Returns the
     history (one dict per step: step, loss, k, beta, n_workers, sim_time,
     contributors, grad_norm, and switched_to on a stage switch), the
     final params and optimizer state, the controller, the tracker, the
-    fleet's alive mask, the batch shapes seen and the simulated time."""
+    fleet's alive mask, the batch shapes seen and the simulated time.
+
+    ``obs``: the observability bundle. When enabled, every step lands as
+    a ``train_step`` complete event on the loop's ``sim_time`` lane,
+    chaos and demotion transitions as ``fault`` / ``demote`` instants,
+    the per-step wait / compute split as histograms, and every stage
+    switch as a ``train.stage`` decision carrying the censored telemetry
+    it was priced from. Every value comes from the host (the loss is
+    read once a step already)."""
+    obs = obs or NULL_OBS
+    tr_obs = obs.tracer
+    pid = tr_obs.register_process("train")
     dev = resolve_device(device)
     rng = np.random.default_rng(loop_cfg.seed)
     ctrl = Controller(
@@ -101,8 +113,15 @@ def train(
         estimate_model=loop_cfg.estimate_model,
     )
     n0 = strategy.n  # fleet size at loop start; worker ids are 0..n0-1
-    tracker = StragglerTracker(n0)
+    tracker = StragglerTracker(n0, metrics=obs.metrics if obs.enabled else None)
     schedule = _event_schedule(loop_cfg)
+    h_step = obs.metrics.histogram("train.step_time")
+    # Wait: how long the FASTEST observed worker idled for the k-th (the
+    # straggler tax fastest-k buys down); compute: the mean observed
+    # response time.
+    h_wait = obs.metrics.histogram("train.wait")
+    h_compute = obs.metrics.histogram("train.compute")
+    g_workers = obs.metrics.gauge("train.n_workers")
     step_fn = make_train_step(model, optimizer)
     shapes: List[Tuple[int, ...]] = []
 
@@ -135,16 +154,24 @@ def train(
     for step in range(start_step, loop_cfg.total_steps):
         # ---- chaos events -----------------------------------------------
         for ev in schedule.get(step, ()):
+            applied = False
             if ev.kind == "fail" and alive[ev.worker]:
                 alive[ev.worker] = False
                 ctrl.remove_worker()
+                applied = True
             elif ev.kind == "rejoin" and not alive[ev.worker]:
                 alive[ev.worker] = True
                 slow_factor[ev.worker] = ev.factor
                 tracker.reset_worker(ev.worker)
                 ctrl.add_worker()
+                applied = True
             elif ev.kind == "slow":
                 slow_factor[ev.worker] = ev.factor
+                applied = True
+            if applied and obs.enabled:
+                obs.metrics.counter(f"train.fault.{ev.kind}").inc()
+                tr_obs.instant("fault", pid, sim_time,
+                               args={"kind": ev.kind, "worker": ev.worker, "step": step})
 
         # ---- pending demotions from telemetry ---------------------------
         if loop_cfg.demote_after_ewma is not None:
@@ -152,6 +179,10 @@ def train(
                 if alive[w] and alive.sum() > 1:
                     alive[w] = False
                     ctrl.remove_worker()
+                    if obs.enabled:
+                        obs.metrics.counter("train.demotions").inc()
+                        tr_obs.instant("demote", pid, sim_time,
+                                       args={"worker": int(w), "step": step})
 
         # ---- the n-contract: controller and fleet must agree ------------
         n_active = int(alive.sum())
@@ -172,6 +203,7 @@ def train(
         k_eff = min(stage.k, n_active)
         order = np.argpartition(z_act, k_eff - 1)[:k_eff]
         t_step = float(z_act[order].max())
+        t0_step = sim_time
         sim_time += t_step
         mask = np.zeros(n_active, np.float32)
         mask[order] = 1.0
@@ -202,6 +234,32 @@ def train(
         )
         switched = ctrl.maybe_advance()
 
+        if obs.enabled:
+            observed = np.sort(z_act[order])
+            h_step.observe(t_step)
+            h_wait.observe(t_step - float(observed[0]))
+            h_compute.observe(float(observed.mean()))
+            g_workers.set(n_active)
+            tr_obs.complete("train_step", pid, t0_step, sim_time,
+                            args={"step": step, "k": stage.k, "beta": float(stage.beta),
+                                  "n_workers": n_active, "loss": round(loss, 6)})
+            if switched is not None:
+                tr_obs.instant("stage_switch", pid, sim_time,
+                               args={"step": step, "k": switched.k,
+                                     "beta": float(switched.beta)})
+                fitted = ctrl.current_model()
+                obs.decisions.record(
+                    "train.stage",
+                    {"k": switched.k, "beta": float(switched.beta)},
+                    {"stage_idx": ctrl.stage_idx,
+                     "n": ctrl.cfg.n,
+                     "rt_samples": len(ctrl._rt_samples),
+                     "rt_censored": int(sum(ctrl._rt_censored)),
+                     "lambda_y": (round(float(fitted.lambda_y), 6)
+                                  if fitted is not None else None)},
+                    step=step, vtime=sim_time,
+                )
+
         history.append({
             "step": step,
             "loss": loss,
@@ -231,9 +289,14 @@ def train(
             )
 
         if loop_cfg.log_every and step % loop_cfg.log_every == 0:
-            print(f"step {step:5d} loss {loss:8.4f} k={stage.k:2d} "
-                  f"beta={stage.beta:4.2f} t={sim_time:9.2f} workers={n_active}",
-                  flush=True)
+            # The structured record is the source of truth; the print is
+            # its stdout view unless the log echoes its own rendering.
+            obs.log.emit("train_step", t=sim_time, step=step, loss=round(loss, 4),
+                         k=stage.k, beta=float(stage.beta), workers=n_active)
+            if not obs.log.echo:
+                print(f"step {step:5d} loss {loss:8.4f} k={stage.k:2d} "
+                      f"beta={stage.beta:4.2f} t={sim_time:9.2f} workers={n_active}",
+                      flush=True)
 
     if ckpt is not None:
         ckpt.wait()

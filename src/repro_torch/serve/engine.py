@@ -1,6 +1,6 @@
 """Continuous-batching inference engine over a fixed slot pool (port of
 ``repro.serve.engine`` with speculative decoding, copy-on-write prefix
-sharing with preempt-and-requeue, and request migration; without the
+sharing with preempt-and-requeue, request migration and the
 observability hooks).
 
 The pool's ``n_slots`` lanes decode together in one pool-wide tick; slot
@@ -40,6 +40,13 @@ to another engine of the same geometry as a checksummed
 :class:`MigrationTicket` holding copies of its cache leaves.
 In every mode a resumed stream equals the uninterrupted one.
 
+Observability (``obs=``, ``repro_torch.obs``): request lifecycle spans,
+one complete event per prefill chunk, tick, round or idle jump,
+instants for cancel, preemption and migration, occupancy counters and
+the engine's metrics, all stamped on the virtual clock, the same events
+the reference emits on the same traffic. Every hook reads host state
+the engine already holds, so it adds no device work and no sync.
+
 ``run_static`` is the static-batching baseline: same pool and kernels,
 but admissions barrier until the whole previous batch drains.
 """
@@ -55,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import tree_leaves
+from repro_torch.obs import NULL_OBS, Observability
 from repro_torch.runtime.steps import (
     make_slot_decode_step,
     make_slot_prefill_step,
@@ -166,6 +174,8 @@ class ServeEngine:
         draft_params=None,
         gamma_max: int = 4,
         spec_controller: Optional[SpecController] = None,
+        obs: Optional[Observability] = None,
+        obs_name: Optional[str] = None,
     ):
         """The engine runs on the device of ``params``. ``block_size``
         turns on paged KV; ``arena_blocks`` caps the arena below full
@@ -180,7 +190,12 @@ class ServeEngine:
         ``draft_model`` / ``draft_params`` turn on speculative decoding:
         decode actions become draft-then-verify rounds whose draft length
         ``spec_controller`` (default ``SpecController(gamma_max)``)
-        adapts. The draft pool lives on the device of ``draft_params``."""
+        adapts. The draft pool lives on the device of ``draft_params``.
+
+        ``obs``: the observability bundle, by default the disabled
+        ``NULL_OBS``, which makes every hook a no-op costing one attribute
+        check. ``obs_name`` labels this engine's trace lane (a replica
+        passes ``"replica <id>"``)."""
         if model.cfg.is_encoder:
             raise ValueError("serving needs a causal decoder architecture")
         if prefix_sharing and draft_model is not None:
@@ -210,6 +225,19 @@ class ServeEngine:
         self.prefill_bucket = prefill_bucket
         self.stats = EngineStats()
         self.events: List[Tuple[str, float, int]] = []  # (action, vtime, rid)
+        # -- observability ----------------------------------------------------
+        self.obs = obs or NULL_OBS
+        self._tr = self.obs.tracer
+        self.pid = self._tr.register_process(obs_name or "engine")
+        self._span_ids: Dict[int, int] = {}   # rid -> open lifecycle span
+        if self.sched.obs is NULL_OBS:
+            self.sched.bind_obs(self.obs)
+        m = self.obs.metrics
+        self._m_tokens = m.counter("engine.generated_tokens")
+        self._m_prefill_tokens = m.counter("engine.prefill_tokens")
+        self._m_decode_ticks = m.counter("engine.decode_ticks")
+        self._g_slots = m.gauge("engine.slots_active")
+        self._g_blocks = m.gauge("engine.arena_blocks_used")
         self._requests: Dict[int, Request] = {}
         self._next_rid = 0
         # Per-slot decode state (host side).
@@ -232,6 +260,8 @@ class ServeEngine:
             self.draft = DraftRunner(draft_model, draft_params, n_slots, max_len)
             self.spec = spec_controller or SpecController(gamma_max)
             self.spec.draft_fused = draft_model.fused_prefill
+            if self.spec.obs is NULL_OBS:
+                self.spec.obs = self.obs
 
     @property
     def speculative(self) -> bool:
@@ -265,7 +295,26 @@ class ServeEngine:
                       deadline=deadline)
         self._requests[rid] = req
         self.sched.submit(req)
+        if self._tr.enabled:
+            # The span opens at this engine's clock, not at the logical
+            # arrival: a hedge copy can reach a replica whose clock is
+            # behind the arrival stamp, and a span may not end before it
+            # begins.
+            self._span_ids[rid] = self._tr.begin_span(
+                "request", self.pid, self.sched.clock.now,
+                args={"rid": rid, "arrival": float(arrival),
+                      "prompt_len": int(prompt.size),
+                      "max_new_tokens": int(max_new_tokens)},
+            )
         return rid
+
+    def _end_request_span(self, req: Request, outcome: str, ts: float) -> None:
+        """Close a request's lifecycle span exactly once, whichever path
+        retired it (done, cancelled, deadline or migrated)."""
+        sid = self._span_ids.pop(req.rid, None)
+        if sid:
+            self._tr.end_span(sid, ts, args={"outcome": outcome,
+                                             "n_tokens": len(req.tokens)})
 
     # -- cancellation / deadlines --------------------------------------------
     def cancel(self, rid: int, reason: str = "cancelled") -> bool:
@@ -284,7 +333,12 @@ class ServeEngine:
         req.t_cancelled = self.sched.clock.now
         req.cancel_reason = reason
         self.stats.cancelled_requests += 1
-        self.events.append(("cancel", self.sched.clock.now, rid))
+        now = self.sched.clock.now
+        self.events.append(("cancel", now, rid))
+        self._end_request_span(req, reason, now)
+        if self.obs.enabled:
+            self.obs.metrics.counter(f"engine.cancel.{reason}").inc()
+            self._tr.instant("cancel", self.pid, now, args={"rid": rid, "reason": reason})
         return True
 
     def _expire_deadlines(self) -> List[int]:
@@ -339,7 +393,13 @@ class ServeEngine:
         req.t_cancelled = self.sched.clock.now
         req.cancel_reason = "migrated"
         self.stats.migrated_out += 1
-        self.events.append(("migrate_out", self.sched.clock.now, rid))
+        now = self.sched.clock.now
+        self.events.append(("migrate_out", now, rid))
+        self._end_request_span(req, "migrated", now)
+        if self.obs.enabled:
+            self.obs.metrics.counter("engine.migrated_out").inc()
+            self._tr.instant("migrate_out", self.pid, now,
+                             args={"rid": rid, "n_tokens": len(req.tokens)})
         return ticket
 
     def import_request(self, ticket: MigrationTicket) -> Optional[int]:
@@ -376,7 +436,20 @@ class ServeEngine:
         self._pending[slot] = np.int32(ticket.pending)
         self._decoding[slot] = True
         self.stats.migrated_in += 1
-        self.events.append(("migrate_in", self.sched.clock.now, rid))
+        now = self.sched.clock.now
+        self.events.append(("migrate_in", now, rid))
+        if self._tr.enabled:
+            self._span_ids[rid] = self._tr.begin_span(
+                "request", self.pid, now,
+                args={"rid": rid, "arrival": float(ticket.arrival),
+                      "prompt_len": int(ticket.prompt.size),
+                      "max_new_tokens": int(ticket.max_new_tokens),
+                      "migrated_in": True, "tokens_so_far": len(ticket.tokens)},
+            )
+        if self.obs.enabled:
+            self.obs.metrics.counter("engine.migrated_in").inc()
+            self._tr.instant("migrate_in", self.pid, now,
+                             args={"rid": rid, "n_tokens": len(ticket.tokens)})
         return rid
 
     # -- introspection -------------------------------------------------------
@@ -392,6 +465,12 @@ class ServeEngine:
     def decoding_rids(self) -> List[int]:
         """Requests mid-decode: the ones ``export_request`` can move."""
         return [self.pool.owner[int(s)] for s in np.nonzero(self._decoding)[0]]
+
+    @property
+    def has_work(self) -> bool:
+        """True while ``step()`` would do something other than idle
+        forever: active slots, queued arrivals or mid-prefill work."""
+        return bool(self.pool.n_active > 0 or self.sched.waiting or self.sched.running)
 
     # -- actions -------------------------------------------------------------
     def _slot_of(self, rid: int) -> int:
@@ -420,6 +499,7 @@ class ServeEngine:
 
     def _do_prefill(self, req: Request) -> None:
         sched, pool = self.sched, self.pool
+        v0 = sched.clock.now
         target = req.prefill_target()
         first = req.rid not in pool.owner
         if first:
@@ -498,10 +578,15 @@ class ServeEngine:
                     self._pending[slot] = tok
                     self._decoding[slot] = True
         self.events.append(("prefill", self.sched.clock.now, req.rid))
+        if self.obs.enabled:
+            self._m_prefill_tokens.inc(n_tok)
+            self._tr.complete("prefill", self.pid, v0, sched.clock.now,
+                              args={"rid": req.rid, "start": start,
+                                    "n_tokens": n_tok, "done": done})
 
     def _do_decode(self) -> None:
         pool = self.pool
-        t0 = time.perf_counter()
+        t0, v0 = time.perf_counter(), self.sched.clock.now
         # Each decoding lane writes one row at its position: grow its block
         # table (and, sharing, fork a shared block there) BEFORE taking the
         # lane mask. Without sharing this never fails (the whole budget was
@@ -542,6 +627,10 @@ class ServeEngine:
             else:
                 self._pending[slot] = next_tok[slot]
         self.events.append(("decode", self.sched.clock.now, -1))
+        if self.obs.enabled:
+            self._m_decode_ticks.inc()
+            self._tr.complete("decode", self.pid, v0, self.sched.clock.now,
+                              args={"lanes": int(mask.sum())})
 
     def _free_slot(self, slot: int) -> None:
         self.pool.free(slot)
@@ -567,7 +656,12 @@ class ServeEngine:
         self._free_slot(slot)
         self.sched.requeue(req)
         self.stats.preempted_requests += 1
-        self.events.append(("preempt", self.sched.clock.now, req.rid))
+        now = self.sched.clock.now
+        self.events.append(("preempt", now, req.rid))
+        if self.obs.enabled:
+            self.obs.metrics.counter("engine.preempted").inc()
+            self._tr.instant("preempt", self.pid, now,
+                             args={"rid": req.rid, "n_tokens": len(req.tokens)})
 
     def _preempt_for(self, needy_slot: int) -> None:
         """FORCED eviction: ``needy_slot``'s write found the free list empty
@@ -639,7 +733,7 @@ class ServeEngine:
         the verify's greedy tokens a round; the draft reads its
         proposals once a tick."""
         pool, sched, draft = self.pool, self.sched, self.draft
-        t0 = time.perf_counter()
+        t0, v0 = time.perf_counter(), sched.clock.now
         n_slots = pool.n_slots
         decoding = self._decoding.copy()
         slots = np.nonzero(decoding)[0]
@@ -734,17 +828,23 @@ class ServeEngine:
         self.stats.decode_tokens += sum(emitted_all)
         self.stats.decode_wall_seconds += time.perf_counter() - t0
         self.events.append(("spec", sched.clock.now, -1))
+        if self.obs.enabled:
+            self._tr.complete("spec_round", self.pid, v0, sched.clock.now,
+                              args={"gamma": int(gamma), "lanes": int(slots.size),
+                                    "committed": int(sum(emitted_all))})
 
     def _emit(self, req: Request, tok: int) -> None:
         if not req.tokens:
             req.t_first_token = self.sched.clock.now
         req.tokens.append(tok)
         self.stats.generated_tokens += 1
+        self._m_tokens.inc()
 
     def _finished(self, req: Request) -> bool:
         if len(req.tokens) >= req.max_new_tokens:
             if req.t_done is None:
                 req.t_done = self.sched.clock.now
+                self._end_request_span(req, "done", req.t_done)
             return True
         return False
 
@@ -790,8 +890,19 @@ class ServeEngine:
             else:
                 self._do_decode()
         elif kind == "idle":
+            v0 = self.sched.clock.now
             self.sched.on_idle()
             self.events.append(("idle", self.sched.clock.now, -1))
+            if self._tr.enabled:
+                self._tr.complete("idle", self.pid, v0, self.sched.clock.now)
+        if self.obs.enabled and kind != "done":
+            self._g_slots.set(self.pool.n_active)
+            values = {"slots": int(self.pool.n_active)}
+            if self.pool.paged:
+                used = self.pool.manager.n_used_blocks
+                self._g_blocks.set(used)
+                values["blocks"] = int(used)
+            self._tr.counter("occupancy", self.pid, self.sched.clock.now, values)
         return kind
 
     def run(self) -> Dict[int, Request]:

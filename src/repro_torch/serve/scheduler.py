@@ -3,8 +3,9 @@
 A copy of the reference scheduler (``repro.serve.scheduler``) for the
 port's engine, with its speculation pricing and callbacks (the draft
 mirror of a prefill, the draft lockstep tick, the draft-then-verify
-round) and its preemption economics (``CostModel.recompute`` / ``hold``,
-``Scheduler.requeue``), without the observability hooks.
+round), its preemption economics (``CostModel.recompute`` / ``hold``,
+``Scheduler.requeue``) and its observability hooks (the
+``sched.queue_wait`` histogram and the ``sched.waiting_depth`` gauge).
 
 Every tick the scheduler picks ONE action — admit-and-prefill a waiting
 request (possibly one chunk of it), run a decode tick over the whole
@@ -22,6 +23,8 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.obs import NULL_OBS, Observability
 
 __all__ = ["Request", "CostModel", "EventClock", "Scheduler", "next_bucket"]
 
@@ -170,6 +173,7 @@ class Scheduler:
         decode_per_prefill: int = 4,
         clock: Optional[EventClock] = None,
         deadline_ticks: Optional[int] = None,
+        obs: Optional[Observability] = None,
     ):
         """``deadline_ticks``: default per-request deadline, in decode-tick
         units of the clock's cost model, stamped at ADMISSION (queueing
@@ -183,11 +187,21 @@ class Scheduler:
         self.waiting: List[Request] = []
         self.running: List[Request] = []   # admitted, mid-prefill (chunked)
         self._decode_debt = 0              # decode ticks owed before next prefill
+        self.bind_obs(obs or NULL_OBS)
+
+    def bind_obs(self, obs: Observability) -> None:
+        """Attach (or swap) an observability bundle. The engine calls this
+        for schedulers built without one, so that a default scheduler
+        still reports queue metrics when the engine is instrumented."""
+        self.obs = obs
+        self._h_wait = obs.metrics.histogram("sched.queue_wait")
+        self._g_depth = obs.metrics.gauge("sched.waiting_depth")
 
     # -- queue ---------------------------------------------------------------
     def submit(self, req: Request) -> None:
         self.waiting.append(req)
         self.waiting.sort(key=lambda r: (r.arrival, r.rid))  # FIFO by arrival
+        self._g_depth.set(len(self.waiting))
 
     def _eligible(self) -> Optional[Request]:
         for r in self.waiting:
@@ -257,6 +271,7 @@ class Scheduler:
         req.t_admit = None
         self.waiting.append(req)
         self.waiting.sort(key=lambda r: (r.arrival, r.rid))
+        self._g_depth.set(len(self.waiting))
 
     def on_admit(self, req: Request) -> None:
         self.waiting.remove(req)
@@ -266,6 +281,10 @@ class Scheduler:
             req.deadline = (
                 self.clock.now + self.deadline_ticks * self.clock.cost.decode_tick
             )
+        self._g_depth.set(len(self.waiting))
+        # Queue wait, clamped at 0: a hedge copy can be admitted on a
+        # replica whose clock is behind the logical arrival stamp.
+        self._h_wait.observe(max(self.clock.now - req.arrival, 0.0))
 
     def drop(self, req: Request) -> None:
         """Forget a cancelled request wherever it sits in the queues
@@ -275,6 +294,7 @@ class Scheduler:
             self.waiting.remove(req)
         if req in self.running:
             self.running.remove(req)
+        self._g_depth.set(len(self.waiting))
 
     def on_prefill_chunk(self, req: Request, n_tokens: int, done: bool) -> None:
         req.prefilled += n_tokens

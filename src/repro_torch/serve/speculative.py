@@ -1,5 +1,5 @@
 """Speculative decoding: adaptive draft length over the slot pool (port of
-``repro.serve.speculative`` without the observability hooks).
+``repro.serve.speculative``).
 
 Each round, a cheap DRAFT model proposes ``gamma`` tokens per live slot
 (gamma sequential masked draft ticks), and the TARGET model scores all
@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core.order_stats import expected_kth, expected_kth_derivative
 from repro_torch.models.layers import tree_leaves
+from repro_torch.obs import NULL_OBS
 from repro_torch.runtime.steps import (
     make_slot_decode_step,
     make_slot_prefill_step,
@@ -140,6 +141,10 @@ class SpecController:
         self.draft_fused = True
         #: hist[a] = lane-rounds that accepted exactly ``a`` draft tokens.
         self.hist = np.zeros(gamma_max + 1, np.int64)
+        #: observability bundle, attached by the engine (as ``draft_fused``
+        #: is); the disabled singleton by default.
+        self.obs = NULL_OBS
+        self._last_gamma: Optional[int] = None   # decision-log dedup
 
     # -- telemetry -----------------------------------------------------------
     def observe(self, accepted: int, offered: int) -> None:
@@ -148,6 +153,9 @@ class SpecController:
         if not (0 <= accepted <= offered):
             raise ValueError(f"accepted {accepted} outside [0, {offered}]")
         self.hist[min(accepted, self.gamma_max)] += 1
+        if self.obs.enabled:
+            self.obs.metrics.counter("spec.offered").inc(offered)
+            self.obs.metrics.counter("spec.accepted").inc(accepted)
         outcomes = [1.0] * accepted + ([0.0] if accepted < offered else [])
         for x in outcomes:
             self.p += self.alpha * (x - self.p)
@@ -187,6 +195,16 @@ class SpecController:
             toks = expected_round_tokens(1, p)
             c = self.round_cost(1, cost)
             best = GammaPlan(1, toks, c, c / toks)
+        if best.gamma != self._last_gamma:
+            # Log a reprice (a CHANGED gamma), not every evaluation.
+            self._last_gamma = best.gamma
+            self.obs.decisions.record(
+                "serve.gamma",
+                {"gamma": int(best.gamma), "n_h": int(best.n_h)},
+                {"p": round(p, 6), "observations": self.observations,
+                 "cost_per_token": round(best.cost_per_token, 9)},
+                step=self.rounds,
+            )
         return best
 
     def choose_hedged(

@@ -13,7 +13,9 @@ never to reach a plain version for a CUDA tensor, the decode kernels to
 refuse a gradient, and the reduced model's decode tick and train step to
 run through the kernels. Paged flash decode is also held over the block
 tables prefix sharing leaves, and the sharing pool's block copy, snapshot
-and restore on CUDA to the same copies on the CPU, bit for bit.
+and restore on CUDA to the same copies on the CPU, bit for bit. A
+three-replica fleet with observability on serves through a kill and a
+rejoin on the card.
 """
 
 import dataclasses
@@ -671,3 +673,46 @@ def test_zamba_train_step_runs_through_the_kernels(cuda, remat, monkeypatch):
         "decode_attention": 0, "paged_decode_attention": 0,
         "ssd_scan": r * L, "ssd_scan_bwd": L}
     assert torch.isfinite(metrics["loss"])
+
+
+def test_fleet_with_obs_runs_on_the_card(cuda):
+    """The reference observability tests' chaos fleet on the card: three
+    paged replicas of the reduced smollm-135m (f32) sharing one params
+    dict behind a ``Frontend`` with ``Observability()``, replica 1 killed
+    at tick 12 and rejoined at 60. Every stream equals the card's offline
+    decode, no span is left open, the trace validates, and every pool and
+    arena drains; the shared weights are unchanged."""
+    import numpy as np
+
+    from repro_torch.core import SimplifiedDelayModel
+    from repro_torch.obs import Observability, validate_trace
+    from repro_torch.runtime import FaultEvent
+    from repro_torch.serve import Frontend, Replica
+
+    cfg = get_config("smollm-135m").reduced()
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    before = [t.clone() for t in tree_leaves(params, is_leaf=torch.is_tensor)]
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i in range(8):
+        p, m = int(rng.integers(4, 16)), int(rng.integers(6, 14))
+        reqs.append((rng.integers(0, cfg.vocab_size, size=p).astype(np.int32), m, i * 0.002))
+    obs = Observability()
+    replicas = [Replica(i, model, params, n_slots=2, max_len=64, block_size=8, obs=obs)
+                for i in range(3)]
+    fe = Frontend(replicas, SimplifiedDelayModel(lambda_y=2.0), cost_per_replica=0.001,
+                  events=[FaultEvent(step=12, kind="fail", worker=1),
+                          FaultEvent(step=60, kind="rejoin", worker=1)],
+                  deadline=0.5, retry_budget=3, obs=obs)
+    gids = [fe.submit(p, m, arrival=a) for p, m, a in reqs]
+    out = fe.run()
+    assert fe.summary()["dropped"] == 0
+    assert [out[g].tokens for g in gids] == [
+        generate_offline(model, params, p, m, 64) for p, m, _ in reqs]
+    assert obs.tracer.open_spans == [] and validate_trace(obs.tracer.events) == []
+    for rep in replicas:
+        assert rep.engine.pool.n_active == 0
+        assert rep.engine.pool.manager.n_used_blocks == 0
+    assert (fe.router.inflight == 0).all()
+    assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(params, is_leaf=torch.is_tensor)))
