@@ -17,11 +17,14 @@ runs, in order, and exits non-zero at the first phase that fails:
    and of K2's forward, backward and dscale-sum kernels spills;
 3. holds every kernel against its plain PyTorch version on the card, at
    the serving path's shapes, in f32 and bf16: K2 at a decode step's 1
-   and 4 rows at D 2048 and 4096 (``parity.RMS_DECODE_SHAPES``), a llama
-   verify's 8 to 28 rows (``parity.RMS_VERIFY_SHAPES``; both printing
-   each one's launch plan) and a prefill chunk's 256, each a second launch
+   and 4 rows at D 2048, 4096 and 8192 and at the qk-norm's rows of D 128
+   (``parity.RMS_DECODE_SHAPES``), a llama verify's 8 to 28 rows
+   (``parity.RMS_VERIFY_SHAPES``), a 128-token chunk of the wide models
+   (``parity.RMS_CHUNK_SHAPES``; all three printing each one's launch
+   plan) and a prefill chunk's 256, each a second launch
    bit for bit; K3 and K4 (split-KV flash
-   decode) at ``parity.DECODE_SHAPES`` (zamba2's G = 1, D 128 among them),
+   decode) at ``parity.DECODE_SHAPES`` (zamba2's G = 1, D 128 and the
+   wide models' G = 8, D 128 among them),
    each bit for bit equal to the
    other on identical rows, to a second launch of itself, and, row by row,
    to a launch of that row alone (the split plan reads no batch size);
@@ -45,7 +48,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    device time by kernel class;
 7. holds the training kernels against their plain versions on the card:
    flash attention forward and backward (K1) over the reference's
-   kernel-test shapes and the training shape, causal and not, in f32
+   kernel-test shapes and the training shapes (``parity.FLASH_SHAPES``:
+   llama3.2-1b's, zamba2's shared block's, qwen2.5-3b's), causal and not, in f32
    and bf16, plus the training shape with q and k scaled by 4 (scores
    near 100), and the RMSNorm forward and backward (K2) at the training
    rows of both models' widths (D 2048 and 4096), each a second launch
@@ -143,11 +147,43 @@ runs, in order, and exits non-zero at the first phase that fails:
    arena and router count drains, the trace validates, every call of
    every replica launches what phase 4's do, and each ticket's seal and
    verify are timed;
+19. the registry's other GQA decoders at full width and full depth,
+   each loaded alone (random bf16 weights from a seed, their bias and
+   norm leaves made noisy; the memory held before each load and the
+   peak after it printed): (a) qwen2.5-3b (q/k/v bias) serves phase
+   4's traffic over both pools; (b) command-r-35b (LayerNorm, the
+   parallel attention + FFN block, logit scale 0.0625), chameleon-34b
+   (qk-norm, untied head) and qwen3-moe-30b-a3b (128 experts top 8,
+   dropless) each serve 6 requests (prompts 32-256, 8-32 new) over the
+   paged pool, 4 slots of 512, 128-token chunks. Every call's launches
+   are counted (K2 once an RMSNorm, none for LayerNorm; K3 or K4 once a
+   layer a tick) and every stream position is held to teacher-forced
+   offline decode by two rules: the logits' top-2 gap read before
+   ``logit_scale`` is a near-tie, or, for the MoE, the served router
+   picked another expert set than offline's in some layer at that
+   position (both runs' sets are recorded; the share of positions where
+   a set differs and the largest offline router gap at a differing set
+   are printed); each rule's excused positions are printed, and either
+   excusing more than a quarter of them fails. (c) Before each wide model, its 2-layer f32
+   cut runs a right-padded prefill chunk and 2 ticks on the card against
+   plain on the CPU over both pools. (d) qwen2.5-3b trains at full width
+   (36 layers, bf16, remat selective, 8 x 512 tokens a step) through
+   the adaptive-(k, beta) loop with a fail and a rejoin; then one step
+   under selective and one under full remat on one batch (losses equal
+   bit for bit, gradient norms within 1e-3; peak memory and wall of
+   each), and K1 and K2 held at every batch shape the loop ran. (e) K2,
+   K3 and K4 are timed at each model's tick shape (G 8 at D 128; K2 at D
+   8192 and at the qk-norm's D 128) and K1 at qwen2.5-3b's training
+   shape, and 20 steady ticks of each model are profiled beside their
+   byte bound (the weights plus the live K/V rows at 3.35 TB/s; for the
+   MoE every expert, as its dropless dispatch reads them, and beside it
+   only the experts the profiled ticks routed to);
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
 phase 17 under ``phase17_launches`` and in phase 18 under
-``phase18_launches``; the profiles under
+``phase18_launches`` and in phase 19 under ``phase19_launches``; the
+profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
@@ -159,7 +195,8 @@ and ``zamba_serve_profile``, phase 16's under ``spec_parity``,
 ``spec_rmsnorm_times``, ``spec_snapshot`` and ``spec_profile`` (each
 kernel's launches there under ``spec_serve_launches``), phase 17's under
 ``prefix_serve``, ``preempt_serve``, ``migration`` and ``zamba_preempt``, phase 18's
-under ``observed_serve`` and ``fleet``, the launch floor, phase 2's tensor-core
+under ``observed_serve`` and ``fleet``, phase 19's under ``gqa_configs``,
+the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
 ``k2_resources``), the card line
@@ -170,7 +207,9 @@ It imports nothing of JAX and nothing of the reference package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -440,7 +479,8 @@ def check_kernels() -> dict:
     )
     from repro_torch.kernels.decode_attention import sm_count
     from repro_torch.kernels.parity import (
-        DECODE_BLOCK, DECODE_SHAPES, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES, SHARED_DECODE_SHAPES,
+        DECODE_BLOCK, DECODE_SHAPES, RMS_CHUNK_SHAPES, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES,
+        SHARED_DECODE_SHAPES,
     )
     from repro_torch.kernels.rmsnorm import launch_plan
 
@@ -449,12 +489,12 @@ def check_kernels() -> dict:
     worst = {"rmsnorm": 0.0, "decode_attention": 0.0, "paged_decode_attention": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for shape in (RMS_DECODE_SHAPES + RMS_VERIFY_SHAPES
+        for shape in (RMS_DECODE_SHAPES + RMS_VERIFY_SHAPES + RMS_CHUNK_SHAPES
                       + [(PREFILL_CHUNK, 1, 2048), (512, 2048)]):
             err = hold_rms_norm(shape, dtype, gen)
-            if shape in RMS_DECODE_SHAPES + RMS_VERIFY_SHAPES:
+            if shape in RMS_DECODE_SHAPES + RMS_VERIFY_SHAPES + RMS_CHUNK_SHAPES:
                 es = torch.tensor([], dtype=dtype).element_size()
-                plan = launch_plan(False, shape[0] * shape[1], shape[-1], es, True,
+                plan = launch_plan(False, int(np.prod(shape[:-1])), shape[-1], es, True,
                                    sm_count(0))
                 print(f"    launch plan: {plan} (phase 2: no K2 instance spills)")
             if dtype == torch.bfloat16:
@@ -555,24 +595,34 @@ def workload(vocab: int):
     return reqs
 
 
-def serve(model, params) -> dict:
+def serve(model, params, reqs, pools=(("contiguous", None), ("paged", BLOCK_SIZE)), *,
+          n_slots: int = N_SLOTS, max_len: int = MAX_LEN, chunk: int = PREFILL_CHUNK) -> dict:
+    """``reqs`` through ``ServeEngine`` over each of ``pools`` ((name, block
+    size or None)), each run's launch counters reset just before it and
+    read just after: K2 ``k2_per_call`` times a prefill call and a tick,
+    K3 or K4 once a layer a tick, nothing else. The caller holds the
+    streams to offline decode (``check_streams``); for an MoE, each run
+    also records the experts its router chose at every (request index,
+    position) (``record_served_experts``)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.parity import k2_per_call
     from repro_torch.serve import Scheduler, ServeEngine
 
     cfg = model.cfg
-    reqs = workload(cfg.vocab_size)
     L = cfg.n_layers
-    norms = 2 * L + 1
+    norms = k2_per_call(cfg)
     runs = {}
-    for pool, block_size in (("contiguous", None), ("paged", BLOCK_SIZE)):
+    for pool, block_size in pools:
         eng = ServeEngine(
-            model, params, n_slots=N_SLOTS, max_len=MAX_LEN, block_size=block_size,
-            scheduler=Scheduler(N_SLOTS, prefill_chunk=PREFILL_CHUNK),
+            model, params, n_slots=n_slots, max_len=max_len, block_size=block_size,
+            scheduler=Scheduler(n_slots, prefill_chunk=chunk),
         )
         rids = [eng.submit(p, m, arrival=a) for p, m, a in reqs]
+        finish = record_served_experts(eng) if cfg.moe is not None else None
         torch.cuda.synchronize()
         reset_launch_counts()
-        results = eng.run()
+        with RouterRecord() if finish else contextlib.nullcontext() as rec:
+            results = eng.run()
         torch.cuda.synchronize()
         counts = launch_counts()
         st = eng.stats
@@ -586,18 +636,21 @@ def serve(model, params) -> dict:
               f"{pool}: rmsnorm launched {counts['rmsnorm']} times, expected "
               f"{norms} x {st.decode_ticks + st.prefill_calls}")
         attn = "paged_decode_attention" if block_size else "decode_attention"
-        other = "decode_attention" if block_size else "paged_decode_attention"
         check(counts[attn] == L * st.decode_ticks and st.decode_ticks > 0,
               f"{pool}: {attn} launched {counts[attn]} times, expected {L} x "
               f"{st.decode_ticks}")
-        check(counts[other] == 0, f"{pool}: {other} launched on the wrong pool")
+        others = {k: v for k, v in counts.items() if k not in ("rmsnorm", attn) and v}
+        check(not others, f"{pool}: kernels off the serving path launched: {others}")
         for rid, (p, m, _) in zip(rids, reqs):
             toks = results[rid].tokens
             check(len(toks) == m and all(0 <= t < cfg.vocab_size for t in toks),
                   f"{pool}: request {rid} produced a malformed stream")
         runs[pool] = {"tokens": [results[r].tokens for r in rids], "stats": st,
                       "launches": counts}
-    check_streams(model, params, reqs, runs, MAX_LEN)
+        if finish:
+            index = {rid: i for i, rid in enumerate(rids)}
+            runs[pool]["experts"] = {(index[rid], q): ex
+                                     for (rid, q), ex in finish(rec).items()}
     return runs
 
 
@@ -605,40 +658,192 @@ def serve(model, params) -> dict:
 #: (offline's choices, their top-2 gaps): a stream served again (by
 #: another pool, or speculatively) is not decoded twice.
 OFFLINE = {}
+#: MoE models: (model name, request index, stream) -> the offline decode's
+#: router record: (positions, MoE layers, top_k) sorted experts and the
+#: (positions, MoE layers) router-logit gaps (``RouterRecord``).
+ROUTER_OFFLINE = {}
+
+
+class RouterRecord:
+    """While active, records what every call of the MoE router
+    (``repro_torch.models.moe.route``) returns as each row's experts (a
+    (T, K) device tensor a call, kept as the router made it), and, with
+    ``gaps``, each row's router-logit gap between its k-th and (k+1)-th
+    largest expert (log p_k - log p_(k+1), as ``route`` forms the logits).
+    A model call routes once a MoE layer, in layer order."""
+
+    def __init__(self, gaps: bool = False):
+        self.want_gaps, self.experts, self.gaps = gaps, [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.module, self.route = moe, moe.route
+
+        def route(x_flat, router, cfg_moe):
+            res = self.route(x_flat, router, cfg_moe)
+            self.experts.append(res[1])
+            if self.want_gaps:
+                top = torch.topk((x_flat @ router).float(), cfg_moe.top_k + 1, dim=-1).values
+                self.gaps.append(top[:, -2] - top[:, -1])
+            return res
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.route
+
+    def calls(self, n_layers: int) -> list:
+        """One ((n_layers, T, K) sorted experts, (n_layers, T) gaps or None)
+        pair a model call, as numpy arrays."""
+        out = []
+        for i in range(0, len(self.experts), n_layers):
+            ex = torch.stack(self.experts[i:i + n_layers]).sort(dim=-1).values.cpu().numpy()
+            g = (torch.stack(self.gaps[i:i + n_layers]).cpu().numpy()
+                 if self.want_gaps else None)
+            out.append((ex, g))
+        return out
+
+
+def moe_layers(cfg) -> int:
+    return cfg.n_layers - cfg.moe.first_k_dense if cfg.moe is not None else 0
+
+
+def record_served_experts(eng):
+    """Wraps ``eng``'s prefill and decode calls so that, with a
+    ``RouterRecord`` active, each call's rows can be mapped to (request id,
+    position). Returns ``finish(rec)``, which after the run gives {(rid,
+    position): (MoE layers, top_k) sorted experts} for every real row (a
+    prefill chunk's padding and idle lanes are left out)."""
+    rows, cur = [], {}
+    do_prefill, prefill, decode = eng._do_prefill, eng._prefill, eng._decode
+
+    def do_prefill_w(req):
+        cur["rid"] = req.rid
+        return do_prefill(req)
+
+    def prefill_w(params, chunk, caches, length, start, tables):
+        rows.append(("prefill", cur["rid"], int(start), length))
+        return prefill(params, chunk, caches, length, start, tables)
+
+    def decode_w(params, tokens, caches, positions, tables, lanes):
+        owners = [eng.pool.owner[s] if eng._decoding[s] else None
+                  for s in range(len(eng._decoding))]
+        rows.append(("tick", owners, eng.pool.positions.copy()))
+        return decode(params, tokens, caches, positions, tables, lanes)
+
+    eng._do_prefill, eng._prefill, eng._decode = do_prefill_w, prefill_w, decode_w
+
+    def finish(rec: RouterRecord) -> dict:
+        calls = rec.calls(moe_layers(eng.model.cfg))
+        check(len(calls) == len(rows), f"{len(calls)} router calls for {len(rows)} model calls")
+        out = {}
+        for row, (ex, _) in zip(rows, calls):
+            if row[0] == "prefill":
+                _, rid, start, length = row
+                for r in range(int(length[0])):
+                    out[(rid, start + r)] = ex[:, r]
+            else:
+                for s, rid in enumerate(row[1]):
+                    if rid is not None:
+                        out[(rid, int(row[2][s]))] = ex[:, s]
+        return out
+    return finish
 
 
 def check_streams(model, params, reqs, runs: dict, max_len: int) -> dict:
     """Offline decode is fed each served stream (teacher forcing), so every
     position is checked: the engine's token equals offline's choice on
-    the same prefix, or offline's top-2 gap there is a near-tie. Where
-    paged and contiguous part on a shared prefix, offline's one choice
-    differs from one of them, so the check also covers that split."""
+    the same prefix, or a near-tie rule excuses it. Where paged and
+    contiguous part on a shared prefix, offline's one choice differs from
+    one of them, so the check also covers that split.
+
+    The logit rule: offline's top-2 gap there, read before the config's
+    ``logit_scale`` (gap / logit_scale), is below ``TIE_TOL``. The router
+    rule (MoE models): at the position whose logits chose the token, the
+    served run's router picked another expert set than offline decode's in
+    some layer (``serve`` records the served sets). The batch-4 tick and
+    the batch-1 offline step, or a 128-row chunk and the whole prompt,
+    round apart in bf16, and a flipped set moves the logits by more than a
+    rounding. That is a fact of the two runs, not a tolerance: a set flips
+    only where the served router logits moved across offline's gap between
+    its k-th and (k+1)-th expert, so the largest such gap is the run's own
+    bound, and it is printed with the rule's reach (the positions where
+    some layer's set differs). Each rule's excused positions are counted;
+    a departure that neither excuses fails the run."""
     from repro_torch.serve import generate_offline
 
-    compared = near_ties = identical = 0
+    cfg = model.cfg
+    n_moe = moe_layers(cfg)
+    compared = near_ties = router_flips = identical = 0
+    flipped = flipped_prompt = prompt_rows = 0
+    flip_gap_max = 0.0
     for i, (p, m, _) in enumerate(reqs):
+        P = len(p)
         for pool in runs:
             got = runs[pool]["tokens"][i]
-            key = (model.cfg.name, i, tuple(got))
+            key = (cfg.name, i, tuple(got))
             if key not in OFFLINE:
-                OFFLINE[key] = generate_offline(model, params, p, m, max_len, forced=got)
+                with RouterRecord(gaps=True) if n_moe else contextlib.nullcontext() as rec:
+                    OFFLINE[key] = generate_offline(model, params, p, m, max_len, forced=got)
+                if n_moe:
+                    # (positions, layers, K) and (positions, layers): the
+                    # prefill's P rows, then one row a decode step.
+                    calls = rec.calls(n_moe)
+                    ROUTER_OFFLINE[key] = (
+                        np.concatenate([ex.transpose(1, 0, 2) for ex, _ in calls]),
+                        np.concatenate([g.T for _, g in calls]))
             choice, margins = OFFLINE[key]
-            ties = [j for j in range(m) if got[j] != choice[j]]
-            for j in ties:
-                check(margins[j] < TIE_TOL,
+            diff = None
+            if n_moe:
+                # diff[q, l]: layer l's expert set at position q differs.
+                # Position P - 1 + j's logits chose token j.
+                off_ex, off_gap = ROUTER_OFFLINE[key]
+                served = runs[pool]["experts"]
+                n_pos = P + m - 1
+                check(off_ex.shape[0] == n_pos and all((i, q) in served for q in range(n_pos)),
+                      f"{pool}: request {i}: router records do not cover its {n_pos} positions")
+                diff = np.stack([(served[(i, q)] != off_ex[q]).any(-1) for q in range(n_pos)])
+                flipped_prompt += int(diff[:P - 1].any(-1).sum())
+                prompt_rows += P - 1
+                flipped += int(diff[P - 1:].any(-1).sum())
+                if diff.any():
+                    flip_gap_max = max(flip_gap_max, float(off_gap[:n_pos][diff].max()))
+            for j in (j for j in range(m) if got[j] != choice[j]):
+                gap = margins[j] / cfg.logit_scale
+                if gap < TIE_TOL:
+                    near_ties += 1
+                    print(f"  {pool}: request {i} token {j}/{m} differs from offline "
+                          f"(offline top-2 gap {gap:.4f} < {TIE_TOL}: near-tie)")
+                    continue
+                layers = np.nonzero(diff[P - 1 + j])[0] if n_moe else []
+                check(len(layers) > 0,
                       f"{pool}: request {i} token {j} is {got[j]}, offline decode on the "
-                      f"same prefix picks {choice[j]} at a top-2 gap {margins[j]:.4f} "
-                      f">= {TIE_TOL}")
-                print(f"  {pool}: request {i} token {j}/{m} differs from offline "
-                      f"(offline top-2 gap {margins[j]:.4f} < {TIE_TOL}: near-tie)")
+                      f"same prefix picks {choice[j]} at a top-2 gap {gap:.4f} >= {TIE_TOL}"
+                      + (" and the served router picked offline's experts in every layer "
+                         "there" if n_moe else ""))
+                router_flips += 1
+                print(f"  {pool}: request {i} token {j}/{m} differs from offline (top-2 "
+                      f"gap {gap:.4f}; the served router picked other experts there in "
+                      f"layers {layers.tolist()}, offline router gaps "
+                      f"{[round(float(off_gap[P - 1 + j, l]), 4) for l in layers]}: router flip)")
             compared += m
-            near_ties += len(ties)
-            identical += not ties
+            identical += got == choice
     out = {"positions_compared": compared, "near_ties": near_ties,
+           "router_flips": router_flips, "unexcused": 0,
            "identical_streams": identical, "streams": len(runs) * len(reqs)}
     line = (f"  streams vs teacher-forced offline: {compared} positions compared, "
             f"{identical} of {len(runs) * len(reqs)} streams identical, {near_ties} near-ties "
-            f"accepted (top-2 gap < {TIE_TOL})")
+            f"accepted (top-2 gap / logit_scale < {TIE_TOL})")
+    if n_moe:
+        out.update(router_flip_positions=flipped, router_flip_share=flipped / compared,
+                   router_flip_prompt_rows=flipped_prompt, prompt_rows=prompt_rows,
+                   router_flip_gap_max=flip_gap_max)
+        line += (f", {router_flips} router flips accepted; the rule's reach: some layer's "
+                 f"served expert set differs from offline's at {flipped} of {compared} "
+                 f"positions ({flipped / compared:.1%}) and at {flipped_prompt} of "
+                 f"{prompt_rows} earlier prompt rows; the largest offline router gap where a "
+                 f"set differs: {flip_gap_max:.4f}")
     if "contiguous" in runs and "paged" in runs:
         out["paged_equals_contiguous"] = sum(
             a == b for a, b in zip(runs["contiguous"]["tokens"], runs["paged"]["tokens"]))
@@ -830,6 +1035,18 @@ def kernel_class(name: str) -> str:
     return "other PyTorch kernels"
 
 
+def device_events(fn) -> int:
+    """Device events (kernels, copies, sets) the profiler records over
+    ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.device_type == torch.autograd.DeviceType.CUDA for evt in prof.events())
+
+
 def window(label: str, timed, profiled, n_units: int, unit: str) -> dict:
     """Host wall time of ``timed()`` without the profiler, and device
     kernel time of ``profiled()`` (the same amount of the same work) under
@@ -875,39 +1092,21 @@ def window(label: str, timed, profiled, n_units: int, unit: str) -> dict:
 def profile_serving(model, params) -> list:
     """Three steady windows, each after a warm-up of the same work: 20
     decode ticks of 4 lanes (prompts of 400-600 tokens) over the
-    contiguous pool, the same over the paged pool, and the 3 prefill
-    chunks of one 600-token prompt. For each: host wall time, device
-    kernel time, the device's idle share (1 - device / wall), kernel
-    launches, and device time by kernel class."""
+    contiguous pool, the same over the paged pool (``profile_ticks``), and
+    the 3 prefill chunks of one 600-token prompt. For each: host wall
+    time, device kernel time, the device's idle share (1 - device / wall),
+    kernel launches, and device time by kernel class."""
     from repro_torch.serve import Scheduler, ServeEngine
 
     cfg = model.cfg
+    results = profile_ticks(model, params, (("contiguous", None), ("paged", BLOCK_SIZE)),
+                            n_slots=N_SLOTS, max_len=MAX_LEN, chunk=PREFILL_CHUNK,
+                            prompt=(400, 600), seed=SEED)
     rng = np.random.default_rng(SEED)
-    results = []
-
-    def engine(block_size):
-        return ServeEngine(model, params, n_slots=N_SLOTS, max_len=MAX_LEN,
-                           block_size=block_size,
-                           scheduler=Scheduler(N_SLOTS, prefill_chunk=PREFILL_CHUNK))
-
-    for pool, bsz in (("contiguous", None), ("paged", BLOCK_SIZE)):
-        eng = engine(bsz)
-        for _ in range(N_SLOTS):
-            eng.submit(rng.integers(0, cfg.vocab_size, size=int(rng.integers(400, 600))),
-                       200)
-        while not eng._decoding.all():        # admit and prefill all lanes
-            eng.step()
-
-        def ticks(eng=eng):
-            for _ in range(20):
-                eng.step()
-
-        ticks()                               # warm-up
-        results.append(window(f"decode tick, {pool} pool, 4 lanes", ticks, ticks,
-                              20, "tick"))
 
     def prefill_fresh():
-        eng = engine(None)
+        eng = ServeEngine(model, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+                          scheduler=Scheduler(N_SLOTS, prefill_chunk=PREFILL_CHUNK))
         eng.submit(rng.integers(0, cfg.vocab_size, size=600), 2)
         return eng
 
@@ -920,6 +1119,101 @@ def profile_serving(model, params) -> list:
     results.append(window("prefill, 600-token prompt in 256-token chunks",
                           lambda: prefill_all(a), lambda: prefill_all(b), 3, "chunk"))
     return results
+
+
+#: Decode ticks in each profiled tick window (after a warm-up of as many).
+PROFILE_TICKS = 20
+
+
+def tick_bytes(model, params, live_rows: int, experts_read: float = None) -> int:
+    """Bytes a decode tick must read: every weight (an untied embedding
+    table only for its lanes' rows, which are left out) and ``live_rows``
+    K/V rows over all layers. For an MoE, ``experts_read`` (the distinct
+    experts the tick routes to, summed over its MoE layers) counts only
+    those experts' weights; without it every expert is read, as the
+    dropless dispatch's (E, C, D) products do."""
+    from repro_torch.models.layers import tree_leaves
+
+    cfg = model.cfg
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params, is_leaf=torch.is_tensor))
+    if not cfg.tie_embeddings:
+        weights -= params["embed"].numel() * params["embed"].element_size()
+    if experts_read is not None:
+        ffn = params["stack"][-1][0]["ffn"]
+        per_expert = sum(ffn[k][0].numel() * ffn[k].element_size()
+                         for k in ("w_in", "w_gate", "w_out"))
+        weights -= round((moe_layers(cfg) * cfg.moe.n_experts - experts_read) * per_expert)
+    kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * params["embed"].element_size()
+    return weights + live_rows * kv_row
+
+
+def profile_ticks(model, params, pools, *, n_slots: int, max_len: int, chunk: int,
+                  prompt, seed: int) -> list:
+    """``PROFILE_TICKS`` steady decode ticks of ``n_slots`` lanes (prompts
+    drawn from ``prompt``, budgets to the end of the slot, so no lane
+    finishes in the window) over each of ``pools``, after a warm-up of as
+    many: the ``window`` of each, with its byte bound per tick
+    (``tick_bytes`` at the window's mean live rows over
+    ``HBM_BYTES_PER_S``). For an MoE, the profiled ticks also record the
+    router's choices, a second bound reads only the experts they routed
+    to (the mean distinct experts a tick over its MoE layers), and as
+    many ticks again are profiled without the record for their launches."""
+    from repro_torch.serve import Scheduler, ServeEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    n = PROFILE_TICKS
+    n_moe = moe_layers(cfg)
+    out = []
+    for pool, bsz in pools:
+        eng = ServeEngine(model, params, n_slots=n_slots, max_len=max_len, block_size=bsz,
+                          scheduler=Scheduler(n_slots, prefill_chunk=chunk))
+        for _ in range(n_slots):
+            eng.submit(rng.integers(0, cfg.vocab_size, size=int(rng.integers(*prompt))),
+                       max_len - prompt[1])
+        while not eng._decoding.all():        # admit and prefill all lanes
+            eng.step()
+
+        def ticks(eng=eng):
+            for _ in range(n):
+                eng.step()
+
+        rec = RouterRecord()
+
+        def recorded(ticks=ticks, rec=rec):
+            with rec:
+                ticks()
+
+        ticks()                               # warm-up
+        live = int(eng.pool.positions.sum()) + n_slots * (n + 1) // 2
+        nbytes = tick_bytes(model, params, live)
+        res = window(f"{cfg.name} decode tick, {pool} pool, {n_slots} lanes", ticks,
+                     recorded if n_moe else ticks, n, "tick")
+        res.update(bound_bytes_per_tick=nbytes,
+                   bound_ms_per_tick=nbytes / HBM_BYTES_PER_S * 1e3, live_kv_rows=live)
+        print(f"    byte bound: {nbytes / 2**30:.2f} GiB a tick ({live} live K/V rows) = "
+              f"{res['bound_ms_per_tick']:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+        if n_moe:
+            calls = rec.calls(n_moe)
+            check(len(calls) == n, f"{len(calls)} routed ticks recorded, expected {n}")
+            routed = float(np.mean([sum(len(np.unique(ex[l])) for l in range(n_moe))
+                                    for ex, _ in calls]))
+            nbytes = tick_bytes(model, params, live, experts_read=routed)
+            res.update(routed_experts_per_tick=routed,
+                       routed_bound_bytes_per_tick=nbytes,
+                       routed_bound_ms_per_tick=nbytes / HBM_BYTES_PER_S * 1e3)
+            print(f"    byte bound of the routed experts only ({routed / n_moe:.2f} distinct "
+                  f"of {cfg.moe.n_experts} a layer a tick, mean over the profiled ticks): "
+                  f"{nbytes / 2**30:.2f} GiB a tick = "
+                  f"{res['routed_bound_ms_per_tick']:.3f} ms")
+            # As many ticks again, profiled without the record, which must
+            # add no launch of its own.
+            res["launches_per_tick_unrecorded"] = device_events(ticks) / n
+            print(f"    launches a tick profiled without the router record: "
+                  f"{res['launches_per_tick_unrecorded']:.1f}")
+        out.append(res)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1220,26 +1514,37 @@ def per_step_launches(cfg) -> dict:
     remat every checkpointed block runs its forward twice (once more in
     the backward pass) and its backward once.
 
-    Dense: each block runs K1 and two K2 norms. Hybrid: each Mamba2 layer
-    runs K5 and two K2 norms (its pre-norm and its gated norm), each shared
-    call K1 and two K2 norms. Plus the final norm."""
+    Dense: each block runs K1 and its K2 norms (``k2_per_call``).
+    Hybrid: each Mamba2 layer runs K5 and two K2 norms (its pre-norm and
+    its gated norm), each shared call K1 and two K2 norms. Plus the final
+    norm. Selective remat recomputes K1 and K2 like full remat: neither is
+    a saved product."""
+    from repro_torch.kernels.parity import k2_per_call
+
     r = 1 if cfg.remat == "none" else 2
     L = cfg.n_layers
     counts = dict.fromkeys(("decode_attention", "paged_decode_attention", "ssd_scan",
                             "ssd_scan_bwd"), 0)
+    final = int(cfg.norm == "rmsnorm")
     if cfg.family in ("ssm", "hybrid"):
         calls = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
         norms = 2 * L + 2 * calls
         counts.update(flash_attention=r * calls, flash_attention_bwd=calls,
                       ssd_scan=r * L, ssd_scan_bwd=L)
     else:
-        norms = 2 * L
+        norms = k2_per_call(cfg) - final
         counts.update(flash_attention=r * L, flash_attention_bwd=L)
-    counts.update(rmsnorm=r * norms + 1, rmsnorm_bwd=norms + 1)
+    counts.update(rmsnorm=r * norms + final, rmsnorm_bwd=norms + final)
     return counts
 
 
-def train_full_width(model, steps: int) -> dict:
+def train_full_width(model, steps: int, global_batch: int = TRAIN_B,
+                     loss_falls: bool = True) -> dict:
+    """The adaptive-(k, beta) loop at full width: 8 workers, ``global_batch``
+    rows of ``TRAIN_S`` tokens at beta 1, a fail at step 5 and a rejoin at
+    10. Checks the launches per step, finite losses, the stage walk, the
+    fleet path, the peak memory and, with ``loss_falls``, that the last
+    loss is below the first."""
     from repro_torch.core import DiagnosticConfig, SimplifiedDelayModel, StrategyConfig
     from repro_torch.data import StagedBatcher, TokenStream
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1255,7 +1560,7 @@ def train_full_width(model, steps: int) -> dict:
         diagnostic=DiagnosticConfig(kind="loss", rel_tol=0.5, min_iters=4, consecutive=1),
     )
     batcher = StagedBatcher(TokenStream(cfg.vocab_size, seed=SEED), n_workers=n,
-                            global_batch=TRAIN_B, seq_len=TRAIN_S)
+                            global_batch=global_batch, seq_len=TRAIN_S)
     events = [FaultEvent(5, "fail", 3), FaultEvent(10, "rejoin", 3)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1283,7 +1588,9 @@ def train_full_width(model, steps: int) -> dict:
           f"launch counts {counts} are not {steps} x {per_step}")
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)), "a training loss is not finite")
-    check(losses[-1] < losses[0], f"the last loss {losses[-1]} is not below the first {losses[0]}")
+    if loss_falls:
+        check(losses[-1] < losses[0],
+              f"the last loss {losses[-1]} is not below the first {losses[0]}")
     stages = []
     for h in hist:
         if not stages or stages[-1] != (h["k"], h["beta"]):
@@ -1901,14 +2208,24 @@ SPEC_GAMMA, SPEC_NOISE, SPEC_POOR = 6, 3e-4, 2e-2
 Z_SPEC_GAMMA, Z_SPEC_REQUESTS = 3, 3
 
 
-def noisy_params(params, noise: float, seed: int):
+def noisy_params(params, noise: float, seed: int, only=None):
     """The parameters plus ``noise`` times standard normals drawn in f32 from
-    a seeded generator on their device, each leaf cast back to its dtype."""
-    from repro_torch.models.layers import tree_map
-
+    a seeded generator on their device, each leaf cast back to its dtype.
+    ``only``: the names (dict keys) of the leaves to perturb; the others
+    are passed through as they are."""
     gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
-    return tree_map(lambda t: (t.float() + noise * torch.randn(
-        t.shape, generator=gen, device=t.device)).to(t.dtype), params, is_leaf=torch.is_tensor)
+
+    def walk(t, key):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, key) for v in t)
+        if only is not None and key not in only:
+            return t
+        return (t.float() + noise * torch.randn(t.shape, generator=gen,
+                                                device=t.device)).to(t.dtype)
+
+    return walk(params, None)
 
 
 def cut_for_parity(cfg):
@@ -1927,9 +2244,10 @@ def step_launches(cfg, paged: bool, steps: int = 1) -> dict:
     if cfg.family in ("ssm", "hybrid"):
         return hybrid_step_launches(cfg, steps, paged)
     from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.parity import k2_per_call
 
     counts = dict.fromkeys(KERNELS, 0)
-    counts["rmsnorm"] = 2 * cfg.n_layers + 1
+    counts["rmsnorm"] = k2_per_call(cfg)
     counts["paged_decode_attention" if paged else "decode_attention"] = cfg.n_layers
     return counts
 
@@ -2848,6 +3166,329 @@ def serve_fleet(model, params, reqs) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 19: the registry's other GQA decoders at full width
+# ---------------------------------------------------------------------------
+
+#: (a) qwen2.5-3b serves phase 4's traffic over both pools; (b) the wide
+#: models each serve ``W_REQUESTS`` requests (prompts of 32-256 tokens,
+#: 8-32 new) over the paged pool: ``W_SLOTS`` slots of ``W_MAX_LEN``
+#: rows, ``W_CHUNK``-token chunks. qwen3-moe routes dropless.
+QWEN_ARCH = "qwen2.5-3b"
+WIDE_ARCHS = ("command-r-35b", "chameleon-34b", "qwen3-moe-30b-a3b")
+W_REQUESTS, W_SLOTS, W_MAX_LEN, W_CHUNK = 6, 4, 512, 128
+#: Leaves a model initializes to zeros or ones (norm scales and biases,
+#: q/k/v biases), and the noise added to them before serving, so that the
+#: biases, LayerNorm's affine and the qk-norm's scales do real arithmetic.
+CONSTANT_LEAVES = ("scale", "bias", "bq", "bk", "bv")
+CONST_NOISE = 0.1
+#: qwen2.5-3b training: 8 workers of one 512-token row each at every beta
+#: (4096 tokens a step at k = 8). Its 3.09 B parameters in bf16 with f32
+#: AdamW moments hold ~29 GiB; 32 x 512 tokens would add ~36 GiB of
+#: saved products and ~30 GiB of f32 logits and their gradient.
+QWEN_TRAIN_B, QWEN_TRAIN_STEPS = 8, 12
+def serving_config(name: str):
+    """The registry's config; an MoE routes dropless (capacity-dropped
+    routing depends on the chunk's other tokens, so a served stream could
+    not equal offline decode)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dropless=True))
+    return cfg
+
+
+def wide_workload(vocab: int):
+    return zamba_workload(vocab, W_REQUESTS, (32, 257), (8, 33), SEED + 40)
+
+
+def load_full_width(model, seed: int) -> dict:
+    """Random bf16 parameters on the card from ``seed``, the constant
+    leaves made noisy; prints the memory held before and the peak after."""
+    from repro_torch.models import count_params_analytic
+
+    cfg = model.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = noisy_params(model.init(seed, device="cuda"), CONST_NOISE, seed + 1,
+                          only=CONSTANT_LEAVES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {cfg.name}: {count_params_analytic(cfg):,} parameters ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"{cfg.dtype}) drawn in {time.perf_counter() - t0:.1f} s; memory allocated before "
+          f"{before / 2**30:.2f} GiB, peak after {peak / 2**30:.2f} GiB")
+    return params
+
+
+def check_near_tie_share(streams: dict, label: str) -> None:
+    """Neither near-tie rule may excuse more than a quarter of the
+    positions compared."""
+    n = streams["positions_compared"]
+    for key in ("near_ties", "router_flips"):
+        check(streams[key] <= n / 4,
+              f"{label}: the {key} rule excused {streams[key]} of {n} positions")
+
+
+def time_wide_kernels(cfg, reqs, n_slots: int, max_len: int, gen) -> dict:
+    """K3 and K4 at the model's tick shape (its lanes at their prompt
+    length plus half their new tokens), and K2 at the tick's rows: its
+    norms' (n_slots, 1, d_model) where they are RMSNorms, and its
+    qk-norm's (n_slots * heads, 1, 128) query and key rows."""
+    lens = [len(p) + m // 2 for p, m, _ in reqs[:n_slots]]
+    out = time_decode(n_slots, max_len, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, lens, gen)
+    if cfg.norm == "rmsnorm":
+        out[f"rmsnorm_d{cfg.d_model}"] = time_rmsnorm_rows(n_slots, cfg.d_model, gen)
+    if cfg.qk_norm:
+        for label, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads)):
+            out[f"rmsnorm_{label}_norm"] = time_rmsnorm_rows(n_slots * heads, cfg.head_dim, gen)
+    print_kernel_times(out)
+    return out
+
+
+def dense_decode_vs_plain(cfg) -> dict:
+    """A GQA config at full width cut to 2 layers in f32 (``cut_for_parity``),
+    over each pool: one right-padded prefill chunk into blank caches (4
+    rows of 16, 9, 12 and 5 tokens), then 2 decode ticks, through the
+    kernels on the card (launches: ``step_launches`` a call, no K3/K4 in
+    the prefill) and through the plain versions on the CPU, from the same
+    parameters (drawn on the card, the constant leaves made noisy, then
+    copied). The chunk's and each tick's logits and every K/V row below
+    its row's length are held by ``parity.within`` (f32), phase 15's
+    rule."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.parity import k2_per_call, within
+    from repro_torch.models import Model
+    from repro_torch.models.attention import paged_kv_view
+    from repro_torch.models.layers import tree_map
+
+    small = cut_for_parity(cfg)
+    model = Model(small)
+    gpu_params = noisy_params(model.init(SEED, device="cuda"), CONST_NOISE, SEED + 42,
+                              only=CONSTANT_LEAVES)
+    cpu_params = tree_map(lambda t: t.cpu(), gpu_params, is_leaf=torch.is_tensor)
+    gen = torch.Generator().manual_seed(SEED + 43)
+    B, P, rows, bs, n_ticks = 4, 16, 64, 16, 2
+    lens = torch.tensor([16, 9, 12, 5])
+    V = small.vocab_size
+    chunk = torch.randint(0, V, (B, P), generator=gen)
+    chunk[torch.arange(P)[None, :] >= lens[:, None]] = 0
+    ticks = torch.randint(0, V, (n_ticks, B, 1), generator=gen)
+    tables = (torch.randperm(B * rows // bs, generator=gen) + 1).reshape(B, -1).int()
+    out, ok = {}, True
+    for pool, paged in (("contiguous", False), ("paged", True)):
+        kw = dict(block_size=bs, num_blocks=B * rows // bs) if paged else {}
+        res = {}
+        for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+            caches = model.blank_caches(B, rows, device=dev, **kw)
+            tt = tables.to(dev) if paged else None
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            lg, caches = model.prefill_with_cache(params, chunk.to(dev), caches,
+                                                  length=lens.to(dev), start_index=0,
+                                                  block_tables=tt)
+            if params is gpu_params:
+                torch.cuda.synchronize()
+                prefill_counts = launch_counts()
+                reset_launch_counts()
+            logits, pos = [lg], lens.clone()
+            for t in range(n_ticks):
+                lg, caches = model.decode_step(params, ticks[t].to(dev), caches, pos.to(dev),
+                                               block_tables=tt)
+                logits.append(lg)
+                pos = pos + 1
+            if params is gpu_params:
+                torch.cuda.synchronize()
+                tick_counts = launch_counts()
+            res[params is gpu_params] = (logits, caches, time.perf_counter() - t0)
+        expect = step_launches(small, paged, n_ticks)
+        expect = {k: v * n_ticks for k, v in expect.items()}
+        expect_prefill = dict(expect, decode_attention=0, paged_decode_attention=0,
+                              rmsnorm=k2_per_call(small))
+        check(tick_counts == expect, f"{pool}: tick launches {tick_counts}, expected {expect}")
+        check(prefill_counts == expect_prefill,
+              f"{pool}: prefill launches {prefill_counts}, expected {expect_prefill}")
+        (lg_g, c_g, s_g), (lg_c, c_c, s_c) = res[True], res[False]
+        errs = {"logits": max(within(a.cpu(), b, torch.float32)[0] for a, b in zip(lg_g, lg_c))}
+        ok &= all(within(a.cpu(), b, torch.float32)[1] for a, b in zip(lg_g, lg_c))
+        e_max = 0.0
+        for sg, sc in zip(c_g, c_c):
+            for g_layer, c_layer in zip(sg, sc):
+                for name in ("k", "v"):
+                    g, c = g_layer[name].cpu(), c_layer[name]
+                    if paged:
+                        g, c = paged_kv_view(g, tables), paged_kv_view(c, tables)
+                    for b in range(B):
+                        e, o = within(g[b, :pos[b]], c[b, :pos[b]], torch.float32)
+                        e_max = max(e_max, e)
+                        ok &= o
+        errs["K/V"] = e_max
+        print(f"  {small.name} cut to 2 layers, f32, {pool}: a prefill chunk and {n_ticks} "
+              f"ticks, card {s_g:.2f} s vs CPU plain {s_c:.2f} s; max |err|: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; launches: prefill {dict((k, v) for k, v in prefill_counts.items() if v)}, "
+              f"ticks {dict((k, v) for k, v in tick_counts.items() if v)} "
+              f"({'ok' if ok else 'FAIL'})")
+        out[pool] = {"max_abs_err": errs, "prefill_launches": prefill_counts,
+                     "tick_launches": tick_counts}
+    check(ok, f"the cut-down {small.name} decode: card vs plain on the CPU")
+    return out
+
+
+def remat_step_pair(model, params) -> dict:
+    """One SGD step (lr 1e-2, gradients clipped to norm 1) of ``model``
+    under remat "selective" and one under "full", from the same parameters
+    on the same batch (8 workers of one 512-token row, mask of k = 4): the
+    losses must be equal bit for bit (the forward is the same work), the
+    gradient norms within 1e-3 relative (the recomputed forward feeds the
+    same backward; what differs is which products' outputs are saved and
+    which recomputed), and the selective step must lower the loss of its
+    own batch. Peak memory and host wall of each, and the bytes each
+    holds for its backward once its forward has run (``saved_bytes``:
+    the step's peak comes later, in the optimizer's f32 passes)."""
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import make_train_step
+
+    cfg = model.cfg
+    batch = token_batch(cfg.vocab_size, 8, 1, TRAIN_S, [1.0, 0.0] * 4)
+    batch = {k: v.to("cuda") if torch.is_tensor(v) else v for k, v in batch.items()}
+    batch["lr"] = 1e-2
+    opt = sgd()
+    out = {}
+    for remat in ("selective", "full"):
+        rmodel = Model(dataclasses.replace(cfg, remat=remat))
+        step = make_train_step(rmodel, opt)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params,
+                          is_leaf=torch.is_tensor)
+        loss, metrics = rmodel.train_loss(leaves, batch)
+        torch.cuda.synchronize()
+        saved = torch.cuda.memory_allocated() - base
+        del loss, metrics, leaves              # the graph and what it saved
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, _, m = step(params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        out[remat] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "peak_bytes": peak, "peak_over_params_bytes": peak - base,
+                      "saved_bytes": saved, "wall_s": wall}
+        if remat == "selective":
+            out["loss_after_step"] = float(step(new, opt.init(new), batch)[2]["loss"])
+        del new, m
+        print(f"  remat {remat!r}: loss {out[remat]['loss']!r}, grad norm "
+              f"{out[remat]['grad_norm']!r}, peak memory {peak / 2**30:.2f} GiB "
+              f"({(peak - base) / 2**30:.2f} GiB over the parameters), held for the "
+              f"backward after the forward {saved / 2**30:.2f} GiB, host wall {wall:.2f} s")
+    a, b = out["selective"], out["full"]
+    print(f"  the batch's loss after the selective step: {out['loss_after_step']!r}")
+    check(out["loss_after_step"] < a["loss"], "the step did not lower its own batch's loss")
+    check(a["loss"] == b["loss"], "selective and full remat give other losses")
+    check(abs(a["grad_norm"] - b["grad_norm"]) <= 1e-3 * b["grad_norm"],
+          "selective and full remat give gradient norms more than 1e-3 apart")
+    out["grad_norm_bitwise_equal"] = a["grad_norm"] == b["grad_norm"]
+    return out
+
+
+def phase19() -> dict:
+    """(a)-(e) of phase 19: see the module docstring."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    out = {"launches": [], "streams": {}, "load": {}, "serve": {}, "times": {},
+           "profiles": {}, "step_parity": {}}
+    gen = torch.Generator().manual_seed(SEED + 44)
+
+    qcfg = serving_config(QWEN_ARCH)
+    qmodel = Model(qcfg)
+    print(f"  (a) {qcfg.name}: phase 4's {len(workload(qcfg.vocab_size))} requests over both "
+          f"pools, {N_SLOTS} slots of {MAX_LEN}, {PREFILL_CHUNK}-token chunks")
+    params = load_full_width(qmodel, SEED + 45)
+    reqs = workload(qcfg.vocab_size)
+    runs = serve(qmodel, params, reqs)
+    out["streams"][qcfg.name] = check_streams(qmodel, params, reqs, runs, MAX_LEN)
+    check_near_tie_share(out["streams"][qcfg.name], qcfg.name)
+    out["serve"][qcfg.name] = {p: {"launches": r["launches"], "ticks": r["stats"].decode_ticks,
+                                   "prefill_calls": r["stats"].prefill_calls,
+                                   "wall_s": r["stats"].wall_seconds,
+                                   "decode_tokens_per_s": r["stats"].decode_tokens_per_wsec}
+                               for p, r in runs.items()}
+    out["launches"] += [r["launches"] for r in runs.values()]
+    out["times"][qcfg.name] = time_wide_kernels(qcfg, reqs, N_SLOTS, MAX_LEN, gen)
+    out["profiles"][qcfg.name] = profile_ticks(
+        qmodel, params, (("contiguous", None), ("paged", BLOCK_SIZE)), n_slots=N_SLOTS,
+        max_len=MAX_LEN, chunk=PREFILL_CHUNK, prompt=(400, 600), seed=SEED + 41)
+    del params
+
+    for name in WIDE_ARCHS:
+        cfg = serving_config(name)
+        print(f"  (c) {name}: step parity")
+        out["step_parity"][name] = dense_decode_vs_plain(cfg)
+        model = Model(cfg)
+        print(f"  (b) {name}: {W_REQUESTS} requests over the paged pool (block {BLOCK_SIZE}), "
+              f"{W_SLOTS} slots of {W_MAX_LEN}, {W_CHUNK}-token chunks")
+        params = load_full_width(model, SEED + 46)
+        out["load"][name] = torch.cuda.max_memory_allocated()
+        reqs = wide_workload(cfg.vocab_size)
+        runs = serve(model, params, reqs, (("paged", BLOCK_SIZE),), n_slots=W_SLOTS,
+                     max_len=W_MAX_LEN, chunk=W_CHUNK)
+        out["streams"][name] = check_streams(model, params, reqs, runs, W_MAX_LEN)
+        check_near_tie_share(out["streams"][name], name)
+        r = runs["paged"]
+        out["serve"][name] = {"launches": r["launches"], "ticks": r["stats"].decode_ticks,
+                              "prefill_calls": r["stats"].prefill_calls,
+                              "wall_s": r["stats"].wall_seconds,
+                              "decode_tokens_per_s": r["stats"].decode_tokens_per_wsec,
+                              "peak_bytes": torch.cuda.max_memory_allocated()}
+        out["launches"].append(r["launches"])
+        out["times"][name] = time_wide_kernels(cfg, reqs, W_SLOTS, W_MAX_LEN, gen)
+        out["profiles"][name] = profile_ticks(
+            model, params, (("paged", BLOCK_SIZE),), n_slots=W_SLOTS, max_len=W_MAX_LEN,
+            chunk=W_CHUNK, prompt=(200, 300), seed=SEED + 41)
+        del params
+
+    tcfg = dataclasses.replace(get_config(QWEN_ARCH), remat="selective")
+    tmodel = Model(tcfg)
+    print(f"  (d) training {tcfg.name} at full width through the adaptive-(k, beta) loop: "
+          f"{tcfg.n_layers} layers, {tcfg.dtype}, remat {tcfg.remat!r}, {QWEN_TRAIN_B} x "
+          f"{TRAIN_S} tokens at every beta")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # k stays 1 over these steps, so each step's loss is one 512-token row's:
+    # it moves by +-0.1 from row to row, more than 12 steps lower it
+    # (lr 3e-4, 1e-3 and 3e-3 tried on the card). The step pair below
+    # checks instead that a step lowers the loss of its own batch.
+    trained = train_full_width(tmodel, QWEN_TRAIN_STEPS, global_batch=QWEN_TRAIN_B,
+                               loss_falls=False)
+    out["launches"].append(trained["launches"])
+    params = trained.pop("params")
+    out["train_loop"] = trained
+    print("    one step under remat 'selective' and one under 'full', same batch")
+    out["remat_pair"] = remat_step_pair(tmodel, params)
+    del params
+    print("    K1 and K2 vs plain PyTorch at each batch shape the loop ran")
+    worst = {"flash_attention": 0.0, "flash_attention_bwd": 0.0, "rmsnorm": 0.0,
+             "rmsnorm_bwd": 0.0}
+    check_loop_shapes(tcfg, trained["shapes"], worst)
+    out["loop_shape_worst"] = worst
+    out["flash_times"] = time_flash(QWEN_TRAIN_B, TRAIN_S, tcfg.n_heads, tcfg.n_kv_heads,
+                                    tcfg.head_dim, gen)
+    print_times(out["flash_times"])
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2890,7 +3531,8 @@ def main() -> int:
     model = Model(cfg)
     params = model.init(SEED, device="cuda")
     torch.cuda.synchronize()
-    runs = serve(model, params)
+    runs = serve(model, params, workload(cfg.vocab_size))
+    check_streams(model, params, workload(cfg.vocab_size), runs, MAX_LEN)
 
     print("[5] timing (CUDA events, cold L2, median of 60)")
     times, long_decode = time_kernels(cfg, workload(cfg.vocab_size))
@@ -3070,6 +3712,15 @@ def main() -> int:
     phase18 = [r["launches"] for r in observed.values()] + [fleet["launches"]]
     phase18_seconds = time.perf_counter() - t18
     print(f"    phase 18 took {phase18_seconds:.1f} s; card {card}")
+    del model, zmodel
+
+    t19 = time.perf_counter()
+    print(f"[19] the registry's other GQA decoders at full width ({QWEN_ARCH}, "
+          f"{', '.join(WIDE_ARCHS)}), each loaded alone, and {QWEN_ARCH} trained with "
+          f"selective remat")
+    gqa = phase19()
+    phase19_seconds = time.perf_counter() - t19
+    print(f"    phase 19 took {phase19_seconds:.1f} s; card {card}")
 
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
@@ -3120,6 +3771,7 @@ def main() -> int:
                                        for r in s["runs"].values()),
             "phase17_launches": sum(c[kname] for c in phase17),
             "phase18_launches": sum(c[kname] for c in phase18),
+            "phase19_launches": sum(c[kname] for c in gqa["launches"]),
         })
     report = {
         "kernels": kernels,
@@ -3189,6 +3841,8 @@ def main() -> int:
         "observed_serve": observed,
         "fleet": fleet,
         "phase18_seconds": phase18_seconds,
+        "gqa_configs": gqa,
+        "phase19_seconds": phase19_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

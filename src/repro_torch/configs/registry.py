@@ -1,15 +1,17 @@
 """The architectures the port runs (sources in brackets).
 
-A copy of the reference registry's entries for the two dense GQA
-decoders and the Mamba2 + shared-attention hybrid zamba2-1.2b; the other
-families join the port with their model code.
+A copy of the reference registry's entries for its GQA decoders (dense,
+the parallel-block command-r, the qk-norm chameleon and the top-k MoE
+qwen3-moe) and the Mamba2 + shared-attention hybrid zamba2-1.2b; the
+other families (MLA, xLSTM, the audio encoder) join the port with their
+model code.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from .base import ModelConfig, SSMConfig
+from .base import ModelConfig, MoEConfig, SSMConfig
 
 __all__ = ["ARCHS", "ALIASES", "get_config", "list_archs"]
 
@@ -34,6 +36,25 @@ def _zamba2_1p2b() -> ModelConfig:
     )
 
 
+def _qwen3_moe_30b() -> ModelConfig:
+    # [moe] 48L d_model=2048 32H (kv=4) d_ff(expert)=768 vocab=151936
+    # 128 experts top-8 [hf:Qwen/Qwen3-30B-A3B]; head_dim=128, qk-norm.
+    return ModelConfig(
+        name="qwen3-moe-30b-a3b",
+        family="moe",
+        n_layers=48,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=4,
+        head_dim=128,
+        d_ff=768,
+        vocab_size=151936,
+        qk_norm=True,
+        rope_theta=1000000.0,
+        moe=MoEConfig(n_experts=128, top_k=8, d_expert=768),
+    )
+
+
 def _llama32_1b() -> ModelConfig:
     # [dense] 16L d_model=2048 32H (kv=8) d_ff=8192 vocab=128256
     # [hf:meta-llama/Llama-3.2-1B]
@@ -48,6 +69,47 @@ def _llama32_1b() -> ModelConfig:
         d_ff=8192,
         vocab_size=128256,
         rope_theta=500000.0,
+        tie_embeddings=True,
+    )
+
+
+def _qwen25_3b() -> ModelConfig:
+    # [dense] 36L d_model=2048 16H (kv=2) d_ff=11008 vocab=151936, QKV bias
+    # [hf:Qwen/Qwen2.5-3B]
+    return ModelConfig(
+        name="qwen2.5-3b",
+        family="dense",
+        n_layers=36,
+        d_model=2048,
+        n_heads=16,
+        n_kv_heads=2,
+        head_dim=128,
+        d_ff=11008,
+        vocab_size=151936,
+        qkv_bias=True,
+        rope_theta=1000000.0,
+        tie_embeddings=True,
+    )
+
+
+def _command_r_35b() -> ModelConfig:
+    # [dense] 40L d_model=8192 64H (kv=8) d_ff=22528 vocab=256000
+    # parallel attn+FFN block, LayerNorm, logit scaling, tied embeddings
+    # [hf:CohereForAI/c4ai-command-r-v01]
+    return ModelConfig(
+        name="command-r-35b",
+        family="dense",
+        n_layers=40,
+        d_model=8192,
+        n_heads=64,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=22528,
+        vocab_size=256000,
+        norm="layernorm",
+        parallel_block=True,
+        logit_scale=0.0625,
+        rope_theta=8000000.0,
         tie_embeddings=True,
     )
 
@@ -70,15 +132,47 @@ def _smollm_135m() -> ModelConfig:
     )
 
 
+def _chameleon_34b() -> ModelConfig:
+    # [vlm] 48L d_model=8192 64H (kv=8) d_ff=22016 vocab=65536
+    # early-fusion VQ image tokens share the text vocab; qk-norm
+    # [arXiv:2405.09818]. Frontend stub: fused token ids.
+    return ModelConfig(
+        name="chameleon-34b",
+        family="vlm",
+        n_layers=48,
+        d_model=8192,
+        n_heads=64,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=22016,
+        vocab_size=65536,
+        qk_norm=True,
+        rope_theta=10000.0,
+    )
+
+
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in [_zamba2_1p2b(), _llama32_1b(), _smollm_135m()]
+    c.name: c
+    for c in [
+        _zamba2_1p2b(),
+        _qwen3_moe_30b(),
+        _llama32_1b(),
+        _qwen25_3b(),
+        _command_r_35b(),
+        _smollm_135m(),
+        _chameleon_34b(),
+    ]
 }
 
 # Short aliases for --arch.
 ALIASES = {
     "zamba2": "zamba2-1.2b",
+    "qwen3-moe": "qwen3-moe-30b-a3b",
     "llama3.2": "llama3.2-1b",
+    "qwen2.5": "qwen2.5-3b",
+    "command-r": "command-r-35b",
     "smollm": "smollm-135m",
+    "chameleon": "chameleon-34b",
 }
 
 

@@ -14,9 +14,10 @@ from typing import Tuple
 import torch
 
 __all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "SHARED_DECODE_SHAPES", "shared_block_arena",
-           "RMS_DECODE_SHAPES", "RMS_VERIFY_SHAPES",
+           "RMS_DECODE_SHAPES", "RMS_VERIFY_SHAPES", "RMS_CHUNK_SHAPES",
            "FLASH_SHAPES", "SSD_SHAPES",
-           "NEAR_ULPS", "BF16_UNIT", "within", "flash_within", "ssd_within", "dscale_bf16_slack"]
+           "NEAR_ULPS", "BF16_UNIT", "within", "flash_within", "ssd_within", "dscale_bf16_slack",
+           "k2_per_call"]
 
 #: Flash decode (K3, K4) cases: H, Hkv, D, S, lengths (B = len(lengths));
 #: the paged form reads the same rows through a shuffled arena of
@@ -30,7 +31,10 @@ __all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "SHARED_DECODE_SHAPES", "shared_bloc
 #: zamba2-1.2b's shared block (32 heads over 32 kv heads, G = 1, at D 128,
 #: S 512, where the plan gives 4 splits): lengths of about one granule, of
 #: fewer granules than splits and of as many, and either side of each
-#: split boundary of a full row (128, 256, 384). A
+#: split boundary of a full row (128, 256, 384); and G = 8, the widest
+#: group the kernels take, at D 128 at the serving shapes of qwen2.5-3b
+#: (16 heads over 2, S 1024), of command-r-35b and chameleon-34b (64 over
+#: 8, S 512) and of qwen3-moe-30b-a3b (32 over 4, S 512). A
 #: length of 0 is K4's empty row (zeros); K3's contract is length >= 1, so
 #: it is held to plain on live rows only.
 DECODE_BLOCK = 16
@@ -46,6 +50,9 @@ DECODE_SHAPES = [
     (8, 1, 128, 1024, [0, 1, 513, 1024]), (6, 2, 256, 512, [0, 1, 300, 512]),
     (32, 32, 128, 512, [1, 15, 16, 17, 512]), (32, 32, 128, 512, [47, 48, 49, 64, 65, 0]),
     (32, 32, 128, 512, [127, 128, 129, 255, 256, 257, 383, 384, 385]),
+    (16, 2, 128, 1024, [1, 15, 16, 17]), (16, 2, 128, 1024, [1000, 1024, 500, 33]),
+    (64, 8, 128, 512, [0, 1, 47, 512]), (64, 8, 128, 512, [300, 129, 511, 256]),
+    (32, 4, 128, 512, [1, 16, 200, 512]),
 ]
 
 #: Paged flash decode (K4) over SHARED block tables, as prefix sharing
@@ -91,27 +98,38 @@ def shared_block_arena(Hkv: int, D: int, S: int, lens, shared: int, gen: torch.G
 
 
 #: RMSNorm (K2) forward at the rows of a decode step: one (the hybrid's
-#: scanned prefill) or four (a tick of four lanes), at d_model 2048 and at
+#: scanned prefill) or four (a tick of four lanes), at d_model 2048, at
 #: zamba2-1.2b's 4096-wide norms (its gated Mamba2 norm and the shared
-#: block's two).
-RMS_DECODE_SHAPES = [(1, 1, 2048), (4, 1, 2048), (1, 1, 4096), (4, 1, 4096)]
+#: block's two) and at chameleon-34b's 8192; and the qk-norm's rows of D
+#: 128, one a head (B, 1, heads, 128): chameleon-34b's 64 query and 8 key
+#: heads, qwen3-moe-30b-a3b's 32 and 4.
+RMS_DECODE_SHAPES = [(1, 1, 2048), (4, 1, 2048), (1, 1, 4096), (4, 1, 4096),
+                     (1, 1, 8192), (4, 1, 8192),
+                     (4, 1, 64, 128), (4, 1, 8, 128), (4, 1, 32, 128), (4, 1, 4, 128)]
 
 #: RMSNorm (K2) forward at a llama3.2-1b speculative verify's rows: 4
 #: lanes of a window of 1 + gamma tokens, gamma 1 to 6 (8 to 28 rows of
 #: D 2048).
 RMS_VERIFY_SHAPES = [(4, 1 + gamma, 2048) for gamma in range(1, 7)]
 
+#: RMSNorm (K2) forward at a 128-token prefill chunk of the wide models:
+#: chameleon-34b's norms (D 8192) and its qk-norm (64 and 8 heads of 128),
+#: and qwen3-moe-30b-a3b's qk-norm (32 and 4 heads).
+RMS_CHUNK_SHAPES = [(1, 128, 8192), (1, 128, 64, 128), (1, 128, 8, 128),
+                    (1, 128, 32, 128), (1, 128, 4, 128)]
+
 #: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and
 #: Sq != Skv cases, D != Dv both ways, and llama3.2-1b's training shape at
-#: 4 and at 32 rows (the training loop's largest batch, beta = 1), and
-#: zamba2-1.2b's shared attention block (MHA, D = 128) at 32 rows.
+#: 4 and at 32 rows (the training loop's largest batch, beta = 1),
+#: zamba2-1.2b's shared attention block (MHA, D = 128) at 32 rows, and
+#: qwen2.5-3b's (16 heads over 2, G = 8, D 128) at 8 rows of 512.
 FLASH_SHAPES = [
     (2, 128, 128, 4, 2, 64, 64), (1, 256, 256, 8, 8, 64, 64), (1, 200, 200, 4, 1, 64, 64),
     (2, 128, 128, 4, 2, 128, 128), (1, 64, 64, 2, 2, 32, 32), (1, 384, 384, 6, 3, 64, 64),
     (1, 384, 384, 9, 3, 64, 64), (2, 77, 100, 6, 2, 128, 64), (2, 130, 64, 4, 4, 32, 128),
     (4, 512, 512, 32, 8, 64, 64), (32, 512, 512, 32, 8, 64, 64),
-    (32, 512, 512, 32, 32, 128, 128),
+    (32, 512, 512, 32, 32, 128, 128), (8, 512, 512, 16, 2, 128, 128),
 ]
 
 #: SSD scan (K5) shapes: B, S, H, P, G, N, chunk. The reference's kernel-
@@ -230,3 +248,11 @@ def dscale_bf16_slack(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
     low = n.view(torch.int32) & 0xFFFF
     near = (low - 0x8000).abs() <= near_ulps
     return (gn * near).sum(0) * 2.0 ** -7, int(near.sum().item())
+
+
+def k2_per_call(cfg) -> int:
+    """K2 launches of one serving call over a GQA stack (a prefill chunk,
+    a tick, a verify): each RMSNorm, a block's one (parallel) or two and
+    the qk-norm's two, and the final norm. LayerNorm is plain PyTorch."""
+    rms = cfg.norm == "rmsnorm"
+    return cfg.n_layers * (rms * (1 if cfg.parallel_block else 2) + 2 * cfg.qk_norm) + rms

@@ -1,5 +1,5 @@
-"""Models of the port (PyTorch definitions): dense GQA decoders and the
-Mamba2 + shared-attention hybrid."""
+"""Models of the port (PyTorch definitions): GQA decoders (dense,
+parallel-block and top-k MoE) and the Mamba2 + shared-attention hybrid."""
 
 from .bridge import params_from_numpy
 from .model import Model, count_params_analytic

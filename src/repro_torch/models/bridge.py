@@ -6,9 +6,10 @@ mapped through ``np.asarray``) and returns the port's parameter tree
 with the same values, each leaf in its own spec's dtype (the Mamba2
 decay rates, dt biases and skips are f32 in a bf16 model). The reference
 stacks layers on a leading axis; the port keeps one dict per layer, so
-each stacked leaf is cut along that axis: a dense segment's layers, or
-the hybrid's ``stack["mamba"]`` (its per-call LoRA stacks stay stacked,
-as in the port's specs). Nothing here imports JAX: the caller converts.
+each stacked leaf is cut along that axis: a segment's layers (an MoE
+layer's (E, ...) expert weights stay stacked within the layer), or the
+hybrid's ``stack["mamba"]`` (its per-call LoRA stacks stay stacked, as
+in the port's specs). Nothing here imports JAX: the caller converts.
 """
 
 from __future__ import annotations

@@ -40,6 +40,7 @@ __all__ = [
     "slot_block_copy",
     "slot_mask_select_",
     "rms_norm",
+    "layer_norm",
     "norm_apply",
     "norm_specs",
     "rope_freqs",
@@ -226,9 +227,12 @@ def slot_mask_select_(state: torch.Tensor, new: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def norm_specs(d: int, kind: str, dtype: str) -> Dict[str, ParamSpec]:
-    if kind != "rmsnorm":
-        raise ValueError(f"norm {kind!r} is not ported yet")
-    return {"scale": ParamSpec((d,), ("embed",), init="ones", dtype=dtype)}
+    if kind not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"unknown norm {kind!r}")
+    out = {"scale": ParamSpec((d,), ("embed",), init="ones", dtype=dtype)}
+    if kind == "layernorm":
+        out["bias"] = ParamSpec((d,), ("embed",), init="zeros", dtype=dtype)
+    return out
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -236,10 +240,29 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return _rms_norm_kernel(x, scale, eps)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+               eps: float = 1e-5) -> torch.Tensor:
+    """``layers.layer_norm`` in its order and roundings: f32 mean and
+    population variance, ``(x - mean) * rsqrt(var + eps)`` rounded to x's
+    dtype, then ``* scale`` and ``+ bias`` in that dtype. Plain PyTorch:
+    the reference has no kernel here (``F.layer_norm`` would apply the
+    affine before the rounding)."""
+    dt = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).to(dt) * scale
+    if bias is not None:
+        y = y + bias
+    return y
+
+
 def norm_apply(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise ValueError(f"norm {kind!r} is not ported yet")
-    return rms_norm(x, params["scale"])
+    if kind == "rmsnorm":
+        return rms_norm(x, params["scale"])
+    if kind == "layernorm":
+        return layer_norm(x, params["scale"], params.get("bias"))
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 # ---------------------------------------------------------------------------

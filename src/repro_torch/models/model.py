@@ -1,10 +1,11 @@
-"""Top-level model (port of ``repro.models.model`` for dense GQA decoders
-and the Mamba2 hybrids): embeddings, the block stack, the tied head, the
-training entry points ``hidden`` and ``train_loss``, and the serving
+"""Top-level model (port of ``repro.models.model`` for the GQA decoders,
+dense, parallel-block and MoE, and the Mamba2 hybrids): embeddings, the
+block stack, the head (tied or not), the training entry points
+``hidden`` and ``train_loss``, and the serving
 entry points ``cache_specs`` / ``blank_caches``, ``prefill_with_cache``,
 ``decode_step`` and the speculative ``verify_with_cache``.
 
-Parameters and caches are trees of tensors. For the dense families
+Parameters and caches are trees of tensors. For the attention stacks
 ``params["stack"]`` and the cache tree hold one list per segment with
 one dict per layer (the reference stacks layers on a leading axis
 instead); for ``ssm``/``hybrid`` the stack is ``zamba.zamba_specs``'s
@@ -13,14 +14,15 @@ reference. Every RMSNorm runs
 through kernel K2 (its gradient through K2's backward), every training
 attention through K1 (forward and backward), every SSD scan through K5
 (forward and backward), and every decode attention through K3
-(contiguous) or K4 (paged); the projections, the MLP, the causal
-convolution, the serving SSM step and the head are plain PyTorch, as
-the reference leaves them to XLA.
+(contiguous) or K4 (paged); the projections, LayerNorm, the MLP, the MoE
+dispatch and its expert products, the causal convolution, the serving
+SSM step and the head are plain PyTorch, as the reference leaves them
+to XLA.
 
-The dense prefill and verify run the whole chunk at once. The hybrid's
-are the reference's fallback: they scan the decode step over the chunk,
-one token at a time, and mask each row's state past its length (the
-verify: past its accepted prefix).
+The attention stacks' prefill and verify run the whole chunk at once.
+The hybrid's are the reference's fallback: they scan the decode step
+over the chunk, one token at a time, and mask each row's state past its
+length (the verify: past its accepted prefix).
 """
 
 from __future__ import annotations
@@ -39,12 +41,11 @@ from .layers import (
     ParamSpec,
     count_specs,
     init_from_specs,
-    mlp_apply,
     norm_apply,
     norm_specs,
     tree_map,
 )
-from .transformer import Segment, block_specs, run_segments, segment_plan
+from .transformer import Segment, block_ffn, block_specs, run_segments, segment_plan
 
 __all__ = ["Model", "count_params_analytic"]
 
@@ -53,6 +54,7 @@ def _block_decode(
     params: Dict,
     x: torch.Tensor,
     cfg: ModelConfig,
+    kind: str,
     *,
     positions: torch.Tensor,
     cache: Dict,
@@ -64,15 +66,15 @@ def _block_decode(
         params["attn"], h, cfg, positions=positions, cache=cache,
         cache_index=cache_index, block_table=block_tables,
     )
-    x = x + a
-    h = norm_apply(params["mlp_norm"], x, cfg.norm)
-    return x + mlp_apply(params["ffn"], h, cfg.act, cfg.glu), new_cache
+    # The router's aux loss is dropped, as the reference drops it serving.
+    return block_ffn(params, x, h, a, cfg, kind)[0], new_cache
 
 
 def _block_prefill(
     params: Dict,
     x: torch.Tensor,
     cfg: ModelConfig,
+    kind: str,
     *,
     positions: torch.Tensor,
     cache: Dict,
@@ -87,9 +89,8 @@ def _block_prefill(
         params["attn"], h, cfg, positions=positions, cache=cache,
         start_index=start_index, block_table=block_tables, n_valid=n_valid,
     )
-    x = x + a
-    h = norm_apply(params["mlp_norm"], x, cfg.norm)
-    return x + mlp_apply(params["ffn"], h, cfg.act, cfg.glu), new_cache
+    # The router's aux loss is dropped, as the reference drops it serving.
+    return block_ffn(params, x, h, a, cfg, kind)[0], new_cache
 
 
 def _zeros_from_specs(specs, device) -> Any:
@@ -101,7 +102,7 @@ def _zeros_from_specs(specs, device) -> Any:
 
 
 class Model:
-    """A dense GQA decoder or a Mamba2 hybrid. Methods are functions of
+    """A GQA decoder or a Mamba2 hybrid. Methods are functions of
     (params, inputs), like the reference's; cache writes happen in place
     on the given caches."""
 
@@ -119,7 +120,7 @@ class Model:
     @property
     def fused_prefill(self) -> bool:
         """True when every block has a multi-token cache-writing prefill
-        (the dense attention stacks); the hybrid scans the decode step in
+        (the attention stacks); the hybrid scans the decode step in
         ``prefill_with_cache`` and ``verify_with_cache`` instead."""
         return not self.is_hybrid
 
@@ -183,16 +184,18 @@ class Model:
     def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: inputs (B, S) int, labels (B, S) int, optional mask (B, S)
-        -> (loss, {"ce", "aux", "loss"}). The MoE router loss and DeepSeek's
-        multi-token prediction are not ported yet."""
+        -> (loss, {"ce", "aux", "loss"}): the masked cross-entropy plus, for
+        an MoE, ``router_aux_weight`` times the router loss summed over its
+        layers. DeepSeek's multi-token prediction is not ported yet."""
         cfg = self.cfg
-        if cfg.moe is not None or cfg.mtp:
-            raise NotImplementedError("MoE aux and MTP losses are not ported yet")
+        if cfg.mtp:
+            raise NotImplementedError("the MTP loss is not ported yet")
         inputs, labels = batch["inputs"], batch["labels"]
         positions = torch.arange(labels.shape[1], device=labels.device)
         h, aux = self.hidden(params, inputs, positions)
         ce, _ = masked_weighted_ce(self.logits(params, h), labels, batch.get("mask"))
-        return ce, {"ce": ce, "aux": aux, "loss": ce}
+        loss = ce + cfg.moe.router_aux_weight * aux if cfg.moe is not None else ce
+        return loss, {"ce": ce, "aux": aux, "loss": loss}
 
     # -- serving ---------------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int, *,
@@ -288,11 +291,11 @@ class Model:
         cfg = self.cfg
         h = self.embed_inputs(params, inputs)
         new_caches = []
-        for seg_params, seg_cache in zip(params["stack"], caches):
+        for seg_params, seg_cache, seg in zip(params["stack"], caches, self.segments):
             seg_new = []
             for layer, cache in zip(seg_params, seg_cache):
                 h, nc = _block_prefill(
-                    layer, h, cfg, positions=positions, cache=cache,
+                    layer, h, cfg, seg.kind, positions=positions, cache=cache,
                     start_index=start_index, block_tables=block_tables,
                     n_valid=n_valid,
                 )
@@ -391,11 +394,11 @@ class Model:
             return self.logits(params, norm_apply(params["final_norm"], h, cfg.norm)), caches
         new_caches = []
         h = x
-        for seg_params, seg_cache in zip(params["stack"], caches):
+        for seg_params, seg_cache, seg in zip(params["stack"], caches, self.segments):
             seg_new = []
             for layer, cache in zip(seg_params, seg_cache):
                 h, nc = _block_decode(
-                    layer, h, cfg, positions=positions, cache=cache,
+                    layer, h, cfg, seg.kind, positions=positions, cache=cache,
                     cache_index=idx, block_tables=block_tables,
                 )
                 seg_new.append(nc)

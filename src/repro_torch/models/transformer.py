@@ -1,5 +1,10 @@
 """Segmented decoder stack (port of ``repro.models.transformer``, the
-``dense`` block kind).
+GQA block kinds).
+
+Block kinds:
+  dense    : pre-norm GQA attn + pre-norm (G)MLP    (llama/qwen/smollm/chameleon)
+  parallel : one norm, attn + MLP in parallel        (command-r)
+  moe      : pre-norm GQA attn + pre-norm MoE FFN    (qwen3-moe)
 
 A model is a sequence of SEGMENTS, each a homogeneous run of blocks. The
 reference stacks a segment's parameters along a leading 'layers' axis
@@ -7,22 +12,32 @@ for ``lax.scan``; the port keeps one parameter dict per layer in a list
 and walks it with a Python loop (``bridge.params_from_numpy`` unstacks).
 Rematerialisation follows ``cfg.remat``: ``"full"`` recomputes each
 block's forward in the backward pass (``torch.utils.checkpoint``, the
-reference's ``jax.checkpoint``), ``"none"`` keeps every activation.
+reference's ``jax.checkpoint``), ``"selective"`` saves the products
+without batch dimensions and recomputes the rest (``save_unbatched_products``,
+the reference's ``dots_with_no_batch_dims_saveable``), ``"none"`` keeps
+every activation.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
+from . import moe
 from .layers import mlp_apply, mlp_specs, norm_apply, norm_specs
 
-__all__ = ["Segment", "segment_plan", "block_specs", "block_apply", "run_segments"]
+__all__ = ["Segment", "segment_plan", "block_specs", "block_apply", "block_ffn", "ffn_apply",
+           "run_segments", "save_unbatched_products"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,39 +47,81 @@ class Segment:
 
 
 def segment_plan(cfg: ModelConfig) -> List[Segment]:
-    if cfg.family in ("dense", "vlm") and not cfg.parallel_block:
-        return [Segment("dense", cfg.n_layers)]
+    if cfg.family in ("dense", "vlm"):
+        return [Segment("parallel" if cfg.parallel_block else "dense", cfg.n_layers)]
+    if cfg.family == "moe" and cfg.mla is None:
+        k = cfg.moe.first_k_dense
+        return ([Segment("dense", k)] if k else []) + [Segment("moe", cfg.n_layers - k)]
     raise ValueError(
-        f"the port serves dense GQA decoders only (family {cfg.family!r}, "
-        f"parallel_block={cfg.parallel_block} is not ported yet)"
+        f"the port builds GQA decoders and Mamba2 hybrids only (family {cfg.family!r}"
+        f"{', MLA' if cfg.mla is not None else ''} is not ported yet)"
     )
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    """Pre-norm GQA attention + pre-norm (gated) MLP."""
-    if kind != "dense":
+    """Pre-norm GQA attention, then a pre-norm (gated) MLP or MoE FFN; the
+    parallel block has one norm for both."""
+    if kind not in ("dense", "parallel", "moe"):
         raise ValueError(f"block kind {kind!r} is not ported yet")
     d, dt = cfg.d_model, cfg.dtype
-    return {
-        "attn_norm": norm_specs(d, cfg.norm, dt),
-        "attn": attn.gqa_specs(cfg),
-        "mlp_norm": norm_specs(d, cfg.norm, dt),
-        "ffn": mlp_specs(d, cfg.d_ff, cfg.glu, dt),
-    }
+    out = {"attn_norm": norm_specs(d, cfg.norm, dt), "attn": attn.gqa_specs(cfg)}
+    if kind != "parallel":
+        out["mlp_norm"] = norm_specs(d, cfg.norm, dt)
+    out["ffn"] = moe.moe_specs(cfg) if kind == "moe" else mlp_specs(d, cfg.d_ff, cfg.glu, dt)
+    return out
+
+
+def ffn_apply(params: Dict, h: torch.Tensor, cfg: ModelConfig,
+              kind: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on the normed ``h`` -> (out, router aux loss; None
+    for a dense FFN, so that serving makes no zero on the card)."""
+    if kind == "moe":
+        return moe.moe_apply(params["ffn"], h, cfg)
+    return mlp_apply(params["ffn"], h, cfg.act, cfg.glu), None
+
+
+def block_ffn(params: Dict, x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
+              cfg: ModelConfig, kind: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The rest of a block after its attention ``a`` of the normed ``h`` ->
+    (x_out, aux_loss or None): the parallel block adds the FFN of the same
+    ``h``; the others add ``a`` and then the FFN of the post-attention norm."""
+    if kind == "parallel":
+        f, aux = ffn_apply(params, h, cfg, kind)
+        return x + a + f, aux
+    x = x + a
+    f, aux = ffn_apply(params, norm_apply(params["mlp_norm"], x, cfg.norm), cfg, kind)
+    return x + f, aux
 
 
 def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training forward of one block -> (x_out, aux_loss): pre-norm GQA
-    attention through K1, then the pre-norm (gated) MLP; both norms K2."""
-    if kind != "dense":
-        raise ValueError(f"block kind {kind!r} is not ported yet")
+    """Training forward of one block -> (x_out, aux_loss): GQA attention
+    through K1 and the FFN, each on a norm of the residual (K2 for
+    RMSNorm); the parallel block adds both to ``x`` from one norm."""
     h = norm_apply(params["attn_norm"], x, cfg.norm)
     a, _ = attn.gqa_apply(params["attn"], h, cfg, positions=positions)
-    x = x + a
-    h = norm_apply(params["mlp_norm"], x, cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp_apply(params["ffn"], h, cfg.act, cfg.glu), aux
+    x, aux = block_ffn(params, x, h, a, cfg, kind)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def save_unbatched_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective remat's policy: save the outputs of matrix products
+    without batch dimensions and recompute every other op.
+
+    ``x @ W`` on a (B, S, D) activation lowers to ``aten.mm``; the
+    projection einsums (``bsd,dhk->bshk``, ``bshk,hkd->bsd``) have no
+    batch dimension either and lower to ``aten.bmm`` over a batch of 1.
+    Products with batch dimensions (the MoE's per-expert ``bmm``, the
+    attention's score and value products) are recomputed; on the card the
+    attention products run inside K1, which no policy sees. A batched
+    product whose batch is 1 (the CPU's plain K1 at one sequence and one
+    kv head) is saved as well: that costs memory, never a value."""
+    if op == torch.ops.aten.mm.default or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _remat_wrap(fn: Callable, cfg: ModelConfig) -> Callable:
@@ -73,7 +130,9 @@ def _remat_wrap(fn: Callable, cfg: ModelConfig) -> Callable:
     if cfg.remat == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat == "selective":
-        raise NotImplementedError("remat='selective' is not ported yet")
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    save_unbatched_products)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context)
     raise ValueError(f"unknown remat {cfg.remat}")
 
 

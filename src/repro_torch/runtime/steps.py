@@ -39,7 +39,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
     """(params, opt_state, batch) -> (params, opt_state, metrics), with
     batch = {inputs, labels, [mask], worker_mask, lr}.
 
-    The loss is the masked fastest-k cross-entropy over f32 logits. With
+    The loss is the masked fastest-k cross-entropy over f32 logits, plus
+    ``router_aux_weight`` times the router loss for an MoE. With
     ``accum_steps`` = A > 1 the worker-major batch is split so that every
     worker's rows spread evenly over A microbatches; their gradients are
     summed in f32, each weighted by its contributed-token count
@@ -50,8 +51,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
     ``contributors`` as 0-dim tensors. The new parameters are new
     tensors; the caller drops the old ones."""
     cfg = model.cfg
-    if cfg.moe is not None or cfg.mtp:
-        raise NotImplementedError("MoE aux and MTP losses are not ported yet")
+    if cfg.mtp:
+        raise NotImplementedError("the MTP loss is not ported yet")
 
     def loss_fn(params, batch):
         labels = batch["labels"]
@@ -59,7 +60,10 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         h, aux = model.hidden(params, batch["inputs"], positions)
         ce, denom = masked_weighted_ce(model.logits(params, h), labels,
                                        batch.get("mask"), batch.get("worker_mask"))
-        return ce, {"ce": ce, "aux": aux, "denom": denom}
+        loss = ce
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux, "denom": denom}
 
     def grads_of(params, batch) -> Tuple[torch.Tensor, Dict, list]:
         """loss, metrics and the gradient tree (in the params' dtypes)."""

@@ -15,7 +15,9 @@ run through the kernels. Paged flash decode is also held over the block
 tables prefix sharing leaves, and the sharing pool's block copy, snapshot
 and restore on CUDA to the same copies on the CPU, bit for bit. A
 three-replica fleet with observability on serves through a kill and a
-rejoin on the card.
+rejoin on the card. The reduced qwen2.5-3b, command-r-35b, chameleon-34b
+and qwen3-moe-30b-a3b serve through the kernels, and qwen2.5-3b takes a
+train step under selective remat.
 """
 
 import dataclasses
@@ -28,9 +30,10 @@ from repro_torch import kernels as K
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention_rounding_terms
 from repro_torch.kernels.parity import (
-    DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES,
+    DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, RMS_CHUNK_SHAPES, RMS_DECODE_SHAPES,
+    RMS_VERIFY_SHAPES,
     SHARED_DECODE_SHAPES, SSD_SHAPES, dscale_bf16_slack,
-    flash_within, shared_block_arena, ssd_within, within,
+    flash_within, k2_per_call, shared_block_arena, ssd_within, within,
 )
 from repro_torch.kernels.ssd_scan import ssd_bwd_term_sums
 from repro_torch.models import Model
@@ -287,6 +290,20 @@ def test_rms_norm_kernel_at_verify_rows(cuda, dtype, shape):
     """K2 forward at a llama3.2-1b verify's rows (4 lanes of 1 + gamma,
     gamma 1 to 6): plain's value, and a second launch bit for bit."""
     g = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    scale = (1 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda, dtype)
+    out = K.rms_norm(x, scale)
+    _close(out, K.rms_norm_plain(x, scale), dtype)
+    assert torch.equal(K.rms_norm(x, scale), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RMS_CHUNK_SHAPES)
+def test_rms_norm_kernel_at_chunk_rows(cuda, dtype, shape):
+    """K2 forward at a 128-token prefill chunk of chameleon-34b (D 8192)
+    and at the qk-norm's rows of chameleon-34b and qwen3-moe-30b-a3b (D
+    128): plain's value, and a second launch bit for bit."""
+    g = torch.Generator().manual_seed(6)
     x = torch.randn(shape, generator=g).to(cuda, dtype)
     scale = (1 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda, dtype)
     out = K.rms_norm(x, scale)
@@ -716,3 +733,67 @@ def test_fleet_with_obs_runs_on_the_card(cuda):
         assert rep.engine.pool.manager.n_used_blocks == 0
     assert (fe.router.inflight == 0).all()
     assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(params, is_leaf=torch.is_tensor)))
+
+
+@pytest.mark.parametrize("block_size", [None, 16])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "command-r-35b", "chameleon-34b",
+                                  "qwen3-moe-30b-a3b"])
+def test_gqa_configs_serve_through_the_kernels(cuda, arch, block_size):
+    """The reduced configs (qwen3-moe dropless) served on the card: every
+    RMSNorm is a K2 launch (``k2_per_call`` per prefill call and per
+    tick), every decode attention a K3 or K4 launch, nothing else; the
+    streams have their lengths and equal the card's offline decode where
+    its top-2 gap is not a near-tie (f32: 1e-4)."""
+    cfg = get_config(arch).reduced()
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dropless=True))
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    eng = ServeEngine(model, params, n_slots=3, max_len=64, block_size=block_size,
+                      scheduler=Scheduler(3, prefill_chunk=8))
+    g = torch.Generator().manual_seed(7)
+    reqs = [(torch.randint(0, cfg.vocab_size, (5 + 4 * i,), generator=g).numpy(), 6)
+            for i in range(5)]
+    rids = [eng.submit(p, m, arrival=0.002 * i) for i, (p, m) in enumerate(reqs)]
+    K.reset_launch_counts()
+    results = eng.run()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    st = eng.stats
+    attn = "paged_decode_attention" if block_size else "decode_attention"
+    assert counts["rmsnorm"] == k2_per_call(cfg) * (st.prefill_calls + st.decode_ticks)
+    assert counts[attn] == cfg.n_layers * st.decode_ticks > 0
+    assert sum(counts.values()) == counts["rmsnorm"] + counts[attn]
+    for rid, (p, m) in zip(rids, reqs):
+        got = results[rid].tokens
+        choice, gaps = generate_offline(model, params, p, m, 64, forced=got)
+        assert len(got) == m
+        assert all(a == b or gap < 1e-4 for a, b, gap in zip(got, choice, gaps))
+
+
+def test_selective_train_step_runs_through_the_kernels(cuda):
+    """A reduced qwen2.5-3b train step under ``remat="selective"``: K1 and
+    K2 forward twice (attention and norms are not saved products, so the
+    backward recomputes them), their backward once; the loss equals
+    ``"none"``'s bit for bit and the gradient norm within 1e-6."""
+    cfg = get_config("qwen2.5-3b").reduced()
+    g = torch.Generator().manual_seed(8)
+    ids = torch.randint(0, cfg.vocab_size, (4, 33), generator=g).to(cuda)
+    batch = {"inputs": ids[:, :-1], "labels": ids[:, 1:],
+             "worker_mask": torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda), "lr": 1e-3}
+    out = {}
+    for remat in ("none", "selective"):
+        model = Model(dataclasses.replace(cfg, remat=remat))
+        params = model.init(0, device=cuda)
+        K.reset_launch_counts()
+        _, _, metrics = make_train_step(model, adamw())(params, adamw().init(params), batch)
+        torch.cuda.synchronize()
+        out[remat] = (K.launch_counts(), metrics)
+    L = cfg.n_layers
+    assert out["selective"][0] == {
+        "rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1, "flash_attention": 2 * L,
+        "flash_attention_bwd": L, "decode_attention": 0, "paged_decode_attention": 0,
+        "ssd_scan": 0, "ssd_scan_bwd": 0}
+    (_, a), (_, b) = out["none"], out["selective"]
+    assert torch.equal(a["loss"], b["loss"])
+    assert abs(float(a["grad_norm"]) - float(b["grad_norm"])) <= 1e-6 * float(a["grad_norm"])

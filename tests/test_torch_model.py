@@ -1,7 +1,9 @@
 """The port's dense GQA model against the reference model, on the CPU.
 
 Parameters come from the reference's own ``Model.init`` and cross
-through ``repro_torch.models.params_from_numpy``; prompts, positions and
+through ``repro_torch.models.params_from_numpy`` (for qwen2.5-3b,
+command-r-35b, chameleon-34b and qwen3-moe-30b-a3b with seeded noise on
+the bias and norm leaves, ``tests/_noisy.py``); prompts, positions and
 block tables come from seeded numpy and go to both frameworks. Logits
 agree at atol 1e-4 in f32 (different summation orders, 2 layers).
 """
@@ -20,12 +22,17 @@ from repro.models import attention as jattn
 from repro_torch.configs import get_config as port_config
 from repro_torch.models import Model, count_params_analytic, params_from_numpy
 from repro_torch.models import attention as tattn
+from _noisy import NOISY_ARCHS, noisy_pair
 
 MAX_LEN = 64
 CONFIGS = {
     "llama3.2-1b": {},                            # G = 2 once reduced
     "smollm-135m": {},
     "llama3.2-1b-g3": {"n_heads": 6, "n_kv_heads": 2},
+    "qwen2.5-3b": {},                             # qkv bias
+    "command-r-35b": {},                          # LayerNorm, parallel block, logit scale
+    "chameleon-34b": {},                          # qk-norm, untied head
+    "qwen3-moe-30b-a3b": {},                      # top-2 of 8 experts, capacity-dropped
 }
 
 
@@ -35,11 +42,14 @@ def _pair(name):
     reference prefill, jitted reference decode) — built once per config."""
     arch = name.removesuffix("-g3")
     over = CONFIGS[name]
-    ref = build_model(get_config(arch).reduced(**over))
-    jp = ref.init(jax.random.PRNGKey(0))
-    cfg = port_config(arch).reduced(**over)
+    if arch in NOISY_ARCHS:
+        ref, jp, cfg, tp = noisy_pair(arch)
+    else:
+        ref = build_model(get_config(arch).reduced(**over))
+        jp = ref.init(jax.random.PRNGKey(0))
+        cfg = port_config(arch).reduced(**over)
+        tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     port = Model(cfg)
-    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return ref, jp, port, tp, jax.jit(ref.prefill_with_cache), jax.jit(ref.decode_step)
 
 

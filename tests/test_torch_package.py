@@ -39,7 +39,7 @@ missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
            "repro_torch.models.zamba", "repro_torch.serve.speculative",
            "repro_torch.obs.trace", "repro_torch.serve.transport",
            "repro_torch.serve.router", "repro_torch.serve.replica",
-           "repro_torch.serve.frontend"} - set(sys.modules)
+           "repro_torch.serve.frontend", "repro_torch.models.moe"} - set(sys.modules)
 assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """

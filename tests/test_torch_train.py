@@ -4,7 +4,9 @@ optimizer, the train step (direct and accumulated), and the copies of the
 control plane the loop runs on.
 
 Parameters come from the reference's own ``Model.init`` and cross
-through ``params_from_numpy`` (gradients cross the same way); batches
+through ``params_from_numpy`` (gradients cross the same way; qwen2.5-3b,
+command-r-35b, chameleon-34b and qwen3-moe-30b-a3b carry seeded noise on
+their bias and norm leaves, ``tests/_noisy.py``); batches
 come from seeded numpy and go to both frameworks. Everything is f32.
 """
 
@@ -34,11 +36,16 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.optim import optimizers as topt
 from repro_torch.runtime import StragglerTracker
 from repro_torch.runtime.steps import make_train_step
+from _noisy import NOISY_ARCHS, noisy_pair
 
 CONFIGS = {
     "llama3.2-1b": {},                            # G = 2 once reduced
     "smollm-135m": {},
     "llama3.2-1b-g3": {"n_heads": 6, "n_kv_heads": 2},
+    "qwen2.5-3b": {},                             # qkv bias
+    "command-r-35b": {},                          # LayerNorm, parallel block, logit scale
+    "chameleon-34b": {},                          # qk-norm, untied head
+    "qwen3-moe-30b-a3b": {},                      # router loss in the loss
 }
 RNG = np.random.default_rng(5)
 
@@ -47,6 +54,8 @@ RNG = np.random.default_rng(5)
 def _pair(name):
     """(reference model, its params, port config, bridged params)."""
     arch = name.removesuffix("-g3")
+    if arch in NOISY_ARCHS:
+        return noisy_pair(arch)
     ref = build_model(get_config(arch).reduced(**CONFIGS[name]))
     jp = ref.init(jax.random.PRNGKey(0))
     cfg = port_config(arch).reduced(**CONFIGS[name])
