@@ -178,12 +178,32 @@ runs, in order, and exits non-zero at the first phase that fails:
    byte bound (the weights plus the live K/V rows at 3.35 TB/s; for the
    MoE every expert, as its dropless dispatch reads them, and beside it
    only the experts the profiled ticks routed to);
+20. MLA and xLSTM serving, each model loaded alone (random bf16 weights
+   from a seed, norm scales and biases made noisy): (a) deepseek-v3 at
+   full width (d_model 7168, 128 heads, q_lora 1536, kv_lora 512, 256
+   experts top 8 plus one shared, dense d_ff 18432, vocab 129280, the MTP
+   head held) cut to 5 layers (3 MLA dense, 2 MLA MoE), dropless: 4
+   requests over both pools with the registry's absorbed latent decode,
+   again over the contiguous pool through the expand path, and 4 requests
+   sharing a 128-token prefix on the paged pool with sharing (which must
+   adopt it); (b) xlstm-125m at full width and depth (10 mLSTM and 2
+   sLSTM blocks) serves 6 requests over both pools, again with a draft of
+   the target plus noise 3e-4 (gamma <= 3) over both pools, and 3
+   requests on a 4-block sharing arena that must preempt. (c) Every
+   stream is held to teacher-forced offline decode by phase 19's rules
+   (near-ties; for deepseek the router rule), and every call's launches
+   are counted: K2 ``k2_per_call`` times a call (xLSTM: a scanned step),
+   nothing else (MLA attends and xLSTM recurs in plain PyTorch). (d)
+   Peak memory of each run; 20 steady ticks of each pool profiled beside
+   their byte bound (the weights without the MTP head, the latent rows,
+   xLSTM's states read and written; deepseek also with only the routed
+   experts); K2 timed at the new widths (7168, 1536, 512; 768, 1536);
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
 phase 17 under ``phase17_launches`` and in phase 18 under
-``phase18_launches`` and in phase 19 under ``phase19_launches``; the
-profiles under
+``phase18_launches``, in phase 19 under ``phase19_launches`` and in
+phase 20 under ``phase20_launches``; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
@@ -196,6 +216,7 @@ and ``zamba_serve_profile``, phase 16's under ``spec_parity``,
 kernel's launches there under ``spec_serve_launches``), phase 17's under
 ``prefix_serve``, ``preempt_serve``, ``migration`` and ``zamba_preempt``, phase 18's
 under ``observed_serve`` and ``fleet``, phase 19's under ``gqa_configs``,
+phase 20's under ``mla_xlstm``,
 the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
@@ -599,8 +620,9 @@ def serve(model, params, reqs, pools=(("contiguous", None), ("paged", BLOCK_SIZE
           n_slots: int = N_SLOTS, max_len: int = MAX_LEN, chunk: int = PREFILL_CHUNK) -> dict:
     """``reqs`` through ``ServeEngine`` over each of ``pools`` ((name, block
     size or None)), each run's launch counters reset just before it and
-    read just after: K2 ``k2_per_call`` times a prefill call and a tick,
-    K3 or K4 once a layer a tick, nothing else. The caller holds the
+    read just after: K2 ``k2_per_call`` times a prefill call (xLSTM: a
+    prefilled token, which it scans) and a tick, K3 or K4 once a GQA layer
+    a tick (none for MLA and xLSTM), nothing else. The caller holds the
     streams to offline decode (``check_streams``); for an MoE, each run
     also records the experts its router chose at every (request index,
     position) (``record_served_experts``)."""
@@ -609,7 +631,7 @@ def serve(model, params, reqs, pools=(("contiguous", None), ("paged", BLOCK_SIZE
     from repro_torch.serve import Scheduler, ServeEngine
 
     cfg = model.cfg
-    L = cfg.n_layers
+    L = cfg.n_layers if cfg.mla is None and not model.recurrent else 0
     norms = k2_per_call(cfg)
     runs = {}
     for pool, block_size in pools:
@@ -632,9 +654,10 @@ def serve(model, params, reqs, pools=(("contiguous", None), ("paged", BLOCK_SIZE
               f"{eng.pool.kv_bytes_high_water() / 2**20:.1f} MiB of "
               f"{eng.pool.kv_bytes_contiguous() / 2**20:.1f} MiB contiguous; "
               f"launches {counts}")
-        check(counts["rmsnorm"] == norms * (st.decode_ticks + st.prefill_calls),
+        steps = st.decode_ticks + (st.prefill_tokens if model.recurrent else st.prefill_calls)
+        check(counts["rmsnorm"] == norms * steps,
               f"{pool}: rmsnorm launched {counts['rmsnorm']} times, expected "
-              f"{norms} x {st.decode_ticks + st.prefill_calls}")
+              f"{norms} x {steps}")
         attn = "paged_decode_attention" if block_size else "decode_attention"
         check(counts[attn] == L * st.decode_ticks and st.decode_ticks > 0,
               f"{pool}: {attn} launched {counts[attn]} times, expected {L} x "
@@ -798,14 +821,20 @@ def check_streams(model, params, reqs, runs: dict, max_len: int) -> dict:
             if n_moe:
                 # diff[q, l]: layer l's expert set at position q differs.
                 # Position P - 1 + j's logits chose token j.
+                # An adopted prefix's rows were computed by another request:
+                # only the rows a request computed itself are recorded. Those
+                # from its last prompt token on always are.
                 off_ex, off_gap = ROUTER_OFFLINE[key]
                 served = runs[pool]["experts"]
                 n_pos = P + m - 1
-                check(off_ex.shape[0] == n_pos and all((i, q) in served for q in range(n_pos)),
-                      f"{pool}: request {i}: router records do not cover its {n_pos} positions")
-                diff = np.stack([(served[(i, q)] != off_ex[q]).any(-1) for q in range(n_pos)])
+                check(off_ex.shape[0] == n_pos
+                      and all((i, q) in served for q in range(P - 1, n_pos)),
+                      f"{pool}: request {i}: router records do not cover its positions "
+                      f"{P - 1}..{n_pos - 1}")
+                diff = np.stack([(served[(i, q)] != off_ex[q]).any(-1) if (i, q) in served
+                                 else np.zeros(n_moe, bool) for q in range(n_pos)])
                 flipped_prompt += int(diff[:P - 1].any(-1).sum())
-                prompt_rows += P - 1
+                prompt_rows += sum((i, q) in served for q in range(P - 1))
                 flipped += int(diff[P - 1:].any(-1).sum())
                 if diff.any():
                     flip_gap_max = max(flip_gap_max, float(off_gap[:n_pos][diff].max()))
@@ -1125,18 +1154,25 @@ def profile_serving(model, params) -> list:
 PROFILE_TICKS = 20
 
 
-def tick_bytes(model, params, live_rows: int, experts_read: float = None) -> int:
-    """Bytes a decode tick must read: every weight (an untied embedding
-    table only for its lanes' rows, which are left out) and ``live_rows``
-    K/V rows over all layers. For an MoE, ``experts_read`` (the distinct
-    experts the tick routes to, summed over its MoE layers) counts only
-    those experts' weights; without it every expert is read, as the
-    dropless dispatch's (E, C, D) products do."""
+def tick_bytes(model, params, live_rows: int, experts_read: float = None,
+               lanes: int = 0) -> int:
+    """Bytes a decode tick must move: every weight it reads (an untied
+    embedding table only for its lanes' rows, which are left out, and no
+    MTP head, which serving never runs) and ``live_rows`` cached rows over
+    all layers (GQA: K and V; MLA: the latent row and its rope key). For
+    an MoE, ``experts_read`` (the distinct experts the tick routes to,
+    summed over its MoE layers) counts only those experts' weights;
+    without it every expert is read, as the dropless dispatch's (E, C, D)
+    products do. A recurrent stack reads and writes its ``lanes`` lanes'
+    states once."""
     from repro_torch.models.layers import tree_leaves
 
     cfg = model.cfg
-    weights = sum(t.numel() * t.element_size()
-                  for t in tree_leaves(params, is_leaf=torch.is_tensor))
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree, is_leaf=torch.is_tensor))
+
+    weights = nbytes(params) - nbytes(params.get("mtp", {}))
     if not cfg.tie_embeddings:
         weights -= params["embed"].numel() * params["embed"].element_size()
     if experts_read is not None:
@@ -1144,8 +1180,21 @@ def tick_bytes(model, params, live_rows: int, experts_read: float = None) -> int
         per_expert = sum(ffn[k][0].numel() * ffn[k].element_size()
                          for k in ("w_in", "w_gate", "w_out"))
         weights -= round((moe_layers(cfg) * cfg.moe.n_experts - experts_read) * per_expert)
-    kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * params["embed"].element_size()
-    return weights + live_rows * kv_row
+    elem = params["embed"].element_size()
+    if cfg.mla is not None:
+        kv_row = cfg.n_layers * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * elem
+    elif model.recurrent:
+        kv_row = 0
+    else:
+        kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * elem
+    state = 0
+    if model.recurrent:
+        from repro_torch.models.layers import DTYPES
+        from repro_torch.serve.kv_pool import is_state_spec
+
+        state = sum(s.size * DTYPES[s.dtype].itemsize
+                    for s in tree_leaves(model.cache_specs(lanes, 16)) if is_state_spec(s))
+    return weights + live_rows * kv_row + 2 * state
 
 
 def profile_ticks(model, params, pools, *, n_slots: int, max_len: int, chunk: int,
@@ -1187,7 +1236,7 @@ def profile_ticks(model, params, pools, *, n_slots: int, max_len: int, chunk: in
 
         ticks()                               # warm-up
         live = int(eng.pool.positions.sum()) + n_slots * (n + 1) // 2
-        nbytes = tick_bytes(model, params, live)
+        nbytes = tick_bytes(model, params, live, lanes=n_slots)
         res = window(f"{cfg.name} decode tick, {pool} pool, {n_slots} lanes", ticks,
                      recorded if n_moe else ticks, n, "tick")
         res.update(bound_bytes_per_tick=nbytes,
@@ -1199,7 +1248,7 @@ def profile_ticks(model, params, pools, *, n_slots: int, max_len: int, chunk: in
             check(len(calls) == n, f"{len(calls)} routed ticks recorded, expected {n}")
             routed = float(np.mean([sum(len(np.unique(ex[l])) for l in range(n_moe))
                                     for ex, _ in calls]))
-            nbytes = tick_bytes(model, params, live, experts_read=routed)
+            nbytes = tick_bytes(model, params, live, experts_read=routed, lanes=n_slots)
             res.update(routed_experts_per_tick=routed,
                        routed_bound_bytes_per_tick=nbytes,
                        routed_bound_ms_per_tick=nbytes / HBM_BYTES_PER_S * 1e3)
@@ -2237,18 +2286,24 @@ def cut_for_parity(cfg):
 
 
 def step_launches(cfg, paged: bool, steps: int = 1) -> dict:
-    """Kernel launches of one dense call over the stack (a prefill chunk, a
-    tick, a verify: K2 once a norm; a tick also K3 or K4 once a layer) or
-    of ``steps`` hybrid decode steps (``hybrid_step_launches``). Returns
-    the dense tick's; callers drop the attention for a prefill or verify."""
+    """Kernel launches of one call over an attention stack (a prefill
+    chunk, a tick, a verify: K2 once a norm; a GQA tick also K3 or K4 once
+    a layer; MLA attends in plain PyTorch), of ``steps`` hybrid decode
+    steps (``hybrid_step_launches``) or of ``steps`` xLSTM decode steps (K2
+    once a norm a step, nothing else). Returns the tick's; callers drop
+    the attention for a prefill or verify."""
     if cfg.family in ("ssm", "hybrid"):
         return hybrid_step_launches(cfg, steps, paged)
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.parity import k2_per_call
 
     counts = dict.fromkeys(KERNELS, 0)
+    if cfg.family == "xlstm":
+        counts["rmsnorm"] = k2_per_call(cfg) * steps
+        return counts
     counts["rmsnorm"] = k2_per_call(cfg)
-    counts["paged_decode_attention" if paged else "decode_attention"] = cfg.n_layers
+    if cfg.mla is None:
+        counts["paged_decode_attention" if paged else "decode_attention"] = cfg.n_layers
     return counts
 
 
@@ -2436,9 +2491,10 @@ def check_spec_launches(cfg, probe: CallProbe, counts: dict, paged: bool, label:
     call ``hybrid_step_launches`` for its steps), and nothing ran outside
     them; a gamma = 0 round is one target tick and at most one
     draft tick; a speculating round is draft ticks, one verify and (the
-    hybrid) one replay or (dense) at most one more draft tick. Returns
+    recurrent stacks: the hybrid, xLSTM) one replay or (attention stacks)
+    at most one more draft tick. Returns
     {kind: {"calls": n, "launches": {kernel: n}}}."""
-    hybrid = cfg.family in ("ssm", "hybrid")
+    hybrid = cfg.family in ("ssm", "hybrid", "xlstm")
     total = defaultdict(int)
     per_kind = {}
     for kind, steps, launched in probe.calls:
@@ -2731,7 +2787,8 @@ def serve_probed(model, params, reqs, label: str, *, n_slots: int, max_len: int,
     """Serve ``reqs`` through one ``ServeEngine`` (``kw``: its pool
     options), probing every call's launches (``check_spec_launches``) and
     counting copy-on-write forks; the streams must be well formed and a
-    paged arena must drain with its invariants intact."""
+    paged arena must drain with its invariants intact. An MoE's router
+    choices are recorded as ``serve`` records them."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import Scheduler, ServeEngine
 
@@ -2745,9 +2802,11 @@ def serve_probed(model, params, reqs, label: str, *, n_slots: int, max_len: int,
         fork = mgr.fork
         mgr.fork = lambda *a: forks.append(fork(*a)) or forks[-1]
     rids = [eng.submit(p, m, arrival=a) for p, m, a in reqs]
+    finish = record_served_experts(eng) if cfg.moe is not None else None
     torch.cuda.synchronize()
     reset_launch_counts()
-    results = eng.run()
+    with RouterRecord() if finish else contextlib.nullcontext() as rec:
+        results = eng.run()
     torch.cuda.synchronize()
     counts = launch_counts()
     calls = check_spec_launches(cfg, probe, counts, mgr is not None, label)
@@ -2763,6 +2822,9 @@ def serve_probed(model, params, reqs, label: str, *, n_slots: int, max_len: int,
            "calls": {k: v["calls"] for k, v in calls.items()}, "forks": len(forks),
            "kv_bytes_high_water": eng.pool.kv_bytes_high_water(),
            "preempt_events": sum(kind == "preempt" for kind, _, _ in eng.events)}
+    if finish:
+        index = {rid: i for i, rid in enumerate(rids)}
+        out["experts"] = {(index[rid], q): ex for (rid, q), ex in finish(rec).items()}
     print(f"  {label}: {st.prefill_calls} prefill calls ({st.prefill_tokens} tokens), "
           f"{st.decode_ticks} decode ticks, {st.generated_tokens} tokens in "
           f"{st.wall_seconds:.2f} s; prefix hits {st.prefix_hits} ({st.prefix_rows_shared} rows "
@@ -3178,9 +3240,10 @@ QWEN_ARCH = "qwen2.5-3b"
 WIDE_ARCHS = ("command-r-35b", "chameleon-34b", "qwen3-moe-30b-a3b")
 W_REQUESTS, W_SLOTS, W_MAX_LEN, W_CHUNK = 6, 4, 512, 128
 #: Leaves a model initializes to zeros or ones (norm scales and biases,
-#: q/k/v biases), and the noise added to them before serving, so that the
-#: biases, LayerNorm's affine and the qk-norm's scales do real arithmetic.
-CONSTANT_LEAVES = ("scale", "bias", "bq", "bk", "bv")
+#: q/k/v biases, xLSTM's gate and conv biases), and the noise added to them
+#: before serving, so that the biases, LayerNorm's affine and the qk-norm's
+#: scales do real arithmetic.
+CONSTANT_LEAVES = ("scale", "bias", "bq", "bk", "bv", "conv_b", "b_if")
 CONST_NOISE = 0.1
 #: qwen2.5-3b training: 8 workers of one 512-token row each at every beta
 #: (4096 tokens a step at k = 8). Its 3.09 B parameters in bf16 with f32
@@ -3489,6 +3552,181 @@ def phase19() -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: MLA (deepseek-v3) and xLSTM serving
+# ---------------------------------------------------------------------------
+
+#: deepseek-v3 at full width cut to ``DS_LAYERS`` layers (its 3 dense
+#: layers, then 2 MoE), bf16, dropless: ``DS_REQUESTS`` requests (prompts
+#: of 32-160 tokens, 8-24 new) over ``DS_SLOTS`` slots of ``DS_MAX_LEN``
+#: rows, ``DS_CHUNK``-token chunks; the shared-prefix run: ``DS_PREFIX``
+#: common tokens (8 blocks of 16) and 4 tails of 8-40 (``ds_prefix_workload``).
+DS_ARCH, DS_LAYERS = "deepseek-v3-671b", 5
+DS_REQUESTS, DS_SLOTS, DS_MAX_LEN, DS_CHUNK, DS_PREFIX = 4, 4, 256, 128, 128
+#: xlstm-125m at full width and depth: ``XL_REQUESTS`` requests (prompts of
+#: 16-64 tokens, 8-32 new) over ``XL_SLOTS`` slots of ``XL_MAX_LEN`` rows
+#: (the chunk only schedules: xLSTM prefills a token a step); a draft of
+#: the target plus noise ``SPEC_NOISE`` with gamma <= ``XL_SPEC_GAMMA``; 3
+#: requests of 16-32 and 8-16 tokens (2-3 blocks of 16 each) on a sharing
+#: arena of ``XL_PREEMPT_BLOCKS`` blocks, which must preempt.
+XL_ARCH = "xlstm-125m"
+XL_REQUESTS, XL_SLOTS, XL_MAX_LEN, XL_CHUNK = 6, 4, 256, 64
+XL_SPEC_GAMMA, XL_PREEMPT_BLOCKS = 3, 4
+
+
+def ds_prefix_workload(vocab: int):
+    """The first request (32 new tokens) is still resident when the other
+    three arrive (its prefill and ~8 ticks later, on the scheduler's
+    virtual clock), so they can adopt its prefix blocks."""
+    rng = np.random.default_rng(SEED + 52)
+    prefix = rng.integers(0, vocab, size=DS_PREFIX).astype(np.int32)
+    return [(np.concatenate([prefix, rng.integers(0, vocab, size=int(rng.integers(8, 41)))
+                             .astype(np.int32)]),
+             32 if i == 0 else int(rng.integers(8, 17)), 0.0 if i == 0 else 0.025 + 0.003 * i)
+            for i in range(4)]
+
+
+def run_peak(label: str, fn):
+    """``fn()``, and the peak memory allocated while it ran, printed."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"    {label}: peak memory allocated {peak / 2**30:.2f} GiB")
+    return out, peak
+
+
+def serve_summary(runs: dict, peak: int) -> dict:
+    return {pool: {"launches": r["launches"], "ticks": r["stats"].decode_ticks,
+                   "prefill_calls": r["stats"].prefill_calls,
+                   "prefill_tokens": r["stats"].prefill_tokens,
+                   "wall_s": r["stats"].wall_seconds,
+                   "decode_tokens_per_s": r["stats"].decode_tokens_per_wsec, "peak_bytes": peak}
+            for pool, r in runs.items()}
+
+
+def time_k2_widths(widths, rows: int, gen) -> dict:
+    """K2 forward at ``rows`` rows of each width (``time_rmsnorm_rows``)."""
+    out = {f"rmsnorm_d{d}": time_rmsnorm_rows(rows, d, gen) for d in widths}
+    print_kernel_times(out)
+    return out
+
+
+def phase20() -> dict:
+    """(a)-(d) of phase 20: see the module docstring."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    out = {"launches": [], "streams": {}, "serve": {}, "profiles": {}, "times": {}}
+    gen = torch.Generator().manual_seed(SEED + 50)
+
+    cfg = dataclasses.replace(serving_config(DS_ARCH), n_layers=DS_LAYERS)
+    model = Model(cfg)
+    plan = ", ".join(f"{seg.count} {seg.kind}" for seg in model.segments)
+    print(f"  (a) {cfg.name} cut to {DS_LAYERS} layers ({plan}), "
+          f"MLA q_lora {cfg.mla.q_lora_rank} / kv_lora {cfg.mla.kv_lora_rank}, "
+          f"{cfg.moe.n_experts} experts top {cfg.moe.top_k} + {cfg.moe.n_shared_experts} shared, "
+          f"dropless; {DS_REQUESTS} requests over both pools, {DS_SLOTS} slots of {DS_MAX_LEN}, "
+          f"{DS_CHUNK}-token chunks")
+    params = load_full_width(model, SEED + 51)
+    out["load_peak_bytes"] = torch.cuda.max_memory_allocated()
+    reqs = zamba_workload(cfg.vocab_size, DS_REQUESTS, (32, 161), (8, 25), SEED + 53)
+    runs, peak = run_peak("absorbed decode", lambda: serve(
+        model, params, reqs, n_slots=DS_SLOTS, max_len=DS_MAX_LEN, chunk=DS_CHUNK))
+    out["streams"][cfg.name] = check_streams(model, params, reqs, runs, DS_MAX_LEN)
+    check_near_tie_share(out["streams"][cfg.name], cfg.name)
+    out["serve"][cfg.name] = serve_summary(runs, peak)
+    out["launches"] += [r["launches"] for r in runs.values()]
+
+    ecfg = dataclasses.replace(cfg, mla_absorb=False, name=f"{cfg.name} (expand)")
+    emodel = Model(ecfg)
+    print("    the expand path (the latent cache expanded per head each tick), contiguous pool")
+    eruns, peak = run_peak("expand decode", lambda: serve(
+        emodel, params, reqs, (("contiguous", None),), n_slots=DS_SLOTS, max_len=DS_MAX_LEN,
+        chunk=DS_CHUNK))
+    out["streams"][ecfg.name] = check_streams(emodel, params, reqs, eruns, DS_MAX_LEN)
+    check_near_tie_share(out["streams"][ecfg.name], ecfg.name)
+    out["serve"][ecfg.name] = serve_summary(eruns, peak)
+    out["launches"] += [r["launches"] for r in eruns.values()]
+    out["expand_equals_absorbed"] = sum(
+        a == b for a, b in zip(eruns["contiguous"]["tokens"], runs["contiguous"]["tokens"]))
+    print(f"    expand streams equal to the absorbed contiguous run's: "
+          f"{out['expand_equals_absorbed']} of {len(reqs)}")
+
+    preqs = ds_prefix_workload(cfg.vocab_size)
+    print(f"    4 requests sharing a {DS_PREFIX}-token prefix on the paged pool with sharing")
+    shared, peak = run_peak("shared prefix", lambda: serve_probed(
+        model, params, preqs, "shared prefix", n_slots=DS_SLOTS, max_len=DS_MAX_LEN,
+        chunk=DS_CHUNK, block_size=BLOCK_SIZE, prefix_sharing=True))
+    st = shared["stats"]
+    check(st.prefix_hits >= 1 and st.prefix_rows_shared >= DS_PREFIX,
+          f"the shared-prefix run shared {st.prefix_rows_shared} rows in {st.prefix_hits} hits")
+    out["streams"][f"{cfg.name} shared prefix"] = check_streams(model, params, preqs,
+                                                                {"shared": shared}, DS_MAX_LEN)
+    out["shared_prefix"] = dict(run_summary(shared), peak_bytes=peak)
+    out["launches"].append(shared["launches"])
+
+    print("    steady ticks (torch.profiler) and K2 at deepseek's widths")
+    out["profiles"][cfg.name] = profile_ticks(
+        model, params, (("contiguous", None), ("paged", BLOCK_SIZE)), n_slots=DS_SLOTS,
+        max_len=DS_MAX_LEN, chunk=DS_CHUNK, prompt=(100, 160), seed=SEED + 54)
+    out["profiles"][ecfg.name] = profile_ticks(
+        emodel, params, (("contiguous", None),), n_slots=DS_SLOTS, max_len=DS_MAX_LEN,
+        chunk=DS_CHUNK, prompt=(100, 160), seed=SEED + 54)
+    m = cfg.mla
+    out["times"][cfg.name] = time_k2_widths((cfg.d_model, m.q_lora_rank, m.kv_lora_rank),
+                                            DS_SLOTS, gen)
+    del params
+
+    xcfg = get_config(XL_ARCH)
+    xmodel = Model(xcfg)
+    plan = ", ".join(f"{seg.count} {seg.kind}" for seg in xmodel.segments)
+    print(f"  (b) {xcfg.name} at full width and depth ({plan}; "
+          f"d_model {xcfg.d_model}, {xcfg.n_heads} heads), {XL_REQUESTS} requests over both pools, "
+          f"{XL_SLOTS} slots of {XL_MAX_LEN}")
+    params = load_full_width(xmodel, SEED + 55)
+    reqs = zamba_workload(xcfg.vocab_size, XL_REQUESTS, (16, 65), (8, 33), SEED + 56)
+    runs, peak = run_peak("xlstm", lambda: serve(
+        xmodel, params, reqs, n_slots=XL_SLOTS, max_len=XL_MAX_LEN, chunk=XL_CHUNK))
+    out["streams"][xcfg.name] = check_streams(xmodel, params, reqs, runs, XL_MAX_LEN)
+    check_near_tie_share(out["streams"][xcfg.name], xcfg.name)
+    out["serve"][xcfg.name] = serve_summary(runs, peak)
+    out["launches"] += [r["launches"] for r in runs.values()]
+    print(f"    speculative: a draft of the target plus noise {SPEC_NOISE}, gamma <= "
+          f"{XL_SPEC_GAMMA}, both pools")
+    spec, peak = run_peak("xlstm speculative", lambda: serve_speculative(
+        xmodel, params, reqs, {"noisy": (noisy_params(params, SPEC_NOISE, SEED + 57),
+                                         ("contiguous", "paged"))},
+        n_slots=XL_SLOTS, max_len=XL_MAX_LEN, chunk=XL_CHUNK, gamma_max=XL_SPEC_GAMMA,
+        plain_runs=runs))
+    out["spec"] = {label: {"rounds": r["stats"].spec_rounds, "offered": r["offered"],
+                           "accepted": r["accepted"], "gamma0_ticks": r["stats"].decode_ticks,
+                           "draft_ticks": r["stats"].draft_ticks, "calls": r["calls"],
+                           "launches": r["launches"], "wall_s": r["stats"].wall_seconds,
+                           "equal_to_plain": r["equal_to_plain"], "peak_bytes": peak}
+                   for label, r in spec["runs"].items()}
+    out["streams"][f"{xcfg.name} speculative"] = spec["streams"]
+    out["launches"] += [r["launches"] for r in spec["runs"].values()]
+    zreqs = zamba_workload(xcfg.vocab_size, 3, (16, 33), (8, 17), SEED + 58, gap=0.0)
+    print(f"    preemption: {len(zreqs)} requests with sharing on {XL_PREEMPT_BLOCKS} blocks "
+          f"(recurrent states are never adopted)")
+    pre, peak = run_peak("xlstm preempted", lambda: serve_preempted(
+        xmodel, params, zreqs, "xlstm preempted", n_slots=XL_SLOTS, max_len=XL_MAX_LEN,
+        chunk=XL_CHUNK, arena_blocks=XL_PREEMPT_BLOCKS))
+    check(pre["run"]["prefix_hits"] == 0, "xlstm adopted a prefix")
+    out["preempt"] = dict(pre, peak_bytes=peak)
+    out["launches"].append(pre["run"]["launches"])
+    print("    steady ticks (torch.profiler) and K2 at xlstm's widths")
+    out["profiles"][xcfg.name] = profile_ticks(
+        xmodel, params, (("contiguous", None), ("paged", BLOCK_SIZE)), n_slots=XL_SLOTS,
+        max_len=XL_MAX_LEN, chunk=XL_CHUNK, prompt=(32, 64), seed=SEED + 59)
+    out["times"][xcfg.name] = time_k2_widths(
+        (xcfg.d_model, int(xcfg.d_model * xcfg.xlstm.mlstm_proj_factor)), XL_SLOTS, gen)
+    del params
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3722,6 +3960,13 @@ def main() -> int:
     phase19_seconds = time.perf_counter() - t19
     print(f"    phase 19 took {phase19_seconds:.1f} s; card {card}")
 
+    t20 = time.perf_counter()
+    print(f"[20] MLA and xLSTM serving: {DS_ARCH} at full width cut to {DS_LAYERS} layers, "
+          f"{XL_ARCH} at full width and depth")
+    mla_xlstm = phase20()
+    phase20_seconds = time.perf_counter() - t20
+    print(f"    phase 20 took {phase20_seconds:.1f} s; card {card}")
+
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:26",
@@ -3772,6 +4017,7 @@ def main() -> int:
             "phase17_launches": sum(c[kname] for c in phase17),
             "phase18_launches": sum(c[kname] for c in phase18),
             "phase19_launches": sum(c[kname] for c in gqa["launches"]),
+            "phase20_launches": sum(c[kname] for c in mla_xlstm["launches"]),
         })
     report = {
         "kernels": kernels,
@@ -3843,6 +4089,8 @@ def main() -> int:
         "phase18_seconds": phase18_seconds,
         "gqa_configs": gqa,
         "phase19_seconds": phase19_seconds,
+        "mla_xlstm": mla_xlstm,
+        "phase20_seconds": phase20_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

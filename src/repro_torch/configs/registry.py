@@ -2,16 +2,16 @@
 
 A copy of the reference registry's entries for its GQA decoders (dense,
 the parallel-block command-r, the qk-norm chameleon and the top-k MoE
-qwen3-moe) and the Mamba2 + shared-attention hybrid zamba2-1.2b; the
-other families (MLA, xLSTM, the audio encoder) join the port with their
-model code.
+qwen3-moe), the MLA + MoE deepseek-v3, the Mamba2 + shared-attention
+hybrid zamba2-1.2b and the mLSTM / sLSTM xlstm-125m; the audio encoder
+joins the port with its model code.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from .base import ModelConfig, MoEConfig, SSMConfig
+from .base import MLAConfig, ModelConfig, MoEConfig, SSMConfig, XLSTMConfig
 
 __all__ = ["ARCHS", "ALIASES", "get_config", "list_archs"]
 
@@ -52,6 +52,40 @@ def _qwen3_moe_30b() -> ModelConfig:
         qk_norm=True,
         rope_theta=1000000.0,
         moe=MoEConfig(n_experts=128, top_k=8, d_expert=768),
+    )
+
+
+def _deepseek_v3() -> ModelConfig:
+    # [moe] 61L d_model=7168 128H d_ff(expert)=2048 vocab=129280
+    # MLA, 1 shared + 256 routed top-8, first 3 dense (d_ff 18432), MTP
+    # [arXiv:2412.19437]
+    return ModelConfig(
+        name="deepseek-v3-671b",
+        family="moe",
+        n_layers=61,
+        d_model=7168,
+        n_heads=128,
+        n_kv_heads=128,
+        head_dim=192,      # qk_nope(128) + qk_rope(64)
+        d_ff=18432,        # dense layers
+        vocab_size=129280,
+        rope_theta=10000.0,
+        moe=MoEConfig(
+            n_experts=256,
+            top_k=8,
+            d_expert=2048,
+            n_shared_experts=1,
+            first_k_dense=3,
+        ),
+        mla=MLAConfig(
+            q_lora_rank=1536,
+            kv_lora_rank=512,
+            qk_nope_head_dim=128,
+            qk_rope_head_dim=64,
+            v_head_dim=128,
+        ),
+        mla_absorb=True,   # latent-space decode = DeepSeek's own deployment
+        mtp=True,
     )
 
 
@@ -151,16 +185,38 @@ def _chameleon_34b() -> ModelConfig:
     )
 
 
+def _xlstm_125m() -> ModelConfig:
+    # [ssm] 12L d_model=768 4H d_ff=0 vocab=50304, sLSTM + mLSTM blocks
+    # [arXiv:2405.04517] — xLSTM[7:1]-style mix; no separate FFN (d_ff=0,
+    # the blocks carry their own up/down projections).
+    return ModelConfig(
+        name="xlstm-125m",
+        family="xlstm",
+        n_layers=12,
+        d_model=768,
+        n_heads=4,
+        n_kv_heads=4,
+        head_dim=192,
+        d_ff=0,
+        vocab_size=50304,
+        rope_theta=0.0,
+        tie_embeddings=True,
+        xlstm=XLSTMConfig(slstm_every=6),
+    )
+
+
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c
     for c in [
         _zamba2_1p2b(),
         _qwen3_moe_30b(),
+        _deepseek_v3(),
         _llama32_1b(),
         _qwen25_3b(),
         _command_r_35b(),
         _smollm_135m(),
         _chameleon_34b(),
+        _xlstm_125m(),
     ]
 }
 
@@ -168,11 +224,13 @@ ARCHS: Dict[str, ModelConfig] = {
 ALIASES = {
     "zamba2": "zamba2-1.2b",
     "qwen3-moe": "qwen3-moe-30b-a3b",
+    "deepseek-v3": "deepseek-v3-671b",
     "llama3.2": "llama3.2-1b",
     "qwen2.5": "qwen2.5-3b",
     "command-r": "command-r-35b",
     "smollm": "smollm-135m",
     "chameleon": "chameleon-34b",
+    "xlstm": "xlstm-125m",
 }
 
 

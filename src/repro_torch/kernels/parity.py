@@ -97,15 +97,20 @@ def shared_block_arena(Hkv: int, D: int, S: int, lens, shared: int, gen: torch.G
     return k.to(device, dtype), v.to(device, dtype), tables.to(device)
 
 
-#: RMSNorm (K2) forward at the rows of a decode step: one (the hybrid's
-#: scanned prefill) or four (a tick of four lanes), at d_model 2048, at
-#: zamba2-1.2b's 4096-wide norms (its gated Mamba2 norm and the shared
-#: block's two) and at chameleon-34b's 8192; and the qk-norm's rows of D
-#: 128, one a head (B, 1, heads, 128): chameleon-34b's 64 query and 8 key
-#: heads, qwen3-moe-30b-a3b's 32 and 4.
+#: RMSNorm (K2) forward at the rows of a decode step: one (the scanned
+#: prefill of the recurrent stacks, an offline step) or four (a tick of
+#: four lanes), at d_model 2048, at zamba2-1.2b's 4096-wide norms (its
+#: gated Mamba2 norm and the shared block's two) and at chameleon-34b's
+#: 8192; the qk-norm's rows of D 128, one a head (B, 1, heads, 128):
+#: chameleon-34b's 64 query and 8 key heads, qwen3-moe-30b-a3b's 32 and
+#: 4; deepseek-v3's d_model 7168 and its MLA q_norm (1536) and kv_norm
+#: (512); and xlstm-125m's d_model 768 (the block norms and the sLSTM's)
+#: and its mLSTM's inner norm (2 x 768 = 1536).
 RMS_DECODE_SHAPES = [(1, 1, 2048), (4, 1, 2048), (1, 1, 4096), (4, 1, 4096),
                      (1, 1, 8192), (4, 1, 8192),
-                     (4, 1, 64, 128), (4, 1, 8, 128), (4, 1, 32, 128), (4, 1, 4, 128)]
+                     (4, 1, 64, 128), (4, 1, 8, 128), (4, 1, 32, 128), (4, 1, 4, 128),
+                     (1, 1, 7168), (4, 1, 7168), (1, 1, 1536), (4, 1, 1536),
+                     (1, 1, 512), (4, 1, 512), (1, 1, 768), (4, 1, 768)]
 
 #: RMSNorm (K2) forward at a llama3.2-1b speculative verify's rows: 4
 #: lanes of a window of 1 + gamma tokens, gamma 1 to 6 (8 to 28 rows of
@@ -114,9 +119,12 @@ RMS_VERIFY_SHAPES = [(4, 1 + gamma, 2048) for gamma in range(1, 7)]
 
 #: RMSNorm (K2) forward at a 128-token prefill chunk of the wide models:
 #: chameleon-34b's norms (D 8192) and its qk-norm (64 and 8 heads of 128),
-#: and qwen3-moe-30b-a3b's qk-norm (32 and 4 heads).
+#: qwen3-moe-30b-a3b's qk-norm (32 and 4 heads), and deepseek-v3's norms
+#: (D 7168) and its MLA q_norm and kv_norm (1536, 512). xLSTM has no
+#: chunk: it prefills one token a step.
 RMS_CHUNK_SHAPES = [(1, 128, 8192), (1, 128, 64, 128), (1, 128, 8, 128),
-                    (1, 128, 32, 128), (1, 128, 4, 128)]
+                    (1, 128, 32, 128), (1, 128, 4, 128),
+                    (1, 128, 7168), (1, 128, 1536), (1, 128, 512)]
 
 #: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and
@@ -251,8 +259,17 @@ def dscale_bf16_slack(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
 
 
 def k2_per_call(cfg) -> int:
-    """K2 launches of one serving call over a GQA stack (a prefill chunk,
-    a tick, a verify): each RMSNorm, a block's one (parallel) or two and
-    the qk-norm's two, and the final norm. LayerNorm is plain PyTorch."""
+    """K2 launches of one serving call over a segment stack (a prefill
+    chunk, a tick, a verify; a step of xLSTM's scanned prefill): each
+    RMSNorm, and the final norm. A GQA block has one (parallel) or two and
+    the qk-norm's two; an MLA block two and its q_norm and kv_norm; an
+    xLSTM block its pre-norm and its mixer's inner norm. LayerNorm is plain
+    PyTorch."""
     rms = cfg.norm == "rmsnorm"
-    return cfg.n_layers * (rms * (1 if cfg.parallel_block else 2) + 2 * cfg.qk_norm) + rms
+    if cfg.family == "xlstm":
+        per_layer = rms + 1
+    elif cfg.mla is not None:
+        per_layer = 2 * rms + 2
+    else:
+        per_layer = rms * (1 if cfg.parallel_block else 2) + 2 * cfg.qk_norm
+    return cfg.n_layers * per_layer + rms

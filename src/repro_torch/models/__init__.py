@@ -1,5 +1,6 @@
 """Models of the port (PyTorch definitions): GQA decoders (dense,
-parallel-block and top-k MoE) and the Mamba2 + shared-attention hybrid."""
+parallel-block and top-k MoE), DeepSeek's MLA + MoE decoder, the xLSTM
+stack (mLSTM and sLSTM blocks) and the Mamba2 + shared-attention hybrid."""
 
 from .bridge import params_from_numpy
 from .model import Model, count_params_analytic

@@ -1,7 +1,7 @@
-"""GQA attention with KV caches (port of the GQA part of
-``repro.models.attention``).
+"""GQA attention and DeepSeek's multi-head latent attention (MLA) with KV
+caches (port of ``repro.models.attention``).
 
-Three execution paths share one set of weights:
+Three execution paths share one set of GQA weights:
   * training (``gqa_apply`` without a cache): project, RoPE, and attend
     over the whole sequence through kernel K1 (flash attention, forward
     and backward), as the reference's ``gqa_apply`` reaches its Pallas
@@ -12,7 +12,15 @@ Three execution paths share one set of weights:
   * decode (``gqa_apply`` with a cache): one query per sequence against
     its cache through kernel K3 (contiguous) or K4 (paged block arena).
 
-Caches are dicts {"k": ..., "v": ...}: contiguous (B, S, Hkv, D) stripes,
+MLA (``mla_apply``, ``mla_prefill``) caches the latent stream instead:
+{"ckv": (B, S, kv_lora_rank), "k_rope": (B, S, qk_rope_head_dim)}, written
+through the same row helpers and paged the same way. Its attention is
+plain PyTorch in f32, as the reference computes it in jnp (no Pallas
+kernel reaches it): ``mea_attention`` for training and prefill, and at
+decode either the absorbed latent-space product (``absorb=True``, the
+registry's choice) or the per-head expansion of the whole latent cache.
+
+GQA caches are dicts {"k": ..., "v": ...}: contiguous (B, S, Hkv, D) stripes,
 or paged arenas (num_blocks + 1, block_size, Hkv, D) addressed through a
 per-sequence ``block_table`` (B, T). Arena row 0 is the NULL sink: never
 allocated, it absorbs writes from dead lanes and pad rows and backs
@@ -28,7 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import decode_attention as _decode_kernel
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import paged_decode_attention as _paged_decode_kernel
@@ -39,7 +47,7 @@ __all__ = [
     "NEG_INF", "KV_SEQ_ALIGN", "NULL_BLOCK", "round_kv_len", "paged_kv_view",
     "cache_row_update", "cache_rows_update", "decode_lengths", "cached_decode", "gqa_specs",
     "mea_attention", "decode_attention", "gqa_apply", "gqa_prefill",
-    "gqa_cache_spec",
+    "gqa_cache_spec", "mla_specs", "mla_apply", "mla_prefill", "mla_cache_spec",
 ]
 
 #: KV cache sequence axes are rounded up to this multiple at allocation
@@ -353,4 +361,179 @@ def gqa_cache_spec(
     return {
         "k": ParamSpec(shape, axes, "zeros", cfg.dtype),
         "v": ParamSpec(shape, axes, "zeros", cfg.dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dt = cfg.dtype
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ParamSpec((d, m.q_lora_rank), ("embed", "q_lora"), "scaled", dt),
+        "q_norm": norm_specs(m.q_lora_rank, "rmsnorm", dt),
+        "wq_b": ParamSpec(
+            (m.q_lora_rank, h, qk_dim), ("q_lora", "heads", "head_dim"), "scaled", dt
+        ),
+        "wkv_a": ParamSpec(
+            (d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "kv_lora"), "scaled", dt
+        ),
+        "kv_norm": norm_specs(m.kv_lora_rank, "rmsnorm", dt),
+        "wkv_b": ParamSpec(
+            (m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim),
+            ("kv_lora", "heads", "head_dim"),
+            "scaled",
+            dt,
+        ),
+        "wo": ParamSpec((h, m.v_head_dim, d), ("heads", "head_dim", "embed"), "scaled", dt),
+    }
+
+
+def _mla_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """x (B, S, d) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope) after
+    RoPE, the normed latent ckv (B, S, kv_lora) and the shared rope key
+    k_rope (B, S, 1, rope) after RoPE. Both norms run through K2."""
+    m: MLAConfig = cfg.mla
+    q_lat = norm_apply(params["q_norm"], x @ params["wq_a"], "rmsnorm")
+    q = torch.einsum("bsr,rhk->bshk", q_lat, params["wq_b"])
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv, k_rope = (x @ params["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    # The split is a strided view; K2 takes contiguous rows.
+    ckv = norm_apply(params["kv_norm"], ckv.contiguous(), "rmsnorm")
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_expand_kv(params: Dict, ckv: torch.Tensor, cfg: ModelConfig):
+    """Latent rows (B, S, kv_lora) -> per-head k_nope (B, S, H, nope) and
+    v (B, S, H, v_head_dim)."""
+    m: MLAConfig = cfg.mla
+    kv = torch.einsum("bsr,rhk->bshk", ckv, params["wkv_b"])
+    return kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+
+
+def _mla_full_qk(q_nope, q_rope, k_nope, k_rope_rows):
+    """Per-head q (B, Sq, H, nope + rope) and k (B, S, H, nope + rope),
+    the one rope key row broadcast over the heads."""
+    B, S, H, _ = k_nope.shape
+    k_rope_b = k_rope_rows[:, :, None, :].expand(B, S, H, k_rope_rows.shape[-1])
+    return torch.cat([q_nope, q_rope], dim=-1), torch.cat([k_nope, k_rope_b], dim=-1)
+
+
+def _mla_cache_write(cache: Dict, ckv, k_rope, write, block_table):
+    """Write the latent rows with ``write`` (``cache_row_update`` or
+    ``cache_rows_update``, bound to its position arguments), in place ->
+    (new cache, per-sequence ckv view (B, S, kv_lora), k_rope view)."""
+    new_cache = {"ckv": write(cache["ckv"], ckv), "k_rope": write(cache["k_rope"], k_rope[:, :, 0])}
+    if block_table is None:
+        return new_cache, new_cache["ckv"], new_cache["k_rope"]
+    return (new_cache, paged_kv_view(new_cache["ckv"], block_table),
+            paged_kv_view(new_cache["k_rope"], block_table))
+
+
+def mla_apply(
+    params: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[Dict] = None,
+    cache_index=None,
+    absorb: bool = False,
+    block_table: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA attention. Without a cache (training): expand the latent rows
+    per head and attend causally with ``mea_attention`` -> (out, None).
+    With one: one-token decode. The token's latent row and rope key are
+    written at ``cache_index`` (scalar or (B,)), and the query attends
+    against the whole latent cache, masked past each row's length:
+    ``absorb=True`` in latent space (W_UK folded into the query, W_UV
+    applied after the softmax; f32 scores, as the reference), else by
+    expanding every cached row to per-head K/V."""
+    m: MLAConfig = cfg.mla
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(params, x, cfg, positions)
+    B = x.shape[0]
+    if cache is None:
+        k_nope, v = _mla_expand_kv(params, ckv, cfg)
+        q_full, k_full = _mla_full_qk(q_nope, q_rope, k_nope, k_rope[:, :, 0])
+        out = mea_attention(q_full, k_full, v, causal=True, chunk=cfg.attn_chunk)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
+
+    def write(c, new):
+        return cache_row_update(c, new, cache_index, block_table=block_table)
+
+    new_cache, c_ckv, c_rope = _mla_cache_write(cache, ckv, k_rope, write, block_table)
+    S = c_ckv.shape[1]
+    length = decode_lengths(cache_index, B, x.device)
+    pos_mask = (torch.arange(S, device=x.device)[None, :] < length[:, None])[:, None, None, :]
+    if absorb:
+        w_uk, w_uv = params["wkv_b"].split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)          # (B, 1, H, r)
+        scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+        c_ckv_f = c_ckv.float()
+        s = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_ckv_f)
+             + torch.einsum("bshk,btk->bhst", q_rope.float(), c_rope.float())) * scale
+        p = torch.softmax(s.masked_fill(~pos_mask, NEG_INF), dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", p, c_ckv_f)
+        out = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), w_uv)
+    else:
+        k_nope, v = _mla_expand_kv(params, c_ckv, cfg)
+        q_full, k_full = _mla_full_qk(q_nope, q_rope, k_nope, c_rope)
+        s = torch.einsum("bshk,bthk->bhst", scale_query(q_full).float(), k_full.float())
+        p = torch.softmax(s.masked_fill(~pos_mask, NEG_INF), dim=-1)
+        out = torch.einsum("bhst,bthk->bshk", p, v.float()).to(x.dtype)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), new_cache
+
+
+def mla_prefill(
+    params: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Dict,
+    start_index,
+    block_table: Optional[torch.Tensor] = None,
+    n_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Cache-writing batched MLA prefill (and verify): write the chunk's
+    latent rows at ``start_index`` (scalar or (B,), ``n_valid`` as in
+    ``gqa_prefill``), expand the whole latent cache per head and attend
+    causally with ``mea_attention``."""
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(params, x, cfg, positions)
+
+    def write(c, new):
+        return cache_rows_update(c, new, start_index, block_table=block_table,
+                                 n_valid=n_valid)
+
+    new_cache, c_ckv, c_rope = _mla_cache_write(cache, ckv, k_rope, write, block_table)
+    k_nope, v = _mla_expand_kv(params, c_ckv, cfg)
+    q_full, k_full = _mla_full_qk(q_nope, q_rope, k_nope, c_rope)
+    out = mea_attention(q_full, k_full, v, causal=True, chunk=cfg.attn_chunk,
+                        q_offset=start_index)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), new_cache
+
+
+def mla_cache_spec(
+    cfg: ModelConfig,
+    batch: int,
+    max_len: int,
+    page: Optional[Tuple[int, int]] = None,
+) -> Dict[str, ParamSpec]:
+    """The latent cache: (batch, max_len) stripes, or with ``page`` one
+    arena (num_blocks + 1, block_size) per leaf, as ``gqa_cache_spec``."""
+    m: MLAConfig = cfg.mla
+    if page is not None:
+        num_blocks, block_size = page
+        front, axes2 = (num_blocks + 1, block_size), ("kv_blocks", "kv_block")
+    else:
+        front, axes2 = (batch, max_len), ("act_batch", "act_kv_seq")
+    return {
+        "ckv": ParamSpec((*front, m.kv_lora_rank), (*axes2, None), "zeros", cfg.dtype),
+        "k_rope": ParamSpec((*front, m.qk_rope_head_dim), (*axes2, None), "zeros", cfg.dtype),
     }

@@ -9,7 +9,9 @@ stacks layers on a leading axis; the port keeps one dict per layer, so
 each stacked leaf is cut along that axis: a segment's layers (an MoE
 layer's (E, ...) expert weights stay stacked within the layer), or the
 hybrid's ``stack["mamba"]`` (its per-call LoRA stacks stay stacked, as
-in the port's specs). Nothing here imports JAX: the caller converts.
+in the port's specs). Other subtrees (DeepSeek's ``mtp`` head, a single
+block, unstacked in both) cross as they are. Nothing here imports JAX:
+the caller converts.
 """
 
 from __future__ import annotations

@@ -117,7 +117,9 @@ def init_from_specs(specs, generator: torch.Generator, device):
             raise ValueError(f"unknown init {spec.init}")
         w = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (w * std).to(dt)
+        # In place: a leaf's f32 draw is its only temporary (deepseek's
+        # (256, 7168, 2048) expert leaves draw 14 GiB each).
+        return w.mul_(std).to(dt)
 
     return tree_map(make, specs)
 

@@ -1,28 +1,31 @@
-"""Top-level model (port of ``repro.models.model`` for the GQA decoders,
-dense, parallel-block and MoE, and the Mamba2 hybrids): embeddings, the
+"""Top-level model (port of ``repro.models.model`` for the decoder stacks,
+GQA (dense, parallel-block, MoE) and MLA (deepseek, with its MTP
+parameters), the xLSTM stack and the Mamba2 hybrids): embeddings, the
 block stack, the head (tied or not), the training entry points
 ``hidden`` and ``train_loss``, and the serving
 entry points ``cache_specs`` / ``blank_caches``, ``prefill_with_cache``,
 ``decode_step`` and the speculative ``verify_with_cache``.
 
-Parameters and caches are trees of tensors. For the attention stacks
+Parameters and caches are trees of tensors. For the segment stacks
 ``params["stack"]`` and the cache tree hold one list per segment with
 one dict per layer (the reference stacks layers on a leading axis
 instead); for ``ssm``/``hybrid`` the stack is ``zamba.zamba_specs``'s
 tree and the cache ``zamba.zamba_cache_specs``'s, stacked as in the
 reference. Every RMSNorm runs
-through kernel K2 (its gradient through K2's backward), every training
-attention through K1 (forward and backward), every SSD scan through K5
-(forward and backward), and every decode attention through K3
-(contiguous) or K4 (paged); the projections, LayerNorm, the MLP, the MoE
-dispatch and its expert products, the causal convolution, the serving
-SSM step and the head are plain PyTorch, as the reference leaves them
-to XLA.
+through kernel K2 (its gradient through K2's backward), every GQA
+training attention through K1 (forward and backward), every SSD scan
+through K5 (forward and backward), and every GQA decode attention
+through K3 (contiguous) or K4 (paged); the projections, LayerNorm, the
+MLP, the MoE dispatch and its expert products, MLA's attention (f32, as
+the reference), the xLSTM and serving SSM recurrences, the causal
+convolutions and the head are plain PyTorch, as the reference leaves
+them to XLA.
 
 The attention stacks' prefill and verify run the whole chunk at once.
-The hybrid's are the reference's fallback: they scan the decode step
-over the chunk, one token at a time, and mask each row's state past its
-length (the verify: past its accepted prefix).
+Stacks with recurrent state (the hybrid, xLSTM) take the reference's
+fallback: they scan the decode step over the chunk, one token at a
+time, and mask each row's state past its length (the verify: past its
+accepted prefix).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import masked_weighted_ce
 from . import attention as attn
-from . import zamba
+from . import xlstm, zamba
 from .layers import (
     DTYPES,
     ParamSpec,
@@ -45,7 +48,15 @@ from .layers import (
     norm_specs,
     tree_map,
 )
-from .transformer import Segment, block_ffn, block_specs, run_segments, segment_plan
+from .transformer import (
+    RECURRENT_KINDS,
+    Segment,
+    block_ffn,
+    block_specs,
+    recurrent_block,
+    run_segments,
+    segment_plan,
+)
 
 __all__ = ["Model", "count_params_analytic"]
 
@@ -60,12 +71,24 @@ def _block_decode(
     cache: Dict,
     cache_index,
     block_tables: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
+    """One block's decode step. An xLSTM block updates its states in place,
+    lanes where ``mask`` (B,) is False keeping theirs; attention blocks
+    write their K/V (or latent) row and ignore ``mask``."""
+    if kind in RECURRENT_KINDS:
+        return recurrent_block(params, x, cfg, kind, cache, mask)
     h = norm_apply(params["attn_norm"], x, cfg.norm)
-    a, new_cache = attn.gqa_apply(
-        params["attn"], h, cfg, positions=positions, cache=cache,
-        cache_index=cache_index, block_table=block_tables,
-    )
+    if kind.startswith("mla"):
+        a, new_cache = attn.mla_apply(
+            params["attn"], h, cfg, positions=positions, cache=cache,
+            cache_index=cache_index, absorb=cfg.mla_absorb, block_table=block_tables,
+        )
+    else:
+        a, new_cache = attn.gqa_apply(
+            params["attn"], h, cfg, positions=positions, cache=cache,
+            cache_index=cache_index, block_table=block_tables,
+        )
     # The router's aux loss is dropped, as the reference drops it serving.
     return block_ffn(params, x, h, a, cfg, kind)[0], new_cache
 
@@ -85,12 +108,23 @@ def _block_prefill(
     """Multi-token block forward that also writes the block's cache rows
     (the serving prefill and verify; mirrors ``_block_decode`` with S > 1)."""
     h = norm_apply(params["attn_norm"], x, cfg.norm)
-    a, new_cache = attn.gqa_prefill(
+    prefill = attn.mla_prefill if kind.startswith("mla") else attn.gqa_prefill
+    a, new_cache = prefill(
         params["attn"], h, cfg, positions=positions, cache=cache,
         start_index=start_index, block_table=block_tables, n_valid=n_valid,
     )
     # The router's aux loss is dropped, as the reference drops it serving.
     return block_ffn(params, x, h, a, cfg, kind)[0], new_cache
+
+
+def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int, page=None):
+    if kind == "mlstm":
+        return xlstm.mlstm_state_spec(cfg, batch)
+    if kind == "slstm":
+        return xlstm.slstm_state_spec(cfg, batch)
+    if kind.startswith("mla"):
+        return attn.mla_cache_spec(cfg, batch, max_len, page)
+    return attn.gqa_cache_spec(cfg, batch, max_len, page)
 
 
 def _zeros_from_specs(specs, device) -> Any:
@@ -102,9 +136,9 @@ def _zeros_from_specs(specs, device) -> Any:
 
 
 class Model:
-    """A GQA decoder or a Mamba2 hybrid. Methods are functions of
-    (params, inputs), like the reference's; cache writes happen in place
-    on the given caches."""
+    """A decoder stack (GQA or MLA), an xLSTM stack or a Mamba2 hybrid.
+    Methods are functions of (params, inputs), like the reference's; cache
+    writes happen in place on the given caches."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -118,11 +152,18 @@ class Model:
         return self.cfg.family in ("ssm", "hybrid")
 
     @property
+    def recurrent(self) -> bool:
+        """Whether some block carries recurrent state (the hybrid's Mamba2
+        layers, xLSTM's mLSTM / sLSTM blocks), which cannot rewind."""
+        return self.is_hybrid or any(seg.kind in RECURRENT_KINDS for seg in self.segments)
+
+    @property
     def fused_prefill(self) -> bool:
         """True when every block has a multi-token cache-writing prefill
-        (the attention stacks); the hybrid scans the decode step in
-        ``prefill_with_cache`` and ``verify_with_cache`` instead."""
-        return not self.is_hybrid
+        (the attention stacks); stacks with recurrent state scan the
+        decode step in ``prefill_with_cache`` and ``verify_with_cache``
+        instead."""
+        return not self.recurrent
 
     # -- specs ---------------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -142,6 +183,16 @@ class Model:
             specs["head"] = ParamSpec(
                 (cfg.d_model, cfg.vocab_size), ("embed", "vocab"), "scaled", dt
             )
+        if cfg.mtp:
+            # DeepSeek's multi-token-prediction head: held so that the whole
+            # tree crosses over; serving never reads it, and its loss is
+            # not ported yet (``train_loss`` raises).
+            specs["mtp"] = {
+                "proj": ParamSpec((2 * cfg.d_model, cfg.d_model), ("embed", "embed_out"),
+                                  "scaled", dt),
+                "block": block_specs(cfg, "mla_dense" if cfg.mla is not None else "dense"),
+                "norm": norm_specs(cfg.d_model, cfg.norm, dt),
+            }
         return specs
 
     def init(self, seed: int = 0, *, device="cuda"):
@@ -205,13 +256,13 @@ class Model:
         here, at allocation time. ``block_size`` switches every leaf to
         the paged arena layout (num_blocks + 1, block_size, ...) addressed
         through block tables; row 0 of an arena is the NULL sink. The
-        hybrid's recurrent states have no sequence axis and stay
-        contiguous per slot in both modes."""
+        recurrent states (the hybrid's, xLSTM's) have no sequence axis and
+        stay contiguous per slot in both modes."""
         max_len = attn.round_kv_len(max_len)
         page = None if block_size is None else (num_blocks, block_size)
         if self.is_hybrid:
             return zamba.zamba_cache_specs(self.cfg, batch, max_len, page)
-        return [[attn.gqa_cache_spec(self.cfg, batch, max_len, page)
+        return [[_block_cache_spec(self.cfg, seg.kind, batch, max_len, page)
                  for _ in range(seg.count)] for seg in self.segments]
 
     def blank_caches(self, batch: int, max_len: int, *,
@@ -236,8 +287,9 @@ class Model:
         """Batched cache-writing prefill -> (last-valid logits (B, 1, V),
         caches). ``inputs`` may be right-padded to a bucket; pad rows are
         causally inert and their cache rows are masked by decode's length.
-        ``start_index > 0`` continues a partially prefilled cache. The
-        hybrid scans the decode step instead (``_scanned_prefill``)."""
+        ``start_index > 0`` continues a partially prefilled cache. Stacks
+        with recurrent state scan the decode step instead
+        (``_scanned_prefill``)."""
         B, P = inputs.shape
         dev = inputs.device
         if length is None:
@@ -327,18 +379,19 @@ class Model:
             inputs; rows past the accepted prefix are dead (every read
             masks by the caller's position), so rollback is a position
             rewind. Pad rows are dropped or sunk (``cache_rows_update``).
-          * the hybrid (scanned path) cannot rewind its recurrent state,
-            so step t commits its state update only while the greedy chain
-            holds, ``argmax(logits_{t-1}) == inputs[t]``, decided on the
-            card as the caller decides it on the host. ``greedy_commit``
-            False commits all ``n_input`` tokens (the draft's replay).
-            Where the reference selects the K/V rows by the chain as
-            well, the port writes them at every step, in place: a row at
-            or past a lane's committed position is dead. A pad step's
-            position is clamped onto the last row, which no lane reads (a
-            lane's rows end at its budget minus 2): past it, a contiguous
-            write would clamp there anyway, and a paged one would wrap
-            onto a row of the lane's last block.
+          * stacks with recurrent state (scanned path: the hybrid, xLSTM)
+            cannot rewind it, so step t commits its state update only
+            while the greedy chain holds, ``argmax(logits_{t-1}) ==
+            inputs[t]``, decided on the card as the caller decides it on
+            the host. ``greedy_commit`` False commits all ``n_input``
+            tokens (the draft's replay). Where the reference selects the
+            hybrid's K/V rows by the chain as well, the port writes them
+            at every step, in place: a row at or past a lane's committed
+            position is dead. A pad step's position is clamped onto the
+            last row, which no lane reads (a lane's rows end at its
+            budget minus 2): past it, a contiguous write would clamp
+            there anyway, and a paged one would wrap onto a row of the
+            lane's last block. xLSTM writes no row.
         """
         B, S = inputs.shape
         dev = inputs.device
@@ -353,8 +406,9 @@ class Model:
             return self.logits(params, h), new_caches
         # The chain stays on the card: no step reads a value back.
         nxt = torch.cat([inputs[:, 1:], torch.zeros_like(inputs[:, :1])], dim=1)
-        last = zamba.zamba_kv_rows(caches, block_tables) - 1
-        pos = (start[:, None] + torch.arange(S, device=dev)).clamp(max=last)
+        pos = start[:, None] + torch.arange(S, device=dev)
+        if self.is_hybrid:
+            pos = pos.clamp(max=zamba.zamba_kv_rows(caches, block_tables) - 1)
         acc = torch.ones(B, dtype=torch.bool, device=dev)
         ys = []
         for t in range(S):
@@ -380,8 +434,8 @@ class Model:
     ):
         """One token per sequence -> (logits (B, 1, V), caches). ``mask``
         (None: every lane) marks the lanes whose recurrent states the step
-        may change (the hybrid's); the dense families have none and ignore
-        it."""
+        may change (the hybrid's, xLSTM's); the attention stacks have none
+        and ignore it."""
         cfg = self.cfg
         x = self.embed_inputs(params, token)
         idx = torch.as_tensor(cache_index, dtype=torch.long, device=x.device)
@@ -399,7 +453,7 @@ class Model:
             for layer, cache in zip(seg_params, seg_cache):
                 h, nc = _block_decode(
                     layer, h, cfg, seg.kind, positions=positions, cache=cache,
-                    cache_index=idx, block_tables=block_tables,
+                    cache_index=idx, block_tables=block_tables, mask=mask,
                 )
                 seg_new.append(nc)
             new_caches.append(seg_new)

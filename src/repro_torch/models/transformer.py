@@ -1,10 +1,13 @@
-"""Segmented decoder stack (port of ``repro.models.transformer``, the
-GQA block kinds).
+"""Segmented decoder stack (port of ``repro.models.transformer``, its
+decoder block kinds).
 
 Block kinds:
-  dense    : pre-norm GQA attn + pre-norm (G)MLP    (llama/qwen/smollm/chameleon)
-  parallel : one norm, attn + MLP in parallel        (command-r)
-  moe      : pre-norm GQA attn + pre-norm MoE FFN    (qwen3-moe)
+  dense      : pre-norm GQA attn + pre-norm (G)MLP    (llama/qwen/smollm/chameleon)
+  parallel   : one norm, attn + MLP in parallel        (command-r)
+  moe        : pre-norm GQA attn + pre-norm MoE FFN    (qwen3-moe)
+  mla_dense  : pre-norm MLA attn + pre-norm (G)MLP     (deepseek's first k)
+  mla_moe    : pre-norm MLA attn + pre-norm MoE FFN    (deepseek)
+  mlstm/slstm: pre-norm xLSTM block, residual          (xlstm)
 
 A model is a sequence of SEGMENTS, each a homogeneous run of blocks. The
 reference stacks a segment's parameters along a leading 'layers' axis
@@ -33,10 +36,11 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
-from . import moe
+from . import moe, xlstm
 from .layers import mlp_apply, mlp_specs, norm_apply, norm_specs
 
-__all__ = ["Segment", "segment_plan", "block_specs", "block_apply", "block_ffn", "ffn_apply",
+__all__ = ["Segment", "RECURRENT_KINDS", "segment_plan", "block_specs", "block_apply",
+           "recurrent_block", "block_ffn", "ffn_apply",
            "run_segments", "save_unbatched_products"]
 
 
@@ -46,28 +50,52 @@ class Segment:
     count: int
 
 
+#: Block kinds whose state is recurrent (no sequence axis to rewind or page).
+RECURRENT_KINDS = ("mlstm", "slstm")
+
+
 def segment_plan(cfg: ModelConfig) -> List[Segment]:
     if cfg.family in ("dense", "vlm"):
         return [Segment("parallel" if cfg.parallel_block else "dense", cfg.n_layers)]
-    if cfg.family == "moe" and cfg.mla is None:
+    if cfg.family == "moe":
         k = cfg.moe.first_k_dense
-        return ([Segment("dense", k)] if k else []) + [Segment("moe", cfg.n_layers - k)]
+        dense, sparse = ("mla_dense", "mla_moe") if cfg.mla is not None else ("dense", "moe")
+        return ([Segment(dense, k)] if k else []) + [Segment(sparse, cfg.n_layers - k)]
+    if cfg.family == "xlstm":
+        # Runs of mLSTM blocks, one sLSTM block every ``slstm_every``.
+        segs: List[Segment] = []
+        run = 0
+        for i in range(cfg.n_layers):
+            if (i + 1) % cfg.xlstm.slstm_every == 0:
+                if run:
+                    segs.append(Segment("mlstm", run))
+                    run = 0
+                segs.append(Segment("slstm", 1))
+            else:
+                run += 1
+        return segs + ([Segment("mlstm", run)] if run else [])
     raise ValueError(
-        f"the port builds GQA decoders and Mamba2 hybrids only (family {cfg.family!r}"
-        f"{', MLA' if cfg.mla is not None else ''} is not ported yet)"
+        f"the port builds decoder stacks, xLSTM and Mamba2 hybrids (family "
+        f"{cfg.family!r} is not ported yet)"
     )
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    """Pre-norm GQA attention, then a pre-norm (gated) MLP or MoE FFN; the
-    parallel block has one norm for both."""
-    if kind not in ("dense", "parallel", "moe"):
-        raise ValueError(f"block kind {kind!r} is not ported yet")
+    """Pre-norm GQA or MLA attention, then a pre-norm (gated) MLP or MoE
+    FFN; the parallel block has one norm for both. An xLSTM block is a
+    pre-norm mixer."""
     d, dt = cfg.d_model, cfg.dtype
-    out = {"attn_norm": norm_specs(d, cfg.norm, dt), "attn": attn.gqa_specs(cfg)}
+    if kind in RECURRENT_KINDS:
+        mixer = xlstm.mlstm_specs(cfg) if kind == "mlstm" else xlstm.slstm_specs(cfg)
+        return {"norm": norm_specs(d, cfg.norm, dt), "mixer": mixer}
+    if kind not in ("dense", "parallel", "moe", "mla_dense", "mla_moe"):
+        raise ValueError(f"block kind {kind!r} is not ported yet")
+    out = {"attn_norm": norm_specs(d, cfg.norm, dt),
+           "attn": attn.mla_specs(cfg) if kind.startswith("mla") else attn.gqa_specs(cfg)}
     if kind != "parallel":
         out["mlp_norm"] = norm_specs(d, cfg.norm, dt)
-    out["ffn"] = moe.moe_specs(cfg) if kind == "moe" else mlp_specs(d, cfg.d_ff, cfg.glu, dt)
+    out["ffn"] = (moe.moe_specs(cfg) if kind in ("moe", "mla_moe")
+                  else mlp_specs(d, cfg.d_ff, cfg.glu, dt))
     return out
 
 
@@ -75,7 +103,7 @@ def ffn_apply(params: Dict, h: torch.Tensor, cfg: ModelConfig,
               kind: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on the normed ``h`` -> (out, router aux loss; None
     for a dense FFN, so that serving makes no zero on the card)."""
-    if kind == "moe":
+    if kind in ("moe", "mla_moe"):
         return moe.moe_apply(params["ffn"], h, cfg)
     return mlp_apply(params["ffn"], h, cfg.act, cfg.glu), None
 
@@ -93,13 +121,37 @@ def block_ffn(params: Dict, x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
     return x + f, aux
 
 
+def recurrent_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                    state: Optional[Dict] = None, mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """An xLSTM block: ``x`` plus its mixer of the pre-normed ``x`` ->
+    (x_out, state). Without ``state`` the training forms (the mLSTM's
+    parallel one); with one, a decode step that updates it in place,
+    lanes where ``mask`` (B,) is False keeping theirs."""
+    h = norm_apply(params["norm"], x, cfg.norm)
+    if kind == "mlstm" and state is None:
+        return x + xlstm.mlstm_apply(params["mixer"], h, cfg), None
+    if kind == "mlstm":
+        y, state = xlstm.mlstm_decode(params["mixer"], h, cfg, state, mask)
+    else:
+        y, state = xlstm.slstm_apply(params["mixer"], h, cfg, state=state, mask=mask)
+    return x + y, state
+
+
 def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward of one block -> (x_out, aux_loss): GQA attention
-    through K1 and the FFN, each on a norm of the residual (K2 for
-    RMSNorm); the parallel block adds both to ``x`` from one norm."""
+    through K1 (MLA through ``mea_attention``) and the FFN, each on a norm
+    of the residual (K2 for RMSNorm); the parallel block adds both to
+    ``x`` from one norm. An xLSTM block adds its mixer of the normed ``x``."""
+    if kind in RECURRENT_KINDS:
+        x, _ = recurrent_block(params, x, cfg, kind)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(params["attn_norm"], x, cfg.norm)
-    a, _ = attn.gqa_apply(params["attn"], h, cfg, positions=positions)
+    if kind.startswith("mla"):
+        a, _ = attn.mla_apply(params["attn"], h, cfg, positions=positions)
+    else:
+        a, _ = attn.gqa_apply(params["attn"], h, cfg, positions=positions)
     x, aux = block_ffn(params, x, h, a, cfg, kind)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

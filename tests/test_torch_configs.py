@@ -44,6 +44,8 @@ FULL_WIDTH_PARAMS = {
     "llama3.2-1b": 1_235_814_400,
     "smollm-135m": 134_515_008,
     "zamba2-1.2b": 1_225_003_904,
+    "deepseek-v3-671b": 671_712_655_360,
+    "xlstm-125m": 155_646_800,
 }
 
 
@@ -175,12 +177,16 @@ def test_selective_remat(arch):
 
 
 def test_unported_families_raise():
-    """MLA (deepseek-v3) and the MTP loss are not ported: building or
-    training them raises instead of running something else."""
+    """The audio encoder family and the MTP loss are not ported: building
+    or training them raises instead of running something else. An MoE
+    config with MLA builds deepseek's plan (MLA dense, then MLA MoE)."""
     from repro_torch.configs.base import MLAConfig, MoEConfig
     cfg = port_config("qwen3-moe-30b-a3b").reduced()
-    with pytest.raises(ValueError, match="MLA"):
-        Model(dataclasses.replace(cfg, mla=MLAConfig()))
+    mla = Model(dataclasses.replace(cfg, mla=MLAConfig(), moe=dataclasses.replace(
+        cfg.moe, first_k_dense=1), n_layers=3))
+    assert [(s.kind, s.count) for s in mla.segments] == [("mla_dense", 1), ("mla_moe", 2)]
+    with pytest.raises(ValueError, match="audio"):
+        Model(dataclasses.replace(cfg, family="audio"))
     with pytest.raises(ValueError, match="layernorm|norm"):
         tlayers.norm_specs(8, "batchnorm", "float32")
     assert collections.Counter(s.kind for s in Model(cfg).segments) == {"moe": 1}

@@ -159,12 +159,13 @@ def test_cancel_releases_paged_blocks_under_pressure():
     assert not eng.cancel(r1)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v3", "xlstm-125m", "zamba2"])
 @pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
 def test_migration_byte_identity(arch, paged):
     """Export mid-decode, import into a second engine, finish there: the
-    stitched stream equals offline decode (the reference's deepseek-v3 and
-    xlstm cases wait for those families' port)."""
+    stitched stream equals offline decode, for every cache discipline the
+    reference's test covers (GQA K/V, MLA latent rows, xLSTM's recurrent
+    lanes, the hybrid)."""
     model, params = _port(arch)
     prompt = np.random.default_rng(0).integers(0, model.cfg.vocab_size, 12).astype(np.int32)
     ref = generate_offline(model, params, prompt, 10, MAX_LEN)

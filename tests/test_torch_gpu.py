@@ -69,8 +69,10 @@ def test_rms_norm_kernel_matches_plain(cuda, dtype, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", RMS_DECODE_SHAPES)
 def test_rms_norm_kernel_at_decode_rows(cuda, dtype, shape):
-    """K2 forward at a decode step's rows (one or four, at D 2048 and at
-    zamba2's 4096): plain's value, and a second launch bit for bit."""
+    """K2 forward at a decode step's rows (one or four, at D 2048, zamba2's
+    4096, chameleon's 8192, the qk-norm's 128, deepseek's 7168, 1536 and
+    512 and xlstm's 768 and 1536): plain's value, and a second launch bit
+    for bit."""
     g = torch.Generator().manual_seed(1)
     x = torch.randn(shape, generator=g).to(cuda, dtype)
     scale = (1 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda, dtype)
@@ -300,9 +302,10 @@ def test_rms_norm_kernel_at_verify_rows(cuda, dtype, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", RMS_CHUNK_SHAPES)
 def test_rms_norm_kernel_at_chunk_rows(cuda, dtype, shape):
-    """K2 forward at a 128-token prefill chunk of chameleon-34b (D 8192)
-    and at the qk-norm's rows of chameleon-34b and qwen3-moe-30b-a3b (D
-    128): plain's value, and a second launch bit for bit."""
+    """K2 forward at a 128-token prefill chunk of chameleon-34b (D 8192),
+    at the qk-norm's rows of chameleon-34b and qwen3-moe-30b-a3b (D 128)
+    and at deepseek-v3's norms (D 7168, 1536, 512): plain's value, and a
+    second launch bit for bit."""
     g = torch.Generator().manual_seed(6)
     x = torch.randn(shape, generator=g).to(cuda, dtype)
     scale = (1 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda, dtype)
@@ -764,6 +767,42 @@ def test_gqa_configs_serve_through_the_kernels(cuda, arch, block_size):
     assert counts["rmsnorm"] == k2_per_call(cfg) * (st.prefill_calls + st.decode_ticks)
     assert counts[attn] == cfg.n_layers * st.decode_ticks > 0
     assert sum(counts.values()) == counts["rmsnorm"] + counts[attn]
+    for rid, (p, m) in zip(rids, reqs):
+        got = results[rid].tokens
+        choice, gaps = generate_offline(model, params, p, m, 64, forced=got)
+        assert len(got) == m
+        assert all(a == b or gap < 1e-4 for a, b, gap in zip(got, choice, gaps))
+
+
+@pytest.mark.parametrize("block_size", [None, 16])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-125m"])
+def test_mla_and_xlstm_serve_through_the_kernels(cuda, arch, block_size):
+    """The reduced deepseek-v3 (dropless) and xlstm-125m served on the
+    card: every RMSNorm is a K2 launch (``k2_per_call`` per prefill call
+    and per tick; xLSTM prefills a token a step, so per prefilled token),
+    and nothing else launches (MLA's attention and the xLSTM recurrences
+    are plain PyTorch); the streams have their lengths and equal the
+    card's offline decode where its top-2 gap is not a near-tie (f32:
+    1e-4)."""
+    cfg = get_config(arch).reduced()
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dropless=True))
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    eng = ServeEngine(model, params, n_slots=3, max_len=64, block_size=block_size,
+                      scheduler=Scheduler(3, prefill_chunk=8))
+    g = torch.Generator().manual_seed(9)
+    reqs = [(torch.randint(0, cfg.vocab_size, (5 + 4 * i,), generator=g).numpy(), 6)
+            for i in range(5)]
+    rids = [eng.submit(p, m, arrival=0.002 * i) for i, (p, m) in enumerate(reqs)]
+    K.reset_launch_counts()
+    results = eng.run()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    st = eng.stats
+    steps = st.prefill_tokens if model.recurrent else st.prefill_calls
+    assert counts["rmsnorm"] == k2_per_call(cfg) * (steps + st.decode_ticks) > 0
+    assert sum(counts.values()) == counts["rmsnorm"]
     for rid, (p, m) in zip(rids, reqs):
         got = results[rid].tokens
         choice, gaps = generate_offline(model, params, p, m, 64, forced=got)

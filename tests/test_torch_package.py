@@ -39,7 +39,8 @@ missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
            "repro_torch.models.zamba", "repro_torch.serve.speculative",
            "repro_torch.obs.trace", "repro_torch.serve.transport",
            "repro_torch.serve.router", "repro_torch.serve.replica",
-           "repro_torch.serve.frontend", "repro_torch.models.moe"} - set(sys.modules)
+           "repro_torch.serve.frontend", "repro_torch.models.moe",
+           "repro_torch.models.xlstm"} - set(sys.modules)
 assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
@@ -92,7 +93,7 @@ def test_aliases_resolve_like_reference():
         assert get_config(alias) == get_config(name)
         assert ref_config(alias).name == name
     with pytest.raises(KeyError):
-        get_config("xlstm-125m")
+        get_config("hubert-xlarge")
 
 
 def test_entry_points_default_to_the_card():
