@@ -174,7 +174,7 @@ runs, in order, and exits non-zero at the first phase that fails:
    each), and K1 and K2 held at every batch shape the loop ran. (e) K2,
    K3 and K4 are timed at each model's tick shape (G 8 at D 128; K2 at D
    8192 and at the qk-norm's D 128) and K1 at qwen2.5-3b's training
-   shape, and 20 steady ticks of each model are profiled beside their
+   shape, and 10 steady ticks of each model are profiled beside their
    byte bound (the weights plus the live K/V rows at 3.35 TB/s; for the
    MoE every expert, as its dropless dispatch reads them, and beside it
    only the experts the profiled ticks routed to);
@@ -194,16 +194,38 @@ runs, in order, and exits non-zero at the first phase that fails:
    (near-ties; for deepseek the router rule), and every call's launches
    are counted: K2 ``k2_per_call`` times a call (xLSTM: a scanned step),
    nothing else (MLA attends and xLSTM recurs in plain PyTorch). (d)
-   Peak memory of each run; 20 steady ticks of each pool profiled beside
+   Peak memory of each run; 10 steady ticks of each pool profiled beside
    their byte bound (the weights without the MTP head, the latent rows,
    xLSTM's states read and written; deepseek also with only the routed
    experts); K2 timed at the new widths (7168, 1536, 512; 768, 1536);
+21. training MLA and xLSTM through the adaptive-(k, beta) loop: (c)
+   first one f32 train step of each family through the kernels on the
+   card vs plain on the CPU, held as in phase 8 (xlstm-125m at full width
+   cut to an mLSTM and an sLSTM block; deepseek-v3 at the CPU tests'
+   widths, 2 layers with 8 experts of top 2, the MTP head on); then (a)
+   deepseek-v3 at full width cut to 2 layers (1 MLA dense, 1 MLA MoE of 256 experts top
+   8 plus a shared one, capacity-dropped; the MTP head on; 14.63 B
+   parameters), bf16, remat full, Adafactor, 8 workers, 8 x 512 tokens,
+   12 steps, and (b) xlstm-125m at full width and depth, bf16, remat
+   full, momentum 0.9, 32 x 512 tokens, 16 steps, each with a worker
+   failing at step 5 and rejoining at 10 (``train_full_width``: the
+   stage walk, the fleet path, finite losses, the peak memory, and (e)
+   K2's launches equal to ``per_step_launches`` a step, nothing else
+   launched); each first takes two steps on one batch from its loaded
+   weights, whose loss must fall (deepseek at lr 1e-5: a fresh
+   Adafactor's first step moves every weight by about lr), and after its
+   loop holds (d) K2 forward and backward against plain at every batch
+   shape its loop ran and every norm width (7168, 1536, 512; 768, 1536),
+   times K2 there, profiles one train step and times its optimizer's
+   in-place step beside its byte bound; the load and training peaks are
+   printed;
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
 phase 17 under ``phase17_launches`` and in phase 18 under
 ``phase18_launches``, in phase 19 under ``phase19_launches`` and in
-phase 20 under ``phase20_launches``; the profiles under
+phase 20 under ``phase20_launches`` and in phase 21 under
+``phase21_launches``; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
@@ -216,7 +238,7 @@ and ``zamba_serve_profile``, phase 16's under ``spec_parity``,
 kernel's launches there under ``spec_serve_launches``), phase 17's under
 ``prefix_serve``, ``preempt_serve``, ``migration`` and ``zamba_preempt``, phase 18's
 under ``observed_serve`` and ``fleet``, phase 19's under ``gqa_configs``,
-phase 20's under ``mla_xlstm``,
+phase 20's under ``mla_xlstm``, phase 21's under ``mla_xlstm_train``,
 the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
@@ -1150,8 +1172,9 @@ def profile_serving(model, params) -> list:
     return results
 
 
-#: Decode ticks in each profiled tick window (after a warm-up of as many).
-PROFILE_TICKS = 20
+#: Decode ticks in each profiled tick window, and in the warm-up before
+#: the windows (the engine's kernels are built and ran before).
+PROFILE_TICKS, PROFILE_WARMUP = 10, 4
 
 
 def tick_bytes(model, params, live_rows: int, experts_read: float = None,
@@ -1201,8 +1224,8 @@ def profile_ticks(model, params, pools, *, n_slots: int, max_len: int, chunk: in
                   prompt, seed: int) -> list:
     """``PROFILE_TICKS`` steady decode ticks of ``n_slots`` lanes (prompts
     drawn from ``prompt``, budgets to the end of the slot, so no lane
-    finishes in the window) over each of ``pools``, after a warm-up of as
-    many: the ``window`` of each, with its byte bound per tick
+    finishes in the window) over each of ``pools``, after a warm-up of
+    ``PROFILE_WARMUP``: the ``window`` of each, with its byte bound per tick
     (``tick_bytes`` at the window's mean live rows over
     ``HBM_BYTES_PER_S``). For an MoE, the profiled ticks also record the
     router's choices, a second bound reads only the experts they routed
@@ -1224,7 +1247,7 @@ def profile_ticks(model, params, pools, *, n_slots: int, max_len: int, chunk: in
         while not eng._decoding.all():        # admit and prefill all lanes
             eng.step()
 
-        def ticks(eng=eng):
+        def ticks(eng=eng, n=n):
             for _ in range(n):
                 eng.step()
 
@@ -1234,7 +1257,7 @@ def profile_ticks(model, params, pools, *, n_slots: int, max_len: int, chunk: in
             with rec:
                 ticks()
 
-        ticks()                               # warm-up
+        ticks(n=PROFILE_WARMUP)
         live = int(eng.pool.positions.sum()) + n_slots * (n + 1) // 2
         nbytes = tick_bytes(model, params, live, lanes=n_slots)
         res = window(f"{cfg.name} decode tick, {pool} pool, {n_slots} lanes", ticks,
@@ -1453,7 +1476,12 @@ def step_vs_plain(small, expect: dict) -> dict:
     from repro_torch.models import Model
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.optim import Optimizer, adamw, sgd
+    from repro_torch.optim.optimizers import tree_step
     from repro_torch.runtime import make_train_step
+
+    def copy(tree):
+        # The step updates its parameters in place.
+        return tree_map(torch.clone, tree, is_leaf=torch.is_tensor)
 
     model = Model(small)
     cpu_params = model.init(SEED, device="cpu")
@@ -1464,11 +1492,11 @@ def step_vs_plain(small, expect: dict) -> dict:
     opt = sgd()
     step = make_train_step(model, opt)
     reset_launch_counts()
-    new_gpu, _, m_gpu = step(gpu_params, opt.init(gpu_params), gpu_batch)
+    new_gpu, _, m_gpu = step(copy(gpu_params), opt.init(gpu_params), gpu_batch)
     torch.cuda.synchronize()
     counts = launch_counts()
     t0 = time.perf_counter()
-    new_cpu, _, m_cpu = step(cpu_params, opt.init(cpu_params), batch)
+    new_cpu, _, m_cpu = step(copy(cpu_params), opt.init(cpu_params), batch)
     cpu_s = time.perf_counter() - t0
     print(f"  launches in the kernel step: {counts} (expected {expect}; remat "
           f"{small.remat!r} runs each block's forward twice)")
@@ -1504,13 +1532,13 @@ def step_vs_plain(small, expect: dict) -> dict:
             seen["updates"] = tree_leaves(updates, is_leaf=torch.is_tensor)
             return updates, state
 
-        return Optimizer(opt.init, update), seen
+        return Optimizer(opt.init, update, tree_step(update)), seen
 
     eps, lr = 1e-8, batch["lr"]
     seen = []
     for params, b in ((gpu_params, gpu_batch), (cpu_params, batch)):
         opt, rec = recorded(adamw(eps=eps))
-        make_train_step(model, opt)(params, opt.init(params), b)
+        make_train_step(model, opt)(copy(params), opt.init(params), b)
         seen.append(rec)
     # Gradients: 1e-4 of the leaf's largest, as the SGD check above. AdamW
     # updates where both |g| >= 100 eps: |du| / lr <= eps * dg_tol /
@@ -1563,11 +1591,13 @@ def per_step_launches(cfg) -> dict:
     remat every checkpointed block runs its forward twice (once more in
     the backward pass) and its backward once.
 
-    Dense: each block runs K1 and its K2 norms (``k2_per_call``).
-    Hybrid: each Mamba2 layer runs K5 and two K2 norms (its pre-norm and
-    its gated norm), each shared call K1 and two K2 norms. Plus the final
-    norm. Selective remat recomputes K1 and K2 like full remat: neither is
-    a saved product."""
+    Dense: each block runs K1 and its K2 norms (``k2_per_call``); an MLA
+    block and an xLSTM block run only their K2 norms (MLA attends in plain
+    PyTorch). Hybrid: each Mamba2 layer runs K5 and two K2 norms (its
+    pre-norm and its gated norm), each shared call K1 and two K2 norms.
+    Plus the final norm, and DeepSeek's MTP block and norm, which run
+    once (the reference does not rematerialise them). Selective remat
+    recomputes K1 and K2 like full remat: neither is a saved product."""
     from repro_torch.kernels.parity import k2_per_call
 
     r = 1 if cfg.remat == "none" else 2
@@ -1575,6 +1605,7 @@ def per_step_launches(cfg) -> dict:
     counts = dict.fromkeys(("decode_attention", "paged_decode_attention", "ssd_scan",
                             "ssd_scan_bwd"), 0)
     final = int(cfg.norm == "rmsnorm")
+    once = final
     if cfg.family in ("ssm", "hybrid"):
         calls = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
         norms = 2 * L + 2 * calls
@@ -1582,18 +1613,25 @@ def per_step_launches(cfg) -> dict:
                       ssd_scan=r * L, ssd_scan_bwd=L)
     else:
         norms = k2_per_call(cfg) - final
-        counts.update(flash_attention=r * L, flash_attention_bwd=L)
-    counts.update(rmsnorm=r * norms + final, rmsnorm_bwd=norms + final)
+        flash = 0 if cfg.mla is not None or cfg.family == "xlstm" else L
+        counts.update(flash_attention=r * flash, flash_attention_bwd=flash)
+        if cfg.mtp:
+            # One block's norms and the MTP norm: a one-layer stack's count.
+            once += k2_per_call(dataclasses.replace(cfg, n_layers=1))
+    counts.update(rmsnorm=r * norms + once, rmsnorm_bwd=norms + once)
     return counts
 
 
 def train_full_width(model, steps: int, global_batch: int = TRAIN_B,
-                     loss_falls: bool = True) -> dict:
+                     loss_falls: bool = True, optimizer=None, lr: float = 3e-4,
+                     params=None) -> dict:
     """The adaptive-(k, beta) loop at full width: 8 workers, ``global_batch``
     rows of ``TRAIN_S`` tokens at beta 1, a fail at step 5 and a rejoin at
-    10. Checks the launches per step, finite losses, the stage walk, the
-    fleet path, the peak memory and, with ``loss_falls``, that the last
-    loss is below the first."""
+    10, ``optimizer`` (default AdamW) at ``lr``, from ``params`` (default
+    the loop's own init; the loop updates them in place). Checks the
+    launches per step, finite losses, the stage walk, the fleet path, the
+    peak memory and, with ``loss_falls``, that the last loss is below the
+    first."""
     from repro_torch.core import DiagnosticConfig, SimplifiedDelayModel, StrategyConfig
     from repro_torch.data import StagedBatcher, TokenStream
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1615,9 +1653,9 @@ def train_full_width(model, steps: int, global_batch: int = TRAIN_B,
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = train(model, adamw(), strategy, SimplifiedDelayModel(lambda_y=1.0, x=0.05), batcher,
-                TrainLoopConfig(total_steps=steps, lr=3e-4, log_every=4, seed=SEED,
-                                events=events), device="cuda")
+    out = train(model, optimizer or adamw(), strategy, SimplifiedDelayModel(lambda_y=1.0, x=0.05),
+                batcher, TrainLoopConfig(total_steps=steps, lr=lr, log_every=4, seed=SEED,
+                                         events=events), params=params, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -1776,18 +1814,19 @@ def time_training_kernels(cfg) -> dict:
     return out
 
 
-def profile_train_step(model, params) -> dict:
-    """One full-width train step at beta = 1 (8 workers x 4 rows x 512
-    tokens, worker mask of k = 4), timed without the profiler and then
-    profiled over an equal step, after one warm-up step."""
+def profile_train_step(model, params, opt=None, global_batch: int = TRAIN_B) -> dict:
+    """One full-width train step at beta = 1 (8 workers x ``global_batch``
+    / 8 rows x 512 tokens, worker mask of k = 4; ``opt`` default AdamW),
+    timed without the profiler and then profiled over an equal step, after
+    one warm-up step."""
     from repro_torch.optim import adamw
     from repro_torch.runtime import make_train_step
 
     cfg = model.cfg
-    opt = adamw()
+    opt = opt or adamw()
     state = opt.init(params)
     step = make_train_step(model, opt)
-    batch = token_batch(cfg.vocab_size, 8, TRAIN_B // 8, TRAIN_S,
+    batch = token_batch(cfg.vocab_size, 8, global_batch // 8, TRAIN_S,
                         [1.0, 0.0, 1.0, 0.0, 1.0, 0.0, 1.0, 0.0])
     batch = {k: v.to("cuda") if torch.is_tensor(v) else v for k, v in batch.items()}
 
@@ -1795,9 +1834,9 @@ def profile_train_step(model, params) -> dict:
         step(params, state, batch)
 
     one()                                     # warm-up
-    res = window(f"train step, {cfg.name} full width, {TRAIN_B} x {TRAIN_S} tokens, "
+    res = window(f"train step, {cfg.name} full width, {global_batch} x {TRAIN_S} tokens, "
                  f"beta 1", one, one, 1, "step")
-    res["tokens_per_s"] = TRAIN_B * TRAIN_S / (res["wall_ms_per_unit"] / 1e3)
+    res["tokens_per_s"] = global_batch * TRAIN_S / (res["wall_ms_per_unit"] / 1e3)
     print(f"  training throughput: {res['tokens_per_s']:.0f} tokens/s (host clock, "
           f"one step)")
     return res
@@ -3440,7 +3479,10 @@ def remat_step_pair(model, params) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        new, _, m = step(params, opt.init(params), batch)
+        # The step updates a copy in place (the next remat starts from
+        # the same parameters), where it once made a new tree.
+        new, _, m = step(tree_map(torch.clone, params, is_leaf=torch.is_tensor),
+                         opt.init(params), batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -3727,6 +3769,184 @@ def phase20() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: training deepseek-v3 (MLA, MoE, MTP, Adafactor) and xLSTM (momentum)
+# ---------------------------------------------------------------------------
+
+#: deepseek-v3 at full width cut to ``DS_TRAIN_LAYERS`` layers (1 MLA dense,
+#: 1 MLA MoE; the MTP head on), bf16, remat full, capacity-dropped routing,
+#: Adafactor at ``DS_TRAIN_LR``: 8 workers, ``DS_TRAIN_B`` x 512 tokens at
+#: beta 1, ``DS_TRAIN_STEPS`` steps. Its f32 step on the card vs the CPU
+#: runs at the CPU tests' widths (``cfg.reduced``: d_model 128, 8 experts
+#: of top 2, vocab 512; MTP on): at full width the host's step and its
+#: f32 draw took ~95 s of the script's 1,200 on an H100 machine.
+DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_STEPS, DS_TRAIN_LR = 2, 8, 12, 3e-4
+#: The own-batch check's lr for deepseek: a fresh Adafactor's first step
+#: moves every weight by about lr, which at d_model 7168 is a large step
+#: (second-order effects, not the gradient's direction, decide whether a
+#: step at the loop's lr lowers the loss); at 1e-5 the step is small
+#: beside the weights and still moves bf16 weights near zero.
+DS_CHECK_LR = 1e-5
+#: xlstm-125m at full width and depth, bf16, remat full, momentum ``XL_MU``
+#: at ``XL_TRAIN_LR`` (SGD-like updates of the clipped gradient must move
+#: bf16 weights: at lr 3e-4 a 155 M-parameter model's per-weight step,
+#: ~1e-4 lr, is far below a bf16 step of its weights), ``XL_TRAIN_B`` x 512
+#: tokens, ``XL_TRAIN_STEPS`` steps.
+XL_TRAIN_B, XL_TRAIN_STEPS, XL_TRAIN_LR, XL_MU = 32, 16, 0.5, 0.9
+
+
+def ds_train_config():
+    """deepseek-v3 cut to ``DS_TRAIN_LAYERS`` layers, the first dense."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DS_ARCH)
+    return dataclasses.replace(cfg, n_layers=DS_TRAIN_LAYERS, remat="full",
+                               moe=dataclasses.replace(cfg.moe, first_k_dense=1))
+
+
+def own_batch_drop(model, params, opt, lr: float, global_batch: int) -> dict:
+    """Two steps of ``opt`` from a fresh state on one batch of
+    ``global_batch`` rows (8 workers, all responding): the second step's
+    loss, the batch's loss after the first step, must be below the
+    first's."""
+    from repro_torch.runtime import make_train_step
+
+    step = make_train_step(model, opt)
+    batch = token_batch(model.cfg.vocab_size, 8, global_batch // 8, TRAIN_S, [1.0] * 8)
+    batch = {k: v.to("cuda") if torch.is_tensor(v) else v for k, v in batch.items()}
+    batch["lr"] = lr
+    state = opt.init(params)
+    _, state, m1 = step(params, state, batch)
+    _, state, m2 = step(params, state, batch)
+    before, after = float(m1["loss"]), float(m2["loss"])
+    print(f"    one step on its own batch ({global_batch} x {TRAIN_S}, lr {lr}): loss "
+          f"{before!r} -> {after!r}")
+    check(after < before, "the step did not lower its own batch's loss")
+    return {"loss_before": before, "loss_after": after}
+
+
+def time_opt_step(params, opt, lr: float, label: str) -> dict:
+    """The optimizer's in-place step over ``params`` (random gradients of
+    their shapes and dtypes, a clip scale of 0.5): median device time of 3
+    steps after one (CUDA events), beside its byte bound (each parameter
+    and gradient read, each parameter written, each f32 state tensor read
+    and written, at 3.35 TB/s)."""
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    grads = tree_map(lambda p: torch.randn_like(p).mul_(1e-3), params, is_leaf=torch.is_tensor)
+    state = opt.init(params)
+    scale = torch.tensor(0.5, device="cuda")
+    ms = time_ms(lambda: opt.step(grads, state, params, lr, scale), n=3, warmup=1)
+    leaves = tree_leaves(params, is_leaf=torch.is_tensor)
+    nbytes = sum(3 * p.numel() * p.element_size() for p in leaves)
+    nbytes += sum(2 * t.numel() * t.element_size()
+                  for t in tree_leaves(state, is_leaf=torch.is_tensor) if t.dim())
+    b, kind = bound(nbytes, 0)
+    out = {"label": label, "ms": ms, "bound_ms": b, "bound_by": kind, "bytes": nbytes,
+           "parameters": sum(p.numel() for p in leaves)}
+    print(f"    {label}: {ms:.2f} ms a step over {out['parameters']:,} parameters; bound "
+          f"{b:.2f} ms ({kind}: {nbytes / 1e9:.1f} GB)")
+    return out
+
+
+def check_k2_training_rows(shapes, widths, dtype) -> dict:
+    """K2 forward and backward vs their plain versions at B * S rows of
+    each width for every batch shape (B, S) a loop ran; the worst error of
+    each."""
+    gen = torch.Generator().manual_seed(SEED + 60)
+    worst = {"rmsnorm": 0.0, "rmsnorm_bwd": 0.0}
+    for rows in sorted({B * S for B, S in shapes}):
+        for D in widths:
+            worst["rmsnorm"] = max(worst["rmsnorm"], hold_rms_norm((rows, D), dtype, gen))
+            worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"],
+                                       hold_rms_norm_bwd((rows, D), dtype, gen))
+    return worst
+
+
+def train_family(label: str, model, params, steps: int, global_batch: int, opt_fn,
+                 lr: float, widths, check_lr: float) -> dict:
+    """Phase 21's loop for one model: the own-batch check from the loaded
+    ``params`` at ``check_lr``, then the adaptive loop (``train_full_width``;
+    the loss need not fall over so few steps), K2 at every shape the loop
+    ran and at the widths' training rows (timed), one profiled step and
+    the optimizer's step timed."""
+    cfg = model.cfg
+    out = {"own_batch": own_batch_drop(model, params, opt_fn(), check_lr, global_batch)}
+    trained = train_full_width(model, steps, global_batch=global_batch, loss_falls=False,
+                               optimizer=opt_fn(), lr=lr, params=params)
+    out["train_loop"] = {k: v for k, v in trained.items() if k != "params"}
+    out["launches"] = trained["launches"]
+    print(f"    K2 forward and backward vs plain at every batch shape the loop ran, D "
+          f"{', '.join(map(str, widths))}")
+    out["k2_loop_shapes"] = check_k2_training_rows(trained["shapes"], widths,
+                                                   getattr(torch, cfg.dtype))
+    gen = torch.Generator().manual_seed(SEED + 61)
+    out["k2_times"] = {f"d{D}": time_rmsnorm(global_batch * TRAIN_S, D, gen) for D in widths}
+    for D, t in out["k2_times"].items():
+        print(f"    D {D[1:]}:")
+        print_times(t)
+    print(f"    one {label} train step, profiled")
+    out["profile"] = profile_train_step(model, params, opt_fn(), global_batch)
+    out["opt_step"] = time_opt_step(params, opt_fn(), lr, f"{label}'s optimizer step")
+    return out
+
+
+def phase21() -> dict:
+    """(a)-(e) of phase 21: see the module docstring."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.optim import adafactor, momentum
+
+    out = {"launches": [], "parity": {}}
+    xcfg = get_config(XL_ARCH)
+    xsmall = dataclasses.replace(xcfg, n_layers=2, dtype="float32",
+                                 xlstm=dataclasses.replace(xcfg.xlstm, slstm_every=2))
+    print(f"  (c) one train step of {XL_ARCH} at full width cut to 2 layers (mLSTM, sLSTM), "
+          f"f32: kernels on the card vs plain on the CPU")
+    out["parity"][XL_ARCH] = step_vs_plain(xsmall, per_step_launches(xsmall))
+    dcfg = ds_train_config()
+    dsmall = dcfg.reduced(n_layers=DS_TRAIN_LAYERS, remat="full")
+    print(f"  (c) one train step of {DS_ARCH} at the CPU tests' widths ({dsmall.n_layers} "
+          f"layers, d_model {dsmall.d_model}, {dsmall.moe.n_experts} experts of top "
+          f"{dsmall.moe.top_k}, MTP on), f32: kernels on the card vs plain on the CPU")
+    out["parity"][DS_ARCH] = step_vs_plain(dsmall, per_step_launches(dsmall))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = Model(dcfg)
+    plan = ", ".join(f"{seg.count} {seg.kind}" for seg in model.segments)
+    print(f"  (a) {dcfg.name} at full width cut to {DS_TRAIN_LAYERS} layers ({plan}), MTP on, "
+          f"{dcfg.dtype}, remat {dcfg.remat!r}, capacity factor {dcfg.moe.capacity_factor}, "
+          f"Adafactor at lr {DS_TRAIN_LR}: {DS_TRAIN_B} x {TRAIN_S} tokens, {DS_TRAIN_STEPS} "
+          f"steps")
+    params = load_full_width(model, SEED + 62)
+    out["ds_load_peak_bytes"] = torch.cuda.max_memory_allocated()
+    m = dcfg.mla
+    out[DS_ARCH] = train_family(DS_ARCH, model, params, DS_TRAIN_STEPS, DS_TRAIN_B, adafactor,
+                                DS_TRAIN_LR, (dcfg.d_model, m.q_lora_rank, m.kv_lora_rank),
+                                DS_CHECK_LR)
+    out["launches"].append(out[DS_ARCH]["launches"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    xmodel = Model(xcfg)
+    plan = ", ".join(f"{seg.count} {seg.kind}" for seg in xmodel.segments)
+    print(f"  (b) {xcfg.name} at full width and depth ({plan}), {xcfg.dtype}, remat "
+          f"{xcfg.remat!r}, momentum {XL_MU} at lr {XL_TRAIN_LR}: {XL_TRAIN_B} x {TRAIN_S} "
+          f"tokens, {XL_TRAIN_STEPS} steps")
+    params = load_full_width(xmodel, SEED + 63)
+    inner = int(xcfg.d_model * xcfg.xlstm.mlstm_proj_factor)
+    out[XL_ARCH] = train_family(XL_ARCH, xmodel, params, XL_TRAIN_STEPS, XL_TRAIN_B,
+                                lambda: momentum(XL_MU), XL_TRAIN_LR, (xcfg.d_model, inner),
+                                XL_TRAIN_LR)
+    out["launches"].append(out[XL_ARCH]["launches"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3967,6 +4187,18 @@ def main() -> int:
     phase20_seconds = time.perf_counter() - t20
     print(f"    phase 20 took {phase20_seconds:.1f} s; card {card}")
 
+    t21 = time.perf_counter()
+    print(f"[21] training {DS_ARCH} (full width cut to {DS_TRAIN_LAYERS} layers, MTP, "
+          f"Adafactor) and {XL_ARCH} (full width and depth, momentum) through the "
+          f"adaptive-(k, beta) loop")
+    train21 = phase21()
+    phase21_seconds = time.perf_counter() - t21
+    print(f"    phase 21 took {phase21_seconds:.1f} s; card {card}")
+    for fam in (DS_ARCH, XL_ARCH):
+        worst["rmsnorm"] = max(worst["rmsnorm"], train21[fam]["k2_loop_shapes"]["rmsnorm"])
+        train_worst["rmsnorm_bwd"] = max(train_worst["rmsnorm_bwd"],
+                                         train21[fam]["k2_loop_shapes"]["rmsnorm_bwd"])
+
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:26",
@@ -4018,6 +4250,7 @@ def main() -> int:
             "phase18_launches": sum(c[kname] for c in phase18),
             "phase19_launches": sum(c[kname] for c in gqa["launches"]),
             "phase20_launches": sum(c[kname] for c in mla_xlstm["launches"]),
+            "phase21_launches": sum(c[kname] for c in train21["launches"]),
         })
     report = {
         "kernels": kernels,
@@ -4091,6 +4324,8 @@ def main() -> int:
         "phase19_seconds": phase19_seconds,
         "mla_xlstm": mla_xlstm,
         "phase20_seconds": phase20_seconds,
+        "mla_xlstm_train": train21,
+        "phase21_seconds": phase21_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

@@ -15,7 +15,7 @@ import torch
 
 __all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "SHARED_DECODE_SHAPES", "shared_block_arena",
            "RMS_DECODE_SHAPES", "RMS_VERIFY_SHAPES", "RMS_CHUNK_SHAPES",
-           "FLASH_SHAPES", "SSD_SHAPES",
+           "RMS_TRAIN_SHAPES", "FLASH_SHAPES", "SSD_SHAPES",
            "NEAR_ULPS", "BF16_UNIT", "within", "flash_within", "ssd_within", "dscale_bf16_slack",
            "k2_per_call"]
 
@@ -125,6 +125,14 @@ RMS_VERIFY_SHAPES = [(4, 1 + gamma, 2048) for gamma in range(1, 7)]
 RMS_CHUNK_SHAPES = [(1, 128, 8192), (1, 128, 64, 128), (1, 128, 8, 128),
                     (1, 128, 32, 128), (1, 128, 4, 128),
                     (1, 128, 7168), (1, 128, 1536), (1, 128, 512)]
+
+#: RMSNorm (K2) forward and backward at the training rows of the MLA and
+#: xLSTM loops (rows, D): deepseek-v3's 8 x 512 tokens, and 7 x 512 while
+#: a worker of 8 is down, at d_model 7168, q_norm 1536 and kv_norm 512;
+#: xlstm-125m's 32 x 512, and 21 x 512 of a beta stage, at d_model 768
+#: and the mLSTM's inner 1536.
+RMS_TRAIN_SHAPES = [(4096, 7168), (3584, 7168), (4096, 1536), (3584, 1536), (4096, 512),
+                    (3584, 512), (16384, 768), (10752, 768), (16384, 1536), (10752, 1536)]
 
 #: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and

@@ -1,8 +1,9 @@
 """Top-level model (port of ``repro.models.model`` for the decoder stacks,
 GQA (dense, parallel-block, MoE) and MLA (deepseek, with its MTP
-parameters), the xLSTM stack and the Mamba2 hybrids): embeddings, the
-block stack, the head (tied or not), the training entry points
-``hidden`` and ``train_loss``, and the serving
+parameters and its multi-token-prediction loss), the xLSTM stack and the
+Mamba2 hybrids): embeddings, the block stack, the head (tied or not),
+the training entry points ``hidden``, ``train_loss`` and ``mtp_loss``,
+and the serving
 entry points ``cache_specs`` / ``blank_caches``, ``prefill_with_cache``,
 ``decode_step`` and the speculative ``verify_with_cache``.
 
@@ -51,6 +52,7 @@ from .layers import (
 from .transformer import (
     RECURRENT_KINDS,
     Segment,
+    block_apply,
     block_ffn,
     block_specs,
     recurrent_block,
@@ -184,13 +186,12 @@ class Model:
                 (cfg.d_model, cfg.vocab_size), ("embed", "vocab"), "scaled", dt
             )
         if cfg.mtp:
-            # DeepSeek's multi-token-prediction head: held so that the whole
-            # tree crosses over; serving never reads it, and its loss is
-            # not ported yet (``train_loss`` raises).
+            # DeepSeek's multi-token-prediction head: ``mtp_loss`` trains
+            # it; serving never reads it.
             specs["mtp"] = {
                 "proj": ParamSpec((2 * cfg.d_model, cfg.d_model), ("embed", "embed_out"),
                                   "scaled", dt),
-                "block": block_specs(cfg, "mla_dense" if cfg.mla is not None else "dense"),
+                "block": block_specs(cfg, self.mtp_kind),
                 "norm": norm_specs(cfg.d_model, cfg.norm, dt),
             }
         return specs
@@ -232,21 +233,52 @@ class Model:
         return out
 
     # -- training ------------------------------------------------------------
+    @property
+    def mtp_kind(self) -> str:
+        return "mla_dense" if self.cfg.mla is not None else "dense"
+
     def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: inputs (B, S) int, labels (B, S) int, optional mask (B, S)
-        -> (loss, {"ce", "aux", "loss"}): the masked cross-entropy plus, for
-        an MoE, ``router_aux_weight`` times the router loss summed over its
-        layers. DeepSeek's multi-token prediction is not ported yet."""
+        -> (loss, {"ce", "aux", ["mtp"], "loss"}): the masked cross-entropy
+        plus, for an MoE, ``router_aux_weight`` times the router loss
+        summed over its layers, plus, with ``cfg.mtp``, 0.3 times the
+        multi-token-prediction loss (``mtp_loss``)."""
         cfg = self.cfg
-        if cfg.mtp:
-            raise NotImplementedError("the MTP loss is not ported yet")
         inputs, labels = batch["inputs"], batch["labels"]
         positions = torch.arange(labels.shape[1], device=labels.device)
         h, aux = self.hidden(params, inputs, positions)
-        ce, _ = masked_weighted_ce(self.logits(params, h), labels, batch.get("mask"))
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        ce, _ = masked_weighted_ce(self.logits(params, h), labels, mask)
         loss = ce + cfg.moe.router_aux_weight * aux if cfg.moe is not None else ce
-        return loss, {"ce": ce, "aux": aux, "loss": loss}
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp:
+            mtp = self.mtp_loss(params, h, inputs, labels, mask, positions)
+            loss = loss + 0.3 * mtp
+            metrics["mtp"] = mtp
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def mtp_loss(self, params: Dict, h: torch.Tensor, inputs: torch.Tensor,
+                 labels: torch.Tensor, mask: torch.Tensor, positions: torch.Tensor
+                 ) -> torch.Tensor:
+        """DeepSeek-V3's multi-token prediction: the final-normed ``h``
+        beside the embedding of the next input goes through ``proj``, one
+        block (not rematerialised, as the reference calls it directly),
+        the MTP norm and the shared head, and predicts the label after
+        next; the last position, which has none, is masked."""
+        cfg = self.cfg
+        mtp = params["mtp"]
+        emb_next = params["embed"][torch.roll(inputs, -1, dims=1).long()]
+        x = torch.cat([h, emb_next], dim=-1) @ mtp["proj"]
+        x, _ = block_apply(mtp["block"], x, cfg, self.mtp_kind, positions=positions)
+        x = norm_apply(mtp["norm"], x, cfg.norm)
+        S = labels.shape[1]
+        mask2 = mask * (torch.arange(S, device=labels.device) < S - 1)
+        return masked_weighted_ce(self.logits(params, x), torch.roll(labels, -1, dims=1),
+                                  mask2)[0]
 
     # -- serving ---------------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int, *,

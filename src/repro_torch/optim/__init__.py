@@ -1,14 +1,20 @@
-"""Optimizers of the training slice (plain tensor code)."""
+"""Optimizers of the training slices (plain tensor code)."""
 
 from .optimizers import (
     Optimizer,
+    adafactor,
     adamw,
     apply_updates,
+    chunked_global_norm,
     clip_by_global_norm,
+    clip_scale,
     get_optimizer,
     global_norm,
+    momentum,
     sgd,
+    tree_step,
 )
 
-__all__ = ["Optimizer", "adamw", "apply_updates", "clip_by_global_norm", "get_optimizer",
-           "global_norm", "sgd"]
+__all__ = ["Optimizer", "adafactor", "adamw", "apply_updates", "chunked_global_norm",
+           "clip_by_global_norm", "clip_scale", "get_optimizer", "global_norm", "momentum",
+           "sgd", "tree_step"]

@@ -18,15 +18,10 @@ import torch
 from repro_torch.dist.collectives import contributors, masked_weighted_ce
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.model import Model
-from repro_torch.optim.optimizers import (
-    Optimizer,
-    apply_updates,
-    clip_by_global_norm,
-    global_norm,
-)
+from repro_torch.optim.optimizers import Optimizer, chunked_global_norm, clip_scale
 
-__all__ = ["make_train_step", "make_slot_prefill_step", "make_slot_decode_step",
-           "make_slot_verify_step", "make_slot_replay_step"]
+__all__ = ["train_loss_fn", "make_train_step", "make_slot_prefill_step",
+           "make_slot_decode_step", "make_slot_verify_step", "make_slot_replay_step"]
 
 
 def _unflatten(like, leaves: List[torch.Tensor]):
@@ -34,42 +29,52 @@ def _unflatten(like, leaves: List[torch.Tensor]):
     return tree_map(lambda _: next(it), like, is_leaf=torch.is_tensor)
 
 
+def train_loss_fn(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """The train step's loss -> (loss, {"ce", "aux", "denom"}): the masked
+    fastest-k cross-entropy, plus ``router_aux_weight`` times the router
+    loss for an MoE, plus 0.3 times DeepSeek's multi-token-prediction loss
+    with ``cfg.mtp``. As in the reference, the MTP term is masked by
+    ``batch["mask"]`` alone, not by ``worker_mask``: the stragglers' rows
+    enter it."""
+    cfg = model.cfg
+    inputs, labels = batch["inputs"], batch["labels"]
+    positions = torch.arange(labels.shape[1], device=labels.device)
+    h, aux = model.hidden(params, inputs, positions)
+    ce, denom = masked_weighted_ce(model.logits(params, h), labels,
+                                   batch.get("mask"), batch.get("worker_mask"))
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    if cfg.mtp:
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        loss = loss + 0.3 * model.mtp_loss(params, h, inputs, labels, mask, positions)
+    return loss, {"ce": ce, "aux": aux, "denom": denom}
+
+
 def make_train_step(model: Model, optimizer: Optimizer, *,
                     clip_norm: Optional[float] = 1.0, accum_steps: int = 1) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics), with
     batch = {inputs, labels, [mask], worker_mask, lr}.
 
-    The loss is the masked fastest-k cross-entropy over f32 logits, plus
-    ``router_aux_weight`` times the router loss for an MoE. With
-    ``accum_steps`` = A > 1 the worker-major batch is split so that every
-    worker's rows spread evenly over A microbatches; their gradients are
-    summed in f32, each weighted by its contributed-token count
-    ``denom``, and divided by the total (the reference's ``_grads_accum``,
-    with a Python loop for ``lax.scan``). Gradients are clipped to global
-    norm ``clip_norm``, the optimizer's update is applied, and the
-    metrics are ``loss``, ``ce``, ``aux``, ``denom``, ``grad_norm`` and
-    ``contributors`` as 0-dim tensors. The new parameters are new
-    tensors; the caller drops the old ones."""
-    cfg = model.cfg
-    if cfg.mtp:
-        raise NotImplementedError("the MTP loss is not ported yet")
-
-    def loss_fn(params, batch):
-        labels = batch["labels"]
-        positions = torch.arange(labels.shape[1], device=labels.device)
-        h, aux = model.hidden(params, batch["inputs"], positions)
-        ce, denom = masked_weighted_ce(model.logits(params, h), labels,
-                                       batch.get("mask"), batch.get("worker_mask"))
-        loss = ce
-        if cfg.moe is not None:
-            loss = loss + cfg.moe.router_aux_weight * aux
-        return loss, {"ce": ce, "aux": aux, "denom": denom}
+    The loss is ``train_loss_fn``'s, over f32 logits. With ``accum_steps``
+    = A > 1 the worker-major batch is split so that every worker's rows
+    spread evenly over A microbatches; their gradients are summed in
+    f32, each weighted by its contributed-token count ``denom``, and
+    divided by the total (the reference's ``_grads_accum``, with a Python
+    loop for ``lax.scan``). Gradients are clipped to global norm
+    ``clip_norm`` (the norm summed a chunk of a leaf at a time) and the
+    optimizer's ``step`` updates the parameters and its state IN PLACE,
+    a leaf at a time (see ``repro_torch.optim``): the returned params
+    are the given tensors. The metrics are ``loss``, ``ce``, ``aux``,
+    ``denom``, ``grad_norm`` and ``contributors`` as 0-dim tensors."""
 
     def grads_of(params, batch) -> Tuple[torch.Tensor, Dict, list]:
         """loss, metrics and the gradient tree (in the params' dtypes)."""
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params, is_leaf=torch.is_tensor)]
-        loss, metrics = loss_fn(_unflatten(params, leaves), batch)
+        loss, metrics = train_loss_fn(model, _unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 _unflatten(params, list(grads)))
@@ -111,12 +116,10 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
             loss, metrics, grads = grads_accum(params, batch)
         else:
             loss, metrics, grads = grads_of(params, batch)
-        if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        else:
-            gnorm = global_norm(grads)
-        updates, opt_state = optimizer.update(grads, opt_state, params, float(batch["lr"]))
-        params = apply_updates(params, updates)
+        gnorm = chunked_global_norm(grads)
+        scale = clip_scale(gnorm, clip_norm) if clip_norm is not None else None
+        with torch.no_grad():
+            opt_state = optimizer.step(grads, opt_state, params, float(batch["lr"]), scale)
         wm = batch.get("worker_mask")
         metrics = dict(metrics)
         metrics.update(

@@ -26,7 +26,8 @@ control decisions from the same seed.
 One deliberate difference from the reference: ``train`` takes an
 optional initial ``params`` (default ``model.init(seed, device=...)``,
 drawn from a torch generator), so a test can hand it the reference's own
-initial parameters. With ``obs`` it emits the reference's trace events,
+initial parameters. The loop updates the given parameters in place, as
+the train step does (at full width a copy would not fit beside them). With ``obs`` it emits the reference's trace events,
 metrics, decisions and structured-log records (``repro_torch.obs``).
 """
 

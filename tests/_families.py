@@ -1,5 +1,6 @@
 """Shared set-up of the MLA (deepseek-v3) and xLSTM parity tests
-(``tests/test_torch_mla.py``, ``tests/test_torch_xlstm.py``).
+(``tests/test_torch_mla.py``, ``tests/test_torch_xlstm.py``,
+``tests/test_torch_train_families.py``).
 
 ``family_pair`` builds a reduced config in both packages, initialises the
 reference's parameters with its own ``Model.init``, makes the leaves that
@@ -9,6 +10,10 @@ and bridges them to the port on the CPU. Everything is f32.
 
 ``close`` holds a port value to the reference's within ``rtol`` of the
 compared leaf's largest magnitude (at least 1).
+
+``TRAIN_CUTS`` are the training tests' cuts, and ``train_pair`` gives the
+reference's own initial parameters (no noise: the reference's ``train``
+draws them itself) bridged to the port.
 """
 
 import dataclasses
@@ -82,6 +87,24 @@ def family_pair(arch: str, **replace):
     cfg = cut(port_config(arch), **dict(replace))
     return (ref, jax.tree.map(jnp.asarray, tree), Model(cfg),
             params_from_numpy(cfg, tree, device="cpu"), tree)
+
+
+#: The training tests' cuts: deepseek-v3 at 3 layers (1 MLA dense, 2 MLA
+#: MoE: the reference stacks the MoE segment), xLSTM at 4 with an sLSTM
+#: every third (mLSTM x 2, sLSTM, mLSTM).
+TRAIN_CUTS = {"deepseek-v3": {"n_layers": 3},
+              "xlstm-125m": {"n_layers": 4, "slstm_every": 3}}
+
+
+@functools.lru_cache(maxsize=None)
+def train_pair(arch: str, **replace):
+    """(reference model, port config, the reference's ``init`` at
+    ``PRNGKey(0)`` bridged to the port on the CPU), the parameters the
+    reference's ``train`` starts from at seed 0."""
+    ref = build_model(cut(get_config(arch), **dict(replace)))
+    tree = jax.tree.map(np.asarray, jax.jit(ref.init)(jax.random.PRNGKey(0)))
+    cfg = cut(port_config(arch), **dict(replace))
+    return ref, cfg, params_from_numpy(cfg, tree, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)

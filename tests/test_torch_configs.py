@@ -177,9 +177,11 @@ def test_selective_remat(arch):
 
 
 def test_unported_families_raise():
-    """The audio encoder family and the MTP loss are not ported: building
-    or training them raises instead of running something else. An MoE
-    config with MLA builds deepseek's plan (MLA dense, then MLA MoE)."""
+    """The audio encoder family is not ported: building it raises instead
+    of running something else. An MoE config with MLA builds deepseek's
+    plan (MLA dense, then MLA MoE). The MTP loss is ported: a GQA MoE with
+    an MTP head (a dense block, as the reference's) trains with the term
+    in its loss."""
     from repro_torch.configs.base import MLAConfig, MoEConfig
     cfg = port_config("qwen3-moe-30b-a3b").reduced()
     mla = Model(dataclasses.replace(cfg, mla=MLAConfig(), moe=dataclasses.replace(
@@ -190,7 +192,14 @@ def test_unported_families_raise():
     with pytest.raises(ValueError, match="layernorm|norm"):
         tlayers.norm_specs(8, "batchnorm", "float32")
     assert collections.Counter(s.kind for s in Model(cfg).segments) == {"moe": 1}
-    with pytest.raises(NotImplementedError, match="MTP"):
-        Model(dataclasses.replace(cfg, mtp=True)).train_loss({}, {})
+    mtp = Model(dataclasses.replace(cfg, mtp=True))
+    assert mtp.mtp_kind == "dense"
+    ids = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        loss, metrics = mtp.train_loss(mtp.init(0, device="cpu"),
+                                       {"inputs": ids[:, :-1], "labels": ids[:, 1:]})
+    assert set(metrics) == {"ce", "aux", "mtp", "loss"} and bool(torch.isfinite(loss))
+    expect = metrics["ce"] + cfg.moe.router_aux_weight * metrics["aux"] + 0.3 * metrics["mtp"]
+    assert torch.allclose(loss, expect)
     dense_first = dataclasses.replace(cfg, moe=MoEConfig(8, 2, 64, first_k_dense=1))
     assert [(s.kind, s.count) for s in Model(dense_first).segments] == [("dense", 1), ("moe", 1)]

@@ -17,7 +17,10 @@ and restore on CUDA to the same copies on the CPU, bit for bit. A
 three-replica fleet with observability on serves through a kill and a
 rejoin on the card. The reduced qwen2.5-3b, command-r-35b, chameleon-34b
 and qwen3-moe-30b-a3b serve through the kernels, and qwen2.5-3b takes a
-train step under selective remat.
+train step under selective remat. K2 is held at the MLA and xLSTM loops'
+training rows, the in-place optimizer step on the card to the same step
+on the CPU, and the reduced deepseek-v3 (with its MTP loss) and xLSTM
+take a train step through the kernels.
 """
 
 import dataclasses
@@ -31,7 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention_rounding_terms
 from repro_torch.kernels.parity import (
     DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, RMS_CHUNK_SHAPES, RMS_DECODE_SHAPES,
-    RMS_VERIFY_SHAPES,
+    RMS_TRAIN_SHAPES, RMS_VERIFY_SHAPES,
     SHARED_DECODE_SHAPES, SSD_SHAPES, dscale_bf16_slack,
     flash_within, k2_per_call, shared_block_arena, ssd_within, within,
 )
@@ -587,7 +590,10 @@ def test_train_step_runs_through_the_kernels(cuda, remat, monkeypatch):
     batch = {"inputs": ids[:, :-1], "labels": ids[:, 1:],
              "worker_mask": torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda), "lr": 1e-3}
     K.reset_launch_counts()
-    new, _, metrics = make_train_step(model, adamw())(params, adamw().init(params), batch)
+    # The step updates its parameters in place: it gets a copy, and the
+    # scales it returns are held to the originals.
+    new = tree_map(torch.clone, params, is_leaf=torch.is_tensor)
+    new, _, metrics = make_train_step(model, adamw())(new, adamw().init(new), batch)
     torch.cuda.synchronize()
     L, r = cfg.n_layers, 2 if remat == "full" else 1
     assert K.launch_counts() == {
@@ -836,3 +842,101 @@ def test_selective_train_step_runs_through_the_kernels(cuda):
     (_, a), (_, b) = out["none"], out["selective"]
     assert torch.equal(a["loss"], b["loss"])
     assert abs(float(a["grad_norm"]) - float(b["grad_norm"])) <= 1e-6 * float(a["grad_norm"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RMS_TRAIN_SHAPES)
+def test_rms_norm_kernels_at_training_rows(cuda, dtype, shape):
+    """K2 forward and backward at the MLA and xLSTM loops' training rows
+    (deepseek-v3's D 7168, 1536 and 512; xlstm-125m's 768 and 1536):
+    plain's values (bf16 dscale with its midpoint slack), and a second
+    launch bit for bit."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    dy = torch.randn(shape, generator=g).to(cuda, dtype)
+    scale = (1 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda, dtype)
+    out = K.rms_norm(x, scale)
+    _close(out, K.rms_norm_plain(x, scale), dtype)
+    (dx, ds), (rx, rs) = K.rms_norm_bwd(dy, x, scale), K.rms_norm_bwd_plain(dy, x, scale)
+    _close(dx, rx, dtype)
+    slack = dscale_bf16_slack(dy, x, near_ulps=NEAR_ULPS)[0] if dtype == torch.bfloat16 else 0.0
+    _close(ds, rs, dtype, slack)
+    assert torch.equal(K.rms_norm(x, scale), out)
+    dx2, ds2 = K.rms_norm_bwd(dy, x, scale)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.parametrize("name", ["adafactor", "momentum", "adamw"])
+def test_in_place_optimizer_step_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
+    """Three in-place steps (clip scale 0.5) in f32 of a tree with a
+    stacked three-layer segment, a one-layer one, vectors, 3-D factored
+    leaves and (Adafactor, at a lowered ``MAP_ELEMS``) sliced leaves of
+    both kinds, chunks small enough to cut leaves into runs of matrices
+    and rows: the card's parameters and state within 1e-6 of the CPU's
+    (the row, column and RMS sums run in other orders)."""
+    from repro_torch.optim import get_optimizer
+    from repro_torch.optim import optimizers as O
+
+    monkeypatch.setattr(O, "CHUNK_ELEMS", 20000)
+    monkeypatch.setattr(O, "MAP_ELEMS", 2 ** 16)
+    g = torch.Generator().manual_seed(10)
+
+    def tree():
+        def layer():
+            return {"b": torch.randn(40, 12, generator=g), "norm": {"scale": torch.randn(
+                160, generator=g)}, "w": torch.randn(160, 192, generator=g),
+                "w_h": torch.randn(2, 128, 144, generator=g)}
+        return {"embed": torch.randn(300, 160, generator=g), "experts": torch.randn(
+            3, 160, 144, generator=g), "stack": [[layer() for _ in range(3)], [layer()]]}
+
+    cpu = tree()
+    card = tree_map(lambda t: t.to(cuda), cpu, is_leaf=torch.is_tensor)
+    opt = get_optimizer(name)
+    sc, sg = opt.init(cpu), opt.init(card)
+    for _ in range(3):
+        grads = tree()
+        sc = opt.step(grads, sc, cpu, 0.05, torch.tensor(0.5))
+        sg = opt.step(tree_map(lambda t: t.to(cuda), grads, is_leaf=torch.is_tensor), sg, card,
+                      0.05, torch.tensor(0.5, device=cuda))
+    for a, b in zip(tree_leaves((card, sg), is_leaf=torch.is_tensor),
+                    tree_leaves((cpu, sc), is_leaf=torch.is_tensor)):
+        torch.testing.assert_close(a.cpu().float(), b.float(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-125m"])
+def test_mla_and_xlstm_train_step_runs_through_the_kernels(cuda, arch, monkeypatch):
+    """A clipped step of the reduced model under full remat (deepseek-v3:
+    an MLA dense and an MLA MoE layer, the MTP loss, Adafactor; xLSTM: an
+    mLSTM and an sLSTM block, momentum) on the card: K2 forward twice a
+    rematerialised norm and once for the final norm and the MTP block's
+    and norm, its backward once each, nothing else launched, no plain
+    version reached, finite metrics."""
+    from repro_torch.optim import adafactor, momentum
+
+    rn = importlib.import_module("repro_torch.kernels.rmsnorm")
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached for a CUDA tensor")
+
+    for name in ("rms_norm_plain", "rms_norm_bwd_plain"):
+        monkeypatch.setattr(rn, name, boom)
+    cfg = get_config(arch).reduced(remat="full")
+    if cfg.xlstm is not None:
+        cfg = dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm, slstm_every=2))
+    opt = adafactor() if cfg.mtp else momentum(0.9)
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    g = torch.Generator().manual_seed(11)
+    ids = torch.randint(0, cfg.vocab_size, (4, 33), generator=g).to(cuda)
+    batch = {"inputs": ids[:, :-1], "labels": ids[:, 1:],
+             "worker_mask": torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda), "lr": 1e-3}
+    K.reset_launch_counts()
+    _, _, metrics = make_train_step(model, opt)(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    norms = k2_per_call(cfg) - 1
+    once = 1 + (k2_per_call(dataclasses.replace(cfg, n_layers=1)) if cfg.mtp else 0)
+    assert K.launch_counts() == {
+        "rmsnorm": 2 * norms + once, "rmsnorm_bwd": norms + once, "flash_attention": 0,
+        "flash_attention_bwd": 0, "decode_attention": 0, "paged_decode_attention": 0,
+        "ssd_scan": 0, "ssd_scan_bwd": 0}
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

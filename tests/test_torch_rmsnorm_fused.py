@@ -37,7 +37,7 @@ from repro.kernels.rmsnorm.kernel import rmsnorm_fwd
 from repro.models import layers as jlayers
 from repro_torch.kernels import rms_norm_bwd_plain, rms_norm_plain
 from repro_torch.kernels import rmsnorm as R
-from repro_torch.kernels.parity import NEAR_ULPS, dscale_bf16_slack, within
+from repro_torch.kernels.parity import RMS_TRAIN_SHAPES, NEAR_ULPS, dscale_bf16_slack, within
 
 RNG = np.random.default_rng(17)
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -275,6 +275,9 @@ def test_every_width_of_row_group_gives_the_same_function(bwd, tpr):
 
 PLAN_CASES = [(rows, D, es, bwd) for rows in (1, 4, 7, 256, 16384)
               for D in (33, 576, 2048, 4096, 8192) for es in (4, 2) for bwd in (False, True)]
+# The MLA and xLSTM loops' training rows (``parity.RMS_TRAIN_SHAPES``).
+PLAN_CASES += [(rows, D, es, bwd) for rows, D in RMS_TRAIN_SHAPES for es in (4, 2)
+               for bwd in (False, True)]
 
 
 @pytest.mark.parametrize("rows,D,es,bwd", PLAN_CASES)

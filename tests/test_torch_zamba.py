@@ -177,6 +177,9 @@ def test_train_step_matches_reference(optimizer):
     jo, to = jopt.get_optimizer(optimizer), topt.get_optimizer(optimizer)
     jnew, _, jm = jax.jit(j_make_train_step(ref, jo))(jp, jo.init(jp),
                                                       {**_j(batch), "lr": jnp.float32(1e-3)})
+    # The step updates its parameters in place: it gets a copy of the
+    # cached ones.
+    tp = tree_map(torch.clone, tp, is_leaf=torch.is_tensor)
     tnew, _, tm = make_train_step(Model(cfg), to)(tp, to.init(tp), {**_t(batch), "lr": 1e-3})
     for key in ("loss", "ce", "grad_norm", "denom", "contributors"):
         assert float(tm[key]) == pytest.approx(float(jm[key]), rel=1e-5, abs=1e-6), key
@@ -212,7 +215,9 @@ def test_loop_matches_reference_under_fail_and_rejoin():
     tout = train(Model(cfg), get_optimizer("adamw"), st, delay, batcher,
                  TrainLoopConfig(total_steps=8, log_every=0, lr=3e-3,
                                  events=[FaultEvent(*e) for e in events]),
-                 params=tp, device="cpu")
+                 # The loop updates its parameters in place: a copy of the
+                 # cached ones.
+                 params=tree_map(torch.clone, tp, is_leaf=torch.is_tensor), device="cpu")
     jh, th = jout["history"], tout["history"]
     assert len(jh) == len(th) == 8
     for a, b in zip(jh, th):
