@@ -10,7 +10,7 @@ runs, in order, and exits non-zero at the first phase that fails:
    turns TF32 off for float32 matrix products and convolutions;
 2. builds the port's CUDA kernels from ``src/repro_torch/csrc``, prints
    ptxas's registers and spills, and shows that K1's bf16 kernels on the
-   main paths (forward, dQ and dK/dV at D 64 and D 128) and every
+   main paths (forward, dQ and dK/dV at D 64, D 128 and D 80) and every
    instance of K5's bf16 kernels (the SSD scan's forward and backward)
    hold tensor-core instructions (HMMA in ``cuobjdump -sass``) and spill
    nothing, and that no instance of K3's and K4's split and merge kernels
@@ -49,7 +49,8 @@ runs, in order, and exits non-zero at the first phase that fails:
 7. holds the training kernels against their plain versions on the card:
    flash attention forward and backward (K1) over the reference's
    kernel-test shapes and the training shapes (``parity.FLASH_SHAPES``:
-   llama3.2-1b's, zamba2's shared block's, qwen2.5-3b's), causal and not, in f32
+   llama3.2-1b's, zamba2's shared block's, qwen2.5-3b's, hubert-xlarge's
+   at D 80 and a reduced ragged D 80 case), causal and not, in f32
    and bf16, plus the training shape with q and k scaled by 4 (scores
    near 100), and the RMSNorm forward and backward (K2) at the training
    rows of both models' widths (D 2048 and 4096), each a second launch
@@ -89,8 +90,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    with a lane masked off through the kernels on the card against the
    plain versions on the CPU, over each pool (logits, recurrent states,
    K/V rows); then at full width (38 Mamba2 layers, 6 shared calls, bf16)
-   6 requests through ``ServeEngine`` over each pool (4 slots of 512 rows,
-   64-token chunks), every stream position held to teacher-forced
+   5 requests (prompts 16-96) through ``ServeEngine`` over each pool (4
+   slots of 512 rows, 64-token chunks), every stream position held to teacher-forced
    ``generate_offline`` and each decode step's launches counted (K2 89
    times, K3 or K4 6 times, nothing else); times K3 and K4 at the tick's
    shape and K2 at its 4 rows of 4096, and profiles a decode tick of each
@@ -100,11 +101,12 @@ runs, in order, and exits non-zero at the first phase that fails:
    the acceptance rate): first the 2-layer f32 cuts of both models run
    ``verify_with_cache`` (per-row starts, n_input 0, 1 and 4, a rejected
    tail) and the replay on the card against plain on the CPU over both
-   pools; then llama3.2-1b at full width serves phase 4's traffic with
+   pools; then llama3.2-1b at full width serves the first 6 of phase 4's
+   8 requests with
    gamma <= 6 over both pools with a draft of the target plus noise 3e-4
    and with the target itself (whose every rejection must sit at a
-   near-tie of offline decode), and with a poor draft (noise 2e-2) that
-   drives the controller to gamma = 0 rounds; zamba2-1.2b serves 3
+   near-tie of offline decode), and over the contiguous pool with a poor
+   draft (noise 2e-2) that drives the controller to gamma = 0 rounds; zamba2-1.2b serves 2
    requests with gamma <= 3 over both pools, and every round that
    speculates on its contiguous pool is held to ``decode_step`` run token
    by token over the committed tokens. Every call's launches are counted (a llama
@@ -150,11 +152,11 @@ runs, in order, and exits non-zero at the first phase that fails:
 19. the registry's other GQA decoders at full width and full depth,
    each loaded alone (random bf16 weights from a seed, their bias and
    norm leaves made noisy; the memory held before each load and the
-   peak after it printed): (a) qwen2.5-3b (q/k/v bias) serves phase
-   4's traffic over both pools; (b) command-r-35b (LayerNorm, the
+   peak after it printed): (a) qwen2.5-3b (q/k/v bias) serves the first
+   6 of phase 4's requests over both pools; (b) command-r-35b (LayerNorm, the
    parallel attention + FFN block, logit scale 0.0625), chameleon-34b
    (qk-norm, untied head) and qwen3-moe-30b-a3b (128 experts top 8,
-   dropless) each serve 6 requests (prompts 32-256, 8-32 new) over the
+   dropless) each serve 5 requests (prompts 32-256, 8-32 new) over the
    paged pool, 4 slots of 512, 128-token chunks. Every call's launches
    are counted (K2 once an RMSNorm, none for LayerNorm; K3 or K4 once a
    layer a tick) and every stream position is held to teacher-forced
@@ -174,7 +176,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    each), and K1 and K2 held at every batch shape the loop ran. (e) K2,
    K3 and K4 are timed at each model's tick shape (G 8 at D 128; K2 at D
    8192 and at the qk-norm's D 128) and K1 at qwen2.5-3b's training
-   shape, and 10 steady ticks of each model are profiled beside their
+   shape, and 6 steady ticks of each model (qwen2.5-3b's on the paged
+   pool) are profiled beside their
    byte bound (the weights plus the live K/V rows at 3.35 TB/s; for the
    MoE every expert, as its dropless dispatch reads them, and beside it
    only the experts the profiled ticks routed to);
@@ -194,7 +197,7 @@ runs, in order, and exits non-zero at the first phase that fails:
    (near-ties; for deepseek the router rule), and every call's launches
    are counted: K2 ``k2_per_call`` times a call (xLSTM: a scanned step),
    nothing else (MLA attends and xLSTM recurs in plain PyTorch). (d)
-   Peak memory of each run; 10 steady ticks of each pool profiled beside
+   Peak memory of each run; 6 steady ticks of each pool profiled beside
    their byte bound (the weights without the MTP head, the latent rows,
    xLSTM's states read and written; deepseek also with only the routed
    experts); K2 timed at the new widths (7168, 1536, 512; 768, 1536);
@@ -207,7 +210,7 @@ runs, in order, and exits non-zero at the first phase that fails:
    8 plus a shared one, capacity-dropped; the MTP head on; 14.63 B
    parameters), bf16, remat full, Adafactor, 8 workers, 8 x 512 tokens,
    12 steps, and (b) xlstm-125m at full width and depth, bf16, remat
-   full, momentum 0.9, 32 x 512 tokens, 16 steps, each with a worker
+   full, momentum 0.9, 32 x 512 tokens, 12 steps, each with a worker
    failing at step 5 and rejoining at 10 (``train_full_width``: the
    stage walk, the fleet path, finite losses, the peak memory, and (e)
    K2's launches equal to ``per_step_launches`` a step, nothing else
@@ -219,13 +222,39 @@ runs, in order, and exits non-zero at the first phase that fails:
    times K2 there, profiles one train step and times its optimizer's
    in-place step beside its byte bound; the load and training peaks are
    printed;
+22. (a) hubert-xlarge (frames in: a projection and a depthwise positional
+   conv; 48 bidirectional encoder layers of 16 heads of 80, LayerNorm,
+   GELU; 946,272,000 parameters): first one f32 train step at full
+   width cut to 2 layers through the kernels on the card vs plain on the
+   CPU, held as in phase 8; then at full width and depth, bf16, remat
+   full, AdamW, one batch of 32 x 512 frames of ``make_frame_stream`` over
+   8 workers: 3 masked fastest-k steps with 6 of 8 contributing, whose
+   own-batch loss must fall, and one with all 8, each launching K1 96
+   times forward and 48 backward, non-causal, and nothing else (the load
+   and training peaks printed); K1 held against plain at the step's
+   shape, timed there beside SDPA and its bound, and one step profiled
+   once (b)'s worker processes have ended.
+   (b) the simulation engines: ``simulate_batch`` at
+   ``benchmarks/perf_sim.py``'s Fig. 4 points (n 20, 24 seeds, 20,000
+   iterations, adaptive-(k, beta) and adaptive-k) with its lanes in
+   float64 on the card, held to the same call on the CPU (stage logs
+   exactly, trajectories within 1e-9) and lanes 0 and 23 to the scalar
+   ``simulate`` at those seeds, the wall seconds of each printed (the
+   CPU's runs in worker processes while (a) runs; the card's after they
+   have ended), and a window of 256 iterations of each point profiled
+   on the card (launches, device time and idle share an iteration); and
+   ``evaluate_schedule``'s runtime ratio and computation and
+   communication change against adaptive-k at the reference's
+   calibration (host arithmetic);
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
 phase 17 under ``phase17_launches`` and in phase 18 under
 ``phase18_launches``, in phase 19 under ``phase19_launches`` and in
-phase 20 under ``phase20_launches`` and in phase 21 under
-``phase21_launches``; the profiles under
+phase 20 under ``phase20_launches``, in phase 21 under
+``phase21_launches`` and in phase 22 under ``phase22_launches``; then
+K1's forward and backward again at D 80, hubert's main path, with their
+times at its shape and their launches in phase 22; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
@@ -239,6 +268,7 @@ kernel's launches there under ``spec_serve_launches``), phase 17's under
 ``prefix_serve``, ``preempt_serve``, ``migration`` and ``zamba_preempt``, phase 18's
 under ``observed_serve`` and ``fleet``, phase 19's under ``gqa_configs``,
 phase 20's under ``mla_xlstm``, phase 21's under ``mla_xlstm_train``,
+phase 22's under ``hubert_train`` and ``sim_engines``,
 the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
@@ -302,10 +332,10 @@ def card_line() -> str:
 # Phase 2: the build, and the tensor cores in K1's bf16 kernels
 # ---------------------------------------------------------------------------
 
-#: K1's bf16 kernels the main paths launch: llama3.2-1b's D 64 and
-#: zamba2-1.2b's shared block's D 128 (D = Dv).
+#: K1's bf16 kernels the main paths launch: llama3.2-1b's D 64,
+#: zamba2-1.2b's shared block's D 128 and hubert-xlarge's D 80 (D = Dv).
 K1_TC_KERNELS = ("fa_fwd_mma", "fa_bwd_dq_mma", "fa_bwd_dkdv_mma")
-K1_TC_DIMS = (64, 128)
+K1_TC_DIMS = (64, 128, 80)
 
 
 def k1_instance(mangled: str):
@@ -1173,8 +1203,9 @@ def profile_serving(model, params) -> list:
 
 
 #: Decode ticks in each profiled tick window, and in the warm-up before
-#: the windows (the engine's kernels are built and ran before).
-PROFILE_TICKS, PROFILE_WARMUP = 10, 4
+#: the windows (the engine's kernels are built and ran before); cut from
+#: 10 after 4 to fit the script's time limit.
+PROFILE_TICKS, PROFILE_WARMUP = 6, 2
 
 
 def tick_bytes(model, params, live_rows: int, experts_read: float = None,
@@ -1455,6 +1486,20 @@ def token_batch(vocab: int, n_workers: int, per_worker: int, seq: int, mask) -> 
             "worker_mask": torch.tensor(mask, dtype=torch.float32), "lr": 1e-3}
 
 
+def step_batch(cfg, n_workers: int, per_worker: int, seq: int, mask) -> dict:
+    """A worker-major train batch for ``cfg`` on the CPU: ``token_batch``'s,
+    or for a frames model (hubert) ``make_frame_stream``'s frames (B, S,
+    d_model) and labels from the same seed."""
+    if cfg.input_kind == "tokens":
+        return token_batch(cfg.vocab_size, n_workers, per_worker, seq, mask)
+    from repro_torch.data import make_frame_stream
+
+    x, labels = make_frame_stream(cfg.d_model, seed=SEED)(n_workers * per_worker, seq,
+                                                            cfg.vocab_size)
+    return {"inputs": torch.from_numpy(x), "labels": torch.from_numpy(labels),
+            "worker_mask": torch.tensor(mask, dtype=torch.float32), "lr": 1e-3}
+
+
 def step_vs_plain(small, expect: dict) -> dict:
     """A model at full width cut to a few layers (``small``, f32), B 4 x
     S 64 with worker mask [1, 0, 1, 1]: one clipped SGD step through the
@@ -1486,7 +1531,7 @@ def step_vs_plain(small, expect: dict) -> dict:
     model = Model(small)
     cpu_params = model.init(SEED, device="cpu")
     gpu_params = tree_map(lambda t: t.to("cuda"), cpu_params, is_leaf=torch.is_tensor)
-    batch = token_batch(small.vocab_size, 4, 1, 64, [1.0, 0.0, 1.0, 1.0])
+    batch = step_batch(small, 4, 1, 64, [1.0, 0.0, 1.0, 1.0])
     batch["lr"] = 0.1
     gpu_batch = {k: v.to("cuda") if torch.is_tensor(v) else v for k, v in batch.items()}
     opt = sgd()
@@ -1699,10 +1744,10 @@ def train_full_width(model, steps: int, global_batch: int = TRAIN_B,
 # Phase 10: training kernels' times and one profiled train step
 # ---------------------------------------------------------------------------
 
-def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen) -> dict:
+def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = True) -> dict:
     """K1 forward and backward at q (B, S, H, D), k/v (B, S, Hkv, D), bf16,
-    causal, beside their plain versions, SDPA and their bounds (CUDA
-    events, cold L2, median of 30)."""
+    causal or not, beside their plain versions, SDPA and their bounds
+    (CUDA events, cold L2, median of 30)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (
@@ -1715,8 +1760,8 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen) -> dict:
     k = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
     v = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
     do = torch.randn((B, S, H, D), generator=gen).to(dev, dt)
-    o, lse = flash_attention_fwd(q, k, v, causal=True)
-    pairs = S * (S + 1) // 2                     # causal (query, key) pairs per head
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    pairs = S * (S + 1) // 2 if causal else S * S   # (query, key) pairs per head
     fwd_flops = 4 * B * H * pairs * D            # QK^T and PV, 2 flops per MAC
     qkv = (q.numel() + k.numel() + v.numel()) * 2
     out = {}
@@ -1725,13 +1770,14 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen) -> dict:
     gqa = Hkv != H
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=gqa)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
 
-    shape = f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {Hkv}, {D}) bf16, causal"
+    shape = (f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {Hkv}, {D}) bf16, "
+             f"{'causal' if causal else 'non-causal'}")
     out["flash_attention"] = dict(
         shape=shape,
-        ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), n=30),
-        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=True), n=30),
+        ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal), n=30),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=causal), n=30),
         library_ms=time_ms(sdpa, n=30), bound_ms=b, bound_by=kind,
         flops=fwd_flops,
     )
@@ -1741,17 +1787,17 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen) -> dict:
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
 
     def sdpa_fwd_bwd():
-        y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=gqa)
+        y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal, enable_gqa=gqa)
         y.backward(do.transpose(1, 2))
 
     lib_fb = time_ms(sdpa_fwd_bwd, n=30)
-    lib_f = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+    lib_f = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
                                                            enable_gqa=gqa), n=30)
     out["flash_attention_bwd"] = dict(
         shape=shape + ", with dO",
-        ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True), n=30),
-        plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
-                         n=30),
+        ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), n=30),
+        plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                           causal=causal), n=30),
         library_ms=lib_fb - lib_f, bound_ms=b, bound_by=kind, flops=bwd_flops,
     )
     return out
@@ -1826,8 +1872,8 @@ def profile_train_step(model, params, opt=None, global_batch: int = TRAIN_B) -> 
     opt = opt or adamw()
     state = opt.init(params)
     step = make_train_step(model, opt)
-    batch = token_batch(cfg.vocab_size, 8, global_batch // 8, TRAIN_S,
-                        [1.0, 0.0, 1.0, 0.0, 1.0, 0.0, 1.0, 0.0])
+    batch = step_batch(cfg, 8, global_batch // 8, TRAIN_S,
+                       [1.0, 0.0, 1.0, 0.0, 1.0, 0.0, 1.0, 0.0])
     batch = {k: v.to("cuda") if torch.is_tensor(v) else v for k, v in batch.items()}
 
     def one():
@@ -2044,13 +2090,15 @@ def time_ssd_kernels(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 #: zamba2-1.2b serving: 4 slots of 512 rows, 64-token prefill chunks (a
-#: prompt over 64 tokens continues a prefilled state), 6 requests of
-#: 16-128 prompt and 8-32 new tokens; the scanned prefill costs one
-#: decode step a prompt token, so the traffic is smaller than llama's.
-Z_SLOTS, Z_MAX_LEN, Z_CHUNK, Z_REQUESTS = 4, 512, 64, 6
+#: prompt over 64 tokens continues a prefilled state), 5 requests of
+#: 16-96 prompt and 8-32 new tokens (the fifth re-uses a freed slot); the
+#: scanned prefill costs one decode step a prompt token, so the traffic
+#: is smaller than llama's (cut from 6 requests of 16-128 to fit the
+#: script's time limit).
+Z_SLOTS, Z_MAX_LEN, Z_CHUNK, Z_REQUESTS = 4, 512, 64, 5
 
 
-def zamba_workload(vocab: int, n: int = Z_REQUESTS, prompt=(16, 129), new=(8, 33),
+def zamba_workload(vocab: int, n: int = Z_REQUESTS, prompt=(16, 97), new=(8, 33),
                    seed: int = SEED + 10, gap: float = 0.02):
     rng = np.random.default_rng(seed)
     reqs = []
@@ -2210,7 +2258,7 @@ def serve_zamba(model, params) -> tuple:
 #: and the prompt of the scanned prefill. Kept short: a zamba2 step is
 #: ~2100 launches, and reading a window's profiler events takes longer
 #: than running it.
-Z_PROFILE_TICKS, Z_PROFILE_PROMPT = 10, 32
+Z_PROFILE_TICKS, Z_PROFILE_PROMPT = 6, 16
 
 
 def profile_zamba_serving(model, params) -> list:
@@ -2293,7 +2341,12 @@ def time_zamba_kernels(cfg, reqs) -> dict:
 #: decode step, so a round costs 2 (1 + gamma) + gamma decode steps), all
 #: arriving at once so that rounds speculate on several lanes.
 SPEC_GAMMA, SPEC_NOISE, SPEC_POOR = 6, 3e-4, 2e-2
-Z_SPEC_GAMMA, Z_SPEC_REQUESTS = 3, 3
+#: Both speculative workloads are cut to fit the script's time limit:
+#: llama3.2-1b serves the first 6 of phase 4's 8 requests (two still wait
+#: for a freed slot; the noisy and the perfect draft over both pools, the
+#: poor draft over the contiguous one), zamba2-1.2b 2 requests (from 3).
+SPEC_REQUESTS = 6
+Z_SPEC_GAMMA, Z_SPEC_REQUESTS = 3, 2
 
 
 def noisy_params(params, noise: float, seed: int, only=None):
@@ -3271,13 +3324,20 @@ def serve_fleet(model, params, reqs) -> dict:
 # Phase 19: the registry's other GQA decoders at full width
 # ---------------------------------------------------------------------------
 
-#: (a) qwen2.5-3b serves phase 4's traffic over both pools; (b) the wide
+#: (a) qwen2.5-3b serves the first ``QWEN_REQUESTS`` of phase 4's requests
+#: over both pools; (b) the wide
 #: models each serve ``W_REQUESTS`` requests (prompts of 32-256 tokens,
 #: 8-32 new) over the paged pool: ``W_SLOTS`` slots of ``W_MAX_LEN``
-#: rows, ``W_CHUNK``-token chunks. qwen3-moe routes dropless.
+#: rows, ``W_CHUNK``-token chunks, so that the last request waits for a
+#: freed slot and its blocks (cut from 6 requests to fit the script's
+#: time limit). qwen3-moe routes dropless.
 QWEN_ARCH = "qwen2.5-3b"
+#: qwen2.5-3b serves the first ``QWEN_REQUESTS`` of phase 4's 8 requests
+#: over both pools and profiles its tick on the paged pool only (cut from
+#: all 8 and both pools to fit the script's time limit).
+QWEN_REQUESTS = 6
 WIDE_ARCHS = ("command-r-35b", "chameleon-34b", "qwen3-moe-30b-a3b")
-W_REQUESTS, W_SLOTS, W_MAX_LEN, W_CHUNK = 6, 4, 512, 128
+W_REQUESTS, W_SLOTS, W_MAX_LEN, W_CHUNK = 5, 4, 512, 128
 #: Leaves a model initializes to zeros or ones (norm scales and biases,
 #: q/k/v biases, xLSTM's gate and conv biases), and the noise added to them
 #: before serving, so that the biases, LayerNorm's affine and the qk-norm's
@@ -3517,10 +3577,10 @@ def phase19() -> dict:
 
     qcfg = serving_config(QWEN_ARCH)
     qmodel = Model(qcfg)
-    print(f"  (a) {qcfg.name}: phase 4's {len(workload(qcfg.vocab_size))} requests over both "
+    print(f"  (a) {qcfg.name}: the first {QWEN_REQUESTS} of phase 4's requests over both "
           f"pools, {N_SLOTS} slots of {MAX_LEN}, {PREFILL_CHUNK}-token chunks")
     params = load_full_width(qmodel, SEED + 45)
-    reqs = workload(qcfg.vocab_size)
+    reqs = workload(qcfg.vocab_size)[:QWEN_REQUESTS]
     runs = serve(qmodel, params, reqs)
     out["streams"][qcfg.name] = check_streams(qmodel, params, reqs, runs, MAX_LEN)
     check_near_tie_share(out["streams"][qcfg.name], qcfg.name)
@@ -3532,7 +3592,7 @@ def phase19() -> dict:
     out["launches"] += [r["launches"] for r in runs.values()]
     out["times"][qcfg.name] = time_wide_kernels(qcfg, reqs, N_SLOTS, MAX_LEN, gen)
     out["profiles"][qcfg.name] = profile_ticks(
-        qmodel, params, (("contiguous", None), ("paged", BLOCK_SIZE)), n_slots=N_SLOTS,
+        qmodel, params, (("paged", BLOCK_SIZE),), n_slots=N_SLOTS,
         max_len=MAX_LEN, chunk=PREFILL_CHUNK, prompt=(400, 600), seed=SEED + 41)
     del params
 
@@ -3792,7 +3852,7 @@ DS_CHECK_LR = 1e-5
 #: bf16 weights: at lr 3e-4 a 155 M-parameter model's per-weight step,
 #: ~1e-4 lr, is far below a bf16 step of its weights), ``XL_TRAIN_B`` x 512
 #: tokens, ``XL_TRAIN_STEPS`` steps.
-XL_TRAIN_B, XL_TRAIN_STEPS, XL_TRAIN_LR, XL_MU = 32, 16, 0.5, 0.9
+XL_TRAIN_B, XL_TRAIN_STEPS, XL_TRAIN_LR, XL_MU = 32, 12, 0.5, 0.9
 
 
 def ds_train_config():
@@ -3947,6 +4007,276 @@ def phase21() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: hubert-xlarge trained through K1 at D 80; the simulation engines
+# ---------------------------------------------------------------------------
+
+HUBERT_ARCH = "hubert-xlarge"
+#: The masked fastest-k steps' worker mask (the fastest 6 of 8) and their
+#: count before one step with all 8; AdamW at ``HUBERT_LR`` on one batch.
+HUBERT_K6 = (1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0)
+HUBERT_MASKED_STEPS, HUBERT_LR = 3, 1e-4
+#: benchmarks/perf_sim.py's Fig. 4 points (n 20, s 20, 24 seeds, 20,000
+#: iterations, an eval every 10) and the seeds the scalar engine runs.
+SIM_POINTS = (("fig4_kbeta", "adaptive_kbeta"), ("fig4_k", "adaptive_k"))
+SIM_N, SIM_SEEDS, SIM_ITERS, SIM_EVAL = 20, 24, 20_000, 10
+SIM_SCALAR_SEEDS = (0, 23)
+#: Iterations of each point's profiled window on the card.
+SIM_PROFILE_ITERS = 256
+#: Lane trajectories of two runs that sum in other orders: relative.
+SIM_TRAJ_RTOL = 1e-9
+
+
+def sim_setup(strategy: str):
+    """perf_sim's problem (v 400, d 10, 20 workers), strategy and delay
+    model, from the port's ``core``."""
+    from repro_torch.core import LinregProblem, SimplifiedDelayModel, StrategyConfig
+
+    problem = LinregProblem.generate(v=SIM_N * 20, d=10, n_workers=SIM_N, seed=1)
+    cfg = StrategyConfig(strategy, n=SIM_N, s=20, k_max=SIM_N // 2,
+                         beta_grid=(0.2, 0.4, 0.6, 0.8, 1.0))
+    return problem, cfg, SimplifiedDelayModel(lambda_y=1.0, x=0.01)
+
+
+def sim_cpu_task(strategy: str, seed, iters: int):
+    """Run in a worker process: ``simulate_batch`` on the CPU (``seed``
+    None) or the scalar ``simulate`` at ``seed``, ``iters`` iterations;
+    (result, wall seconds)."""
+    from repro_torch.core import simulate, simulate_batch
+
+    torch.set_num_threads(1)
+    problem, cfg, model = sim_setup(strategy)
+    t0 = time.perf_counter()
+    if seed is None:
+        res = simulate_batch(problem, cfg, model, seeds=SIM_SEEDS, max_iters=iters,
+                             eval_every=SIM_EVAL, device="cpu")
+    else:
+        res = simulate(problem, cfg, model, seed=seed, max_iters=iters, eval_every=SIM_EVAL)
+    return res, time.perf_counter() - t0
+
+
+def train_hubert(model, params) -> dict:
+    """hubert at full width and depth on one batch of ``TRAIN_B`` x
+    ``TRAIN_S`` frames (8 workers): ``HUBERT_MASKED_STEPS`` AdamW steps
+    with the fastest 6 of 8 contributing, then one with all 8. Each step's
+    launches must be ``per_step_launches`` (K1 forward twice a layer under
+    full remat, backward once), the masked steps' own-batch loss must
+    fall, every loss be finite; the training peak is printed."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+
+    cfg = model.cfg
+    opt = adamw()
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    batch = step_batch(cfg, 8, TRAIN_B // 8, TRAIN_S, HUBERT_K6)
+    batch = {k: v.to("cuda") if torch.is_tensor(v) else v for k, v in batch.items()}
+    batch["lr"] = HUBERT_LR
+    expect = per_step_launches(cfg)
+    total = dict.fromkeys(expect, 0)
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(HUBERT_MASKED_STEPS + 1):
+        if i == HUBERT_MASKED_STEPS:
+            batch["worker_mask"] = torch.ones(8, device="cuda")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        check(counts == expect, f"hubert step {i}: launches {counts}, not {expect}")
+        for k, v in counts.items():
+            total[k] += v
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "contributors": float(m["contributors"]), "wall_s": wall}
+        steps.append(rec)
+        print(f"    step {i}: k = {rec['contributors']:.0f} of 8, loss {rec['loss']!r}, grad "
+              f"norm {rec['grad_norm']:.4f}, {wall:.2f} s; K1 forward "
+              f"{counts['flash_attention']}, backward {counts['flash_attention_bwd']}")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in steps]
+    check(all(np.isfinite(losses)), "a hubert loss is not finite")
+    check([r["contributors"] for r in steps] == [6.0] * HUBERT_MASKED_STEPS + [8.0],
+          "the worker masks did not contribute 6, then 8 workers")
+    masked = losses[:HUBERT_MASKED_STEPS]
+    check(masked[-1] < masked[0], f"the masked steps' own-batch loss did not fall: {masked}")
+    print(f"    own-batch loss {masked[0]!r} -> {masked[-1]!r} over the k = 6 steps; training "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    return {"steps": steps, "per_step": expect, "launches": total, "peak_bytes": peak}
+
+
+def phase22a(card: str) -> tuple:
+    """(a) of phase 22 but its profiled step: see the module docstring.
+    Returns its results, the full-depth model and its trained
+    parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, count_params_analytic
+
+    cfg = get_config(HUBERT_ARCH)
+    out = {}
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    print(f"  (a) one train step of {HUBERT_ARCH} at full width cut to 2 layers, f32, frames "
+          f"in: kernels on the card vs plain on the CPU")
+    out["parity"] = step_vs_plain(small, per_step_launches(small))
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg)
+    print(f"  (a) {HUBERT_ARCH} at full width and depth: {count_params_analytic(cfg):,} "
+          f"parameters, {cfg.n_layers} encoder layers of {cfg.n_heads} x {cfg.head_dim} heads, "
+          f"{cfg.dtype}, remat {cfg.remat!r}, AdamW at lr {HUBERT_LR}; {TRAIN_B} x {TRAIN_S} "
+          f"frames of the frame stream, 8 workers, beta 1")
+    params = load_full_width(model, SEED + 70)
+    out["load_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["parameters"] = count_params_analytic(cfg)
+    out.update(train_hubert(model, params))
+    gen = torch.Generator().manual_seed(SEED + 71)
+    shape = (TRAIN_B, TRAIN_S, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim)
+    print("    K1 forward and backward vs plain at the step's shape (non-causal, bf16)")
+    out["k1_err"] = hold_flash(shape, False, torch.bfloat16, gen)
+    print("    K1 at the step's shape (CUDA events, cold L2, median of 30)")
+    out["k1_times"] = time_flash(TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                 gen, causal=False)
+    print_times(out["k1_times"])
+    return out, model, params
+
+
+def sim_log(log) -> list:
+    return [(int(i), st.k, st.beta) for i, st in log]
+
+
+def hold_sim(label: str, card, cpu, scalars: dict) -> dict:
+    """The card's ``simulate_batch`` against the CPU's (stage logs,
+    iterations, eval counts exactly; times and costs within 1e-12, gaps
+    within ``SIM_TRAJ_RTOL``, relative) and its lanes against the scalar
+    engine's runs at their seeds."""
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                            / np.maximum(np.abs(np.asarray(b)), 1e-300)))
+
+    logs = [sim_log(a) == sim_log(b) for a, b in zip(card.stage_logs, cpu.stage_logs)]
+    check(all(logs), f"{label}: stage logs differ on lanes "
+                     f"{[i for i, ok in enumerate(logs) if not ok]}")
+    for f in ("iterations", "reached", "n_evals"):
+        check(np.array_equal(getattr(card, f), getattr(cpu, f)), f"{label}: {f} differ")
+    err = {f: rel(getattr(card, f), getattr(cpu, f))
+           for f in ("times", "comp_at_eval", "comm_at_eval", "runtime")}
+    check(all(e <= 1e-12 for e in err.values()), f"{label}: times or costs differ: {err}")
+    err["gaps"] = rel(card.gaps, cpu.gaps)
+    check(err["gaps"] <= SIM_TRAJ_RTOL, f"{label}: gaps differ by {err['gaps']:.3e}")
+    times_bitwise = bool(np.array_equal(card.times, cpu.times))
+    lanes = {}
+    for seed, sc in scalars.items():
+        lane = card.lane(seed)
+        check(sim_log(lane.stage_log) == sim_log(sc.stage_log),
+              f"{label}: lane {seed}'s stage log is not the scalar engine's")
+        lanes[seed] = {"gaps": rel(lane.gaps, sc.gaps), "times": rel(lane.times, sc.times),
+                       "stages": len(sc.stage_log)}
+        check(lanes[seed]["gaps"] <= SIM_TRAJ_RTOL and lanes[seed]["times"] <= 1e-12,
+              f"{label}: lane {seed} vs the scalar engine: {lanes[seed]}")
+    stages = [len(log) for log in card.stage_logs]
+    print(f"    {label}: stage logs equal on all {len(logs)} lanes ({min(stages)}-{max(stages)} "
+          f"stages), card vs CPU max relative gap diff {err['gaps']:.3e}, times bit for bit "
+          f"{times_bitwise}; scalar lanes {lanes}")
+    return {"max_rel": err, "times_bitwise": times_bitwise, "scalar_lanes": lanes,
+            "stages": stages}
+
+
+def schedule_readout() -> dict:
+    """``evaluate_schedule`` at the reference's Fig. 4 calibration
+    (tests/test_paper_claims.py): ours vs adaptive-k runtime ratio,
+    computation saved and communication added."""
+    from repro_torch.core import SGDHyperParams, StrategyConfig, evaluate_schedule
+
+    problem, _, model = sim_setup("adaptive_k")
+    lam = np.linalg.eigvalsh(2.0 * problem.X.T @ problem.X / problem.v)
+    c = float(2.0 * lam.min())
+    fl1 = 0.1846 * problem.eta / 9.284e-6
+    hp = SGDHyperParams(eta=problem.eta, L=2.0, c=c, s=problem.s,
+                        sigma_grad2=fl1 * 2 * c * problem.s / (problem.eta * 2.0))
+    e0 = problem.gap(np.zeros(problem.d))
+    res = {s: evaluate_schedule(StrategyConfig(s, n=SIM_N, s=20, k_max=SIM_N // 2,
+                                               beta_grid=(0.2, 0.4, 0.6, 0.8, 1.0)),
+                                model, hp, e0=e0, target=2e-2)
+           for s in ("adaptive_kbeta", "adaptive_k")}
+    ours, ak = res["adaptive_kbeta"], res["adaptive_k"]
+    out = {"runtime_ratio": ours.runtime / ak.runtime,
+           "computation_change": ours.comp_cost / ak.comp_cost - 1,
+           "communication_change": ours.comm_cost / ak.comm_cost - 1,
+           "stages": [ours.n_stages, ak.n_stages]}
+    print(f"    evaluate_schedule (host): runtime ratio {out['runtime_ratio']!r}, computation "
+          f"{100 * out['computation_change']:+.2f} %, communication "
+          f"{100 * out['communication_change']:+.2f} % (ours vs adaptive-k)")
+    return out
+
+
+def phase22b(cpu: dict, card: str) -> dict:
+    """(b) of phase 22: see the module docstring. ``cpu`` holds the worker
+    processes' results, which have all ended: nothing else runs on the
+    host while the card's simulations are timed and profiled."""
+    from repro_torch.core import simulate_batch
+
+    out = {"points": {}}
+    for name, strategy in SIM_POINTS:
+        problem, cfg, model = sim_setup(strategy)
+
+        def run(iters: int):
+            return simulate_batch(problem, cfg, model, seeds=SIM_SEEDS, max_iters=iters,
+                                  eval_every=SIM_EVAL, device="cuda")
+
+        run(SIM_PROFILE_ITERS)
+        profile = window(f"{name} simulate_batch, {SIM_SEEDS} lanes",
+                         lambda: run(SIM_PROFILE_ITERS), lambda: run(SIM_PROFILE_ITERS),
+                         SIM_PROFILE_ITERS, "iteration")
+        t0 = time.perf_counter()
+        card_res = run(SIM_ITERS)
+        card_s = time.perf_counter() - t0
+        cpu_res, cpu_s = cpu[name, None]
+        scalars = {sd: cpu[name, sd][0] for sd in SIM_SCALAR_SEEDS}
+        scalar_s = statistics.mean(cpu[name, sd][1] for sd in SIM_SCALAR_SEEDS)
+        print(f"    {name} ({strategy}, n {SIM_N}, {SIM_SEEDS} seeds, {SIM_ITERS} iterations): "
+              f"card {card_s:.2f} s, CPU {cpu_s:.2f} s (one thread, in a worker process), "
+              f"scalar engine {scalar_s:.2f} s a seed; card {card}")
+        held = hold_sim(name, card_res, cpu_res, scalars)
+        out["points"][name] = {"card_s": card_s, "cpu_s": cpu_s, "scalar_s_per_seed": scalar_s,
+                               "us_per_iteration_card": card_s / SIM_ITERS * 1e6,
+                               "profile": profile, **held}
+    out["schedule"] = schedule_readout()
+    return out
+
+
+def phase22(card: str) -> dict:
+    """Phase 22: the CPU's simulations start in worker processes (one a
+    point and scalar seed), and (a) trains hubert on the card meanwhile;
+    once every worker has ended, one hubert step is profiled and (b) runs
+    the card's simulations and holds them to the CPU's."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.optim import adamw
+
+    ctx = multiprocessing.get_context("spawn")
+    jobs = [(name, seed) for name, _ in SIM_POINTS for seed in (None, *SIM_SCALAR_SEEDS)]
+    with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=ctx) as pool:
+        futures = {(name, seed): pool.submit(sim_cpu_task, dict(SIM_POINTS)[name], seed,
+                                             SIM_ITERS)
+                   for name, seed in jobs}
+        hubert, model, params = phase22a(card)
+        cpu = {key: f.result() for key, f in futures.items()}
+    print(f"    one profiled hubert train step (k = 4 of 8), the worker processes ended; "
+          f"card {card}")
+    hubert["profile"] = profile_train_step(model, params, adamw(), TRAIN_B)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (b) the simulation engines: simulate_batch's lanes on the card (float64) vs "
+          f"on the CPU, and vs the scalar engine at seeds {SIM_SCALAR_SEEDS}; a window of "
+          f"{SIM_PROFILE_ITERS} iterations profiled at each point")
+    return {"hubert": hubert, "sim": phase22b(cpu, card)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4072,12 +4402,13 @@ def main() -> int:
     model = Model(cfg)
     params = model.init(SEED, device="cuda")
     reqs = workload(cfg.vocab_size)
-    print(f"    {cfg.name}: phase 4's {len(reqs)} requests, {N_SLOTS} slots of {MAX_LEN} rows, "
-          f"gamma <= {SPEC_GAMMA}, drafts: the target plus noise {SPEC_NOISE} (noisy), "
-          f"the target itself (perfect), and plus noise {SPEC_POOR} (poor; contiguous pool)")
+    print(f"    {cfg.name}: the first {SPEC_REQUESTS} of phase 4's {len(reqs)} requests, "
+          f"{N_SLOTS} slots of {MAX_LEN} rows, gamma <= {SPEC_GAMMA}, drafts: the target plus noise {SPEC_NOISE} (noisy), "
+          f"the target itself (perfect), and plus noise {SPEC_POOR} (poor; "
+          f"contiguous pool)")
     noisy = noisy_params(params, SPEC_NOISE, SEED + 20)
     both = ("contiguous", "paged")
-    spec = serve_speculative(model, params, reqs,
+    spec = serve_speculative(model, params, reqs[:SPEC_REQUESTS],
                              {"noisy": (noisy, both), "perfect": (params, both),
                               "poor": (noisy_params(params, SPEC_POOR, SEED + 26),
                                        ("contiguous",))},
@@ -4198,6 +4529,16 @@ def main() -> int:
         worst["rmsnorm"] = max(worst["rmsnorm"], train21[fam]["k2_loop_shapes"]["rmsnorm"])
         train_worst["rmsnorm_bwd"] = max(train_worst["rmsnorm_bwd"],
                                          train21[fam]["k2_loop_shapes"]["rmsnorm_bwd"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t22 = time.perf_counter()
+    print(f"[22] {HUBERT_ARCH} (frames in, a bidirectional encoder, K1 at D 80) trained by "
+          f"the masked fastest-k step, and the simulation engines on the card")
+    p22 = phase22(card)
+    phase22_seconds = time.perf_counter() - t22
+    print(f"    phase 22 took {phase22_seconds:.1f} s; card {card}")
+    hubert = p22["hubert"]
 
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
@@ -4251,6 +4592,22 @@ def main() -> int:
             "phase19_launches": sum(c[kname] for c in gqa["launches"]),
             "phase20_launches": sum(c[kname] for c in mla_xlstm["launches"]),
             "phase21_launches": sum(c[kname] for c in train21["launches"]),
+            "phase22_launches": hubert["launches"][kname],
+        })
+    # K1's (80, 80) instances, hubert's main path: launches over phase 22's
+    # train steps, times at their shape (non-causal).
+    for kname in ("flash_attention", "flash_attention_bwd"):
+        t = hubert["k1_times"][kname]
+        kernels.append({
+            "name": f"{kname} (D 80)", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+            "launches": hubert["launches"][kname],
+            "max_abs_err": dict(zip(("flash_attention", "flash_attention_bwd"),
+                                    hubert["k1_err"]))[kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            "phase22_launches": hubert["launches"][kname],
         })
     report = {
         "kernels": kernels,
@@ -4326,6 +4683,9 @@ def main() -> int:
         "phase20_seconds": phase20_seconds,
         "mla_xlstm_train": train21,
         "phase21_seconds": phase21_seconds,
+        "hubert_train": hubert,
+        "sim_engines": p22["sim"],
+        "phase22_seconds": phase22_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

@@ -1,10 +1,10 @@
 """The architectures the port runs (sources in brackets).
 
-A copy of the reference registry's entries for its GQA decoders (dense,
-the parallel-block command-r, the qk-norm chameleon and the top-k MoE
-qwen3-moe), the MLA + MoE deepseek-v3, the Mamba2 + shared-attention
-hybrid zamba2-1.2b and the mLSTM / sLSTM xlstm-125m; the audio encoder
-joins the port with its model code.
+A copy of the reference registry, all ten entries: the GQA decoders
+(dense, the parallel-block command-r, the qk-norm chameleon and the top-k
+MoE qwen3-moe), the MLA + MoE deepseek-v3, the Mamba2 + shared-attention
+hybrid zamba2-1.2b, the mLSTM / sLSTM xlstm-125m and the bidirectional
+audio encoder hubert-xlarge (frame inputs).
 """
 
 from __future__ import annotations
@@ -33,6 +33,29 @@ def _zamba2_1p2b() -> ModelConfig:
         attn_every=6,
         tie_embeddings=True,
         rope_theta=10000.0,
+    )
+
+
+def _hubert_xlarge() -> ModelConfig:
+    # [audio] 48L d_model=1280 16H d_ff=5120 vocab=504 encoder-only
+    # [arXiv:2106.07447]; frontend is a stub: precomputed frame embeddings.
+    return ModelConfig(
+        name="hubert-xlarge",
+        family="audio",
+        n_layers=48,
+        d_model=1280,
+        n_heads=16,
+        n_kv_heads=16,
+        head_dim=80,
+        d_ff=5120,
+        vocab_size=504,
+        causal=False,
+        norm="layernorm",
+        act="gelu",
+        glu=False,
+        rope_theta=0.0,    # conv positional embedding instead
+        input_kind="frames",
+        tie_embeddings=True,  # head = output embedding table
     )
 
 
@@ -209,6 +232,7 @@ ARCHS: Dict[str, ModelConfig] = {
     c.name: c
     for c in [
         _zamba2_1p2b(),
+        _hubert_xlarge(),
         _qwen3_moe_30b(),
         _deepseek_v3(),
         _llama32_1b(),
@@ -223,6 +247,7 @@ ARCHS: Dict[str, ModelConfig] = {
 # Short aliases for --arch.
 ALIASES = {
     "zamba2": "zamba2-1.2b",
+    "hubert": "hubert-xlarge",
     "qwen3-moe": "qwen3-moe-30b-a3b",
     "deepseek-v3": "deepseek-v3-671b",
     "llama3.2": "llama3.2-1b",

@@ -1,6 +1,5 @@
 """Worker response-time models from the paper (Definitions 1 and 2): the
-port's copy of ``repro.core.delay_models`` (numpy only), without the
-generalized model's moment fit, which the training loop does not use.
+port's copy of ``repro.core.delay_models`` (numpy only).
 
 A worker's response time is ``Z_i = X_i + Y_i`` where ``X_i`` is the
 communication time and ``Y_i`` the computation time for a load fraction
@@ -23,6 +22,7 @@ run from telemetry instead of oracle knowledge (DESIGN.md §2.4).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -32,6 +32,7 @@ __all__ = [
     "GeneralizedDelayModel",
     "fit_simplified_mle",
     "fit_simplified_mle_censored",
+    "fit_generalized_mm",
 ]
 
 
@@ -218,3 +219,47 @@ def fit_simplified_mle_censored(
         return SimplifiedDelayModel(lambda_y=1e9, x=shift_hat, y=0.0)
     lambda_hat = float(z.size) / total_time_on_test
     return SimplifiedDelayModel(lambda_y=lambda_hat, x=shift_hat, y=0.0)
+
+
+def fit_generalized_mm(
+    samples: np.ndarray,
+    betas: np.ndarray,
+    *,
+    x_shift: float = 0.0,
+    y_shift: float = 0.0,
+) -> GeneralizedDelayModel:
+    """Method-of-moments fit of the generalized model.
+
+    The hypoexponential sum has mean ``1/lx + beta/ly`` and variance
+    ``1/lx^2 + (beta/ly)^2`` (after removing known shifts). With telemetry
+    at two or more distinct loads the two rates are identified by solving
+    the per-load moment equations in the least-squares sense; with a single
+    load we split the variance evenly (documented fallback).
+    """
+    z = np.asarray(samples, dtype=np.float64)
+    b = np.broadcast_to(np.asarray(betas, dtype=np.float64), z.shape)
+    zc = z - x_shift - y_shift * b
+    uniq = np.unique(b)
+    if uniq.size >= 2:
+        # mean_j = 1/lx + beta_j * (1/ly): linear regression on beta.
+        means = np.array([zc[b == u].mean() for u in uniq])
+        A = np.stack([np.ones_like(uniq), uniq], axis=1)
+        coef, *_ = np.linalg.lstsq(A, means, rcond=None)
+        inv_lx, inv_ly = float(coef[0]), float(coef[1])
+        inv_lx = max(inv_lx, 1e-12)
+        inv_ly = max(inv_ly, 1e-12)
+        return GeneralizedDelayModel(
+            lambda_x=1.0 / inv_lx, lambda_y=1.0 / inv_ly, x=x_shift, y=y_shift
+        )
+    # Single load: use mean and variance.
+    beta = float(uniq[0])
+    m, v = float(zc.mean()), float(zc.var())
+    # mean = a + c, var = a^2 + c^2 with a = 1/lx, c = beta/ly.
+    # Solve: a + c = m, a^2 + c^2 = v  ->  a,c = (m +- sqrt(2v - m^2)) / 2.
+    disc = max(2.0 * v - m * m, 0.0)
+    root = math.sqrt(disc)
+    a = max((m - root) / 2.0, 1e-12)
+    c = max((m + root) / 2.0, 1e-12)
+    return GeneralizedDelayModel(
+        lambda_x=1.0 / a, lambda_y=beta / c, x=x_shift, y=y_shift
+    )

@@ -1,6 +1,5 @@
 """Order statistics of worker response times (Prop. 1 and Thm. 5): the
-port's copy of ``repro.core.order_stats`` (numpy only), without the
-Thm. 5 quadruple sum the reference keeps to cross-check its quadrature.
+port's copy of ``repro.core.order_stats`` (numpy only).
 
 ``mu_{k:n}(beta)`` is the expected time until the k-th fastest of n workers
 responds, given per-worker load ``beta``. This is the per-iteration cost of
@@ -20,7 +19,8 @@ paper is priced against.
     F_{(k)}(z) = sum_{j=k}^n C(n,j) F(z)^j (1-F(z))^{n-j},
 
   with the closed-form hypoexponential CDF F, using Gauss-Legendre
-  quadrature. See DESIGN.md §8.5.
+  quadrature. The quadruple sum is kept (``thm5_quadruple_sum``) and used
+  as a cross-check for small n in the tests. See DESIGN.md §8.5.
 
 Public API contract: everything here is pure math over the two delay
 models in ``delay_models`` — no model/runtime state, no
@@ -28,7 +28,9 @@ randomness, safe to call from any scheduler at decision frequency.
 Every consumer prices decisions with the same two functions:
 ``expected_kth`` (training controller, ``serve.router.HedgedRouter``
 fan-outs, ``serve.speculative`` hedged gamma pricing) and
-``expected_kth_derivative`` (beta* line search).
+``expected_kth_derivative`` (beta* line search). ``thm5_quadruple_sum``
+is a validation reference only — do not ship it into schedules (it is
+numerically unusable past n ~ 20, by design of the comparison).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ __all__ = [
     "harmonic_tail",
     "expected_kth",
     "expected_kth_derivative",
+    "thm5_quadruple_sum",
 ]
 
 
@@ -187,3 +190,47 @@ def _hypoexp_kth_mean(a: float, b: float, n: int, k: int) -> float:
     cdf = _hypoexp_cdf(z, a, b)
     surv_k = 1.0 - _binom_tail(cdf, n, k)
     return float(np.sum(weights * surv_k))
+
+
+# ---------------------------------------------------------------------------
+# Paper Thm. 5 closed form (validation reference for small n)
+# ---------------------------------------------------------------------------
+
+def thm5_quadruple_sum(
+    model: GeneralizedDelayModel, n: int, k: int, beta: float
+) -> float:
+    """Literal evaluation of the paper's Theorem 5 (small n only).
+
+    Alternating signs make this unusable for n beyond ~20 in float64; it
+    exists purely to cross-validate the quadrature path.
+    """
+    lx = model.lambda_x
+    lyb = model.comp_rate(beta)
+    if abs(lx - lyb) < 1e-12:
+        raise ValueError("Thm. 5 form requires lambda_x != lambda_y/beta")
+    total = 0.0
+    for j in range(k, n + 1):
+        for rho in range(0, j + 1):
+            for tau in range(0, rho + n - j + 1):
+                for xi in range(0, tau + 1):
+                    alpha = lx * (rho + n - j - tau + xi) + lyb * (tau - xi)
+                    if alpha == 0.0:
+                        continue
+                    coeff = (
+                        math.comb(n, j)
+                        * math.comb(j, rho)
+                        * math.comb(rho + n - j, tau)
+                        * math.comb(tau, xi)
+                    )
+                    # Note: the paper's printed exponent of the rate ratio is
+                    # rho in one factor and tau in the CDF expansion; the
+                    # consistent derivation (Appendix C) carries
+                    # (lx/(lx - lyb))^tau and an extra (-1)^tau bookkeeping
+                    # folded into the expansion. We follow Appendix C's final
+                    # line with ratio exponent tau.
+                    ratio = (lx / (lx - lyb)) ** tau
+                    total += coeff * ((-1.0) ** (rho + xi + 1)) * ratio / alpha
+    # With F_{(k)}(z) = 1 + sum_{alpha>0} c_m e^{-alpha_m z}, the mean is
+    # E = int (1 - F) dz = -sum c_m / alpha_m, i.e. exactly the accumulated
+    # (-1)^{rho+xi+1} terms above (the alpha = 0 term is the constant 1).
+    return model.shift(beta) + total

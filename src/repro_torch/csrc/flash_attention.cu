@@ -13,7 +13,11 @@
 // and 16-byte aligned. Query head h reads kv head h / G (G = H / Hkv, any
 // G, not only powers of two). Causal masking is top-left aligned: query i
 // sees keys j <= i. Ragged Sq and Skv are masked in the kernel; nothing
-// is padded in device memory. D and Dv are each one of 32, 64, 128. The
+// is padded in device memory. D and Dv are each one of 32, 64, 128, or
+// both 80 (hubert-xlarge: rows of 160 bytes, 10 16-byte chunks, padded in
+// shared memory to 176 = 11 x 16, odd, so `ldmatrix` stays free of bank
+// conflicts as at 72 and 136; its bidirectional encoder is the one
+// non-causal main path). The
 // forward also writes the row log-sum-exp LSE (B, H, Sq) in f32, which
 // the TPU kernel computes internally and drops: the backward recomputes
 // P = exp(S - LSE) from it instead of storing P.
@@ -662,14 +666,17 @@ __device__ __forceinline__ void zero(float (&c)[N][4]) {
 
 // ROWS rows of COLS bf16 from global (row stride `stride` elements) into
 // shared memory with row stride COLS + 8, by 16-byte cp.async; rows at or
-// past `valid` are zero-filled (their source address is row 0).
+// past `valid` are zero-filled (their source address is row 0). Where the
+// tile's 16-byte chunks do not divide among the threads (D 80: 10 a row,
+// 320 for a 32-row tile over 128 threads) the last round is partial.
 template <int ROWS, int COLS, int NT>
 __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int64_t stride, int valid) {
-  constexpr int CPR = COLS / 8;
-  static_assert((ROWS * CPR) % NT == 0, "tile chunks must divide among the threads");
+  constexpr int CPR = COLS / 8, CHUNKS = ROWS * CPR;
+  static_assert(COLS % 8 == 0, "rows are copied in 16-byte chunks");
 #pragma unroll
-  for (int i = 0; i < ROWS * CPR / NT; ++i) {
+  for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
     const int c = threadIdx.x + i * NT;
+    if (CHUNKS % NT != 0 && c >= CHUNKS) break;
     const int r = c / CPR, col = (c % CPR) * 8;
     const bool ok = r < valid;
     cp_async16(dst + r * (COLS + 8) + col, src + (int64_t)(ok ? r : 0) * stride + col, ok);
@@ -1159,23 +1166,27 @@ int dispatch_dv(const Args& a, int Dv) {
   return -1;
 }
 
+// D and Dv each in {32, 64, 128}, or D = Dv = 80 (hubert-xlarge's heads),
+// a pair of its own so that the build does not grow by the whole cross
+// product.
+template <typename T, bool BWD>
+int dispatch_d(const Args& a, int D, int Dv) {
+  switch (D) {
+    case 32: return dispatch_dv<T, BWD, 32>(a, Dv);
+    case 64: return dispatch_dv<T, BWD, 64>(a, Dv);
+    case 128: return dispatch_dv<T, BWD, 128>(a, Dv);
+    case 80:
+      if (Dv == 80) return BWD ? launch_bwd<T, 80, 80>(a) : launch_fwd<T, 80, 80>(a);
+  }
+  return -1;
+}
+
 template <bool BWD>
 int dispatch(const Args& a, int D, int Dv, int dtype) {
   if (a.B <= 0 || a.Sq <= 0 || a.Skv <= 0 || a.Hkv <= 0 || a.H % a.Hkv) return -1;
   if (a.B > 65535 || a.H > 65535) return -1;
-  if (dtype == 0) {
-    switch (D) {
-      case 32: return dispatch_dv<float, BWD, 32>(a, Dv);
-      case 64: return dispatch_dv<float, BWD, 64>(a, Dv);
-      case 128: return dispatch_dv<float, BWD, 128>(a, Dv);
-    }
-  } else if (dtype == 1) {
-    switch (D) {
-      case 32: return dispatch_dv<bf16, BWD, 32>(a, Dv);
-      case 64: return dispatch_dv<bf16, BWD, 64>(a, Dv);
-      case 128: return dispatch_dv<bf16, BWD, 128>(a, Dv);
-    }
-  }
+  if (dtype == 0) return dispatch_d<float, BWD>(a, D, Dv);
+  if (dtype == 1) return dispatch_d<bf16, BWD>(a, D, Dv);
   return -1;
 }
 

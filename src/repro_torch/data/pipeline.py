@@ -1,7 +1,7 @@
 """Synthetic data pipeline with per-stage beta-scaled batching (the
-port's copy of ``repro.data.pipeline``, numpy only; the frame stream of
-the audio stub waits for the frames input path). The batches are the
-reference's bit for bit.
+port's copy of ``repro.data.pipeline``, numpy only). The batches are the
+reference's bit for bit, the audio stub's frame batches
+(``make_frame_stream``) too.
 
 ``TokenStream`` produces deterministic synthetic LM batches (structured
 enough that a ~100M model visibly learns: a periodic Markov-ish stream
@@ -22,7 +22,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["TokenStream", "StagedBatcher"]
+__all__ = ["TokenStream", "StagedBatcher", "make_frame_stream"]
 
 
 class TokenStream:
@@ -48,6 +48,23 @@ class TokenStream:
             seqs.append(cur)
         arr = np.concatenate(seqs, axis=1)  # (n, seq_len + 1)
         return arr.astype(np.int32)
+
+
+def make_frame_stream(d_model: int, seed: int = 0):
+    """Audio-stub stream: smooth random frame embeddings + kmeans-ish labels.
+
+    Returns ``sample(n, seq_len, vocab)`` -> (frames (n, seq_len, d_model)
+    f32, labels (n, seq_len) int32), all drawn from one seeded generator."""
+    rng = np.random.default_rng(seed)
+
+    def sample(n: int, seq_len: int, vocab: int):
+        x = rng.standard_normal((n, seq_len, d_model)).astype(np.float32)
+        # Smooth along time so there is learnable temporal structure.
+        x = 0.5 * x + 0.5 * np.roll(x, 1, axis=1)
+        labels = (np.abs(x[..., :8]).sum(-1) * 37).astype(np.int64) % vocab
+        return x, labels.astype(np.int32)
+
+    return sample
 
 
 @dataclasses.dataclass

@@ -43,8 +43,9 @@ __all__ = [
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Head dims the kernels are built for (D and Dv each).
-HEAD_DIMS = (32, 64, 128)
+#: (D, Dv) pairs the kernels are built for: D and Dv each in 32, 64, 128,
+#: and hubert-xlarge's (80, 80) alone (not the whole cross product with 80).
+HEAD_DIMS = tuple((d, dv) for d in (32, 64, 128) for dv in (32, 64, 128)) + ((80, 80),)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
@@ -147,8 +148,8 @@ def _check(q, k, v, *more) -> Tuple[int, ...]:
             or Hkv < 1 or H % Hkv or Sq < 1 or Skv < 1):
         raise ValueError(f"unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} (need H % Hkv == 0, Sq, Skv >= 1)")
-    if D not in HEAD_DIMS or Dv not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take D and Dv in {HEAD_DIMS}, "
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernels take (D, Dv) in {HEAD_DIMS}, "
                          f"not D={D}, Dv={Dv}")
     for t in (q, k, v, *more):
         if t.device != q.device:

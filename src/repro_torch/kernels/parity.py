@@ -138,14 +138,18 @@ RMS_TRAIN_SHAPES = [(4096, 7168), (3584, 7168), (4096, 1536), (3584, 1536), (409
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and
 #: Sq != Skv cases, D != Dv both ways, and llama3.2-1b's training shape at
 #: 4 and at 32 rows (the training loop's largest batch, beta = 1),
-#: zamba2-1.2b's shared attention block (MHA, D = 128) at 32 rows, and
-#: qwen2.5-3b's (16 heads over 2, G = 8, D 128) at 8 rows of 512.
+#: zamba2-1.2b's shared attention block (MHA, D = 128) at 32 rows,
+#: qwen2.5-3b's (16 heads over 2, G = 8, D 128) at 8 rows of 512, and
+#: hubert-xlarge's D = Dv = 80: a reduced ragged case (Sq != Skv, neither
+#: a multiple of a tile) and its training shape (MHA, 16 heads, 32 x 512
+#: frames; the encoder runs it non-causal).
 FLASH_SHAPES = [
     (2, 128, 128, 4, 2, 64, 64), (1, 256, 256, 8, 8, 64, 64), (1, 200, 200, 4, 1, 64, 64),
     (2, 128, 128, 4, 2, 128, 128), (1, 64, 64, 2, 2, 32, 32), (1, 384, 384, 6, 3, 64, 64),
     (1, 384, 384, 9, 3, 64, 64), (2, 77, 100, 6, 2, 128, 64), (2, 130, 64, 4, 4, 32, 128),
     (4, 512, 512, 32, 8, 64, 64), (32, 512, 512, 32, 8, 64, 64),
     (32, 512, 512, 32, 32, 128, 128), (8, 512, 512, 16, 2, 128, 128),
+    (2, 77, 100, 4, 4, 80, 80), (32, 512, 512, 16, 16, 80, 80),
 ]
 
 #: SSD scan (K5) shapes: B, S, H, P, G, N, chunk. The reference's kernel-

@@ -1,9 +1,11 @@
 """Top-level model (port of ``repro.models.model`` for the decoder stacks,
 GQA (dense, parallel-block, MoE) and MLA (deepseek, with its MTP
-parameters and its multi-token-prediction loss), the xLSTM stack and the
-Mamba2 hybrids): embeddings, the block stack, the head (tied or not),
-the training entry points ``hidden``, ``train_loss`` and ``mtp_loss``,
-and the serving
+parameters and its multi-token-prediction loss), the xLSTM stack, the
+Mamba2 hybrids and the bidirectional audio encoder, whose inputs are
+frames (B, S, d_model): a projection and a depthwise positional conv in
+place of the token embedding, ``embed`` its output head): embeddings,
+the block stack, the head (tied or not), the training entry points
+``hidden``, ``train_loss`` and ``mtp_loss``, and the serving
 entry points ``cache_specs`` / ``blank_caches``, ``prefill_with_cache``,
 ``decode_step`` and the speculative ``verify_with_cache``.
 
@@ -19,8 +21,8 @@ through K5 (forward and backward), and every GQA decode attention
 through K3 (contiguous) or K4 (paged); the projections, LayerNorm, the
 MLP, the MoE dispatch and its expert products, MLA's attention (f32, as
 the reference), the xLSTM and serving SSM recurrences, the causal
-convolutions and the head are plain PyTorch, as the reference leaves
-them to XLA.
+convolutions (the encoder's positional one too) and the head are plain
+PyTorch, as the reference leaves them to XLA.
 
 The attention stacks' prefill and verify run the whole chunk at once.
 Stacks with recurrent state (the hybrid, xLSTM) take the reference's
@@ -171,16 +173,23 @@ class Model:
     def param_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
         dt = cfg.dtype
+        specs: Dict[str, Any] = {}
         if cfg.input_kind != "tokens":
-            raise ValueError("the port serves token inputs only")
-        specs: Dict[str, Any] = {
+            # Frames (the audio stub): a projection and a depthwise
+            # positional conv of width 16; ``embed`` is the output head of
+            # the masked prediction.
+            specs["frame_proj"] = ParamSpec((cfg.d_model, cfg.d_model), ("embed", "embed_out"),
+                                            "scaled", dt)
+            specs["pos_conv_w"] = ParamSpec((16, cfg.d_model), (None, "embed"), "scaled", dt)
+            specs["pos_conv_b"] = ParamSpec((cfg.d_model,), ("embed",), "zeros", dt)
+        specs.update({
             "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                                "normal", dt),
             "stack": (zamba.zamba_specs(cfg) if self.is_hybrid else
                       [[block_specs(cfg, seg.kind) for _ in range(seg.count)]
                        for seg in self.segments]),
             "final_norm": norm_specs(cfg.d_model, cfg.norm, dt),
-        }
+        })
         if not cfg.tie_embeddings:
             specs["head"] = ParamSpec(
                 (cfg.d_model, cfg.vocab_size), ("embed", "vocab"), "scaled", dt
@@ -206,7 +215,21 @@ class Model:
 
     # -- forward -------------------------------------------------------------
     def embed_inputs(self, params: Dict, inputs: torch.Tensor) -> torch.Tensor:
-        return params["embed"][inputs.long()]
+        """Token ids (B, S) -> their embedding rows; frames (B, S, D) -> the
+        projection x plus its depthwise positional conv: x left-padded by
+        W - 1 = 15 and summed over W shifted windows, each scaled by its
+        row of ``pos_conv_w``, plus ``pos_conv_b`` (the reference's
+        order of sums)."""
+        if self.cfg.input_kind == "tokens":
+            return params["embed"][inputs.long()]
+        x = inputs.to(params["frame_proj"].dtype) @ params["frame_proj"]
+        w = params["pos_conv_w"]
+        W, S = w.shape[0], x.shape[1]
+        x_pad = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
+        pos = 0
+        for i in range(W):
+            pos = pos + x_pad[:, i:i + S, :] * w[i]
+        return x + (pos + params["pos_conv_b"])
 
     def hidden(self, params: Dict, inputs: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -222,7 +245,7 @@ class Model:
 
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        if cfg.tie_embeddings:
+        if cfg.tie_embeddings or cfg.input_kind != "tokens":
             out = h @ params["embed"].t()
         else:
             out = h @ params["head"]
@@ -239,7 +262,8 @@ class Model:
 
     def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: inputs (B, S) int, labels (B, S) int, optional mask (B, S)
+        """batch: inputs (B, S) int or (B, S, D) frames, labels (B, S) int,
+        optional mask (B, S)
         -> (loss, {"ce", "aux", ["mtp"], "loss"}): the masked cross-entropy
         plus, for an MoE, ``router_aux_weight`` times the router loss
         summed over its layers, plus, with ``cfg.mtp``, 0.3 times the

@@ -1,5 +1,5 @@
-"""Segmented decoder stack (port of ``repro.models.transformer``, its
-decoder block kinds).
+"""Segmented decoder or encoder stack (port of ``repro.models.transformer``,
+its decoder and encoder block kinds).
 
 Block kinds:
   dense      : pre-norm GQA attn + pre-norm (G)MLP    (llama/qwen/smollm/chameleon)
@@ -8,6 +8,7 @@ Block kinds:
   mla_dense  : pre-norm MLA attn + pre-norm (G)MLP     (deepseek's first k)
   mla_moe    : pre-norm MLA attn + pre-norm MoE FFN    (deepseek)
   mlstm/slstm: pre-norm xLSTM block, residual          (xlstm)
+  encoder    : bidirectional attn + MLP, pre-norm      (hubert; conv-pos input)
 
 A model is a sequence of SEGMENTS, each a homogeneous run of blocks. The
 reference stacks a segment's parameters along a leading 'layers' axis
@@ -74,21 +75,24 @@ def segment_plan(cfg: ModelConfig) -> List[Segment]:
             else:
                 run += 1
         return segs + ([Segment("mlstm", run)] if run else [])
+    if cfg.family in ("encoder", "audio"):
+        return [Segment("encoder", cfg.n_layers)]
     raise ValueError(
-        f"the port builds decoder stacks, xLSTM and Mamba2 hybrids (family "
+        f"the port builds decoder and encoder stacks, xLSTM and Mamba2 hybrids (family "
         f"{cfg.family!r} is not ported yet)"
     )
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     """Pre-norm GQA or MLA attention, then a pre-norm (gated) MLP or MoE
-    FFN; the parallel block has one norm for both. An xLSTM block is a
+    FFN; the parallel block has one norm for both; the encoder block is
+    the dense one, its attention bidirectional. An xLSTM block is a
     pre-norm mixer."""
     d, dt = cfg.d_model, cfg.dtype
     if kind in RECURRENT_KINDS:
         mixer = xlstm.mlstm_specs(cfg) if kind == "mlstm" else xlstm.slstm_specs(cfg)
         return {"norm": norm_specs(d, cfg.norm, dt), "mixer": mixer}
-    if kind not in ("dense", "parallel", "moe", "mla_dense", "mla_moe"):
+    if kind not in ("dense", "parallel", "encoder", "moe", "mla_dense", "mla_moe"):
         raise ValueError(f"block kind {kind!r} is not ported yet")
     out = {"attn_norm": norm_specs(d, cfg.norm, dt),
            "attn": attn.mla_specs(cfg) if kind.startswith("mla") else attn.gqa_specs(cfg)}

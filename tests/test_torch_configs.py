@@ -177,8 +177,9 @@ def test_selective_remat(arch):
 
 
 def test_unported_families_raise():
-    """The audio encoder family is not ported: building it raises instead
-    of running something else. An MoE config with MLA builds deepseek's
+    """A family the port does not build (one the reference has no plan
+    for either) raises instead of running something else; the audio
+    encoder family builds its encoder stack. An MoE config with MLA builds deepseek's
     plan (MLA dense, then MLA MoE). The MTP loss is ported: a GQA MoE with
     an MTP head (a dense block, as the reference's) trains with the term
     in its loss."""
@@ -187,8 +188,10 @@ def test_unported_families_raise():
     mla = Model(dataclasses.replace(cfg, mla=MLAConfig(), moe=dataclasses.replace(
         cfg.moe, first_k_dense=1), n_layers=3))
     assert [(s.kind, s.count) for s in mla.segments] == [("mla_dense", 1), ("mla_moe", 2)]
-    with pytest.raises(ValueError, match="audio"):
-        Model(dataclasses.replace(cfg, family="audio"))
+    with pytest.raises(ValueError, match="speech"):
+        Model(dataclasses.replace(cfg, family="speech"))
+    enc = Model(dataclasses.replace(cfg, family="audio", moe=None))
+    assert [(s.kind, s.count) for s in enc.segments] == [("encoder", cfg.n_layers)]
     with pytest.raises(ValueError, match="layernorm|norm"):
         tlayers.norm_specs(8, "batchnorm", "float32")
     assert collections.Counter(s.kind for s in Model(cfg).segments) == {"moe": 1}

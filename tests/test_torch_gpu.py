@@ -20,7 +20,8 @@ and qwen3-moe-30b-a3b serve through the kernels, and qwen2.5-3b takes a
 train step under selective remat. K2 is held at the MLA and xLSTM loops'
 training rows, the in-place optimizer step on the card to the same step
 on the CPU, and the reduced deepseek-v3 (with its MTP loss) and xLSTM
-take a train step through the kernels.
+take a train step through the kernels, as does hubert-xlarge reduced at
+its head dim 80 (frames in, K1 non-causal), held to the CPU's step.
 """
 
 import dataclasses
@@ -940,3 +941,48 @@ def test_mla_and_xlstm_train_step_runs_through_the_kernels(cuda, arch, monkeypat
         "flash_attention_bwd": 0, "decode_attention": 0, "paged_decode_attention": 0,
         "ssd_scan": 0, "ssd_scan_bwd": 0}
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_hubert_train_step_runs_through_the_kernels(cuda, remat, monkeypatch):
+    """hubert-xlarge reduced at its head dim (2 heads of 80, d_model 160),
+    frames in: a clipped AdamW step with a fastest-k worker mask launches
+    K1 forward once a layer (twice under full remat) and its backward
+    once, non-causal, nothing else (LayerNorm is plain PyTorch), never a
+    plain version; then the same step on the CPU through the plain
+    versions agrees in loss and gradient norm (f32, 1e-5 relative)."""
+    from repro_torch.data import make_frame_stream
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    seen = []
+    fwd = fa.flash_attention_fwd
+
+    def spy(q, k, v, *, causal):
+        seen.append((tuple(q.shape), causal))
+        return fwd(q, k, v, causal=causal)
+
+    monkeypatch.setattr(fa, "flash_attention_fwd", spy)
+    cfg = get_config("hubert-xlarge").reduced(n_heads=2, n_kv_heads=2, head_dim=80,
+                                              d_model=160, remat=remat)
+    model = Model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    x, labels = make_frame_stream(cfg.d_model, seed=4)(8, 48, cfg.vocab_size)
+    batch = {"inputs": torch.from_numpy(x), "labels": torch.from_numpy(labels),
+             "worker_mask": torch.tensor([1.0, 1.0, 0.0, 1.0]), "lr": 1e-3}
+    metrics = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(dev), cpu_params, is_leaf=torch.is_tensor)
+        b = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()}
+        K.reset_launch_counts()
+        _, _, metrics[dev.type] = make_train_step(model, adamw())(params, adamw().init(params), b)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            L, r = cfg.n_layers, 2 if remat == "full" else 1
+            assert K.launch_counts() == {
+                "rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": r * L,
+                "flash_attention_bwd": L, "decode_attention": 0, "paged_decode_attention": 0,
+                "ssd_scan": 0, "ssd_scan_bwd": 0}
+            assert seen and all(s == ((8, 48, 2, 80), False) for s in seen[:r * L])
+    for key in ("loss", "grad_norm"):
+        assert float(metrics["cuda"][key]) == pytest.approx(float(metrics["cpu"][key]), rel=1e-5)
+    assert float(metrics["cuda"]["contributors"]) == 3.0

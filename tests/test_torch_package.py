@@ -40,7 +40,9 @@ missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
            "repro_torch.obs.trace", "repro_torch.serve.transport",
            "repro_torch.serve.router", "repro_torch.serve.replica",
            "repro_torch.serve.frontend", "repro_torch.models.moe",
-           "repro_torch.models.xlstm"} - set(sys.modules)
+           "repro_torch.models.xlstm", "repro_torch.core.error_model",
+           "repro_torch.core.switching", "repro_torch.core.schedule",
+           "repro_torch.core.simulation", "repro_torch.core.vector_sim"} - set(sys.modules)
 assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
@@ -89,11 +91,16 @@ def test_configs_equal_reference_fields(name, over):
 
 
 def test_aliases_resolve_like_reference():
+    """Every alias of the reference's, each to the same config; the
+    registry holds all ten of the reference's entries."""
+    from repro.configs.registry import ALIASES as REF_ALIASES, ARCHS as REF_ARCHS
+
+    assert ALIASES == REF_ALIASES and sorted(ARCHS) == sorted(REF_ARCHS)
     for alias, name in ALIASES.items():
         assert get_config(alias) == get_config(name)
         assert ref_config(alias).name == name
     with pytest.raises(KeyError):
-        get_config("hubert-xlarge")
+        get_config("no-such-arch")
 
 
 def test_entry_points_default_to_the_card():

@@ -34,7 +34,7 @@ profile_zamba_serving verify_vs_plain serve_speculative profile_spec_round
 serve_shared_prefix serve_preempted migrate serve_observed serve_fleet phase19 phase20
 phase21 train_family own_batch_drop time_opt_step check_k2_training_rows time_rmsnorm
 time_flash time_zamba_kernels time_snapshot time_shared_decode time_slot_copies
-check_zamba_loop_shapes time_k2_widths""".split()
+check_zamba_loop_shapes time_k2_widths phase22 phase22a phase22b train_hubert hold_sim""".split()
 
 
 def main() -> int:
