@@ -78,7 +78,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    and through the plain versions on the CPU, held as in phase 8;
 13. trains zamba2-1.2b at full width (38 Mamba2 layers, 6 shared calls,
    bf16, full remat) through the adaptive-(k, beta) loop as phase 9 does
-   llama3.2-1b, with the same checks, then holds K5, K1 and K2 against
+   llama3.2-1b, at 8 x 512 tokens a step (``ZAMBA_TRAIN_B``), with the
+   same checks, then holds K5, K1 and K2 against
    their plain versions at every batch shape the loop ran;
 14. times K5 forward and backward at the training shape beside their
    plain versions and bounds, K1 forward and backward at the shared
@@ -89,11 +90,12 @@ runs, in order, and exits non-zero at the first phase that fails:
    at full width in f32, one right-padded prefill chunk and 4 decode ticks
    with a lane masked off through the kernels on the card against the
    plain versions on the CPU, over each pool (logits, recurrent states,
-   K/V rows); then at full width (38 Mamba2 layers, 6 shared calls, bf16)
+   K/V rows); then at full width cut to 12 Mamba2 layers and 2 shared
+   calls (``Z_SERVE_LAYERS``; phases 16 and 17 serve the same cut), bf16,
    5 requests (prompts 16-96) through ``ServeEngine`` over each pool (4
    slots of 512 rows, 64-token chunks), every stream position held to teacher-forced
-   ``generate_offline`` and each decode step's launches counted (K2 89
-   times, K3 or K4 6 times, nothing else); times K3 and K4 at the tick's
+   ``generate_offline`` and each decode step's launches counted (K2 29
+   times, K3 or K4 twice, nothing else); times K3 and K4 at the tick's
    shape and K2 at its 4 rows of 4096, and profiles a decode tick of each
    pool and the scanned prefill per prompt token;
 16. serves speculatively (a draft model's masked ticks, one target verify
@@ -101,7 +103,7 @@ runs, in order, and exits non-zero at the first phase that fails:
    the acceptance rate): first the 2-layer f32 cuts of both models run
    ``verify_with_cache`` (per-row starts, n_input 0, 1 and 4, a rejected
    tail) and the replay on the card against plain on the CPU over both
-   pools; then llama3.2-1b at full width serves the first 6 of phase 4's
+   pools; then llama3.2-1b at full width serves the first 5 of phase 4's
    8 requests with
    gamma <= 6 over both pools with a draft of the target plus noise 3e-4
    and with the target itself (whose every rejection must sit at a
@@ -111,7 +113,7 @@ runs, in order, and exits non-zero at the first phase that fails:
    speculates on its contiguous pool is held to ``decode_step`` run token
    by token over the committed tokens. Every call's launches are counted (a llama
    draft tick K2 33 and K3 16 times, a verify K2 33 times and nothing
-   else; a zamba2 scan step K2 89 and K3/K4 6 times), and so is each
+   else; a zamba2 scan step K2 29 and K3/K4 twice), and so is each
    round's sequence of calls; every stream is held to teacher-forced
    offline decode; K2 is timed at a verify's 8 and 28 rows, and one
    steady llama round is profiled;
@@ -129,10 +131,10 @@ runs, in order, and exits non-zero at the first phase that fails:
    requests served unmigrated token for token, and a ticket with one
    byte flipped refused with the destination unchanged; zamba2-1.2b
    serves 3 requests on a 4-block sharing arena (preempted, never
-   sharing) and migrates one (its 38.92 MiB recurrent state moves).
+   sharing) and migrates one (its recurrent state moves).
    Every call's launches are counted as in phase 16 (a llama tick K2 33
-   and K3 or K4 16 times, a prefill chunk K2 33; a zamba2 step K2 89 and
-   K3/K4 6), every arena drains clean, every stream is held to
+   and K3 or K4 16 times, a prefill chunk K2 33; a zamba2 step K2 29 and
+   K3/K4 twice), every arena drains clean, every stream is held to
    teacher-forced offline decode, and ``snapshot_slot`` and
    ``restore_slot`` of a llama slot are timed against their byte bound;
 18. observability and the multi-replica fleet: (a) phase 4's traffic on
@@ -149,12 +151,13 @@ runs, in order, and exits non-zero at the first phase that fails:
    arena and router count drains, the trace validates, every call of
    every replica launches what phase 4's do, and each ticket's seal and
    verify are timed;
-19. the registry's other GQA decoders at full width and full depth,
-   each loaded alone (random bf16 weights from a seed, their bias and
-   norm leaves made noisy; the memory held before each load and the
-   peak after it printed): (a) qwen2.5-3b (q/k/v bias) serves the first
-   6 of phase 4's requests over both pools; (b) command-r-35b (LayerNorm, the
-   parallel attention + FFN block, logit scale 0.0625), chameleon-34b
+19. the registry's other GQA decoders at full width, each loaded alone
+   (random bf16 weights from a seed, their bias and norm leaves made
+   noisy; the memory held before each load and the peak after it
+   printed) and served cut in depth (qwen2.5-3b to 12 layers, the wide
+   models to 8: ``QWEN_SERVE_LAYERS``, ``W_LAYERS``): (a) qwen2.5-3b
+   (q/k/v bias) serves the first 6 of phase 4's requests over both
+   pools; (b) command-r-35b (LayerNorm, the parallel attention + FFN block, logit scale 0.0625), chameleon-34b
    (qk-norm, untied head) and qwen3-moe-30b-a3b (128 experts top 8,
    dropless) each serve 5 requests (prompts 32-256, 8-32 new) over the
    paged pool, 4 slots of 512, 128-token chunks. Every call's launches
@@ -189,10 +192,10 @@ runs, in order, and exits non-zero at the first phase that fails:
    requests over both pools with the registry's absorbed latent decode,
    again over the contiguous pool through the expand path, and 4 requests
    sharing a 128-token prefix on the paged pool with sharing (which must
-   adopt it); (b) xlstm-125m at full width and depth (10 mLSTM and 2
-   sLSTM blocks) serves 6 requests over both pools, again with a draft of
-   the target plus noise 3e-4 (gamma <= 3) over both pools, and 3
-   requests on a 4-block sharing arena that must preempt. (c) Every
+   adopt it); (b) xlstm-125m at full width cut to 6 layers (5 mLSTM and
+   1 sLSTM block; ``XL_LAYERS``) serves 6 requests over both pools,
+   again with a draft of the target plus noise 3e-4 (gamma <= 3) over
+   both pools, and 3 requests on a 4-block sharing arena that must preempt. (c) Every
    stream is held to teacher-forced offline decode by phase 19's rules
    (near-ties; for deepseek the router rule), and every call's launches
    are counted: K2 ``k2_per_call`` times a call (xLSTM: a scanned step),
@@ -209,8 +212,9 @@ runs, in order, and exits non-zero at the first phase that fails:
    deepseek-v3 at full width cut to 2 layers (1 MLA dense, 1 MLA MoE of 256 experts top
    8 plus a shared one, capacity-dropped; the MTP head on; 14.63 B
    parameters), bf16, remat full, Adafactor, 8 workers, 8 x 512 tokens,
-   12 steps, and (b) xlstm-125m at full width and depth, bf16, remat
-   full, momentum 0.9, 32 x 512 tokens, 12 steps, each with a worker
+   12 steps, and (b) xlstm-125m at full width cut to 6 layers (phase
+   20's cut), bf16, remat full, momentum 0.9, 32 x 512 tokens, 12 steps,
+   each with a worker
    failing at step 5 and rejoining at 10 (``train_full_width``: the
    stage walk, the fleet path, finite losses, the peak memory, and (e)
    K2's launches equal to ``per_step_launches`` a step, nothing else
@@ -235,8 +239,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    shape, timed there beside SDPA and its bound, and one step profiled
    once (b)'s worker processes have ended.
    (b) the simulation engines: ``simulate_batch`` at
-   ``benchmarks/perf_sim.py``'s Fig. 4 points (n 20, 24 seeds, 20,000
-   iterations, adaptive-(k, beta) and adaptive-k) with its lanes in
+   ``benchmarks/perf_sim.py``'s Fig. 4 points (n 20, 24 seeds, cut to
+   5,000 iterations, adaptive-(k, beta) and adaptive-k) with its lanes in
    float64 on the card, held to the same call on the CPU (stage logs
    exactly, trajectories within 1e-9) and lanes 0 and 23 to the scalar
    ``simulate`` at those seeds, the wall seconds of each printed (the
@@ -246,14 +250,36 @@ runs, in order, and exits non-zero at the first phase that fails:
    ``evaluate_schedule``'s runtime ratio and computation and
    communication change against adaptive-k at the reference's
    calibration (host arithmetic);
+23. (a) the chaos search's twin (``tools/chaos_search_torch.py``) over
+   llama3.2-1b at full width (bf16, seeded weights): 3 paged replicas
+   of 2 slots, 64 rows, block 8, one params dict, 4 requests. The
+   ``CHAOS_SCHEDULES`` sampled schedules pass all eight oracles; the
+   reference test's leak schedule with the engine's seeded cancel-path
+   bug armed trips ``block_conservation``, ``shrink`` reduces it to its
+   one fail atom, two replays give its signature, and unarmed it passes
+   every oracle. ``byte_identity`` is exact unless every departure from
+   the offline references sits at a near-tie of teacher-forced offline
+   decode (``check_streams``); every call of every replica launches
+   what phase 4's do. Each run prints its signature, plane ticks, host
+   seconds, ``summary()`` and launches. K2 and K4 are held against plain
+   at every shape the runs launched them at (K4 at block 8, a shape no
+   other phase runs) and timed there. (b) the int8 error-feedback codec
+   over a seeded bf16 gradient tree of llama3.2-1b's parameter shapes
+   (1,235,814,400 elements) and a float32 residual: three leaves encoded
+   and compressed on the card equal the CPU bit for bit, every leaf's
+   round trip stays within scale/2 plus one float32 epsilon of |v|, and
+   one ``ef_compress_tree`` over the tree is timed (CUDA events, cold L2)
+   beside its byte bound, its device events counted;
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
 phase 17 under ``phase17_launches`` and in phase 18 under
 ``phase18_launches``, in phase 19 under ``phase19_launches`` and in
 phase 20 under ``phase20_launches``, in phase 21 under
-``phase21_launches`` and in phase 22 under ``phase22_launches``; then
-K1's forward and backward again at D 80, hubert's main path, with their
+``phase21_launches``, in phase 22 under ``phase22_launches`` and in
+phase 23 under ``phase23_launches``; then K4 again at block 8, the chaos
+fleet's geometry, with its times there and its launches in phase 23, and
+K1's forward and backward at D 80, hubert's main path, with their
 times at its shape and their launches in phase 22; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
@@ -268,7 +294,8 @@ kernel's launches there under ``spec_serve_launches``), phase 17's under
 ``prefix_serve``, ``preempt_serve``, ``migration`` and ``zamba_preempt``, phase 18's
 under ``observed_serve`` and ``fleet``, phase 19's under ``gqa_configs``,
 phase 20's under ``mla_xlstm``, phase 21's under ``mla_xlstm_train``,
-phase 22's under ``hubert_train`` and ``sim_engines``,
+phase 22's under ``hubert_train`` and ``sim_engines``, phase 23's under
+``chaos_search`` and ``compression``,
 the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
@@ -282,6 +309,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import re
@@ -362,23 +390,32 @@ def ptxas_resources(log: str) -> dict:
     return out
 
 
+#: A SASS line that holds an HMMA instruction.
+HMMA_LINE = re.compile(r"^[^\n]*\bHMMA\b", re.M)
+
+
+def sass_hmma_counts(sass: str) -> dict:
+    """{function: lines holding HMMA} of ``cuobjdump -sass`` output, each
+    function's lines running from its ``Function : name`` line to the
+    next one's."""
+    counts = {}
+    for part in re.split(r"^[^\n]*Function : ", sass, flags=re.M)[1:]:
+        head, _, body = part.partition("\n")
+        counts[head.split()[0]] = len(HMMA_LINE.findall(body))
+    return counts
+
+
+@functools.lru_cache(maxsize=None)
 def hmma_counts(library: Path) -> dict:
     """{mangled function: count of HMMA instructions} in the library's
-    SASS (``cuobjdump -sass``, from the toolkit that built it)."""
+    SASS (``cuobjdump -sass``, from the toolkit that built it), read once
+    for K1's and K5's checks."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
                           capture_output=True, text=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            counts[fn] = 0
-        elif fn and re.search(r"\bHMMA\b", line):
-            counts[fn] += 1
-    return counts
+    return sass_hmma_counts(sass)
 
 
 def check_tensor_cores(library: Path, log: str) -> dict:
@@ -619,38 +656,45 @@ def check_kernels() -> dict:
 def hold_shared_tables(H, Hkv, D, S, lens, shared, dtype, gen) -> float:
     """K4 over block tables that prefix sharing leaves
     (``parity.shared_block_arena``: rows 0 and 1 name the same first
-    ``shared`` blocks, row 2 a fork of the last of them): plain's value, a
-    second launch bit for bit, each row bit for bit equal to a launch of
-    that row alone, and K3 on the gathered rows bit for bit."""
-    from repro_torch.kernels import (
-        decode_attention, paged_decode_attention, paged_decode_attention_plain,
-    )
+    ``shared`` blocks, row 2 a fork of the last of them), held by
+    ``hold_paged_tables``."""
     from repro_torch.kernels.parity import shared_block_arena
-    from repro_torch.models.attention import paged_kv_view
 
     dev = torch.device("cuda")
     k_ar, v_ar, tables = shared_block_arena(Hkv, D, S, lens, shared, gen, dtype, dev)
     q = torch.randn((len(lens), H, D), generator=gen).to(dev, dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    name = str(dtype).replace("torch.", "")
+    return hold_paged_tables(q, k_ar, v_ar, tables, lengths,
+                             f"K4 over shared tables {name} H={H} Hkv={Hkv} D={D} S={S} "
+                             f"lengths={lens}, {shared} shared blocks and a fork")
+
+
+def hold_paged_tables(q, k_ar, v_ar, tables, lengths, label: str) -> float:
+    """K4 on these inputs: plain's value, a second launch bit for bit, each
+    row bit for bit equal to a launch of that row alone, and K3 on the
+    gathered rows bit for bit; returns max |err|."""
+    from repro_torch.kernels import (
+        decode_attention, paged_decode_attention, paged_decode_attention_plain,
+    )
+    from repro_torch.models.attention import paged_kv_view
+
     out = paged_decode_attention(q, k_ar, v_ar, tables, lengths)
     ref = paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths)
     same = torch.equal(paged_decode_attention(q, k_ar, v_ar, tables, lengths), out)
     alone = all(torch.equal(paged_decode_attention(q[b:b + 1], k_ar, v_ar, tables[b:b + 1],
                                                    lengths[b:b + 1])[0], out[b])
-                for b in range(len(lens)))
+                for b in range(q.shape[0]))
     k3 = torch.equal(decode_attention(q, paged_kv_view(k_ar, tables),
                                       paged_kv_view(v_ar, tables), lengths), out)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    name = str(dtype).replace("torch.", "")
-    print(f"  K4 over shared tables {name} H={H} Hkv={Hkv} D={D} S={S} lengths={lens}, "
-          f"{shared} shared blocks and a fork: max|err|={err:.3e}; repeat launch bitwise: "
-          f"{same}; each row == that row alone bitwise: {alone}; == K3 on the gathered rows "
-          f"bitwise: {k3}")
-    check(err <= TOL[dtype], f"paged decode {name} over shared tables disagrees")
-    check(same, "a second launch of K4 over shared tables gave other bits")
-    check(alone, "a row of K4 over shared tables differs from a launch of that row alone")
-    check(k3, "K4 over shared tables differs from K3 on the gathered rows")
+    print(f"  {label}: max|err|={err:.3e}; repeat launch bitwise: {same}; each row == that "
+          f"row alone bitwise: {alone}; == K3 on the gathered rows bitwise: {k3}")
+    check(err <= TOL[q.dtype], f"{label}: K4 disagrees with its plain version")
+    check(same, f"{label}: a second launch of K4 gave other bits")
+    check(alone, f"{label}: a row of K4 differs from a launch of that row alone")
+    check(k3, f"{label}: K4 differs from K3 on the gathered rows")
     return err
 
 
@@ -976,20 +1020,22 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
 LONG_DECODE = {"a": (4, 8192, [8192, 6001, 2048, 4097]), "b": (1, 32768, [32768])}
 
 
-def decode_inputs(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen):
+def decode_inputs(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen,
+                  block: int = BLOCK_SIZE):
     """bf16 q (B, H, hd) and caches (B, S, Hkv, hd) at ``lens``, and the
-    same rows in a shuffled arena of BLOCK_SIZE-row blocks."""
+    same rows in a shuffled arena of ``block``-row blocks."""
     dev, dt = torch.device("cuda"), torch.bfloat16
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     q = torch.randn((B, H, hd), generator=gen).to(dev, dt)
     k = torch.randn((B, S, Hkv, hd), generator=gen).to(dev, dt)
     v = torch.randn((B, S, Hkv, hd), generator=gen).to(dev, dt)
-    k_ar, v_ar, tables = scatter_to_arena(k, v, lens, BLOCK_SIZE, gen)
+    k_ar, v_ar, tables = scatter_to_arena(k, v, lens, block, gen)
     return q, k, v, lengths, k_ar, v_ar, tables
 
 
-def time_decode(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen) -> dict:
-    """K3 and K4 (bf16, block BLOCK_SIZE) at ``lens``: kernel, plain
+def time_decode(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen,
+                block: int = BLOCK_SIZE) -> dict:
+    """K3 and K4 (bf16, ``block``-row blocks) at ``lens``: kernel, plain
     version, one SDPA call (GQA, length mask; on the gathered view for
     K4) and the bound: every live K/V row read once, q read and out
     written once (and K4's live table entries)."""
@@ -1001,7 +1047,7 @@ def time_decode(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen) -> dict:
     )
     from repro_torch.kernels.decode_attention import sm_count, paged_kv_view, split_plan
 
-    q, k, v, lengths, k_ar, v_ar, tables = decode_inputs(B, S, H, Hkv, hd, lens, gen)
+    q, k, v, lengths, k_ar, v_ar, tables = decode_inputs(B, S, H, Hkv, hd, lens, gen, block)
     live = sum(lens)
     io = 2 * (B * H * hd * 2) + B * 4
     kv = live * Hkv * hd * 2 * 2
@@ -1024,10 +1070,10 @@ def time_decode(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen) -> dict:
         plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, lengths)),
         library_ms=time_ms(lambda: sdpa(ks, vs)), bound_ms=b, bound_by=kind,
     )
-    n_blocks = sum(-(-n // BLOCK_SIZE) for n in lens)
+    n_blocks = sum(-(-n // block) for n in lens)
     b, kind = bound(io + kv + n_blocks * 4, flops)
     out["paged_decode_attention"] = dict(
-        shape=f"q ({B}, {H}, {hd}), arenas {tuple(k_ar.shape)} bf16, block {BLOCK_SIZE}, "
+        shape=f"q ({B}, {H}, {hd}), arenas {tuple(k_ar.shape)} bf16, block {block}, "
               f"lengths {lens}",
         n_splits=splits,
         ms=time_ms(lambda: paged_decode_attention(q, k_ar, v_ar, tables, lengths)),
@@ -1116,6 +1162,23 @@ def kernel_class(name: str) -> str:
     return "other PyTorch kernels"
 
 
+def cuda_events(prof):
+    """(name, device ms) of each device event (kernel, copy, set) a
+    finished ``torch.profiler.profile`` recorded, read from its raw
+    results, as ``prof.events()`` gives them (demangled; an async event's
+    time 0): ``events()`` first builds the whole event tree, which on a
+    busy host took longer than most windows took to run (~0.2 ms an
+    event; a deepseek train step is ~45,000)."""
+    for evt in prof.profiler.kineto_results.events():
+        if (evt.device_type() != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_hidden_event", lambda: False)()):
+            continue
+        name = evt.name()
+        name = torch._C._demangle(name) if len(name) > 1 else name
+        asynchronous = evt.is_async() or evt.start_thread_id() != evt.end_thread_id()
+        yield name, 0.0 if asynchronous else (evt.end_ns() - evt.start_ns()) / 1e6
+
+
 def device_events(fn) -> int:
     """Device events (kernels, copies, sets) the profiler records over
     ``fn()``."""
@@ -1125,7 +1188,7 @@ def device_events(fn) -> int:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(evt.device_type == torch.autograd.DeviceType.CUDA for evt in prof.events())
+    return sum(1 for _ in cuda_events(prof))
 
 
 def window(label: str, timed, profiled, n_units: int, unit: str) -> dict:
@@ -1143,11 +1206,10 @@ def window(label: str, timed, profiled, n_units: int, unit: str) -> dict:
         profiled()
         torch.cuda.synchronize()
     by_class, by_name, launches = defaultdict(float), defaultdict(float), 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_class[kernel_class(evt.name)] += evt.device_time_total / 1e3   # ms
-            by_name[evt.name[:90]] += evt.device_time_total / 1e3
-            launches += 1
+    for name, ms in cuda_events(prof):
+        by_class[kernel_class(name)] += ms
+        by_name[name[:90]] += ms
+        launches += 1
     device = sum(by_class.values())
     out = {
         "window": label, "units": n_units, "unit": unit,
@@ -1529,8 +1591,10 @@ def step_vs_plain(small, expect: dict) -> dict:
         return tree_map(torch.clone, tree, is_leaf=torch.is_tensor)
 
     model = Model(small)
-    cpu_params = model.init(SEED, device="cpu")
-    gpu_params = tree_map(lambda t: t.to("cuda"), cpu_params, is_leaf=torch.is_tensor)
+    # Drawn on the card and copied: the host's f32 draw of a full-width
+    # embedding took seconds.
+    gpu_params = model.init(SEED, device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), gpu_params, is_leaf=torch.is_tensor)
     batch = step_batch(small, 4, 1, 64, [1.0, 0.0, 1.0, 1.0])
     batch["lr"] = 0.1
     gpu_batch = {k: v.to("cuda") if torch.is_tensor(v) else v for k, v in batch.items()}
@@ -1892,7 +1956,10 @@ def profile_train_step(model, params, opt=None, global_batch: int = TRAIN_B) -> 
 # Phase 11: the SSD scan (K5) against its plain version
 # ---------------------------------------------------------------------------
 
-ZAMBA_ARCH, ZAMBA_STEPS = "zamba2-1.2b", 16
+#: zamba2-1.2b's loop takes ``ZAMBA_STEPS`` steps of ``ZAMBA_TRAIN_B`` x 512
+#: tokens at beta 1 (from 32 x 512, to fit the script's 1,200 s limit: K5,
+#: K1 and K2 are held at every batch shape the loop runs, 2 now, 6 then).
+ZAMBA_ARCH, ZAMBA_STEPS, ZAMBA_TRAIN_B = "zamba2-1.2b", 16, 8
 
 
 def ssd_inputs(shape, dtype, gen, zamba: bool):
@@ -2096,6 +2163,11 @@ def time_ssd_kernels(cfg) -> dict:
 #: is smaller than llama's (cut from 6 requests of 16-128 to fit the
 #: script's time limit).
 Z_SLOTS, Z_MAX_LEN, Z_CHUNK, Z_REQUESTS = 4, 512, 64, 5
+#: Phases 15-17 serve zamba2-1.2b at full width cut to ``Z_SERVE_LAYERS``
+#: Mamba2 layers and so 2 shared calls (from 38 and 6): a decode step is
+#: host-bound, its time goes with its launches, and the script at full
+#: depth ran past its 1,200 s limit on an H100.
+Z_SERVE_LAYERS = 12
 
 
 def zamba_workload(vocab: int, n: int = Z_REQUESTS, prompt=(16, 97), new=(8, 33),
@@ -2342,10 +2414,11 @@ def time_zamba_kernels(cfg, reqs) -> dict:
 #: arriving at once so that rounds speculate on several lanes.
 SPEC_GAMMA, SPEC_NOISE, SPEC_POOR = 6, 3e-4, 2e-2
 #: Both speculative workloads are cut to fit the script's time limit:
-#: llama3.2-1b serves the first 6 of phase 4's 8 requests (two still wait
-#: for a freed slot; the noisy and the perfect draft over both pools, the
-#: poor draft over the contiguous one), zamba2-1.2b 2 requests (from 3).
-SPEC_REQUESTS = 6
+#: llama3.2-1b serves the first 5 of phase 4's 8 requests (one still
+#: waits for a freed slot; the noisy and the perfect draft over both
+#: pools, the poor draft over the contiguous one; from 8, then 6),
+#: zamba2-1.2b 2 requests (from 3).
+SPEC_REQUESTS = 5
 Z_SPEC_GAMMA, Z_SPEC_REQUESTS = 3, 2
 
 
@@ -3338,6 +3411,12 @@ QWEN_ARCH = "qwen2.5-3b"
 QWEN_REQUESTS = 6
 WIDE_ARCHS = ("command-r-35b", "chameleon-34b", "qwen3-moe-30b-a3b")
 W_REQUESTS, W_SLOTS, W_MAX_LEN, W_CHUNK = 5, 4, 512, 128
+#: Phase 19's serving runs full width cut to ``QWEN_SERVE_LAYERS`` layers
+#: (qwen2.5-3b, from 36) and ``W_LAYERS`` (the wide models, from 40 and
+#: 48): a decode tick is host-bound, its time goes with its launches,
+#: and the script at full depth ran past its 1,200 s limit on an H100.
+#: qwen2.5-3b still trains at full depth.
+QWEN_SERVE_LAYERS, W_LAYERS = 12, 8
 #: Leaves a model initializes to zeros or ones (norm scales and biases,
 #: q/k/v biases, xLSTM's gate and conv biases), and the noise added to them
 #: before serving, so that the biases, LayerNorm's affine and the qk-norm's
@@ -3575,10 +3654,11 @@ def phase19() -> dict:
            "profiles": {}, "step_parity": {}}
     gen = torch.Generator().manual_seed(SEED + 44)
 
-    qcfg = serving_config(QWEN_ARCH)
+    qcfg = dataclasses.replace(serving_config(QWEN_ARCH), n_layers=QWEN_SERVE_LAYERS)
     qmodel = Model(qcfg)
-    print(f"  (a) {qcfg.name}: the first {QWEN_REQUESTS} of phase 4's requests over both "
-          f"pools, {N_SLOTS} slots of {MAX_LEN}, {PREFILL_CHUNK}-token chunks")
+    print(f"  (a) {qcfg.name}, cut to {qcfg.n_layers} layers: the first {QWEN_REQUESTS} of "
+          f"phase 4's requests over both pools, {N_SLOTS} slots of {MAX_LEN}, "
+          f"{PREFILL_CHUNK}-token chunks")
     params = load_full_width(qmodel, SEED + 45)
     reqs = workload(qcfg.vocab_size)[:QWEN_REQUESTS]
     runs = serve(qmodel, params, reqs)
@@ -3597,12 +3677,13 @@ def phase19() -> dict:
     del params
 
     for name in WIDE_ARCHS:
-        cfg = serving_config(name)
+        cfg = dataclasses.replace(serving_config(name), n_layers=W_LAYERS)
         print(f"  (c) {name}: step parity")
         out["step_parity"][name] = dense_decode_vs_plain(cfg)
         model = Model(cfg)
-        print(f"  (b) {name}: {W_REQUESTS} requests over the paged pool (block {BLOCK_SIZE}), "
-              f"{W_SLOTS} slots of {W_MAX_LEN}, {W_CHUNK}-token chunks")
+        print(f"  (b) {name}, cut to {cfg.n_layers} layers: {W_REQUESTS} requests over the "
+              f"paged pool (block {BLOCK_SIZE}), {W_SLOTS} slots of {W_MAX_LEN}, "
+              f"{W_CHUNK}-token chunks")
         params = load_full_width(model, SEED + 46)
         out["load"][name] = torch.cuda.max_memory_allocated()
         reqs = wide_workload(cfg.vocab_size)
@@ -3665,7 +3746,9 @@ def phase19() -> dict:
 #: common tokens (8 blocks of 16) and 4 tails of 8-40 (``ds_prefix_workload``).
 DS_ARCH, DS_LAYERS = "deepseek-v3-671b", 5
 DS_REQUESTS, DS_SLOTS, DS_MAX_LEN, DS_CHUNK, DS_PREFIX = 4, 4, 256, 128, 128
-#: xlstm-125m at full width and depth: ``XL_REQUESTS`` requests (prompts of
+#: xlstm-125m at full width cut to ``XL_LAYERS`` layers (5 mLSTM, 1 sLSTM;
+#: from 12, to fit the script's 1,200 s limit: an xLSTM step is
+#: host-bound; phase 21 trains the same cut): ``XL_REQUESTS`` requests (prompts of
 #: 16-64 tokens, 8-32 new) over ``XL_SLOTS`` slots of ``XL_MAX_LEN`` rows
 #: (the chunk only schedules: xLSTM prefills a token a step); a draft of
 #: the target plus noise ``SPEC_NOISE`` with gamma <= ``XL_SPEC_GAMMA``; 3
@@ -3673,7 +3756,7 @@ DS_REQUESTS, DS_SLOTS, DS_MAX_LEN, DS_CHUNK, DS_PREFIX = 4, 4, 256, 128, 128
 #: arena of ``XL_PREEMPT_BLOCKS`` blocks, which must preempt.
 XL_ARCH = "xlstm-125m"
 XL_REQUESTS, XL_SLOTS, XL_MAX_LEN, XL_CHUNK = 6, 4, 256, 64
-XL_SPEC_GAMMA, XL_PREEMPT_BLOCKS = 3, 4
+XL_SPEC_GAMMA, XL_PREEMPT_BLOCKS, XL_LAYERS = 3, 4, 6
 
 
 def ds_prefix_workload(vocab: int):
@@ -3781,10 +3864,10 @@ def phase20() -> dict:
                                             DS_SLOTS, gen)
     del params
 
-    xcfg = get_config(XL_ARCH)
+    xcfg = dataclasses.replace(get_config(XL_ARCH), n_layers=XL_LAYERS)
     xmodel = Model(xcfg)
     plan = ", ".join(f"{seg.count} {seg.kind}" for seg in xmodel.segments)
-    print(f"  (b) {xcfg.name} at full width and depth ({plan}; "
+    print(f"  (b) {xcfg.name} at full width cut to {xcfg.n_layers} layers ({plan}; "
           f"d_model {xcfg.d_model}, {xcfg.n_heads} heads), {XL_REQUESTS} requests over both pools, "
           f"{XL_SLOTS} slots of {XL_MAX_LEN}")
     params = load_full_width(xmodel, SEED + 55)
@@ -3847,7 +3930,7 @@ DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_STEPS, DS_TRAIN_LR = 2, 8, 12, 3e-4
 #: step at the loop's lr lowers the loss); at 1e-5 the step is small
 #: beside the weights and still moves bf16 weights near zero.
 DS_CHECK_LR = 1e-5
-#: xlstm-125m at full width and depth, bf16, remat full, momentum ``XL_MU``
+#: xlstm-125m at full width cut to ``XL_LAYERS``, bf16, remat full, momentum ``XL_MU``
 #: at ``XL_TRAIN_LR`` (SGD-like updates of the clipped gradient must move
 #: bf16 weights: at lr 3e-4 a 155 M-parameter model's per-weight step,
 #: ~1e-4 lr, is far below a bf16 step of its weights), ``XL_TRAIN_B`` x 512
@@ -3990,11 +4073,11 @@ def phase21() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    xmodel = Model(xcfg)
+    xmodel = Model(dataclasses.replace(xcfg, n_layers=XL_LAYERS))
     plan = ", ".join(f"{seg.count} {seg.kind}" for seg in xmodel.segments)
-    print(f"  (b) {xcfg.name} at full width and depth ({plan}), {xcfg.dtype}, remat "
-          f"{xcfg.remat!r}, momentum {XL_MU} at lr {XL_TRAIN_LR}: {XL_TRAIN_B} x {TRAIN_S} "
-          f"tokens, {XL_TRAIN_STEPS} steps")
+    print(f"  (b) {xcfg.name} at full width cut to {XL_LAYERS} layers ({plan}), {xcfg.dtype}, "
+          f"remat {xcfg.remat!r}, momentum {XL_MU} at lr {XL_TRAIN_LR}: {XL_TRAIN_B} x "
+          f"{TRAIN_S} tokens, {XL_TRAIN_STEPS} steps")
     params = load_full_width(xmodel, SEED + 63)
     inner = int(xcfg.d_model * xcfg.xlstm.mlstm_proj_factor)
     out[XL_ARCH] = train_family(XL_ARCH, xmodel, params, XL_TRAIN_STEPS, XL_TRAIN_B,
@@ -4016,10 +4099,13 @@ HUBERT_ARCH = "hubert-xlarge"
 #: count before one step with all 8; AdamW at ``HUBERT_LR`` on one batch.
 HUBERT_K6 = (1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0)
 HUBERT_MASKED_STEPS, HUBERT_LR = 3, 1e-4
-#: benchmarks/perf_sim.py's Fig. 4 points (n 20, s 20, 24 seeds, 20,000
-#: iterations, an eval every 10) and the seeds the scalar engine runs.
+#: benchmarks/perf_sim.py's Fig. 4 points (n 20, s 20, 24 seeds, an eval
+#: every 10), cut from its 20,000 iterations to ``SIM_ITERS`` (a card's
+#: iteration is host-bound at ~1.4 ms; at 5,000 the lanes walk 15 of
+#: adaptive-(k, beta)'s 17 stages and 4 of adaptive-k's 10), and the seeds
+#: the scalar engine runs.
 SIM_POINTS = (("fig4_kbeta", "adaptive_kbeta"), ("fig4_k", "adaptive_k"))
-SIM_N, SIM_SEEDS, SIM_ITERS, SIM_EVAL = 20, 24, 20_000, 10
+SIM_N, SIM_SEEDS, SIM_ITERS, SIM_EVAL = 20, 24, 5_000, 10
 SIM_SCALAR_SEEDS = (0, 23)
 #: Iterations of each point's profiled window on the card.
 SIM_PROFILE_ITERS = 256
@@ -4277,6 +4363,296 @@ def phase22(card: str) -> dict:
     return {"hubert": hubert, "sim": phase22b(cpu, card)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the chaos search at full width, and the int8 codec
+# ---------------------------------------------------------------------------
+
+#: Sampled chaos schedules on the card: ``sample_schedule(default_rng([0,
+#: i]))`` for i < CHAOS_SCHEDULES, as ``--fast`` runs them.
+CHAOS_SCHEDULES = 4
+CHAOS_KNOBS = {"max_ticks": 6_000}
+#: ``tests/test_chaos_search.py``'s leak schedule: (step, kind, worker,
+#: factor) events and one (src, dst, op, nth, ticks) directive, singleton
+#: dispatch (cost 10.0 a copy), so that the fail's cancel is the only one.
+CHAOS_LEAK_EVENTS = ((8, "fail", 1, 1.0), (70, "rejoin", 1, 1.0), (40, "slow", 2, 2.0))
+CHAOS_LEAK_DIRECTIVES = (("r1", "fe", "delay", 50, 3),)
+#: The codec's gradient tree: llama3.2-1b's parameter shapes in bf16, a
+#: float32 residual of 0.01 x N(0, 1); the leaves also encoded on the CPU.
+CODEC_SEED = SEED + 40
+CODEC_LEAVES = {"embed": ("embed",), "attention wq": ("stack", 0, 0, "attn", "wq"),
+                "mlp w_in": ("stack", 0, 0, "ffn", "w_in")}
+
+
+def load_chaos_search():
+    """``tools/chaos_search_torch.py`` as a module of its own, loaded by
+    path (``tools`` is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chaos_search_torch", ROOT / "tools" / "chaos_search_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod        # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class CardChaos:
+    """The chaos twin's ``run_schedule`` as the card runs it; installed as
+    the module's ``run_schedule``, so that ``shrink``'s probes go through
+    it too. Each run's launch counters are reset just before it and read
+    just after; every call of every replica must launch what phase 4's
+    calls do (``CallProbe``); the shapes K2 and K4 are launched at are
+    recorded (``recording``). ``byte_identity`` is held by the near-tie
+    rule: where a run's streams part from the offline references and
+    every request completed, ``check_streams`` (teacher-forced offline
+    decode) must excuse every departure, and the excused violation leaves
+    the report. Every other oracle stays exact."""
+
+    def __init__(self, chaos, wl):
+        self.run, self.max_len = chaos.run_schedule, chaos.MAX_LEN
+        self.runs, self.probes = [], []
+        self.launches = defaultdict(int)
+        self.shapes = {"rmsnorm": set(), "paged_decode_attention": set()}
+        fleet = wl.fleet
+
+        def probed(obs):
+            replicas = fleet(obs)
+            self.probes.append(CallProbe(*(rep.engine for rep in replicas)))
+            return replicas
+        wl.fleet = probed
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Record the input shapes of K2 and K4 as the model calls them."""
+        import repro_torch.models.attention as attention
+        import repro_torch.models.layers as layers
+
+        k2, k4 = layers._rms_norm_kernel, attention._paged_decode_kernel
+
+        def rms(x, *a):
+            self.shapes["rmsnorm"].add(tuple(x.shape))
+            return k2(x, *a)
+
+        def paged(q, k, v, tables, lengths):
+            self.shapes["paged_decode_attention"].add(
+                (tuple(q.shape), tuple(k.shape), tuple(tables.shape)))
+            return k4(q, k, v, tables, lengths)
+        layers._rms_norm_kernel, attention._paged_decode_kernel = rms, paged
+        try:
+            yield
+        finally:
+            layers._rms_norm_kernel, attention._paged_decode_kernel = k2, k4
+
+    def __call__(self, wl, sched, **knobs):
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+
+        label = f"chaos run {len(self.runs)}"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = self.run(wl, sched, **knobs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        calls = check_spec_launches(wl.model.cfg, self.probes[-1], counts, True, label)
+        for k, v in counts.items():
+            self.launches[k] += v
+        excused = 0
+        if "byte_identity" in report.signature() and len(report.streams) == len(wl.requests):
+            streams = check_streams(wl.model, wl.params, wl.requests,
+                                    {label: {"tokens": [report.streams[g] for g in
+                                                        range(len(wl.requests))]}},
+                                    self.max_len)
+            excused = streams["near_ties"]
+            report.violations = [v for v in report.violations
+                                 if v["oracle"] != "byte_identity"]
+        launched = {k: v for k, v in counts.items() if v}
+        self.runs.append({"schedule": sched.as_dict(), "knobs": knobs,
+                          "signature": list(report.signature()), "ticks": report.ticks,
+                          "seconds": seconds, "summary": report.summary,
+                          "calls": {k: v["calls"] for k, v in calls.items()},
+                          "launches": launched, "near_ties_excused": excused})
+        print(f"  {label}: {sched.size()} atoms, cost {sched.cost_per_replica}, knobs {knobs}: "
+              f"signature {report.signature()}, {report.ticks} plane ticks, {seconds:.2f} s; "
+              f"{excused} near-ties excused; summary {report.summary}; launches {launched}")
+        return report
+
+
+def hold_paged_decode(q_shape, arena_shape, table_shape, gen) -> float:
+    """K4 (bf16) at a shape phase 23 launched, held by ``hold_paged_tables``:
+    random arenas of ``arena_shape``, each row's live blocks drawn from
+    the arena without replacement, row 0 full and the others of random
+    lengths."""
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    (B, H, D), (n, bs, Hkv, _), T = q_shape, arena_shape, table_shape[1]
+    q = torch.randn(q_shape, generator=gen).to(dev, dt)
+    k_ar = torch.randn(arena_shape, generator=gen).to(dev, dt)
+    v_ar = torch.randn(arena_shape, generator=gen).to(dev, dt)
+    lens = [T * bs] + torch.randint(1, T * bs + 1, (B - 1,), generator=gen).tolist()
+    ids = (torch.randperm(n - 1, generator=gen) + 1).tolist()
+    tables = torch.zeros(table_shape, dtype=torch.int32)
+    for b in range(B):
+        for t in range(-(-lens[b] // bs)):
+            tables[b, t] = ids.pop()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return hold_paged_tables(q, k_ar, v_ar, tables.to(dev), lengths,
+                             f"K4 bf16 q {q_shape}, arenas {arena_shape}, tables "
+                             f"{table_shape}, lengths {lens}")
+
+
+def phase23a(card: str) -> dict:
+    """(a) The chaos search at llama3.2-1b's full width: the sampled
+    schedules pass every oracle; the leak schedule trips
+    ``block_conservation`` with the seeded bug armed, shrinks to its one
+    fail atom, replays to the same signature twice and passes every
+    oracle unarmed; K2 and K4 are held against plain and timed at the
+    shapes the runs launched them at."""
+    chaos = load_chaos_search()
+    t0 = time.perf_counter()
+    wl = chaos.Workload(ARCH, n_requests=4, reduced=False, device="cuda")
+    torch.cuda.synchronize()
+    print(f"    workload {wl.as_dict()}: {wl.model.cfg.dtype}, prompts "
+          f"{[len(p) for p, _, _ in wl.requests]}, new tokens "
+          f"{[m for _, m, _ in wl.requests]}; weights and offline references in "
+          f"{time.perf_counter() - t0:.1f} s")
+    runner = CardChaos(chaos, wl)
+    chaos.run_schedule = runner
+    out = {"workload": wl.as_dict()}
+    with runner.recording():
+        for i in range(CHAOS_SCHEDULES):
+            sched = chaos.sample_schedule(np.random.default_rng([0, i]))
+            report = runner(wl, sched, **CHAOS_KNOBS)
+            check(report.ok, f"sampled schedule {i} {sched.as_dict()}: {report.violations}")
+        leak = chaos.Schedule(
+            events=[chaos.FaultEvent(step=s, kind=k, worker=w, factor=f)
+                    for s, k, w, f in CHAOS_LEAK_EVENTS],
+            directives=[chaos.FaultDirective(a, b, op, nth, ticks=t)
+                        for a, b, op, nth, t in CHAOS_LEAK_DIRECTIVES],
+            partitions=[], cost_per_replica=10.0)
+        print(f"    the leak schedule {leak.as_dict()} with the seeded bug armed, shrunk")
+        sig = runner(wl, leak, leak_blocks=True, **CHAOS_KNOBS).signature()
+        check("block_conservation" in sig, f"the armed leak schedule gave {sig}")
+        n_before = len(runner.runs)
+        small = chaos.shrink(wl, leak, sig, leak_blocks=True, **CHAOS_KNOBS)
+        shrink_runs = len(runner.runs) - n_before
+        check(small.size() == 1 and small.events and small.events[0].kind == "fail",
+              f"the leak schedule shrank to {small.as_dict()}")
+        replays = [runner(wl, small, leak_blocks=True, **CHAOS_KNOBS).signature()
+                   for _ in range(2)]
+        check(replays == [sig, sig], f"the shrunk repro replayed as {replays}, not {sig}")
+        print("    the leak schedule unarmed")
+        clean = runner(wl, leak, **CHAOS_KNOBS)
+        check(clean.ok, f"the unarmed leak schedule: {clean.violations}")
+    out.update(runs=runner.runs, leak_signature=list(sig), shrunk=small.as_dict(),
+               shrink_runs=shrink_runs, launches=dict(runner.launches),
+               shapes={k: sorted(v) for k, v in runner.shapes.items()},
+               near_ties_excused=sum(r["near_ties_excused"] for r in runner.runs))
+    on_path = {k for k, v in runner.launches.items() if v}
+    check(on_path == {"rmsnorm", "paged_decode_attention"},
+          f"phase 23's chaos runs launched {dict(runner.launches)}")
+    print(f"    {len(runner.runs)} runs ({shrink_runs} of them shrink probes); launches "
+          f"{dict(runner.launches)}; K2 shapes {sorted(runner.shapes['rmsnorm'])}; K4 shapes "
+          f"{sorted(runner.shapes['paged_decode_attention'])}")
+
+    print("    K2 and K4 vs plain PyTorch at the shapes the chaos runs launched")
+    gen = torch.Generator().manual_seed(SEED + 41)
+    worst = {"rmsnorm": max(hold_rms_norm(s, torch.bfloat16, gen)
+                            for s in sorted(runner.shapes["rmsnorm"])),
+             "paged_decode_attention": max(hold_paged_decode(*s, gen)
+                                           for s in sorted(
+                                               runner.shapes["paged_decode_attention"]))}
+    print("    timing (CUDA events, cold L2, median of 60)")
+    cfg = wl.model.cfg
+    lens = [len(p) + m - 1 for p, m, _ in wl.requests[:2]]
+    times = {"paged_decode_attention": time_decode(
+        2, chaos.MAX_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, lens, gen,
+        block=chaos.BLOCK_SIZE)["paged_decode_attention"]}
+    for rows in sorted({int(np.prod(s[:-1])) for s in runner.shapes["rmsnorm"]}):
+        times[f"rmsnorm_{rows}_rows"] = time_rmsnorm_rows(rows, cfg.d_model, gen)
+    print_kernel_times(times)
+    out.update(max_abs_err=worst, kernel_times=times)
+    return out
+
+
+def tree_at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def phase23b(card: str) -> dict:
+    """(b) The int8 error-feedback codec over a seeded bf16 gradient tree
+    of llama3.2-1b's parameter shapes (and a float32 residual), on the
+    card: a few leaves encoded and compressed on the card and on the CPU,
+    bit for bit; every leaf's round trip within scale/2 (plus one f32
+    epsilon of |v|: the quotient's and the product's roundings); one
+    ``ef_compress_tree`` over the whole tree timed and its launches
+    counted, beside its byte bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import Int8Codec, ef_compress_tree
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    specs = Model(get_config(ARCH)).param_specs()
+    gen = torch.Generator(device="cuda").manual_seed(CODEC_SEED)
+    grads = tree_map(lambda s: torch.randn(s.shape, generator=gen, device="cuda",
+                                           dtype=torch.bfloat16), specs)
+    resid = tree_map(lambda s: 0.01 * torch.randn(s.shape, generator=gen, device="cuda"), specs)
+    n = sum(x.numel() for x in tree_leaves(grads))
+    print(f"    gradient tree: {len(tree_leaves(grads))} bf16 leaves, {n:,} elements; float32 "
+          f"residual")
+    equal = {}
+    for name, path in CODEC_LEAVES.items():
+        g, r = tree_at(grads, path), tree_at(resid, path)
+        v = g.float() + r
+        q, s = Int8Codec.encode(v)
+        qc, sc = Int8Codec.encode(v.cpu())
+        (d, nr), (dc, nrc) = (ef_compress_tree({"g": g}, {"g": r}),
+                              ef_compress_tree({"g": g.cpu()}, {"g": r.cpu()}))
+        same = {"q": torch.equal(q.cpu(), qc),
+                "scale": torch.equal(s.cpu().view(torch.int32), sc.view(torch.int32)),
+                "decoded": torch.equal(d["g"].cpu().view(torch.int16), dc["g"].view(torch.int16)),
+                "residual": torch.equal(nr["g"].cpu().view(torch.int32),
+                                        nrc["g"].view(torch.int32))}
+        equal[name] = same
+        print(f"  {name} {tuple(g.shape)}: scale {s.item():.6e}; card == CPU bit for bit: {same}")
+        check(all(same.values()), f"the codec on the card differs from the CPU at {name}: {same}")
+        del v, q, qc, d, nr, dc, nrc
+    excess = 0.0
+    for g, r in zip(tree_leaves(grads), tree_leaves(resid)):
+        v = g.float() + r
+        q, s = Int8Codec.encode(v)
+        err = (Int8Codec.decode(q, s).double() - v.double()).abs() - s.double() / 2
+        eps = torch.finfo(torch.float32).eps * v.abs().double()
+        excess = max(excess, (err / eps.clamp(min=torch.finfo(torch.float64).tiny)).max().item())
+        check(bool((err <= eps).all()), "a codec round trip exceeds scale/2 + eps |v|")
+        del v, q, err, eps
+    print(f"  every leaf: |decode(encode(v)) - v| <= scale/2 + eps |v|; the largest excess over "
+          f"scale/2: {max(excess, 0.0):.3f} eps |v|")
+    launches = device_events(lambda: ef_compress_tree(grads, resid))
+    ms = time_ms(lambda: ef_compress_tree(grads, resid), n=5, warmup=1)
+    b, kind = bound(n * (2 + 4 + 2 + 4), 0)
+    print(f"  ef_compress_tree over the whole tree: {ms:.3f} ms (CUDA events, cold L2, median "
+          f"of 5), {launches} device events; bound {b:.3f} ms ({kind}: bf16 g and f32 r read, "
+          f"bf16 decoded and f32 residual written), {ms / b:.1f}x; card {card}")
+    del grads, resid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"elements": n, "leaves_equal_to_cpu": equal, "max_excess_over_half_scale_eps": excess,
+            "ms": ms, "bound_ms": b, "bound_by": kind, "device_events": launches}
+
+
+def phase23(card: str) -> dict:
+    """Phase 23: (a) the chaos search at full width, (b) the codec."""
+    print(f"  (a) the chaos search over {ARCH} at full width: 3 paged replicas of 2 slots, "
+          f"64 rows, block 8, one params dict, 4 requests")
+    search = phase23a(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (b) the int8 error-feedback codec over {ARCH}'s gradient tree")
+    return {"chaos_search": search, "compression": phase23b(card)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4356,9 +4732,9 @@ def main() -> int:
     zmodel = Model(zcfg)
     print(f"[13] training {zcfg.name} at full width through the adaptive-(k, beta) loop: "
           f"{zcfg.n_layers} Mamba2 layers and {zcfg.n_layers // zcfg.attn_every} shared "
-          f"calls, {zcfg.dtype}, remat {zcfg.remat!r}, {TRAIN_B} x {TRAIN_S} tokens at "
+          f"calls, {zcfg.dtype}, remat {zcfg.remat!r}, {ZAMBA_TRAIN_B} x {TRAIN_S} tokens at "
           f"beta 1, {count_params_analytic(zcfg):,} parameters")
-    ztrained = train_full_width(zmodel, ZAMBA_STEPS)
+    ztrained = train_full_width(zmodel, ZAMBA_STEPS, global_batch=ZAMBA_TRAIN_B)
     print("    K5, K1 and K2 vs plain PyTorch at each batch shape the loop ran")
     check_zamba_loop_shapes(zcfg, ztrained["shapes"], train_worst)
     print("[14] the SSD scan's and the shared block's K1 times (CUDA events, cold L2, "
@@ -4375,13 +4751,14 @@ def main() -> int:
     worst["rmsnorm"] = max(worst["rmsnorm"], train_worst["rmsnorm"])
 
     t15 = time.perf_counter()
-    print(f"[15] serving {zcfg.name} at full width: {zcfg.n_layers} Mamba2 layers, "
-          f"{zcfg.n_layers // zcfg.attn_every} shared calls of {zcfg.n_heads} x "
+    zscfg = dataclasses.replace(zcfg, n_layers=Z_SERVE_LAYERS)
+    print(f"[15] serving {zcfg.name} at full width cut to {zscfg.n_layers} Mamba2 layers, "
+          f"{zscfg.n_layers // zscfg.attn_every} shared calls of {zcfg.n_heads} x "
           f"{dw // zcfg.n_heads}, vocab {zcfg.vocab_size}, {zcfg.dtype}")
     print(f"    cut to 2 Mamba2 layers and one shared call, f32: a prefill chunk and 4 "
           f"ticks with a lane masked, kernels on the card vs plain on the CPU")
     zdecode_parity = zamba_decode_vs_plain(zcfg)
-    zmodel = Model(zcfg)
+    zmodel = Model(zscfg)
     zparams = zmodel.init(SEED, device="cuda")
     print(f"    {Z_REQUESTS} requests through ServeEngine, {Z_SLOTS} slots of {Z_MAX_LEN} "
           f"rows, {Z_CHUNK}-token prefill chunks")
@@ -4540,6 +4917,15 @@ def main() -> int:
     print(f"    phase 22 took {phase22_seconds:.1f} s; card {card}")
     hubert = p22["hubert"]
 
+    t23 = time.perf_counter()
+    print(f"[23] the chaos search over {ARCH}'s fleet at full width (eight oracles, the seeded "
+          f"cancel-path leak, ddmin shrink, replays) and the int8 error-feedback codec")
+    p23 = phase23(card)
+    phase23_seconds = time.perf_counter() - t23
+    print(f"    phase 23 took {phase23_seconds:.1f} s; card {card}")
+    chaos = p23["chaos_search"]
+    worst["rmsnorm"] = max(worst["rmsnorm"], chaos["max_abs_err"]["rmsnorm"])
+
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:26",
@@ -4593,7 +4979,21 @@ def main() -> int:
             "phase20_launches": sum(c[kname] for c in mla_xlstm["launches"]),
             "phase21_launches": sum(c[kname] for c in train21["launches"]),
             "phase22_launches": hubert["launches"][kname],
+            "phase23_launches": chaos["launches"].get(kname, 0),
         })
+    # K4 at block 8, the chaos fleet's geometry: launches over phase 23's
+    # runs, times at its decode tick's shape.
+    t = chaos["kernel_times"]["paged_decode_attention"]
+    kernels.append({
+        "name": "paged_decode_attention (block 8)", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:187",
+        "launches": chaos["launches"]["paged_decode_attention"],
+        "max_abs_err": chaos["max_abs_err"]["paged_decode_attention"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+        "phase23_launches": chaos["launches"]["paged_decode_attention"],
+    })
     # K1's (80, 80) instances, hubert's main path: launches over phase 22's
     # train steps, times at their shape (non-causal).
     for kname in ("flash_attention", "flash_attention_bwd"):
@@ -4686,6 +5086,9 @@ def main() -> int:
         "hubert_train": hubert,
         "sim_engines": p22["sim"],
         "phase22_seconds": phase22_seconds,
+        "chaos_search": chaos,
+        "compression": p23["compression"],
+        "phase23_seconds": phase23_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

@@ -61,6 +61,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.attention import NULL_BLOCK
 from repro_torch.models.layers import tree_leaves
 from repro_torch.obs import NULL_OBS, Observability
 from repro_torch.runtime.steps import (
@@ -221,6 +222,11 @@ class ServeEngine:
             model, n_slots, max_len, block_size=block_size,
             arena_blocks=arena_blocks, prefix_sharing=prefix_sharing, device=self.device,
         )
+        #: A seeded bug for the chaos search only (``tools/chaos_search_torch.py
+        #: --leak-blocks``): when set, a cancelled slot's last block is dropped
+        #: instead of freed, which the block-conservation oracle must catch
+        #: and ddmin must shrink to the one cancel-bearing atom.
+        self._chaos_leak_blocks = False
         self.sched = scheduler or Scheduler(n_slots)
         self.prefill_bucket = prefill_bucket
         self.stats = EngineStats()
@@ -329,6 +335,15 @@ class ServeEngine:
         if rid in self.pool.owner:              # holds a slot (prefill/decode)
             slot = self._slot_of(rid)
             self._decoding[slot] = False
+            if self._chaos_leak_blocks and self.pool.paged:
+                # The seeded bug: the slot's last block leaves its table and
+                # loses a reference without going back to the free list.
+                mgr = self.pool.manager
+                owned = mgr._owned[slot]
+                if owned:
+                    bid = owned.pop()
+                    mgr.tables[slot, len(owned)] = NULL_BLOCK
+                    mgr.refcount[bid] -= 1
             self._free_slot(slot)
         req.t_cancelled = self.sched.clock.now
         req.cancel_reason = reason

@@ -391,7 +391,7 @@ class BlockManager:
             if list(self.tables[slot, :len(owned)]) != owned:
                 errs.append(f"slot {slot} table/owned mismatch")
             if any(t != NULL_BLOCK for t in self.tables[slot, len(owned):]):
-                errs.append(f"slot {slot} has table entries past its owned blocks")
+                errs.append(f"slot {slot} has table entries past its referenced blocks")
             for b in owned:
                 if not (NULL_BLOCK < b <= self.num_blocks):
                     errs.append(f"bad block id {b}")
@@ -407,9 +407,9 @@ class BlockManager:
         if len(free) != len(self._free):
             errs.append("duplicate ids in free list")
         if not free.isdisjoint(refs):
-            errs.append("block both free and owned")
+            errs.append("block both free and referenced")
         if free | set(refs) != set(range(1, self.num_blocks + 1)):
-            errs.append("leaked blocks: free + owned != capacity")
+            errs.append("leaked blocks: free + referenced != capacity")
         for b in self._free:
             if int(self.refcount[b]) != 0:
                 errs.append(f"free block {b} carries refcount {int(self.refcount[b])}")
@@ -418,7 +418,7 @@ class BlockManager:
         if self.n_used_blocks != len(refs):
             errs.append(f"used {self.n_used_blocks} != {len(refs)} unique live blocks")
         if self.used_high_water < self.n_used_blocks:
-            errs.append("high-water below current live blocks")
+            errs.append("high-water below current unique live blocks")
         return errs
 
     def check(self) -> None:

@@ -21,7 +21,9 @@ train step under selective remat. K2 is held at the MLA and xLSTM loops'
 training rows, the in-place optimizer step on the card to the same step
 on the CPU, and the reduced deepseek-v3 (with its MTP loss) and xLSTM
 take a train step through the kernels, as does hubert-xlarge reduced at
-its head dim 80 (frames in, K1 non-causal), held to the CPU's step.
+its head dim 80 (frames in, K1 non-causal), held to the CPU's step. The
+chaos search's twin runs its sampled and leak schedules on the card, and
+the int8 error-feedback codec there equals the CPU's bit for bit.
 """
 
 import dataclasses
@@ -986,3 +988,73 @@ def test_hubert_train_step_runs_through_the_kernels(cuda, remat, monkeypatch):
     for key in ("loss", "grad_norm"):
         assert float(metrics["cuda"][key]) == pytest.approx(float(metrics["cpu"][key]), rel=1e-5)
     assert float(metrics["cuda"]["contributors"]) == 3.0
+
+
+def test_chaos_search_on_the_card(cuda):
+    """The chaos twin (``tools/chaos_search_torch.py``) on the card at the
+    reduced smollm-135m (f32, the port's seeded weights): two sampled
+    schedules pass every oracle (streams equal the card's offline decode
+    exactly); the leak schedule with the seeded cancel-path bug armed
+    trips ``block_conservation``, shrinks to its one fail atom and replays
+    to the same signature, and passes every oracle unarmed; K2 and K4 ran."""
+    import os
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from tools.chaos_search_torch import (
+        FaultDirective, FaultEvent, Schedule, Workload, run_schedule, sample_schedule, shrink,
+    )
+
+    wl = Workload(n_requests=4, device=cuda)
+    knobs = {"max_ticks": 6_000}
+    K.reset_launch_counts()
+    for i in range(2):
+        report = run_schedule(wl, sample_schedule(np.random.default_rng([0, i])), **knobs)
+        assert report.ok, report.violations
+    counts = K.launch_counts()
+    assert counts["rmsnorm"] > 0 and counts["paged_decode_attention"] > 0
+    assert {k for k, v in counts.items() if v} == {"rmsnorm", "paged_decode_attention"}
+    leak = Schedule(
+        events=[FaultEvent(step=8, kind="fail", worker=1),
+                FaultEvent(step=70, kind="rejoin", worker=1),
+                FaultEvent(step=40, kind="slow", worker=2, factor=2.0)],
+        directives=[FaultDirective("r1", "fe", "delay", 50, ticks=3)],
+        partitions=[], cost_per_replica=10.0)
+    sig = run_schedule(wl, leak, leak_blocks=True, **knobs).signature()
+    assert "block_conservation" in sig
+    small = shrink(wl, leak, sig, leak_blocks=True, **knobs)
+    assert small.size() == 1 and small.events[0].kind == "fail"
+    assert run_schedule(wl, small, leak_blocks=True, **knobs).signature() == sig
+    assert run_schedule(wl, leak, **knobs).ok
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_codec_on_the_card_matches_the_cpu(cuda, dtype):
+    """``Int8Codec`` and ``ef_compress_tree`` on CUDA tensors equal the same
+    calls on the CPU bit for bit (q, scale, decoded, residual), over a
+    nested tree with a wide range of magnitudes and an all-zero leaf."""
+    from repro_torch.dist import Int8Codec, ef_compress_tree
+
+    g = torch.Generator().manual_seed(3)
+    grads = {"a": torch.randn(4096, 33, generator=g),
+             "b": [torch.randn(1000, generator=g) * torch.exp(12 * torch.rand(1000, generator=g)),
+                   torch.zeros(17)],
+             "c": {"d": -torch.rand(513, generator=g)}}
+    grads = tree_map(lambda t: t.to(dtype), grads, is_leaf=torch.is_tensor)
+    resid = tree_map(lambda t: 0.01 * torch.randn(t.shape, generator=g), grads,
+                     is_leaf=torch.is_tensor)
+    on_card = tree_map(lambda t: t.to(cuda), (grads, resid), is_leaf=torch.is_tensor)
+    for x in tree_leaves(grads, is_leaf=torch.is_tensor):
+        q, s = Int8Codec.encode(x.to(cuda))
+        qc, sc = Int8Codec.encode(x)
+        assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu().view(torch.int32),
+                                                        sc.view(torch.int32))
+    want = ef_compress_tree(grads, resid)
+    got = ef_compress_tree(*on_card)
+    for a, b in zip(tree_leaves(got, is_leaf=torch.is_tensor),
+                    tree_leaves(want, is_leaf=torch.is_tensor)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(a.cpu().view(bits), b.view(bits))

@@ -33,6 +33,7 @@ import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(mod.name)
 import chip_smoke
+import tools.chaos_search_torch
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
@@ -42,7 +43,8 @@ missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
            "repro_torch.serve.frontend", "repro_torch.models.moe",
            "repro_torch.models.xlstm", "repro_torch.core.error_model",
            "repro_torch.core.switching", "repro_torch.core.schedule",
-           "repro_torch.core.simulation", "repro_torch.core.vector_sim"} - set(sys.modules)
+           "repro_torch.core.simulation", "repro_torch.core.vector_sim",
+           "repro_torch.dist.compression", "tools.chaos_search_torch"} - set(sys.modules)
 assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
@@ -65,7 +67,8 @@ def test_port_imports_without_jax_or_reference():
 
 def test_no_source_names_jax_or_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_tiles.py",
-                                         ROOT / "tools" / "rmsnorm_tiles.py"]
+                                         ROOT / "tools" / "rmsnorm_tiles.py",
+                                         ROOT / "tools" / "chaos_search_torch.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

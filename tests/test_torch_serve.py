@@ -312,6 +312,6 @@ def test_block_manager_audit_reports_corruption():
     mgr.commit(0, 16)
     mgr.append(0, 16)
     mgr._free.append(mgr._owned[0][0])          # a block both free and owned
-    assert any("both free and owned" in e for e in mgr.audit())
+    assert any("both free and referenced" in e for e in mgr.audit())
     with pytest.raises(AssertionError):
         mgr.check()

@@ -5,9 +5,11 @@
 
 Needs what ``chip_smoke.py`` needs (one CUDA card, ``nvcc``). Runs
 ``chip_smoke.main()`` unchanged, with each of its phase functions
-(``FUNCTIONS``) wrapped to add up the wall seconds its calls take, and
-prints, on standard error after the run (also when a phase fails), one
-``TIMING name: seconds in calls`` line a function, the slowest first.
+(``FUNCTIONS``) wrapped to add up the wall seconds its calls take. As
+each call of a second or more returns it prints, on standard error,
+``CALL name: seconds, ending at seconds`` (the script's clock), and after
+the run (also when a phase fails) one ``TIMING name: seconds in calls``
+line a function, the slowest first.
 Times are inclusive: a function's time holds the time of the functions
 it calls. The script's 1,200 s limit makes this the way to choose what
 a growing script cuts first.
@@ -34,11 +36,14 @@ profile_zamba_serving verify_vs_plain serve_speculative profile_spec_round
 serve_shared_prefix serve_preempted migrate serve_observed serve_fleet phase19 phase20
 phase21 train_family own_batch_drop time_opt_step check_k2_training_rows time_rmsnorm
 time_flash time_zamba_kernels time_snapshot time_shared_decode time_slot_copies
-check_zamba_loop_shapes time_k2_widths phase22 phase22a phase22b train_hubert hold_sim""".split()
+check_zamba_loop_shapes time_k2_widths phase22 phase22a phase22b train_hubert hold_sim
+phase23 phase23a phase23b hold_paged_decode time_decode time_rmsnorm_rows window
+serve_probed train_hubert hold_flash check_tensor_cores check_ssd_tensor_cores""".split()
 
 
 def main() -> int:
     spent, calls = defaultdict(float), defaultdict(int)
+    t_start = time.perf_counter()
 
     def timed(name, fn):
         @functools.wraps(fn)
@@ -47,8 +52,12 @@ def main() -> int:
             try:
                 return fn(*args, **kwargs)
             finally:
-                spent[name] += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                spent[name] += t1 - t0
                 calls[name] += 1
+                if t1 - t0 >= 1.0:
+                    print(f"CALL {name}: {t1 - t0:.1f} s, ending at {t1 - t_start:.1f} s",
+                          file=sys.stderr, flush=True)
         return wrapper
 
     for name in FUNCTIONS:
