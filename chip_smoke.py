@@ -270,14 +270,28 @@ runs, in order, and exits non-zero at the first phase that fails:
    round trip stays within scale/2 plus one float32 epsilon of |v|, and
    one ``ef_compress_tree`` over the tree is timed (CUDA events, cold L2)
    beside its byte bound, its device events counted;
+24. llama3.2-1b at full width trained on a (1, 1) ("data", "model") mesh
+   over NCCL at world size 1 (a ``file://`` rendezvous): 4 AdamW steps at
+   8 x 512 tokens, 6 of 8 workers contributing, of the plain train step
+   and of the sharded one (DTensor parameters and state laid out by
+   ``DEFAULT_RULES``, ``param_shardings``, ``activation_sharding``), whose
+   losses, gradient norms and every parameter must be equal bit for bit
+   and whose K1 / K2 launches a step are the model's; the loop with and
+   without the mesh (6 steps, a fail at 2 and a rejoin at 4), whose
+   histories must be equal; ``pipeline_forward`` over the 16 dense blocks
+   in one stage, equal to the stack's forward bit for bit; the sharded
+   step's gather, gradient landing and norm timed on llama's tree; K1 and
+   K2 held at the step's shapes; and one plain and one sharded step
+   profiled (wall and device ms, launches, NCCL kernels, peak memory);
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
 phase 17 under ``phase17_launches`` and in phase 18 under
 ``phase18_launches``, in phase 19 under ``phase19_launches`` and in
 phase 20 under ``phase20_launches``, in phase 21 under
-``phase21_launches``, in phase 22 under ``phase22_launches`` and in
-phase 23 under ``phase23_launches``; then K4 again at block 8, the chaos
+``phase21_launches``, in phase 22 under ``phase22_launches``, in
+phase 23 under ``phase23_launches`` and in phase 24 under
+``phase24_launches``; then K4 again at block 8, the chaos
 fleet's geometry, with its times there and its launches in phase 23, and
 K1's forward and backward at D 80, hubert's main path, with their
 times at its shape and their launches in phase 22; the profiles under
@@ -295,7 +309,7 @@ kernel's launches there under ``spec_serve_launches``), phase 17's under
 under ``observed_serve`` and ``fleet``, phase 19's under ``gqa_configs``,
 phase 20's under ``mla_xlstm``, phase 21's under ``mla_xlstm_train``,
 phase 22's under ``hubert_train`` and ``sim_engines``, phase 23's under
-``chaos_search`` and ``compression``,
+``chaos_search`` and ``compression``, phase 24's under ``sharded_training``,
 the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
@@ -313,6 +327,7 @@ import functools
 import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1157,6 +1172,8 @@ def kernel_class(name: str) -> str:
     if "decode_split_kernel" in name or "decode_merge_kernel" in name:
         return "K4 paged decode" if "PagedRows" in name else "K3 decode"
     low = name.lower()
+    if "nccl" in low:
+        return "NCCL"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "gemv", "nvjet", "cublas")):
         return "GEMM (cuBLAS)"
     return "other PyTorch kernels"
@@ -1206,8 +1223,10 @@ def window(label: str, timed, profiled, n_units: int, unit: str) -> dict:
         profiled()
         torch.cuda.synchronize()
     by_class, by_name, launches = defaultdict(float), defaultdict(float), 0
+    class_launches = defaultdict(int)
     for name, ms in cuda_events(prof):
         by_class[kernel_class(name)] += ms
+        class_launches[kernel_class(name)] += 1
         by_name[name[:90]] += ms
         launches += 1
     device = sum(by_class.values())
@@ -1217,6 +1236,7 @@ def window(label: str, timed, profiled, n_units: int, unit: str) -> dict:
         "device_ms_per_unit": device / n_units,
         "idle_share": 1 - device / wall_ms,
         "kernel_launches_per_unit": launches / n_units,
+        "launches_per_unit_by_class": {k: v / n_units for k, v in class_launches.items()},
         "device_ms_per_unit_by_class": {k: v / n_units for k, v in
                                          sorted(by_class.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_unit": {k: v / n_units for k, v in
@@ -4653,6 +4673,289 @@ def phase23(card: str) -> dict:
     return {"chaos_search": search, "compression": phase23b(card)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the sharded step, the loop on a mesh and GPipe at world size 1
+# ---------------------------------------------------------------------------
+
+P24_B, P24_STEPS, P24_LOOP_STEPS = 8, 4, 6
+#: k = 6 of 8 workers contribute to each of phase 24's steps.
+P24_MASK = [1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 0.0, 1.0]
+#: GPipe's input: microbatches x sequences x tokens (x d_model).
+P24_PIPE = (2, 4, 512)
+
+
+def p24_batches(cfg, steps: int) -> list:
+    from repro_torch.data import StagedBatcher, TokenStream
+
+    b = StagedBatcher(TokenStream(cfg.vocab_size, seed=SEED + 40), n_workers=8,
+                      global_batch=P24_B, seq_len=TRAIN_S)
+    out = []
+    for _ in range(steps):
+        arr = b.batch_for_stage(1.0)
+        out.append({"inputs": torch.from_numpy(arr["inputs"]).cuda(),
+                    "labels": torch.from_numpy(arr["labels"]).cuda(),
+                    "worker_mask": torch.tensor(P24_MASK, device="cuda"), "lr": 3e-4})
+    return out
+
+
+def leaves_of(tree) -> list:
+    from repro_torch.models.layers import tree_leaves
+
+    return tree_leaves(tree, is_leaf=torch.is_tensor)
+
+
+def max_delta(a: list, b: list) -> float:
+    from torch.distributed.tensor import DTensor
+
+    return max(float((x.to_local() if isinstance(x, DTensor) else x).float().sub(y.float())
+                     .abs().max()) for x, y in zip(a, b))
+
+
+def p24_steps(model, mesh, shardings) -> dict:
+    """4 AdamW steps of the plain step and of the sharded step from the
+    same seeded parameters; loss, grad norm and every leaf compared bit
+    for bit. The sharded run's launches are counted."""
+    from repro_torch.dist.sharding import activation_sharding, shard_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+
+    batches = p24_batches(model.cfg, P24_STEPS)
+    opt = adamw()
+    runs = {}
+    for label in ("plain", "sharded"):
+        params = model.init(SEED, device="cuda")
+        if label == "sharded":
+            params = shard_tree(params, shardings)
+        state = opt.init(params)
+        step = make_train_step(model, opt, param_shardings=shardings if label == "sharded"
+                               else None)
+        ctx = activation_sharding(mesh) if label == "sharded" else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = []
+        with ctx:
+            for batch in batches:
+                _, state, m = step(params, state, batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                                float(m["contributors"])))
+        torch.cuda.synchronize()
+        runs[label] = {"metrics": metrics, "launches": launch_counts(),
+                       "seconds": time.perf_counter() - t0, "params": leaves_of(params)}
+        del state
+        print(f"    {label}: {runs[label]['seconds']:.2f} s; (loss, grad norm, contributors) "
+              f"{metrics}")
+    plain, sharded = runs["plain"], runs["sharded"]
+    delta = max_delta(sharded["params"], plain["params"])
+    same = sharded["metrics"] == plain["metrics"] and delta == 0.0
+    print(f"    sharded vs plain: metrics {'equal' if sharded['metrics'] == plain['metrics'] else 'DIFFER'}, "
+          f"max |delta| over every leaf {delta:.3e} ({'bit for bit' if same else 'FAIL'})")
+    check(same, f"the sharded step departs from the plain step at world size 1: max |delta| "
+                f"{delta:.3e}, metrics {sharded['metrics']} vs {plain['metrics']}")
+    per_step = per_step_launches(model.cfg)
+    check(sharded["launches"] == {k: v * P24_STEPS for k, v in per_step.items()},
+          f"the sharded step's launches {sharded['launches']} are not {P24_STEPS} x {per_step}")
+    return {"metrics": sharded["metrics"], "max_abs_delta": delta,
+            "launches": sharded["launches"], "seconds": {k: r["seconds"] for k, r in runs.items()}}
+
+
+def p24_loop(model, mesh) -> dict:
+    """The loop with and without the mesh: 6 steps at 8 x 512, a fail at
+    step 2 and a rejoin at 4; the histories must be equal."""
+    from repro_torch.core import DiagnosticConfig, SimplifiedDelayModel, StrategyConfig
+    from repro_torch.data import StagedBatcher, TokenStream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import FaultEvent, TrainLoopConfig, train
+
+    cfg = model.cfg
+    hist, launches = {}, {}
+    for label, m in (("plain", None), ("mesh", mesh)):
+        strategy = StrategyConfig(
+            "adaptive_kbeta", n=8, s=1, k0=1, k_max=4, beta_grid=(0.5, 1.0),
+            diagnostic=DiagnosticConfig(kind="loss", rel_tol=0.5, min_iters=2, consecutive=1))
+        batcher = StagedBatcher(TokenStream(cfg.vocab_size, seed=SEED + 41), n_workers=8,
+                                global_batch=P24_B, seq_len=TRAIN_S)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = train(model, adamw(), strategy, SimplifiedDelayModel(lambda_y=1.0, x=0.05),
+                    batcher, TrainLoopConfig(total_steps=P24_LOOP_STEPS, lr=3e-4, log_every=0,
+                                             seed=SEED, events=[FaultEvent(2, "fail", 3),
+                                                                FaultEvent(4, "rejoin", 3)]),
+                    device="cuda", mesh=m)
+        torch.cuda.synchronize()
+        hist[label], launches[label] = out["history"], launch_counts()
+        del out
+    for h in hist["mesh"]:
+        print(f"    step {h['step']} k={h['k']} beta={h['beta']:.2f} n={h['n_workers']} "
+              f"loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} sim_time {h['sim_time']:.4f}")
+    fleet = [h["n_workers"] for h in hist["mesh"]]
+    print(f"    mesh loop vs plain loop: history {'equal' if hist['mesh'] == hist['plain'] else 'DIFFERS'}; "
+          f"fleet {fleet}")
+    check(hist["mesh"] == hist["plain"], "the loop on the mesh departs from the loop without it")
+    check(7 in fleet and fleet[-1] == 8, f"the fleet path {fleet} has no fail and rejoin")
+    return {"history": hist["mesh"], "launches": launches["mesh"]}
+
+
+def p24_gpipe(model, params, mesh) -> dict:
+    """``pipeline_forward`` over the 16 dense blocks (one stage) against
+    the stack's own forward, bit for bit."""
+    from repro_torch.dist.pipeline_parallel import pipeline_forward, stage_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import block_apply, run_segments
+
+    cfg = model.cfg
+    layers = params["stack"][0]
+    stacked = tree_map(lambda *ws: torch.stack(ws), *layers, is_leaf=torch.is_tensor)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    x = torch.randn(P24_PIPE + (cfg.d_model,), generator=gen, device="cuda").to(
+        getattr(torch, cfg.dtype))
+    positions = torch.arange(P24_PIPE[2], device="cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = pipeline_forward(
+            lambda layer, h: block_apply(layer, h, cfg, "dense", positions=positions)[0],
+            stage_params(stacked, 1), x, mesh, axis="model")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = torch.stack([run_segments(params["stack"], model.segments, x[m], cfg,
+                                         positions=positions)[0] for m in range(x.shape[0])])
+    delta = float((got.float() - want.float()).abs().max())
+    print(f"    GPipe, 1 stage over 'model', x {tuple(x.shape)}: max |delta| vs the stack "
+          f"{delta:.3e} ({'bit for bit' if torch.equal(got, want) else 'FAIL'}); launches {counts}")
+    check(torch.equal(got, want), f"pipeline_forward departs from the stack: {delta:.3e}")
+    return {"max_abs_delta": delta, "launches": counts}
+
+
+def p24_pieces(params, mesh) -> dict:
+    """ms of the sharded step's own pieces on llama's tree (median of 5,
+    host clock around a device sync): the gather to full values, the
+    gradients' landing in their placements (nothing to sum at world 1),
+    and the global norm."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import full_value, land
+    from repro_torch.optim import chunked_global_norm
+
+    leaves = leaves_of(params)
+    grads = [p.to_local().clone() for p in leaves]
+    pieces = {
+        "gather": lambda: [full_value(p) for p in leaves],
+        "land": lambda: [land(g, mesh, (), p.placements) for g, p in zip(grads, leaves)],
+        "norm": lambda: chunked_global_norm(
+            [DTensor.from_local(g, mesh, p.placements, run_check=False)
+             for g, p in zip(grads, leaves)]),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_ms"] = statistics.median(times)
+    print(f"    the step's pieces over {len(leaves)} leaves (ms, median of 5): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def p24_profile(model, mesh, shardings) -> dict:
+    """One plain and one sharded step (after a warm-up each) under
+    ``window``: wall and device ms, launches, NCCL kernels, peak memory."""
+    from repro_torch.dist.sharding import activation_sharding, shard_tree
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+
+    batch = p24_batches(model.cfg, 1)[0]
+    out = {}
+    for label in ("plain", "sharded"):
+        params = model.init(SEED, device="cuda")
+        if label == "sharded":
+            params = shard_tree(params, shardings)
+        opt = adamw()
+        state = opt.init(params)
+        step = make_train_step(model, opt)
+        ctx = activation_sharding(mesh) if label == "sharded" else contextlib.nullcontext()
+        with ctx:
+            step(params, state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = window(f"{label} train step, {model.cfg.name}, {P24_B} x {TRAIN_S} tokens",
+                         lambda: step(params, state, batch), lambda: step(params, state, batch),
+                         1, "step")
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["nccl_launches"] = res["launches_per_unit_by_class"].get("NCCL", 0)
+        res["nccl_ms"] = res["device_ms_per_unit_by_class"].get("NCCL", 0.0)
+        print(f"    {label}: peak {res['peak_bytes'] / 2**30:.2f} GiB; NCCL kernels "
+              f"{res['nccl_launches']:.0f} ({res['nccl_ms']:.4f} ms)")
+        out[label] = res
+        del params, state
+    return out
+
+
+def phase24(card: str) -> dict:
+    """llama3.2-1b at full width on a (1, 1) ("data", "model") mesh over
+    NCCL at world size 1: the sharded step, the loop on the mesh and
+    GPipe, each equal bit for bit to its unsharded run; K1 and K2 held
+    at the step's shapes; the plain and the sharded step profiled."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import DEFAULT_RULES, make_mesh, make_sharding_fn
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ParamSpec, tree_map
+
+    cfg = get_config(ARCH)
+    model = Model(cfg)
+    root = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{root}/pg", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        print(f"    process group {dist.get_backend()}, world {dist.get_world_size()}, mesh "
+              f"{tuple(mesh.shape)} {mesh.mesh_dim_names}; card {card}")
+        shardings = tree_map(make_sharding_fn(mesh, DEFAULT_RULES), model.param_specs(),
+                             is_leaf=lambda x: isinstance(x, ParamSpec))
+        print(f"    {P24_STEPS} AdamW steps, {P24_B} x {TRAIN_S} tokens, k = 6 of 8: plain, "
+              f"then sharded (param_shardings, activation_sharding)")
+        steps = p24_steps(model, mesh, shardings)
+        print(f"    the loop, {P24_LOOP_STEPS} steps at {P24_B} x {TRAIN_S}, a fail at 2 and a "
+              f"rejoin at 4, with and without the mesh")
+        loop = p24_loop(model, mesh)
+        params = model.init(SEED, device="cuda")
+        gpipe = p24_gpipe(model, params, mesh)
+        from repro_torch.dist.sharding import shard_tree
+        pieces = p24_pieces(shard_tree(params, shardings), mesh)
+        del params
+        print(f"    K1 and K2 vs plain at the step's shapes")
+        gen = torch.Generator().manual_seed(SEED + 43)
+        e_o, e_b = hold_flash((P24_B, TRAIN_S, TRAIN_S, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, cfg.head_dim), True, torch.bfloat16, gen)
+        rows = (P24_B * TRAIN_S, cfg.d_model)
+        e_f = hold_rms_norm(rows, torch.bfloat16, gen)
+        e_r = hold_rms_norm_bwd(rows, torch.bfloat16, gen)
+        print("    profiles (torch.profiler, one step after a warm-up)")
+        profile = p24_profile(model, mesh, shardings)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: steps["launches"][k] + loop["launches"][k] + gpipe["launches"][k]
+                for k in steps["launches"]}
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"):
+        check(launches[k] > 0, f"phase 24's main path launched no {k}")
+    return {"steps": steps, "loop": loop, "gpipe": gpipe, "pieces": pieces,
+            "profile": profile, "launches": launches,
+            "max_abs_err": {"flash_attention": e_o, "flash_attention_bwd": e_b,
+                            "rmsnorm": e_f, "rmsnorm_bwd": e_r}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4925,6 +5228,18 @@ def main() -> int:
     print(f"    phase 23 took {phase23_seconds:.1f} s; card {card}")
     chaos = p23["chaos_search"]
     worst["rmsnorm"] = max(worst["rmsnorm"], chaos["max_abs_err"]["rmsnorm"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t24 = time.perf_counter()
+    print(f"[24] {ARCH} at full width trained on a (1, 1) mesh over NCCL: the sharded step, the "
+          f"loop on the mesh and GPipe against their unsharded runs")
+    p24 = phase24(card)
+    phase24_seconds = time.perf_counter() - t24
+    print(f"    phase 24 took {phase24_seconds:.1f} s; card {card}")
+    worst["rmsnorm"] = max(worst["rmsnorm"], p24["max_abs_err"]["rmsnorm"])
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm_bwd"):
+        train_worst[k] = max(train_worst[k], p24["max_abs_err"][k])
 
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
@@ -4980,6 +5295,7 @@ def main() -> int:
             "phase21_launches": sum(c[kname] for c in train21["launches"]),
             "phase22_launches": hubert["launches"][kname],
             "phase23_launches": chaos["launches"].get(kname, 0),
+            "phase24_launches": p24["launches"].get(kname, 0),
         })
     # K4 at block 8, the chaos fleet's geometry: launches over phase 23's
     # runs, times at its decode tick's shape.
@@ -5089,6 +5405,8 @@ def main() -> int:
         "chaos_search": chaos,
         "compression": p23["compression"],
         "phase23_seconds": phase23_seconds,
+        "sharded_training": p24,
+        "phase24_seconds": phase24_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

@@ -7,6 +7,11 @@ loss as DATA, never as shape: per-example weights zero out the
 stragglers' examples and the normalizer counts only contributed tokens,
 so the masked step is EXACTLY the dense step on the k contributing
 workers' examples (the paper's aggregation, eq. (2)).
+
+Under a data-parallel row split (``sharding.split_rows``) each rank holds
+some rows and the normalizer is the GLOBAL count: a rank whose workers
+all straggled has no contributed token of its own, and its term is 0,
+not a mean over nothing. The ranks' terms then sum to the global loss.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from .sharding import split_sum
 
 __all__ = [
     "contributors",
@@ -67,7 +74,8 @@ def masked_weighted_ce(
 
     Returns ``(loss, denom)``: the mean NLL over contributed tokens and
     that token count, the weight that recombines gradient-accumulation
-    microbatches."""
+    microbatches. Under a row split, ``denom`` is summed over the split's
+    ranks and ``loss`` is this rank's NLL sum over it."""
     w = torch.ones(labels.shape, dtype=torch.float32, device=logits.device) \
         if mask is None else mask.float()
     if worker_mask is not None:
@@ -76,5 +84,5 @@ def masked_weighted_ce(
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = (lse - gold) * w
-    denom = w.sum()
+    denom = split_sum(w.sum())
     return nll.sum() / torch.clamp(denom, min=1.0), denom

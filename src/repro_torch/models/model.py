@@ -40,6 +40,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import masked_weighted_ce
+from repro_torch.dist.sharding import constrain_batch
 from . import attention as attn
 from . import xlstm, zamba
 from .layers import (
@@ -235,7 +236,7 @@ class Model:
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training forward -> (final-norm hidden states (B, S, D), aux)."""
         cfg = self.cfg
-        x = self.embed_inputs(params, inputs)
+        x = constrain_batch(self.embed_inputs(params, inputs))
         if self.is_hybrid:
             h, aux = zamba.zamba_apply(params["stack"], x, cfg, positions=positions)
         else:
@@ -305,6 +306,14 @@ class Model:
                                   mask2)[0]
 
     # -- serving ---------------------------------------------------------------
+    def prefill(self, params: Dict, inputs: torch.Tensor) -> torch.Tensor:
+        """Prefill forward -> logits for the last position (no cache
+        writing: the dry run's prefill compute; serving uses
+        ``prefill_with_cache``)."""
+        positions = torch.arange(inputs.shape[1], device=inputs.device)
+        h, _ = self.hidden(params, inputs, positions)
+        return self.logits(params, h[:, -1:, :])
+
     def cache_specs(self, batch: int, max_len: int, *,
                     block_size: Optional[int] = None, num_blocks: int = 0):
         """Cache spec tree for ``batch`` sequences of up to ``max_len``

@@ -12,12 +12,23 @@ its K weighted outputs in choice order, in x's dtype. With
 ``moe.dropless`` the capacity is the token count, so no token is ever
 dropped and a token's output does not depend on the others in its chunk.
 
-The reference's ``dispatch="grouped"`` forms one capacity buffer per
-data-parallel group, and ``"model"`` reshards the dispatched rows; on one
-device there is one group and nothing to reshard, and both are this
-same computation. The expert products are batched matrix products that
-the reference leaves to XLA outside any Pallas kernel; here they are
-``torch.bmm``.
+Under a data-parallel row split (``dist.sharding.split_rows``) a rank
+holds some rows of the batch, and the dispatch keeps the reference's
+global semantics. ``"data"`` and ``"model"`` (the flat dispatch; on a
+mesh the reference only reshards its buffers) rank a choice within its
+expert over the GLOBAL token order: the rank all-gathers the per-rank
+(E,) choice counts and offsets its positions by the ranks before it,
+keeps the choices ranked below the capacity of the global token count
+and computes them locally (the expert FFN is row-wise). ``"grouped"``
+forms one capacity buffer per data-parallel group (the product of the
+ambient data axes when it divides the global token count), of capacity
+the global one over the group count, over the whole groups the rank
+holds. The router loss is the reference's product of two global means:
+each rank adds E * sum_e f_e P_e with f from the all-reduced counts and
+P_e its own probabilities' sum over the global token count, so the
+ranks' terms sum to the global loss. The expert products are batched
+matrix products that the reference leaves to XLA outside any Pallas
+kernel; here they are ``torch.bmm`` over (E, groups x C, D) buffers.
 """
 
 from __future__ import annotations
@@ -27,11 +38,14 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.dist.sharding import (
+    _axis_sizes, constrain_logical, current_context, current_split, split_gather, split_sum,
+)
 from .layers import ParamSpec, activation, mlp_apply, mlp_specs
 
 __all__ = ["moe_specs", "moe_apply", "moe_capacity", "route", "DISPATCH_MODES"]
 
-#: The reference's dispatch formulations; on one device all are the flat one.
+#: The reference's dispatch formulations; at one group all are the flat one.
 DISPATCH_MODES = ("data", "model", "grouped")
 
 
@@ -79,16 +93,36 @@ def route(x_flat: torch.Tensor, router: torch.Tensor, moe: MoEConfig
     (T, K) int64, aux loss f32). The router product is
     taken in x's dtype and then widened; softmax, top-k and the
     renormalization are f32. aux = E * sum_e f_e * P_e (Switch eq. 4),
-    f_e the share of choices on expert e and P_e its mean probability."""
+    f_e the share of choices on expert e and P_e its mean probability,
+    both over the global tokens under a row split (this rank's term)."""
     logits = (x_flat @ router).float()
     probs = torch.softmax(logits, dim=-1)
     weights, experts = torch.topk(probs, moe.top_k, dim=-1)
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
     E = moe.n_experts
-    f = _counts(experts.reshape(-1), E).float()
+    f = split_sum(_counts(experts.reshape(-1), E)).float()
     f = f / f.sum().clamp_min(1.0)
-    aux = E * torch.sum(f * probs.mean(dim=0))
+    split = current_split()
+    if split is None:
+        p = probs.mean(dim=0)
+    else:
+        p = probs.sum(dim=0) / (probs.shape[0] * split.n)
+    aux = E * torch.sum(f * p)
     return weights.to(x_flat.dtype), experts, aux
+
+
+def _dp_group_count(T: int) -> int:
+    """Number of data-parallel groups for group-local dispatch (= product
+    of the ambient data axes when it divides the global token count T,
+    else 1)."""
+    ctx = current_context()
+    if ctx is None:
+        return 1
+    sizes = _axis_sizes(ctx.mesh)
+    g = 1
+    for a in ctx.dp:
+        g *= sizes[a]
+    return g if g > 1 and T % g == 0 else 1
 
 
 def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig
@@ -100,39 +134,65 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig
     B, S, D = x.shape
     T = B * S
     K, E = moe.top_k, moe.n_experts
-    C = moe_capacity(moe, T)
+    split = current_split()
+    n_split = 1 if split is None else split.n
+    T_all = T * n_split
+    G = _dp_group_count(T_all) if moe.dispatch == "grouped" else 1
+    if G > 1:
+        # The rank's rows are whole groups: a split is a prefix of the
+        # data axes, whose product G is.
+        groups, C = G // n_split, max(moe_capacity(moe, T_all) // G, K)
+    else:
+        groups, C = 1, moe_capacity(moe, T_all)
+    Tg = T // groups
     x_flat = x.reshape(T, D)
     dev = x.device
 
     weights, experts, aux = route(x_flat, params["router"], moe)
 
-    # Rank each (token, choice) pair within its expert: a stable sort keeps
-    # token order inside an expert, so the earliest tokens are kept.
-    flat_e = experts.reshape(-1)                                  # (T*K,)
-    order = torch.argsort(flat_e, stable=True)
-    counts = _counts(flat_e, E)
-    starts = torch.cumsum(counts, 0) - counts
-    rank_sorted = torch.arange(T * K, device=dev) - starts[flat_e[order]]
-    pos = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    # Rank each (token, choice) pair within its (group, expert): a stable
+    # sort keeps token order inside an expert, so the earliest are kept.
+    eg = experts.reshape(groups, Tg * K)
+    order = torch.argsort(eg, dim=-1, stable=True)
+    counts = torch.zeros((groups, E), dtype=torch.long, device=dev).scatter_add_(
+        1, eg, torch.ones_like(eg))
+    starts = torch.cumsum(counts, -1) - counts
+    rank_sorted = (torch.arange(Tg * K, device=dev)[None, :]
+                   - torch.gather(starts, 1, torch.gather(eg, 1, order)))
+    pos = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
     keep = pos < C
+    if G == 1 and split is not None:
+        # One group across ranks: a choice's place in its expert counts
+        # the choices of the ranks before this one.
+        table = split_gather(counts[0])                       # (n_split, E)
+        before = table[:split.index].sum(0)
+        keep = pos + before[eg] < C
 
-    token_idx = torch.arange(T, device=dev).repeat_interleave(K)
-    safe_e = torch.where(keep, flat_e, 0)
-    safe_pos = torch.where(keep, pos, C - 1)
+    tok = torch.arange(T, device=dev).repeat_interleave(K).reshape(groups, Tg * K)
+    safe_e = torch.where(keep, eg, 0)
+    # A group's rows of an expert's buffer follow the groups before it.
+    safe_row = torch.where(keep, pos, C - 1) + C * torch.arange(groups, device=dev)[:, None]
 
     # Kept pairs own distinct (expert, row) slots; a dropped pair adds a
-    # zero row to slot (0, C - 1), which leaves it as it was.
-    dispatched = torch.where(keep[:, None], x_flat[token_idx], 0).to(x.dtype)
-    buf = torch.zeros((E, C, D), dtype=x.dtype, device=dev)
-    buf = buf.index_put((safe_e, safe_pos), dispatched, accumulate=True)
+    # zero row to its group's slot (0, C - 1), which leaves it as it was.
+    rows = ("act_batch", None) if groups > 1 else (
+        None, "expert" if moe.dispatch == "model" else "act_batch")
+    dispatched = torch.where(keep[..., None], x_flat[tok], 0).to(x.dtype)
+    dispatched = constrain_logical(dispatched, rows + (None,))
+    buf = torch.zeros((E, groups * C, D), dtype=x.dtype, device=dev)
+    buf = buf.index_put((safe_e, safe_row), dispatched, accumulate=True)
+    buf = constrain_logical(buf, ("expert", None, None))
 
     h_in = torch.bmm(buf, params["w_in"])
     h_gate = torch.bmm(buf, params["w_gate"])
     h = activation(cfg.act)(h_gate) * h_in
     y_buf = torch.bmm(h, params["w_out"])
+    y_buf = constrain_logical(y_buf, ("expert", None, None))
 
-    gathered = torch.where(keep[:, None], y_buf[safe_e, safe_pos], 0)
-    contrib = (gathered * weights.reshape(-1)[:, None].to(gathered.dtype)).reshape(T, K, D)
+    gathered = torch.where(keep[..., None], y_buf[safe_e, safe_row], 0)
+    gathered = constrain_logical(gathered, rows + (None,))
+    contrib = (gathered * weights.reshape(groups, Tg * K)[..., None].to(gathered.dtype)
+               ).reshape(T, K, D)
     # Each token's K outputs summed in choice order, as the reference's
     # scatter-add into zeros does.
     out = contrib[:, 0]

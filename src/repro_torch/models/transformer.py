@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain_batch, in_context
 from . import attention as attn
 from . import moe, xlstm
 from .layers import mlp_apply, mlp_specs, norm_apply, norm_specs
@@ -181,14 +182,17 @@ def save_unbatched_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 def _remat_wrap(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` rematerialised as ``cfg.remat`` says; the recompute runs in
+    the forward's context (an MoE block reads the row split)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+        return lambda *args: checkpoint(in_context(fn), *args, use_reentrant=False)
     if cfg.remat == "selective":
         context = functools.partial(create_selective_checkpoint_contexts,
                                     save_unbatched_products)
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+        return lambda *args: checkpoint(in_context(fn), *args, use_reentrant=False,
+                                        context_fn=context)
     raise ValueError(f"unknown remat {cfg.remat}")
 
 
@@ -204,5 +208,6 @@ def run_segments(seg_params: List[List[Dict]], segs: List[Segment], x: torch.Ten
         )
         for layer in layers:
             x, aux = body(layer, x)
+            x = constrain_batch(x)
             total_aux = total_aux + aux
     return x, total_aux

@@ -44,6 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain_batch
 from repro_torch.kernels import flash_attention as _flash_kernel
 from . import attention as attn
 from . import mamba2
@@ -148,10 +149,10 @@ def zamba_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     def mamba_block(layer, h):
         hn = norm_apply(layer["norm"], h, cfg.norm)
-        return h + mamba2.mamba2_apply(layer["mixer"], hn, cfg)
+        return constrain_batch(h + mamba2.mamba2_apply(layer["mixer"], hn, cfg))
 
     def shared_block(shared, lora, h, x0):
-        return h + _shared_block(shared, h, x0, cfg, lora, positions=positions)
+        return constrain_batch(h + _shared_block(shared, h, x0, cfg, lora, positions=positions))
 
     if cfg.remat == "none":
         run_mamba, run_shared = mamba_block, shared_block

@@ -35,6 +35,18 @@ along its leading axis (the reference's ``lax.map``): each slice has its
 own RMS and its update is rounded to the parameter's dtype before the
 learning rate multiplies it. A stacked group's slices are its layers;
 an unstacked leaf's are its leading entries (one MoE layer's experts).
+
+Sharded leaves. ``init`` and ``step`` take trees of DTensors (parameters
+and state laid out by ``repro_torch.dist.sharding``): the state is made
+with its parameter's placements (Adafactor's row and column statistics
+drop the reduced dim's), and ``step`` runs on the local blocks in place.
+SGD, momentum and AdamW are elementwise, so that is exact; Adafactor's
+row and column means, and its update RMS, are sums over dims the rules
+may shard, which it all-reduces over exactly the mesh dims that cut
+them. ``chunked_global_norm`` adds each sharded leaf's local square sum
+over the mesh dims that cut it, so a leaf replicated over a mesh dim is
+counted once. A leaf that no mesh dim of size > 1 cuts runs the
+single-device code unchanged.
 """
 
 from __future__ import annotations
@@ -43,7 +55,9 @@ import dataclasses
 from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.dist.sharding import LeafShards
 from repro_torch.models.layers import tree_leaves, tree_map
 
 __all__ = [
@@ -105,13 +119,34 @@ def _flat(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _local(tree):
+    """The tree with each DTensor replaced by its local block (a view)."""
+    return _map(lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
+
+
 def chunked_global_norm(tree) -> torch.Tensor:
     """``global_norm`` with each leaf's square summed a chunk at a time
-    (one chunk's f32 copy at most); equal to it within f32 rounding."""
-    total = None
+    (one chunk's f32 copy at most); equal to it within f32 rounding. A
+    sharded leaf's local sum is summed over the mesh dims that cut it (one
+    all-reduce for all the leaves cut alike) before it joins the total."""
+    parts, cut = [], {}
     for x in _leaves(tree):
-        for c in _flat_chunks(x.contiguous()):
-            s = torch.sum(torch.square(c.float()))
+        sh = LeafShards.of(x)
+        sums = [torch.sum(torch.square(c.float()))
+                for c in _flat_chunks(_local(x).contiguous())]
+        if sh is None:
+            parts.append(sums)
+            continue
+        key = tuple(sorted(md for mds in sh.dims.values() for md in mds))
+        cut.setdefault(key, (sh, []))[1].append((len(parts), sum(sums)))
+        parts.append(None)
+    for sh, items in cut.values():
+        summed = sh.sum_(torch.stack([s for _, s in items]))
+        for (i, _), s in zip(items, summed):
+            parts[i] = [s]
+    total = None
+    for sums in parts:
+        for s in sums:
             total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -190,16 +225,49 @@ def sgd() -> Optimizer:
         n = len(_leaves(params))
         return _unflatten(params, upd(_leaves(grads), [()] * n, _leaves(params), lr)), state
 
-    def step(grads, state, params, lr, scale=None):
+    def step(grads, state, params, lr, scale, shards):
         n = len(_leaves(params))
         stp(_leaves(grads), [()] * n, _leaves(params), lr, scale)
         return state
 
-    return Optimizer(init, update, step)
+    return Optimizer(init, update, _on_shards(step))
 
 
-def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def _zeros_f32(p: torch.Tensor, drop: Optional[int] = None) -> torch.Tensor:
+    """f32 zeros of p's shape, less dim ``drop`` if given; for a DTensor p,
+    a DTensor laid out as p (the dropped dim's shards replicated)."""
+    local = p.to_local() if isinstance(p, DTensor) else p
+    shape = tuple(local.shape)
+    if drop is not None:
+        drop %= len(shape)
+        shape = shape[:drop] + shape[drop + 1:]
+    z = torch.zeros(shape, dtype=torch.float32, device=local.device)
+    if not isinstance(p, DTensor):
+        return z
+
+    def place(pl):
+        if not pl.is_shard() or drop is None:
+            return pl
+        d = pl.dim % p.ndim
+        return Replicate() if d == drop else Shard(d - (d > drop))
+
+    return DTensor.from_local(z, p.device_mesh, tuple(place(pl) for pl in p.placements),
+                              run_check=False)
+
+
+def _on_shards(step: Callable) -> Callable:
+    """The optimizer's ``step`` on trees that may hold DTensors: the inner
+    ``step(grads, state, params, lr, scale, shards)`` runs on the local
+    blocks (views), with each parameter leaf's ``LeafShards`` (None where
+    no mesh dim of size > 1 cuts it); the returned state keeps the given
+    DTensors, which it updated in place."""
+
+    def run(grads, state, params, lr, scale=None):
+        shards = [LeafShards.of(p) for p in _leaves(params)]
+        new = step(_local(grads), _local(state), _local(params), lr, scale, shards)
+        return _map(lambda old, n: old if isinstance(old, DTensor) else n, state, new)
+
+    return run
 
 
 def momentum(mu: float = 0.9, nesterov: bool = False) -> Optimizer:
@@ -219,11 +287,11 @@ def momentum(mu: float = 0.9, nesterov: bool = False) -> Optimizer:
         ms = [(m,) for m in _leaves(state)]
         return _unflatten(params, upd(_leaves(grads), ms, _leaves(params), lr)), state
 
-    def step(grads, state, params, lr, scale=None):
+    def step(grads, state, params, lr, scale, shards):
         stp(_leaves(grads), [(m,) for m in _leaves(state)], _leaves(params), lr, scale)
         return state
 
-    return Optimizer(init, update, step)
+    return Optimizer(init, update, _on_shards(step))
 
 
 def _f32_scalar(x: torch.Tensor) -> float:
@@ -265,12 +333,12 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         state, mv, k = advance(state, lr)
         return _unflatten(params, upd(_leaves(grads), mv, _leaves(params), k)), state
 
-    def step(grads, state, params, lr, scale=None):
+    def step(grads, state, params, lr, scale, shards):
         state, mv, k = advance(state, lr)
         stp(_leaves(grads), mv, _leaves(params), k, scale)
         return state
 
-    return Optimizer(init, update, step)
+    return Optimizer(init, update, _on_shards(step))
 
 
 # ---------------------------------------------------------------------------
@@ -337,13 +405,13 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.
         return (len(shape) >= 2 and shape[-1] >= min_dim_factored
                 and shape[-2] >= min_dim_factored)
 
-    def plan(params) -> List[Tuple[List[int], bool, bool]]:
+    def plan(params, shapes) -> List[Tuple[List[int], bool, bool]]:
         """(group, factored, sliced) for every group of ``stacked_groups``,
-        decided from the reference's stacked shape."""
-        leaves = _leaves(params)
+        decided from the reference's stacked shape (``shapes``: each
+        leaf's global shape)."""
         out = []
         for group in stacked_groups(params):
-            shape = tuple(leaves[group[0]].shape)
+            shape = tuple(shapes[group[0]])
             stacked = shape if len(group) == 1 else (len(group),) + shape
             fac = factored(stacked)
             if fac != factored(shape):
@@ -357,39 +425,52 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.
 
     def init(params):
         facs = {}
-        for group, fac, _ in plan(params):
+        for group, fac, _ in plan(params, [p.shape for p in _leaves(params)]):
             for i in group:
                 facs[i] = fac
         it = iter(range(len(facs)))
 
         def one(p):
             if facs[next(it)]:
-                return {"row": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
-                        "col": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
-                                           device=p.device)}
+                return {"row": _zeros_f32(p, drop=-1), "col": _zeros_f32(p, drop=-2)}
             return {"v": _zeros_f32(p)}
 
         return {"step": torch.zeros((), dtype=torch.int32), "states": _map(one, params)}
 
-    def factored_unit(pieces, beta, omb, lr, scale, round_u, sink):
+    def factored_unit(pieces, beta, omb, lr, scale, round_u, sink, sh):
         """Pieces (g, dst, dtype, row, col) of one RMS unit: the row and
         column means of g^2 + eps, the update's sum of squares, then the
         update into ``sink(dst chunk, u)``, each pass a chunk at a time
-        (the update is formed twice)."""
+        (the update is formed twice). ``sh``: how the pieces' dims are cut
+        across ranks (None: not at all); a cut row or column dim makes
+        its mean a sum over the ranks that hold its other blocks."""
+        cut_c = sh is not None and sh.parts((-1,)) > 1
+        cut_r = sh is not None and sh.parts((-2,)) > 1
         mats = []
         for g, dst, dtype, row, col in pieces:
             R, C = dst.shape[-2:]
             g3, d3 = g.contiguous().view(-1, R, C), _flat(dst).view(-1, R, C)
             row2, col2 = _flat(row).view(-1, R), _flat(col).view(-1, C)
             col_sum = torch.zeros_like(col2)
+            row_sum = torch.zeros_like(row2) if cut_c else None
             chunks = _matrix_chunks(tuple(g3.shape))
             for ns, rs in chunks:
                 gf = _clipped(g3[ns, rs], scale)
                 g2 = gf * gf + eps
-                row2[ns, rs].mul_(beta).add_(omb * g2.mean(dim=-1))
+                if cut_c:
+                    row_sum[ns, rs] = g2.sum(dim=-1)
+                else:
+                    row2[ns, rs].mul_(beta).add_(omb * g2.mean(dim=-1))
                 col_sum[ns] += g2.sum(dim=-2)
-            col2.mul_(beta).add_(omb * (col_sum / R))
-            r = row2 / torch.clamp(row2.mean(dim=-1, keepdim=True), min=eps)
+            if cut_c:
+                row2.mul_(beta).add_(omb * (sh.sum_(row_sum, (-1,)) / (C * sh.parts((-1,)))))
+            if cut_r:
+                col2.mul_(beta).add_(omb * (sh.sum_(col_sum, (-2,)) / (R * sh.parts((-2,)))))
+                rmean = sh.sum_(row2.sum(dim=-1, keepdim=True), (-2,)) / (R * sh.parts((-2,)))
+            else:
+                col2.mul_(beta).add_(omb * (col_sum / R))
+                rmean = row2.mean(dim=-1, keepdim=True)
+            r = row2 / torch.clamp(rmean, min=eps)
             mats.append((g3, d3, dtype, r, col2, chunks))
 
         def u_of(g3, r, col2, ns, rs):
@@ -398,10 +479,12 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.
 
         sumsq = count = 0
         for g3, _, _, r, col2, chunks in mats:
-            count += g3.numel()
+            count += g3.numel() * (sh.parts() if sh is not None else 1)
             for ns, rs in chunks:
                 u = u_of(g3, r, col2, ns, rs)
                 sumsq = sumsq + torch.sum(u * u)
+        if sh is not None:
+            sumsq = sh.sum_(sumsq)
         denom = torch.clamp(torch.sqrt(sumsq / count) / clip_threshold, min=1.0)
         for g3, d3, dtype, r, col2, chunks in mats:
             for ns, rs in chunks:
@@ -410,26 +493,28 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.
                     u = u.to(dtype).float()
                 sink(d3[ns, rs], -lr * u)
 
-    def full_unit(pieces, beta, omb, lr, scale, sink):
+    def full_unit(pieces, beta, omb, lr, scale, sink, sh):
         """Pieces (g, dst, v) of one RMS unit with a full second moment."""
         def u_of(gc, vc):
             return _clipped(gc, scale) / torch.sqrt(torch.clamp(vc, min=eps))
 
         sumsq = count = 0
         for g, _, v in pieces:
-            count += g.numel()
+            count += g.numel() * (sh.parts() if sh is not None else 1)
             for gc, vc in zip(_flat_chunks(g.contiguous()), _flat_chunks(_flat(v))):
                 gf = _clipped(gc, scale)
                 vc.mul_(beta).add_(omb * (gf * gf + eps))
                 u = u_of(gc, vc)
                 sumsq = sumsq + torch.sum(u * u)
+        if sh is not None:
+            sumsq = sh.sum_(sumsq)
         denom = torch.clamp(torch.sqrt(sumsq / count) / clip_threshold, min=1.0)
         for g, dst, v in pieces:
             for gc, vc, dc in zip(_flat_chunks(g.contiguous()), _flat_chunks(_flat(v)),
                                   _flat_chunks(_flat(dst))):
                 sink(dc, -lr * (u_of(gc, vc) / denom))
 
-    def run(grads, state, params, dsts, lr, scale, sink):
+    def run(grads, state, params, dsts, lr, scale, sink, shards):
         """One step: every update lands in ``sink(chunk of dsts, f32 u)``."""
         step = state["step"] + 1
         beta_t = 1.0 - torch.pow(step.float(), -decay)
@@ -437,10 +522,12 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.
         gl, pl, dl = _leaves(grads), _leaves(params), _leaves(dsts)
         sl: List[dict] = []
         _map(lambda p, s: sl.append(s), params, state["states"])
-        for group, fac, sliced in plan(params):
+        shapes = [sh.shape if sh is not None else p.shape for sh, p in zip(shards, pl)]
+        for group, fac, sliced in plan(params, shapes):
+            sh = shards[group[0]]
             if not fac:
                 full_unit([(gl[i], dl[i], sl[i]["v"]) for i in group],
-                          beta, omb, lr, scale, sink)
+                          beta, omb, lr, scale, sink, sh)
                 continue
             pieces = [(gl[i], dl[i], pl[i].dtype, sl[i]["row"], sl[i]["col"]) for i in group]
             if not sliced:
@@ -450,20 +537,22 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.
             else:
                 g, d, dtype, row, col = pieces[0]        # a slice is a leading entry
                 units = [[(g[j], d[j], dtype, row[j], col[j])] for j in range(d.shape[0])]
+                sh = sh.drop(0) if sh is not None else None
             for unit in units:
-                factored_unit(unit, beta, omb, lr, scale, sliced, sink)
+                factored_unit(unit, beta, omb, lr, scale, sliced, sink, sh)
         return {"step": step, "states": state["states"]}
 
     def update(grads, state, params, lr):
         updates = _map(_zeros_f32, params)
-        state = run(grads, state, params, updates, lr, None, lambda d, u: d.copy_(u))
+        state = run(grads, state, params, updates, lr, None, lambda d, u: d.copy_(u),
+                    [None] * len(_leaves(params)))
         return updates, state
 
-    def step(grads, state, params, lr, scale=None):
+    def step(grads, state, params, lr, scale, shards):
         return run(grads, state, params, params, lr, scale,
-                   lambda d, u: d.add_(u.to(d.dtype)))
+                   lambda d, u: d.add_(u.to(d.dtype)), shards)
 
-    return Optimizer(init, update, step)
+    return Optimizer(init, update, _on_shards(step))
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

@@ -19,7 +19,13 @@ Guarantees:
     bit-exact;
   * resume     — ``restore_latest`` reloads (state, extras) into the
     structure, dtypes and devices of a given tree;
-  * retention  — keep_last N checkpoints, older ones pruned post-save.
+  * retention  — keep_last N checkpoints, older ones pruned post-save;
+  * meshes     — a tree of DTensors is saved as full leaves: every rank
+    gathers them (a collective), rank 0 writes, and the others wait at a
+    barrier until the write is done. ``restore`` lays each full leaf out
+    as its ``like`` leaf is laid out, on that leaf's own mesh, so a
+    checkpoint written on one mesh restores onto another (an elastic
+    restart).
 """
 
 from __future__ import annotations
@@ -30,11 +36,14 @@ import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.sharding import full_value, local_block
 from repro_torch.models.layers import tree_map
 
 __all__ = ["CheckpointError", "CheckpointManager", "CHECKPOINT_SCHEMA"]
@@ -102,13 +111,27 @@ class CheckpointManager:
         self.keep_last = keep_last
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False
 
     # -- save ---------------------------------------------------------------
+    @staticmethod
+    def _host_copy(state) -> Tuple[Dict[str, torch.Tensor], bool]:
+        """(every leaf, full, copied to host memory; whether the tree holds
+        DTensors, whose gathering every rank joins)."""
+        flat = _flatten_with_paths(state)
+        meshed = any(isinstance(v, DTensor) for v in flat.values())
+        return {k: full_value(v).detach().to(
+            "cpu", copy=True) for k, v in flat.items()}, meshed
+
     def save(self, step: int, state, extras: Optional[dict] = None) -> Path:
         """Synchronous atomic save of a tensor tree + json-serializable extras."""
-        flat = {k: v.detach().to("cpu", copy=True)
-                for k, v in _flatten_with_paths(state).items()}
-        return self._write(step, flat, extras)
+        flat, meshed = self._host_copy(state)
+        final = self.root / f"step_{step:09d}"
+        if not meshed or dist.get_rank() == 0:
+            final = self._write(step, flat, extras)
+        if meshed:
+            dist.barrier()
+        return final
 
     def _write(self, step: int, flat: Dict[str, torch.Tensor], extras) -> Path:
         tmp = self.root / f".tmp_step_{step:09d}_{os.getpid()}"
@@ -138,8 +161,9 @@ class CheckpointManager:
     def save_async(self, step: int, state, extras: Optional[dict] = None):
         """Copy every tensor to host memory now; write in the background."""
         self.wait()  # one in-flight save at a time
-        flat = {k: v.detach().to("cpu", copy=True)
-                for k, v in _flatten_with_paths(state).items()}
+        flat, self._barrier = self._host_copy(state)
+        if self._barrier and dist.get_rank() != 0:
+            return
 
         def work():
             try:
@@ -154,6 +178,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -174,10 +201,14 @@ class CheckpointManager:
                 "step_NNNNNNNNN directory name"
             ) from e
 
-    def restore(self, step: int, like) -> Tuple[Any, dict]:
+    def restore(self, step: int, like, device_put_fn: Optional[Callable] = None
+                ) -> Tuple[Any, dict]:
         """Restore into the structure of ``like`` (a tree of tensors): each
         leaf comes back with the stored bits, on the device of its
-        ``like`` leaf, which it must match in shape and dtype."""
+        ``like`` leaf, which it must match in shape and dtype; a DTensor
+        leaf comes back laid out as it is, on its mesh.
+        ``device_put_fn(leaf, like_leaf)``, when given, places each full
+        host leaf instead (the reference's elastic-restart hook)."""
         d = self.root / f"step_{step:09d}"
         if not d.is_dir():
             raise CheckpointError(f"no checkpoint directory at {d}")
@@ -215,15 +246,22 @@ class CheckpointManager:
                 raise CheckpointError(
                     f"checkpoint {d} leaf {key} is {t.dtype} {tuple(t.shape)}, "
                     f"expected {leaf.dtype} {tuple(leaf.shape)}")
-            out[key] = t.to(leaf.device)
+            if device_put_fn is not None:
+                out[key] = device_put_fn(t, leaf)
+            elif isinstance(leaf, DTensor):
+                out[key] = DTensor.from_local(
+                    local_block(t, leaf.device_mesh, leaf.placements).to(leaf.to_local().device),
+                    leaf.device_mesh, leaf.placements, run_check=False)
+            else:
+                out[key] = t.to(leaf.device)
         leaves = iter(out[k] for k in want)
         return tree_map(lambda _: next(leaves), like, is_leaf=torch.is_tensor), meta["extras"]
 
-    def restore_latest(self, like):
+    def restore_latest(self, like, device_put_fn: Optional[Callable] = None):
         step = self.latest_step()
         if step is None:
             return None
-        state, extras = self.restore(step, like)
+        state, extras = self.restore(step, like, device_put_fn)
         return step, state, extras
 
     # -- internals ------------------------------------------------------------

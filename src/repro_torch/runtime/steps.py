@@ -1,12 +1,13 @@
-"""Step functions (port of ``repro.runtime.steps``): the train step and
-the serving slot steps (prefill, decode, and the speculative verify and
-replay).
+"""Step functions (port of ``repro.runtime.steps``): the train step, the
+prefill, decode and init builders, and the serving slot steps (prefill,
+decode, and the speculative verify and replay).
 
 Plain functions, no tracing: PyTorch runs eagerly, so each step is the
 model call itself. The fastest-k worker mask, occupancy and ragged
-lengths enter as data, as in the reference. The train step is
-single-device: the reference's sharding arguments wait for the
-multi-device slice.
+lengths enter as data, as in the reference. The train step also runs on
+a mesh (``repro_torch.dist.sharding``): see ``make_train_step``. The
+prefill, decode and init builders are single-device, as the reference
+runs them only through its dry run.
 """
 
 from __future__ import annotations
@@ -14,14 +15,22 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.dist.collectives import contributors, masked_weighted_ce
+from repro_torch.dist.collectives import contributors, example_weights, masked_weighted_ce
+from repro_torch.dist.sharding import (
+    current_context, full_value, land, row_split, split_rows, split_sum,
+)
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer, chunked_global_norm, clip_scale
 
-__all__ = ["train_loss_fn", "make_train_step", "make_slot_prefill_step",
-           "make_slot_decode_step", "make_slot_verify_step", "make_slot_replay_step"]
+__all__ = ["train_loss_fn", "make_train_step", "make_prefill_step", "make_decode_step",
+           "make_init_fn", "make_slot_prefill_step", "make_slot_decode_step",
+           "make_slot_verify_step", "make_slot_replay_step"]
+
+#: Fields of a batch with one entry a row.
+_ROWS = ("inputs", "labels", "mask")
 
 
 def _unflatten(like, leaves: List[torch.Tensor]):
@@ -35,7 +44,8 @@ def train_loss_fn(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
     loss for an MoE, plus 0.3 times DeepSeek's multi-token-prediction loss
     with ``cfg.mtp``. As in the reference, the MTP term is masked by
     ``batch["mask"]`` alone, not by ``worker_mask``: the stragglers' rows
-    enter it."""
+    enter it. Under a row split every term is this rank's share of the
+    global one (the normalizers are global)."""
     cfg = model.cfg
     inputs, labels = batch["inputs"], batch["labels"]
     positions = torch.arange(labels.shape[1], device=labels.device)
@@ -54,7 +64,8 @@ def train_loss_fn(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
 
 
 def make_train_step(model: Model, optimizer: Optimizer, *,
-                    clip_norm: Optional[float] = 1.0, accum_steps: int = 1) -> Callable:
+                    clip_norm: Optional[float] = 1.0, accum_steps: int = 1,
+                    param_shardings=None, gather_shardings=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics), with
     batch = {inputs, labels, [mask], worker_mask, lr}.
 
@@ -68,7 +79,30 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
     optimizer's ``step`` updates the parameters and its state IN PLACE,
     a leaf at a time (see ``repro_torch.optim``): the returned params
     are the given tensors. The metrics are ``loss``, ``ce``, ``aux``,
-    ``denom``, ``grad_norm`` and ``contributors`` as 0-dim tensors."""
+    ``denom``, ``grad_norm`` and ``contributors`` as 0-dim tensors.
+
+    On a mesh: inside an ``activation_sharding`` context whose mesh has
+    more than one rank, or with DTensor params, every rank is given the
+    same global batch and
+      * gathers each parameter to its full value once a step (the
+        reference's ZeRO-1 discipline, reused by every microbatch);
+      * runs the single-device loss on its own rows of each microbatch
+        (``row_split``: ``batch_pspec``'s block at its coordinate; ranks
+        along other axes, and along axes ``batch_pspec`` relaxed, compute
+        the same rows), as plain tensors, so the kernels see plain
+        tensors; the normalizers are global, so its loss is its share;
+      * sums the gradients over the data axes it split and lands each in
+        its parameter's placements (``Partial`` -> the parameter's, a
+        reduce-scatter where the parameter is sharded);
+      * takes the norm from local squares summed over the mesh dims that
+        shard each leaf, and steps the local blocks in place.
+    The metrics are the global ones, the same on every rank.
+    ``param_shardings`` (NamedShardings matching params) names the
+    gradients' layout, which must be the params' own. ``gather_shardings``
+    is accepted; the step always gathers to full values, as the
+    reference's TP-only gather layout has no counterpart until
+    tensor-parallel compute exists."""
+    del gather_shardings
 
     def grads_of(params, batch) -> Tuple[torch.Tensor, Dict, list]:
         """loss, metrics and the gradient tree (in the params' dtypes)."""
@@ -79,8 +113,13 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 _unflatten(params, list(grads)))
 
-    def grads_accum(params, batch):
+    def micro_batches(batch) -> List[Dict]:
+        """The A microbatches: each worker's rows spread evenly over them.
+        Row fields (and per-row weights ``row_w``) are split; the worker
+        mask goes to every microbatch."""
         A = accum_steps
+        if A == 1:
+            return [batch]
         n = batch["worker_mask"].shape[0]
         bw = batch["inputs"].shape[0] // n
         if bw % A:
@@ -90,15 +129,16 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
             x = x.reshape(n, A, bw // A, *x.shape[1:]).transpose(0, 1)
             return x.reshape(A, n * (bw // A), *x.shape[3:])
 
-        mb = {k: resh(batch[k]) for k in ("inputs", "labels", "mask")
-              if batch.get(k) is not None}
+        mb = {k: resh(batch[k]) for k in _ROWS + ("row_w",) if batch.get(k) is not None}
+        return [dict({k: v[a] for k, v in mb.items()}, worker_mask=batch["worker_mask"])
+                for a in range(A)]
+
+    def grads_accum(params, micros):
         gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                         params, is_leaf=torch.is_tensor)
-        dev = batch["labels"].device
+        dev = micros[0]["labels"].device
         lsum = dsum = auxsum = torch.zeros((), dtype=torch.float32, device=dev)
-        for a in range(A):
-            micro = {k: v[a] for k, v in mb.items()}
-            micro["worker_mask"] = batch["worker_mask"]
+        for micro in micros:
             loss, metrics, grads = grads_of(params, micro)
             w = metrics["denom"]
             gsum = tree_map(lambda s, g: s + w * g.float(), gsum, grads,
@@ -109,13 +149,61 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         dsum = torch.clamp(dsum, min=1.0)
         grads = tree_map(lambda g: g / dsum, gsum, is_leaf=torch.is_tensor)
         loss = lsum / dsum
-        return loss, {"ce": loss, "aux": auxsum / A, "denom": dsum}, grads
+        return loss, {"ce": loss, "aux": auxsum / len(micros), "denom": dsum}, grads
+
+    def grads_for(params, micros):
+        if len(micros) == 1:
+            return grads_of(params, micros[0])
+        return grads_accum(params, micros)
+
+    def targets(leaves, mesh):
+        """Each parameter's placements, checked against ``param_shardings``."""
+        want = ([sh.placements for sh in tree_leaves(param_shardings)]
+                if param_shardings is not None else [None] * len(leaves))
+        out = []
+        for p, pl in zip(leaves, want):
+            own = p.placements if isinstance(p, DTensor) else (Replicate(),) * mesh.ndim
+            if pl is not None and tuple(pl) != tuple(own):
+                raise ValueError(f"a parameter laid out {own} where param_shardings says "
+                                 f"{tuple(pl)}: distribute it with shard_tree first")
+            out.append(own)
+        return out
+
+    def sharded_grads(params, batch, ctx):
+        mesh = ctx.mesh
+        leaves = tree_leaves(params, is_leaf=torch.is_tensor)
+        places = targets(leaves, mesh)
+        full = _unflatten(params, [full_value(p) for p in leaves])
+        wm = batch.get("worker_mask")
+        rows = dict(batch)
+        if wm is not None:
+            rows["row_w"] = example_weights(wm, batch["inputs"].shape[0])
+        micros = micro_batches(rows)
+        split = row_split(mesh, micros[0]["inputs"].shape[0], ctx.dp)
+        local = []
+        for micro in micros:
+            m = {k: micro[k][split.rows] for k in _ROWS if micro.get(k) is not None}
+            if wm is not None:
+                # One "worker" a row: the rank's rows need not be whole workers.
+                m["worker_mask"] = micro["row_w"][split.rows]
+            local.append(m)
+        with split_rows(split):
+            loss, metrics, grads = grads_for(full, local)
+            loss = split_sum(loss)
+            metrics = dict(metrics, ce=split_sum(metrics["ce"]), aux=split_sum(metrics["aux"]))
+        out = []
+        for g, p, pl in zip(tree_leaves(grads, is_leaf=torch.is_tensor), leaves, places):
+            g = land(g, mesh, split.axes, pl)
+            out.append(g if isinstance(p, DTensor) else g.to_local())
+        return loss, metrics, _unflatten(params, out)
 
     def train_step(params, opt_state, batch):
-        if accum_steps > 1:
-            loss, metrics, grads = grads_accum(params, batch)
+        ctx = current_context()
+        if ctx is not None and (ctx.mesh.size() > 1 or any(
+                isinstance(p, DTensor) for p in tree_leaves(params, is_leaf=torch.is_tensor))):
+            loss, metrics, grads = sharded_grads(params, batch, ctx)
         else:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = grads_for(params, micro_batches(batch))
         gnorm = chunked_global_norm(grads)
         scale = clip_scale(gnorm, clip_norm) if clip_norm is not None else None
         with torch.no_grad():
@@ -129,6 +217,36 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(model: Model) -> Callable:
+    """(params, inputs (B, S)) -> the last position's logits (B, 1, V)."""
+
+    @torch.no_grad()
+    def prefill_step(params, inputs):
+        return model.prefill(params, inputs)
+
+    return prefill_step
+
+
+def make_decode_step(model: Model) -> Callable:
+    """(params, token (B, 1), caches, cache_index) -> (logits, caches)."""
+
+    @torch.no_grad()
+    def decode_step(params, token, caches, cache_index):
+        return model.decode_step(params, token, caches, cache_index)
+
+    return decode_step
+
+
+def make_init_fn(model: Model, optimizer: Optimizer, *, device="cuda") -> Callable:
+    """(seed) -> (params, opt_state) on ``device``."""
+
+    def init(seed: int):
+        params = model.init(seed, device=device)
+        return params, optimizer.init(params)
+
+    return init
 
 
 def make_slot_prefill_step(model: Model) -> Callable:

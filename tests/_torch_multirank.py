@@ -1,0 +1,242 @@
+"""The ranks of ``tests/test_torch_multirank.py``: 8 gloo processes on the
+CPU run the port's multi-rank paths on a (4, 2) ("data", "model") mesh.
+
+    python tests/_torch_multirank.py DIR
+
+``DIR/in.npz`` and ``DIR/in.json`` (written by the test) hold each
+case's initial parameters and batches; every rank runs every case, and
+rank 0 writes the results to ``DIR/out.npz`` and ``DIR/out.json``. The
+parent computes the reference's numbers; this file imports only torch,
+numpy and the port (the test imports ``CASES``, ``cut`` and ``loop_setup``
+from it to build the same configs on both sides).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+WORLD, MESH, MESH2 = 8, (4, 2), (2, 4)
+AXES = ("data", "model")
+N_WORKERS, ROWS, SEQ = 8, 16, 16
+#: The step cases: (a) a step of AdamW whose mask drops both workers of
+#: data rank 1 (rows 4-7); (b) qwen3-moe with capacity drops (capacity
+#: factor 0.5: half of the mean expert load) under the flat and the
+#: grouped dispatch; (c) deepseek-v3 at 3 layers, its MTP loss, Adafactor;
+#: (d) one step each of SGD and momentum.
+CASES = {
+    "a": dict(arch="smollm-135m", over={}, opt="adamw", lr=1e-3, steps=3, drop=(2, 3)),
+    "b_data": dict(arch="qwen3-moe-30b-a3b",
+                   over={"moe": {"capacity_factor": 0.5, "dispatch": "data"}},
+                   opt="sgd", lr=0.1, steps=2, drop=(5,)),
+    "b_grouped": dict(arch="qwen3-moe-30b-a3b",
+                      over={"moe": {"capacity_factor": 0.5, "dispatch": "grouped"}},
+                      opt="sgd", lr=0.1, steps=2, drop=(5,)),
+    "c": dict(arch="deepseek-v3", over={"n_layers": 3}, opt="adafactor", lr=1e-3, steps=2,
+              drop=(0,)),
+    "d_sgd": dict(arch="smollm-135m", over={}, opt="sgd", lr=0.1, steps=1, drop=(6,)),
+    "d_momentum": dict(arch="smollm-135m", over={}, opt="momentum", lr=0.1, steps=1,
+                       drop=(6,)),
+}
+#: The loop: 6 steps, worker 1 fails at step 1 and rejoins at step 4.
+#: Seven workers' batches are 14 rows at beta 0.5, which 4 data ranks do
+#: not divide (the relaxed split: every rank computes every row), and 28
+#: at beta 1 (7 rows a rank, across workers' boundaries).
+LOOP_STEPS, LOOP_EVENTS = 6, [(1, "fail", 1), (4, "rejoin", 1)]
+#: The pipeline: the reference test's case (L 8, D 16, 6 x 4 microbatches).
+PIPE_L, PIPE_D, PIPE_MICRO, PIPE_MB = 8, 16, 6, 4
+
+
+def cut(cfg, over: dict):
+    """``cfg.reduced()`` with ``over``'s top-level fields and, under
+    ``"moe"``, MoE fields; works on either package's configs."""
+    over = dict(over)
+    moe = over.pop("moe", None)
+    cfg = cfg.reduced(**over)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+    return cfg
+
+
+def loop_setup(core, data, vocab: int):
+    """Strategy, delay model and batcher of the loop case, from the given
+    package's copies."""
+    st = core.StrategyConfig(
+        "adaptive_kbeta", n=N_WORKERS, s=4, k_max=4, beta_grid=(0.5, 1.0),
+        diagnostic=core.DiagnosticConfig(kind="loss", rel_tol=0.05, min_iters=2,
+                                         consecutive=1))
+    batcher = data.StagedBatcher(data.TokenStream(vocab, seed=0), n_workers=N_WORKERS,
+                                 global_batch=4 * N_WORKERS, seq_len=SEQ)
+    return st, core.SimplifiedDelayModel(lambda_y=1.0, x=0.05), batcher
+
+
+def _leaves(tree):
+    from repro_torch.models.layers import tree_leaves
+    return tree_leaves(tree, is_leaf=torch.is_tensor)
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _replicas_equal(tree, mesh) -> bool:
+    """Every block of every DTensor leaf holds the same bits on every rank
+    that holds it (ranks that differ only along mesh dims not sharding
+    it)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    mine = []
+    for t in _leaves(tree):
+        if not isinstance(t, DTensor):
+            mine.append((None, t.detach().numpy().tobytes()))
+            continue
+        coord = mesh.get_coordinate()
+        key = tuple(c if pl.is_shard() else None for c, pl in zip(coord, t.placements))
+        mine.append((key, t.to_local().detach().contiguous().numpy().tobytes()))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    seen = {}
+    for leaves in every:
+        for i, (key, data) in enumerate(leaves):
+            if seen.setdefault((i, key), data) != data:
+                return False
+    return True
+
+
+def run_step_case(name, spec, src, mesh, out, meta):
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import activation_sharding, make_sharding_fn, shard_tree
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ParamSpec, tree_map
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = cut(get_config(spec["arch"]), spec["over"])
+    model = Model(cfg)
+    like = model.init(0, device="cpu")
+    it = iter(range(len(_leaves(like))))
+    params = tree_map(lambda t: torch.from_numpy(src[f"{name}/p{next(it)}"]).to(t.dtype),
+                      like, is_leaf=torch.is_tensor)
+    shardings = tree_map(make_sharding_fn(mesh), model.param_specs(),
+                         is_leaf=lambda x: isinstance(x, ParamSpec))
+    params = shard_tree(params, shardings)
+    opt = get_optimizer(spec["opt"])
+    state = opt.init(params)
+    step = make_train_step(model, opt, param_shardings=shardings)
+    metrics = {k: [] for k in ("loss", "ce", "aux", "denom", "grad_norm", "contributors")}
+    with activation_sharding(mesh):
+        for s in range(spec["steps"]):
+            batch = {k: torch.from_numpy(src[f"{name}/{k}"][s])
+                     for k in ("inputs", "labels", "mask", "worker_mask")}
+            batch["lr"] = spec["lr"]
+            params, state, m = step(params, state, batch)
+            for k in metrics:
+                metrics[k].append(float(m[k]))
+    for i, p in enumerate(_leaves(params)):
+        out[f"{name}/p{i}"] = _full(p).numpy()
+    meta[name] = {"metrics": metrics, "replicas_equal": _replicas_equal(params, mesh),
+                  "state_replicas_equal": _replicas_equal(state, mesh)}
+
+
+def run_pipeline(src, mesh, out, meta):
+    from repro_torch.dist.pipeline_parallel import pipeline_forward, stage_params
+
+    Ws, x = torch.from_numpy(src["pipe/W"]), torch.from_numpy(src["pipe/x"])
+    with torch.no_grad():
+        out["pipe/out"] = pipeline_forward(lambda W, h: torch.tanh(h @ W),
+                                           stage_params(Ws, 4), x, mesh).numpy()
+    try:
+        pipeline_forward(lambda W, h: h, stage_params(Ws, 2), x, mesh)
+    except ValueError as e:
+        meta["pipe_mismatch"] = str(e)
+
+
+def run_constrain(mesh, meta):
+    """A DTensor activation under the context: ``constrain_batch`` shards
+    its rows over "data"; ``constrain_logical`` shards an "embed" dim
+    over "data" and an "act_batch" dim over "data" as well."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist.sharding import activation_sharding, constrain_batch, constrain_logical
+
+    x = DTensor.from_local(torch.arange(8 * 8, dtype=torch.float32).reshape(8, 8), mesh,
+                           [Replicate(), Replicate()])
+    with activation_sharding(mesh):
+        b = constrain_batch(x)
+        e = constrain_logical(x, (None, "embed"))
+    meta["constrain"] = {"batch": [repr(p) for p in b.placements],
+                         "batch_local": list(b.to_local().shape),
+                         "batch_equal": bool(torch.equal(b.full_tensor(), x.full_tensor())),
+                         "embed": [repr(p) for p in e.placements],
+                         "embed_local": list(e.to_local().shape)}
+
+
+def run_loops(d: Path, mesh, meta):
+    from repro_torch import core, data
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime import FaultEvent, TrainLoopConfig, train
+
+    cfg = get_config("smollm-135m").reduced()
+
+    def loop(steps, mesh, **kw):
+        st, delay, batcher = loop_setup(core, data, cfg.vocab_size)
+        res = train(Model(cfg), get_optimizer("adamw"), st, delay, batcher,
+                    TrainLoopConfig(total_steps=steps, log_every=0, lr=3e-3,
+                                    events=[FaultEvent(*e) for e in LOOP_EVENTS], **kw),
+                    device="cpu", mesh=mesh)
+        return res["history"], [list(s) for s in res["compiled_shapes"]]
+
+    meta["loop"], meta["loop_shapes"] = loop(LOOP_STEPS, mesh)
+    ckpt = dict(checkpoint_dir=str(d / "ckpt"), checkpoint_every=3)
+    meta["loop_first"], _ = loop(3, mesh, **ckpt)
+    meta["loop_resumed"], _ = loop(LOOP_STEPS, make_mesh(MESH2, AXES, device="cpu"), **ckpt)
+
+
+def rank_main(rank: int, d: str) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    d = Path(d)
+    dist.init_process_group("gloo", init_method=f"file://{d / 'pg'}", rank=rank,
+                            world_size=WORLD)
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.runtime.train_loop import _check_ranks_agree
+
+    mesh = make_mesh(MESH, AXES, device="cpu")
+    src = np.load(d / "in.npz")
+    out, meta = {}, {}
+    try:
+        for name, spec in CASES.items():
+            run_step_case(name, spec, src, mesh, out, meta)
+        run_pipeline(src, mesh, out, meta)
+        run_constrain(mesh, meta)
+        run_loops(d, mesh, meta)
+        try:
+            _check_ranks_agree(0, [float(rank == 3)], torch.device("cpu"))
+        except RuntimeError as e:
+            meta["digest_error"] = str(e)
+    except Exception:
+        (d / f"error_{rank}.txt").write_text(traceback.format_exc())
+        raise
+    if rank == 0:
+        np.savez(d / "out.npz", **out)
+        (d / "out.json").write_text(json.dumps(meta))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    import torch.multiprocessing as mp
+
+    mp.spawn(rank_main, args=(sys.argv[1],), nprocs=WORLD, join=True)

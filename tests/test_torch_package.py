@@ -4,6 +4,7 @@ by default, and its chip smoke test refuses to run without a card."""
 
 import ast
 import dataclasses
+import inspect
 import os
 import shutil
 import subprocess
@@ -16,6 +17,7 @@ import torch
 from repro.configs import get_config as ref_config
 from repro_torch import resolve_device
 from repro_torch.configs import ALIASES, ARCHS, get_config
+from repro_torch.dist.sharding import make_mesh
 from repro_torch.models import Model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +46,9 @@ missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
            "repro_torch.models.xlstm", "repro_torch.core.error_model",
            "repro_torch.core.switching", "repro_torch.core.schedule",
            "repro_torch.core.simulation", "repro_torch.core.vector_sim",
-           "repro_torch.dist.compression", "tools.chaos_search_torch"} - set(sys.modules)
+           "repro_torch.dist.compression", "tools.chaos_search_torch",
+           "repro_torch.dist.sharding", "repro_torch.dist.pipeline_parallel",
+           "repro_torch.configs.shapes"} - set(sys.modules)
 assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
@@ -137,3 +141,21 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
         out, _ = proc.communicate(timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in out
+
+
+def test_make_mesh_defaults_to_the_card_and_never_falls_back(tmp_path):
+    """``make_mesh`` defaults to "cuda"; a CUDA mesh over a gloo group
+    raises instead of running on another backend, a CPU mesh over gloo
+    is built, and a mesh must cover the world."""
+    assert inspect.signature(make_mesh).parameters["device"].default == "cuda"
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                                         rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="nccl"):
+            make_mesh((1,), ("data",))
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            make_mesh((2,), ("data",), device="cpu")
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        assert mesh.mesh_dim_names == ("data", "model")
+    finally:
+        torch.distributed.destroy_process_group()
