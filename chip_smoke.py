@@ -283,6 +283,18 @@ runs, in order, and exits non-zero at the first phase that fails:
    step's gather, gradient landing and norm timed on llama's tree; K1 and
    K2 held at the step's shapes; and one plain and one sharded step
    profiled (wall and device ms, launches, NCCL kernels, peak memory);
+25. llama3.2-1b at full width and depth, bf16, world 1: phase 24's train
+   step and the contiguous decode step (B 4, its last row of a 1024-row
+   cache) each traced on meta tensors under ``analysis.op_cost`` and run
+   on the card under it: FLOPs, bytes and every kernel's reported work
+   must be equal, each kernel's launches equal to its reports, the card's
+   peak (``max_memory_allocated``) within 0.8-1.25 of the meta count's;
+   each step timed (median of 5 after a warm-up: CUDA events and the host
+   clock) and profiled once, and the roofline's compute term (FLOPs at
+   989 TFLOP/s) must not exceed the profiled kernel time; K3 held at the
+   decode step's shape; and the dry run's production cell
+   (``python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape
+   train_4k``) in a subprocess, its artifact printed;
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
@@ -290,8 +302,8 @@ phase 17 under ``phase17_launches`` and in phase 18 under
 ``phase18_launches``, in phase 19 under ``phase19_launches`` and in
 phase 20 under ``phase20_launches``, in phase 21 under
 ``phase21_launches``, in phase 22 under ``phase22_launches``, in
-phase 23 under ``phase23_launches`` and in phase 24 under
-``phase24_launches``; then K4 again at block 8, the chaos
+phase 23 under ``phase23_launches``, in phase 24 under
+``phase24_launches`` and in phase 25 under ``phase25_launches``; then K4 again at block 8, the chaos
 fleet's geometry, with its times there and its launches in phase 23, and
 K1's forward and backward at D 80, hubert's main path, with their
 times at its shape and their launches in phase 22; the profiles under
@@ -310,6 +322,7 @@ under ``observed_serve`` and ``fleet``, phase 19's under ``gqa_configs``,
 phase 20's under ``mla_xlstm``, phase 21's under ``mla_xlstm_train``,
 phase 22's under ``hubert_train`` and ``sim_engines``, phase 23's under
 ``chaos_search`` and ``compression``, phase 24's under ``sharded_training``,
+phase 25's under ``dry_run``,
 the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
@@ -1060,13 +1073,12 @@ def time_decode(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen,
         decode_attention, decode_attention_plain, paged_decode_attention,
         paged_decode_attention_plain,
     )
-    from repro_torch.kernels.decode_attention import sm_count, paged_kv_view, split_plan
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_work, paged_decode_attention_work, paged_kv_view, sm_count, split_plan,
+    )
 
     q, k, v, lengths, k_ar, v_ar, tables = decode_inputs(B, S, H, Hkv, hd, lens, gen, block)
-    live = sum(lens)
-    io = 2 * (B * H * hd * 2) + B * 4
-    kv = live * Hkv * hd * 2 * 2
-    flops = live * H * (4 * hd + 5)
+    flops, nbytes = decode_attention_work(B, H, Hkv, hd, 2, sum(lens))
     mask = (torch.arange(S, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
     qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     kp = paged_kv_view(k_ar, tables).transpose(1, 2)
@@ -1077,7 +1089,7 @@ def time_decode(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen,
 
     splits = split_plan(Hkv, S, sm_count(q.device.index))
     out = {}
-    b, kind = bound(io + kv, flops)
+    b, kind = bound(nbytes, flops)
     out["decode_attention"] = dict(
         shape=f"q ({B}, {H}, {hd}), cache ({B}, {S}, {Hkv}, {hd}) bf16, lengths {lens}",
         n_splits=splits,
@@ -1085,8 +1097,9 @@ def time_decode(B: int, S: int, H: int, Hkv: int, hd: int, lens, gen,
         plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, lengths)),
         library_ms=time_ms(lambda: sdpa(ks, vs)), bound_ms=b, bound_by=kind,
     )
-    n_blocks = sum(-(-n // block) for n in lens)
-    b, kind = bound(io + kv + n_blocks * 4, flops)
+    flops, nbytes = paged_decode_attention_work(B, H, Hkv, hd, 2, sum(lens),
+                                                sum(-(-n // block) for n in lens))
+    b, kind = bound(nbytes, flops)
     out["paged_decode_attention"] = dict(
         shape=f"q ({B}, {H}, {hd}), arenas {tuple(k_ar.shape)} bf16, block {block}, "
               f"lengths {lens}",
@@ -1111,12 +1124,13 @@ def time_rmsnorm_rows(rows: int, D: int, gen) -> dict:
     f32 operations an element)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import rms_norm, rms_norm_plain
+    from repro_torch.kernels import rms_norm, rms_norm_plain, rms_norm_work
 
     dev, dt = torch.device("cuda"), torch.bfloat16
     x = torch.randn((rows, 1, D), generator=gen).to(dev, dt)
     scale = torch.ones(D, dtype=dt, device=dev)
-    b, kind = bound(2 * rows * D * 2 + D * 2, 4 * rows * D)
+    flops, nbytes = rms_norm_work(rows, D, 2)
+    b, kind = bound(nbytes, flops)
     return dict(
         shape=f"x ({rows}, 1, {D}) bf16",
         ms=time_ms(lambda: rms_norm(x, scale)),
@@ -1835,8 +1849,8 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = Tru
     import torch.nn.functional as F
 
     from repro_torch.kernels import (
-        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-        flash_attention_plain,
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_bwd_work,
+        flash_attention_fwd, flash_attention_plain, flash_attention_work,
     )
 
     dev, dt = torch.device("cuda"), torch.bfloat16
@@ -1845,11 +1859,9 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = Tru
     v = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
     do = torch.randn((B, S, H, D), generator=gen).to(dev, dt)
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
-    pairs = S * (S + 1) // 2 if causal else S * S   # (query, key) pairs per head
-    fwd_flops = 4 * B * H * pairs * D            # QK^T and PV, 2 flops per MAC
-    qkv = (q.numel() + k.numel() + v.numel()) * 2
+    fwd_flops, fwd_bytes = flash_attention_work(B, S, S, H, Hkv, D, D, 2, causal)
     out = {}
-    b, kind = bound(qkv + o.numel() * 2 + lse.numel() * 4, fwd_flops, BF16_FLOPS)
+    b, kind = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = Hkv != H
 
@@ -1865,9 +1877,8 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = Tru
         library_ms=time_ms(sdpa, n=30), bound_ms=b, bound_by=kind,
         flops=fwd_flops,
     )
-    # Backward: S, dP, dV, dK, dQ are five products against the forward's two.
-    bwd_flops = fwd_flops * 5 // 2
-    b, kind = bound(qkv + 2 * o.numel() * 2 + lse.numel() * 4 + qkv, bwd_flops, BF16_FLOPS)
+    bwd_flops, bwd_bytes = flash_attention_bwd_work(B, S, S, H, Hkv, D, D, 2, causal)
+    b, kind = bound(bwd_bytes, bwd_flops, BF16_FLOPS)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
 
     def sdpa_fwd_bwd():
@@ -1900,7 +1911,10 @@ def time_rmsnorm(rows: int, D: int, gen) -> dict:
     and their bounds (CUDA events, cold L2, median of 30)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import rms_norm, rms_norm_bwd, rms_norm_bwd_plain, rms_norm_plain
+    from repro_torch.kernels import (
+        rms_norm, rms_norm_bwd, rms_norm_bwd_plain, rms_norm_bwd_work, rms_norm_plain,
+        rms_norm_work,
+    )
 
     dev, dt = torch.device("cuda"), torch.bfloat16
     x = torch.randn((rows, D), generator=gen).to(dev, dt)
@@ -1914,17 +1928,16 @@ def time_rmsnorm(rows: int, D: int, gen) -> dict:
     lib_fb = time_ms(lib_rms_fb, n=30)
     lib_f = time_ms(lambda: F.rms_norm(xr, (D,), sr, 1e-6), n=30)
     out = {}
-    # x read and y written (bf16), scale read; ~4 f32 operations per element.
-    b, kind = bound(2 * rows * D * 2 + D * 2, 4 * rows * D)
+    flops, nbytes = rms_norm_work(rows, D, 2)
+    b, kind = bound(nbytes, flops)
     out["rmsnorm"] = dict(
         shape=f"x ({rows}, {D}) bf16",
         ms=time_ms(lambda: rms_norm(x, scale), n=30),
         plain_ms=time_ms(lambda: rms_norm_plain(x, scale), n=30),
         library_ms=lib_f, bound_ms=b, bound_by=kind,
     )
-    # x and g read, dx written (bf16), scale read and dscale written; ~10
-    # f32 operations per element.
-    b, kind = bound(3 * rows * D * 2 + 2 * D * 2, 10 * rows * D)
+    flops, nbytes = rms_norm_bwd_work(rows, D, 2)
+    b, kind = bound(nbytes, flops)
     out["rmsnorm_bwd"] = dict(
         shape=f"x, g ({rows}, {D}) bf16",
         ms=time_ms(lambda: rms_norm_bwd(g, x, scale), n=30),
@@ -2088,26 +2101,16 @@ def check_zamba_loop_shapes(cfg, shapes, worst: dict) -> None:
 
 def ssd_work(shape, dtype) -> tuple:
     """(forward bytes, forward flops, backward bytes, backward flops) the
-    SSD scan needs at ``shape``: each input read once and each output
-    written once (x, dt, A, B, C in; y out; the backward adds dy in and
-    dx, ddt, dA, dB, dC out; the states the kernel keeps for its backward
-    are its own choice and not counted), and the forward's four in-chunk
-    products over the causal pairs of each chunk (positions past S are not
-    work), two flops per multiply-add. The backward is counted as twice
-    the forward: each product's gradient is two products of its size."""
-    B, S, H, P, G, N, chunk = shape
+    SSD scan needs at ``shape`` (``ssd_scan_work`` and
+    ``ssd_scan_bwd_work``: each input read once and each output written
+    once, the forward's four in-chunk products over each chunk's causal
+    pairs, the backward twice the forward)."""
+    from repro_torch.kernels import ssd_scan_bwd_work, ssd_scan_work
+
     es = torch.tensor([], dtype=dtype).element_size()
-    Q = min(chunk, S)
-    flops = 0
-    for s0 in range(0, S, Q):
-        q = min(Q, S - s0)
-        pairs = q * (q + 1) // 2
-        flops += 2 * (pairs * N + pairs * P + 2 * q * P * N)
-    flops *= B * H
-    xb, dtb, bcb = B * S * H * P * es, B * S * H * 4, 2 * B * S * G * N * es
-    fwd_bytes = 2 * xb + dtb + H * 4 + bcb
-    bwd_bytes = 3 * xb + 2 * dtb + 2 * H * 4 + 2 * bcb
-    return fwd_bytes, flops, bwd_bytes, 2 * flops
+    ff, fb = ssd_scan_work(*shape, es)
+    bf, bb = ssd_scan_bwd_work(*shape, es)
+    return fb, ff, bb, bf
 
 
 def ssd_mma_issued(shape) -> tuple:
@@ -4956,6 +4959,195 @@ def phase24(card: str) -> dict:
                             "rmsnorm": e_f, "rmsnorm_bwd": e_r}}
 
 
+#: Phase 25: timed runs of each step (after one warm-up), the bounds on
+#: the card's peak over the meta count's, and the decode step's position
+#: (the last row of phase 4's 1024-row pool: every cache row live, as
+#: the meta count takes a cache).
+P25_RUNS, P25_PEAK, P25_DECODE_B = 5, (0.8, 1.25), 4
+
+
+def p25_meta(tree):
+    """``tree`` with each tensor replaced by a meta tensor of its shape
+    and dtype (other leaves kept)."""
+    from repro_torch.models.layers import tree_map
+
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                    if torch.is_tensor(t) else t, tree, is_leaf=torch.is_tensor)
+
+
+def p25_step(label: str, step, card_args: tuple, meta_args: tuple, kernels: tuple) -> dict:
+    """One step counted by ``op_cost`` on meta and on the card: FLOPs,
+    bytes and each kernel's reported work must be equal, each kernel's
+    launches equal to its reports and above 0, the card's peak within
+    ``P25_PEAK`` of the meta count's; then the step timed without the
+    counter (median of ``P25_RUNS`` after a warm-up: CUDA events around
+    the step and the host clock) and profiled once (device kernel time),
+    beside its roofline terms at the datasheet rates."""
+    from repro_torch.analysis.op_cost import counting
+    from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    with counting(meta_args) as meta:
+        step(*meta_args)
+    meta_s = time.perf_counter() - t0
+    step(*card_args)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    with counting(card_args) as card:
+        step(*card_args)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    same = {"flops": meta.flops == card.flops, "hbm_bytes": meta.hbm_bytes == card.hbm_bytes,
+            "kernel_work": meta.kernel_work == card.kernel_work}
+    print(f"    {label}: meta {meta.flops:.6e} FLOPs, {meta.hbm_bytes:.6e} bytes, "
+          f"{meta.n_ops} ops (traced in {meta_s:.2f} s); card {card.flops:.6e}, "
+          f"{card.hbm_bytes:.6e}, {card.n_ops} ops; equal: {same}")
+    for k, w in sorted(card.kernel_work.items()):
+        print(f"      {k}: {w['launches']} launches, {w['flops']:.4e} FLOPs, "
+              f"{w['bytes']:.4e} bytes (meta {meta.kernel_work.get(k)})")
+    if not all(same.values()):
+        for op in sorted(set(meta.by_op) | set(card.by_op)):
+            a, b = meta.by_op.get(op), card.by_op.get(op)
+            if a != b:
+                print(f"      differs: {op}: meta {a}, card {b}")
+    check(all(same.values()), f"{label}: the meta count and the card's differ ({same})")
+    for k in kernels:
+        got = card.kernel_work.get(k, {}).get("launches", 0)
+        check(launches[k] > 0 and launches[k] == got,
+              f"{label}: {k} launched {launches[k]} times, reported {got}")
+    ratio = peak / meta.peak_bytes
+    print(f"    peak: card {peak / 2**30:.3f} GiB (max_memory_allocated; {base / 2**30:.3f} "
+          f"before the step), meta {meta.peak_bytes / 2**30:.3f} GiB (arguments "
+          f"{meta.argument_bytes / 2**30:.3f}): ratio {ratio:.4f}")
+    check(P25_PEAK[0] <= ratio <= P25_PEAK[1], f"{label}: peak ratio {ratio:.4f} outside "
+          f"{P25_PEAK}")
+    walls, events = [], []
+    for _ in range(P25_RUNS):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        step(*card_args)
+        b.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        events.append(a.elapsed_time(b))
+    prof = window(label, lambda: step(*card_args), lambda: step(*card_args), 1, "step")
+    wall, event = statistics.median(walls), statistics.median(events)
+    compute = meta.flops / PEAK_FLOPS * 1e3
+    memory = meta.hbm_bytes / HBM_BW * 1e3
+    device = prof["device_ms_per_unit"]
+    print(f"    timed (median of {P25_RUNS}): {wall:.3f} ms wall, {event:.3f} ms between CUDA "
+          f"events, {device:.3f} ms of kernels (profiled); roofline: compute {compute:.3f} ms "
+          f"({compute / device:.1%} of the kernels' time, {compute / event:.1%} of the events'), "
+          f"memory {memory:.3f} ms ({memory / device:.1%}; {memory / event:.1%})")
+    check(compute <= device, f"{label}: compute term {compute:.3f} ms exceeds the measured "
+          f"{device:.3f} ms")
+    if memory > event:
+        print(f"    note: the memory term exceeds the measured time (eager op bytes "
+              f"count re-reads that L2 serves)")
+    return {"flops": meta.flops, "hbm_bytes": meta.hbm_bytes, "n_ops": meta.n_ops,
+            "card_n_ops": card.n_ops, "kernel_work": card.kernel_work,
+            "meta_peak_bytes": meta.peak_bytes, "argument_bytes": meta.argument_bytes,
+            "card_peak_bytes": peak, "card_bytes_before": base, "peak_ratio": ratio,
+            "wall_ms": wall, "event_ms": event, "device_ms": device, "walls_ms": walls,
+            "events_ms": events, "compute_ms": compute, "memory_ms": memory,
+            "idle_share": prof["idle_share"], "launches": launches, "trace_s": meta_s}
+
+
+def p25_dryrun() -> dict:
+    """The production cell ``--arch llama3.2-1b --shape train_4k`` on the
+    (16, 16) mesh, in a process of its own (its fake group must not
+    meet this process's): its artifact line."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+                          "--shape", "train_4k"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    print("    " + "\n    ".join(res.stdout.strip().splitlines()[-3:]))
+    check(res.returncode == 0, f"the dry run failed: {res.stderr[-2000:]}")
+    art = json.loads((ROOT / "artifacts" / "dryrun_torch"
+                      / f"{ARCH}__train_4k__pod16x16__baseline.json").read_text())
+    check(art["status"] == "OK", f"the dry run's cell is {art['status']}")
+    print(f"    artifact ({seconds:.1f} s with the imports): {json.dumps(art)}")
+    return art
+
+
+def phase25(card: str) -> dict:
+    """llama3.2-1b at full width and depth, bf16, world 1, no mesh: (a)
+    phase 24's train step (8 x 512 tokens, 6 of 8 workers, AdamW, remat
+    full) and (b) the contiguous decode step at B 4 over a 1024-row cache
+    at its last row, each counted on meta and on the card
+    (``p25_step``); K3 held at (b)'s shape (K1 and K2 at (a)'s are held in
+    phase 24); (c) the dry run's production cell in a subprocess."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, decode_attention_plain
+    from repro_torch.launch.specs import abstract_state
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+    from repro_torch.runtime.steps import make_decode_step
+
+    cfg = get_config(ARCH)
+    model = Model(cfg)
+    out = {}
+    print(f"    (a) the train step: {P24_B} x {TRAIN_S} tokens, k = 6 of 8, AdamW, remat "
+          f"{cfg.remat!r}, {cfg.dtype}")
+    opt = adamw()
+    params = model.init(SEED, device="cuda")
+    state = opt.init(params)
+    batch = p24_batches(cfg, 1)[0]
+    mparams, mstate = abstract_state(model, None, None, opt)
+    step = make_train_step(model, opt)
+    out["train"] = p25_step(f"train step, {cfg.name}", step, (params, state, batch),
+                            (mparams, mstate, p25_meta(batch)),
+                            ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                             "rmsnorm_bwd"))
+    del state, mparams, mstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    (b) the decode step: B {P25_DECODE_B}, a cache of {MAX_LEN} rows, position "
+          f"{MAX_LEN - 1}")
+    B = P25_DECODE_B
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    token = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    caches = model.blank_caches(B, MAX_LEN, device="cuda")
+    idx = torch.tensor(MAX_LEN - 1, dtype=torch.int32, device="cuda")
+    mparams, _ = abstract_state(model, None, None)
+    card_args = (params, token, caches, idx)
+    out["decode"] = p25_step(f"decode step, {cfg.name}", make_decode_step(model), card_args,
+                             (mparams, *p25_meta((token, caches, idx))), ("rmsnorm",
+                                                                          "decode_attention"))
+    del params, caches, mparams
+    gen = torch.Generator().manual_seed(SEED + 51)
+    q = torch.randn((B, cfg.n_heads, cfg.head_dim), generator=gen).to("cuda", torch.bfloat16)
+    k, v = (torch.randn((B, MAX_LEN, cfg.n_kv_heads, cfg.head_dim), generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    lengths = torch.full((B,), MAX_LEN, dtype=torch.int32, device="cuda")
+    err = float((decode_attention(q, k, v, lengths).float()
+                 - decode_attention_plain(q, k, v, lengths).float()).abs().max())
+    print(f"    K3 bf16 at q {tuple(q.shape)}, cache {tuple(k.shape)}, every row live: max "
+          f"|kernel - plain| {err:.3e}")
+    check(err <= TOL[torch.bfloat16], f"K3 at the decode step's shape disagrees: {err}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    (c) the dry run's production cell: {ARCH} x train_4k on the (16, 16) mesh")
+    out["dryrun"] = p25_dryrun()
+    out["launches"] = {k: out["train"]["launches"][k] + out["decode"]["launches"][k]
+                       for k in out["train"]["launches"]}
+    out["max_abs_err"] = {"decode_attention": err}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5241,6 +5433,19 @@ def main() -> int:
     for k in ("flash_attention", "flash_attention_bwd", "rmsnorm_bwd"):
         train_worst[k] = max(train_worst[k], p24["max_abs_err"][k])
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t25 = time.perf_counter()
+    print(f"[25] {ARCH} at full width and depth: the train and decode steps counted by "
+          f"op_cost on meta tensors and on the card, timed beside their roofline terms; "
+          f"the dry run's production cell")
+    p25 = phase25(card)
+    phase25_seconds = time.perf_counter() - t25
+    print(f"    phase 25 took {phase25_seconds:.1f} s; card {card}")
+    worst["decode_attention"] = max(worst["decode_attention"],
+                                    p25["max_abs_err"]["decode_attention"])
+
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:26",
@@ -5296,6 +5501,7 @@ def main() -> int:
             "phase22_launches": hubert["launches"][kname],
             "phase23_launches": chaos["launches"].get(kname, 0),
             "phase24_launches": p24["launches"].get(kname, 0),
+            "phase25_launches": p25["launches"].get(kname, 0),
         })
     # K4 at block 8, the chaos fleet's geometry: launches over phase 23's
     # runs, times at its decode tick's shape.
@@ -5407,6 +5613,8 @@ def main() -> int:
         "phase23_seconds": phase23_seconds,
         "sharded_training": p24,
         "phase24_seconds": phase24_seconds,
+        "dry_run": {k: v for k, v in p25.items() if k != "launches"},
+        "phase25_seconds": phase25_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

@@ -180,3 +180,10 @@ class ModelConfig:
         from repro_torch.models.model import count_params_analytic  # lazy, avoids cycle
 
         return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token meets: each MoE layer counted at its top_k
+        (and shared) experts."""
+        from repro_torch.models.model import count_params_analytic  # lazy, avoids cycle
+
+        return count_params_analytic(self, active_only=True)

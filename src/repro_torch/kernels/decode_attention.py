@@ -21,6 +21,13 @@ blocks (split-KV) and merge the blocks' partial softmaxes in split order.
 ``lengths``, which stay on the card, nor from the batch size);
 ``split_rows`` is the row range each split takes, as the kernel
 computes it.
+
+Meta tensors take a shape branch: the CUDA path's output and split
+scratch (planned for ``META_SMS`` SMs), no launch. ``decode_attention_work``
+and ``paged_decode_attention_work`` give one launch's (FLOPs, bytes) for
+its live rows: on the card the lengths' (read only while
+``work_hook`` is set), on meta, where no value exists, every row of the
+cache (a full cache, the dry run's decode cell).
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ import math
 from typing import List, Tuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
+import repro_torch.kernels as _kernels
 from . import _build
 
 __all__ = [
@@ -44,6 +53,9 @@ __all__ = [
     "sm_count",
     "split_plan",
     "split_rows",
+    "META_SMS",
+    "decode_attention_work",
+    "paged_decode_attention_work",
 ]
 
 NEG_INF = -1e30
@@ -80,6 +92,38 @@ def split_rows(length: int, n_splits: int) -> List[Tuple[int, int]]:
     n_gran = -(-length // GRANULE)
     return [(min(length, n_gran * s // n_splits * GRANULE),
              min(length, n_gran * (s + 1) // n_splits * GRANULE)) for s in range(n_splits)]
+
+
+#: SMs of the H100 SXM5: the plan a meta tensor's launch is given.
+META_SMS = 132
+
+
+def decode_attention_work(B: int, H: int, Hkv: int, D: int, elem_bytes: int,
+                          live: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one K3 launch over ``live`` K/V rows (the sum of
+    the lengths): q . k, the softmax's ~5 operations and p v for each
+    (row, head); q read and out written, the lengths read, each live K
+    and V row read once."""
+    flops = live * H * (4 * D + 5)
+    nbytes = 2 * B * H * D * elem_bytes + B * 4 + 2 * live * Hkv * D * elem_bytes
+    return flops, nbytes
+
+
+def paged_decode_attention_work(B: int, H: int, Hkv: int, D: int, elem_bytes: int,
+                                live: int, live_blocks: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one K4 launch: K3's work over ``live`` rows and
+    the ``live_blocks`` block-table entries (int32) those rows use."""
+    flops, nbytes = decode_attention_work(B, H, Hkv, D, elem_bytes, live)
+    return flops, nbytes + 4 * live_blocks
+
+
+def _live(lengths: torch.Tensor, block: int = 0) -> Tuple[int, int]:
+    """(rows, blocks of ``block`` rows) the lengths keep live, read from the
+    card outside any dispatch mode (a counter counts the kernel's work,
+    not this read)."""
+    with _disable_current_modes():
+        lens = lengths.tolist()
+    return sum(lens), sum(-(-n // block) for n in lens) if block else 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,6 +201,14 @@ def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *ints: torch.Tensor) -> None:
+    _check_shapes(q, k, v, *ints)
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("decode attention needs 16-byte aligned inputs (16-byte loads)")
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  *ints: torch.Tensor) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode attention takes f32 or bf16 q/k/v of one dtype, "
                         f"not {q.dtype}/{k.dtype}/{v.dtype}")
@@ -176,9 +228,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *ints: torch.Tenso
         raise ValueError(f"unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)} "
                          "(need H % Hkv == 0, H / Hkv <= 8, head_dim <= 256 and a "
                          "multiple of 8)")
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("decode attention needs 16-byte aligned inputs (16-byte loads)")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -188,6 +237,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _refuse_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
+    if q.device.type == "meta":
+        _check_shapes(q, k, v, lengths)
+        B, H, D = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        ws = _workspace(q, split_plan(Hkv, S, META_SMS))  # noqa: F841
+        _kernels.report_work("decode_attention", decode_attention_work(
+            B, H, Hkv, D, q.element_size(), B * S))
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
     _check(q, k, v, lengths)
@@ -208,6 +266,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decode_attention.launches += 1
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (code {rc})")
+    if _kernels.work_hook is not None:
+        _kernels.work_hook("decode_attention", *decode_attention_work(
+            B, H, Hkv, D, q.element_size(), _live(lengths)[0]))
     return out
 
 
@@ -221,6 +282,16 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
     _refuse_grad("paged_decode_attention", q, k_arena, v_arena)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_arena, v_arena, block_tables, lengths)
+    if q.device.type == "meta":
+        _check_shapes(q, k_arena, v_arena, block_tables, lengths)
+        B, H, D = q.shape
+        bs, Hkv = k_arena.shape[1], k_arena.shape[2]
+        T = block_tables.shape[1]
+        out = torch.empty_like(q)
+        ws = _workspace(q, split_plan(Hkv, T * bs, META_SMS))  # noqa: F841
+        _kernels.report_work("paged_decode_attention", paged_decode_attention_work(
+            B, H, Hkv, D, q.element_size(), B * T * bs, B * T))
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cpu or cuda, not {q.device}")
     _check(q, k_arena, v_arena, block_tables, lengths)
@@ -243,6 +314,9 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
     paged_decode_attention.launches += 1
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed (code {rc})")
+    if _kernels.work_hook is not None:
+        _kernels.work_hook("paged_decode_attention", *paged_decode_attention_work(
+            B, H, Hkv, D, q.element_size(), *_live(lengths, bs)))
     return out
 
 

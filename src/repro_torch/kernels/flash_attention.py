@@ -20,6 +20,10 @@ two launches count as one).
 In bf16 the kernels run on the tensor cores and round P and dS to bf16
 before their second product; ``flash_attention_rounding_terms`` gives
 what that may move each output by, for ``parity.flash_within``.
+
+Meta tensors take a shape branch: the CUDA path's outputs (and the
+backward's ``delta`` scratch), no launch. ``flash_attention_work`` and
+``flash_attention_bwd_work`` give one launch's (FLOPs, bytes).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+import repro_torch.kernels as _kernels
 from . import _build
 
 __all__ = [
@@ -39,6 +44,8 @@ __all__ = [
     "flash_attention_plain",
     "flash_attention_bwd_plain",
     "flash_attention_rounding_terms",
+    "flash_attention_work",
+    "flash_attention_bwd_work",
 ]
 
 NEG_INF = -1e30
@@ -134,7 +141,39 @@ def flash_attention_rounding_terms(q, k, v, o, lse, do, *, causal: bool):
     return t_out, t_dq, t_dk * scale, t_dv
 
 
-def _check(q, k, v, *more) -> Tuple[int, ...]:
+def causal_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """(query, key) pairs a head computes: all Sq Skv, or under the
+    top-left causal mask those with key j <= query i."""
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)
+    return n * (n + 1) // 2 + (Sq - n) * Skv
+
+
+def flash_attention_work(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int, Dv: int,
+                         elem_bytes: int, causal: bool) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one K1 forward launch: S = QK^T and PV over the
+    pairs ``causal_pairs`` keeps, two flops a multiply-add; q, k, v read
+    and out written in the inputs' dtype, the f32 LSE written."""
+    flops = 2 * B * H * causal_pairs(Sq, Skv, causal) * (D + Dv)
+    nbytes = ((B * Sq * H * (D + Dv) + B * Skv * Hkv * (D + Dv)) * elem_bytes
+              + B * H * Sq * 4)
+    return flops, nbytes
+
+
+def flash_attention_bwd_work(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int, Dv: int,
+                             elem_bytes: int, causal: bool) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one K1 backward launch: the five products S, dP,
+    dV, dK and dQ over the kept pairs (2.5 times the forward's at D =
+    Dv); q, k, v, out, dO and LSE read, dq, dk and dv written (the
+    ``delta`` scratch is the kernel's own and not counted)."""
+    flops = 2 * B * H * causal_pairs(Sq, Skv, causal) * (3 * D + 2 * Dv)
+    nbytes = ((2 * B * Sq * H * (D + Dv) + 2 * B * Skv * Hkv * (D + Dv)) * elem_bytes
+              + B * H * Sq * 4)
+    return flops, nbytes
+
+
+def _dims(q, k, v) -> Tuple[int, ...]:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention takes f32 or bf16 q/k/v of one dtype, "
                         f"not {q.dtype}/{k.dtype}/{v.dtype}")
@@ -151,6 +190,11 @@ def _check(q, k, v, *more) -> Tuple[int, ...]:
     if (D, Dv) not in HEAD_DIMS:
         raise ValueError(f"flash attention kernels take (D, Dv) in {HEAD_DIMS}, "
                          f"not D={D}, Dv={Dv}")
+    return B, Sq, Skv, H, Hkv, D, Dv
+
+
+def _check(q, k, v, *more) -> Tuple[int, ...]:
+    dims = _dims(q, k, v)
     for t in (q, k, v, *more):
         if t.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}, got {t.device}")
@@ -158,7 +202,7 @@ def _check(q, k, v, *more) -> Tuple[int, ...]:
             raise ValueError("flash attention needs contiguous inputs")
         if t.data_ptr() % 16:
             raise ValueError("flash attention needs 16-byte aligned inputs (16-byte copies)")
-    return B, Sq, Skv, H, Hkv, D, Dv
+    return dims
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -166,6 +210,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """K1 forward: (out, LSE (B, H, Sq) f32)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        B, Sq, Skv, H, Hkv, D, Dv = _dims(q, k, v)
+        out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        _kernels.report_work("flash_attention", flash_attention_work(
+            B, Sq, Skv, H, Hkv, D, Dv, q.element_size(), causal))
+        return out, lse
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     B, Sq, Skv, H, Hkv, D, Dv = _check(q, k, v)
@@ -180,6 +231,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention.launches += 1
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
+    if _kernels.work_hook is not None:
+        _kernels.work_hook("flash_attention", *flash_attention_work(
+            B, Sq, Skv, H, Hkv, D, Dv, q.element_size(), causal))
     return out, lse
 
 
@@ -188,6 +242,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool):
     out ``o`` and ``lse`` and the output gradient ``do``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    if q.device.type == "meta":
+        B, Sq, Skv, H, Hkv, D, Dv = _dims(q, k, v)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)  # noqa: F841
+        _kernels.report_work("flash_attention_bwd", flash_attention_bwd_work(
+            B, Sq, Skv, H, Hkv, D, Dv, q.element_size(), causal))
+        return dq, dk, dv
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not {q.device}")
     B, Sq, Skv, H, Hkv, D, Dv = _check(q, k, v, o, lse, do)
@@ -207,6 +268,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool):
     flash_attention_bwd.launches += 1
     if rc != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed (code {rc})")
+    if _kernels.work_hook is not None:
+        _kernels.work_hook("flash_attention_bwd", *flash_attention_bwd_work(
+            B, Sq, Skv, H, Hkv, D, Dv, q.element_size(), causal))
     return dq, dk, dv
 
 

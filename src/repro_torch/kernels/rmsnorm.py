@@ -19,6 +19,11 @@ The kernels hold each row in registers, a group of threads (a warp or a
 block) to a row, in a persistent grid; ``launch_plan`` chooses the
 group's width, the 16-byte vectors (or elements) each thread holds and the
 grid, from the table of instances the CUDA source builds (``INSTANCES``).
+
+Meta tensors take a shape branch: the CUDA path's outputs (and the
+backward's dscale scratch, planned for ``META_SMS`` SMs), no launch.
+``rms_norm_work`` and ``rms_norm_bwd_work`` give one launch's (FLOPs,
+bytes).
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+import repro_torch.kernels as _kernels
 from . import _build
-from .decode_attention import sm_count
+from .decode_attention import META_SMS, sm_count
 
 __all__ = ["rms_norm", "rms_norm_plain", "rms_norm_bwd", "rms_norm_bwd_plain",
-           "launch_plan", "Plan"]
+           "launch_plan", "Plan", "rms_norm_work", "rms_norm_bwd_work"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Widest row the backward takes in 16-byte vectors (D a multiple of 8 in
@@ -192,6 +198,19 @@ def rms_norm_bwd_plain(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     return dx, dscale
 
 
+def rms_norm_work(rows: int, D: int, elem_bytes: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one K2 forward launch: ~4 f32 operations an
+    element; x read and y written, the scale read."""
+    return 4 * rows * D, (2 * rows * D + D) * elem_bytes
+
+
+def rms_norm_bwd_work(rows: int, D: int, elem_bytes: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one K2 backward launch (its two launches): ~10 f32
+    operations an element; x and g read and dx written, the scale read
+    and dscale written (the partial-dscale scratch is not counted)."""
+    return 10 * rows * D, (3 * rows * D + 2 * D) * elem_bytes
+
+
 def _check(x: torch.Tensor, scale: torch.Tensor, *more: torch.Tensor) -> int:
     D = x.shape[-1]
     if x.dtype not in _DTYPES or scale.dtype != x.dtype:
@@ -220,6 +239,12 @@ def _plan(bwd: bool, rows: int, *ts: torch.Tensor) -> Plan:
 def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rms_norm_plain(x, scale, eps)
+    if x.device.type == "meta":
+        rows = _check(x, scale)
+        out = torch.empty_like(x)
+        if rows:
+            _kernels.report_work("rmsnorm", rms_norm_work(rows, x.shape[-1], x.element_size()))
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm runs on cpu or cuda, not {x.device}")
     rows = _check(x, scale)
@@ -236,6 +261,8 @@ def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     rms_norm.launches += 1
     if rc != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed (code {rc}, plan {p})")
+    if _kernels.work_hook is not None:
+        _kernels.work_hook("rmsnorm", *rms_norm_work(rows, x.shape[-1], x.element_size()))
     return out
 
 
@@ -247,6 +274,17 @@ def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     ``launch_plan``'s plan) counted as one."""
     if x.device.type == "cpu":
         return rms_norm_bwd_plain(g, x, scale, eps)
+    if x.device.type == "meta":
+        rows = _check(x, scale, g)
+        D, es = x.shape[-1], x.element_size()
+        dx = torch.empty_like(x)
+        if rows == 0:
+            return dx, torch.zeros_like(scale)
+        dscale = torch.empty_like(scale)
+        p = launch_plan(True, rows, D, es, D % (16 // es) == 0, META_SMS)
+        part = bwd_scratch(p, D, x.device)  # noqa: F841
+        _kernels.report_work("rmsnorm_bwd", rms_norm_bwd_work(rows, D, es))
+        return dx, dscale
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm_bwd runs on cpu or cuda, not {x.device}")
     rows = _check(x, scale, g)
@@ -266,6 +304,8 @@ def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     rms_norm_bwd.launches += 1
     if rc != 0:
         raise RuntimeError(f"rmsnorm backward kernel launch failed (code {rc}, plan {p})")
+    if _kernels.work_hook is not None:
+        _kernels.work_hook("rmsnorm_bwd", *rms_norm_bwd_work(rows, D, x.element_size()))
     return dx, dscale
 
 

@@ -35,6 +35,11 @@ take P and N in ``MMA_DIMS`` (they raise on others). Each f32 operand of
 those products is split into two bf16 parts (hi = bf16(v), lo =
 bf16(v - hi)), so every term keeps 16 bits; ``parity.ssd_within`` holds
 them as it holds the f32 kernels.
+
+Meta tensors take a shape branch: the CUDA path's outputs (the forward's
+per-chunk states, the backward's partial-sum scratch), no launch.
+``ssd_scan_work`` and ``ssd_scan_bwd_work`` give one launch's (FLOPs,
+bytes).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+import repro_torch.kernels as _kernels
 from . import _build
 
 __all__ = [
@@ -56,6 +62,8 @@ __all__ = [
     "ssd_scan_plain",
     "ssd_scan_bwd_plain",
     "ssd_bwd_term_sums",
+    "ssd_scan_work",
+    "ssd_scan_bwd_work",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,6 +72,33 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128
 #: P (head dim) and N (state dim) the bf16 tensor-core kernels take.
 MMA_DIMS = (16, 32, 64)
+
+
+def ssd_scan_work(Bsz: int, S: int, H: int, P: int, G: int, N: int, chunk: int,
+                  elem_bytes: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one K5 forward launch: the four in-chunk products
+    over each chunk's causal pairs (positions past S are not work), two
+    flops a multiply-add; x, dt, A, B, C read and y written once (the
+    states the kernel keeps for its backward are its own choice and not
+    counted)."""
+    Q = min(chunk, S)
+    flops = 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        pairs = q * (q + 1) // 2
+        flops += 2 * (pairs * N + pairs * P + 2 * q * P * N)
+    xb, dtb, bcb = Bsz * S * H * P * elem_bytes, Bsz * S * H * 4, 2 * Bsz * S * G * N * elem_bytes
+    return flops * Bsz * H, 2 * xb + dtb + H * 4 + bcb
+
+
+def ssd_scan_bwd_work(Bsz: int, S: int, H: int, P: int, G: int, N: int, chunk: int,
+                      elem_bytes: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one K5 backward launch: twice the forward's
+    products (each product's gradient is two of its size); the forward's
+    inputs and dy read, dx, ddt, dA, dB, dC written."""
+    flops, _ = ssd_scan_work(Bsz, S, H, P, G, N, chunk, elem_bytes)
+    xb, dtb, bcb = Bsz * S * H * P * elem_bytes, Bsz * S * H * 4, 2 * Bsz * S * G * N * elem_bytes
+    return 2 * flops, 3 * xb + 2 * dtb + 2 * H * 4 + 2 * bcb
 
 
 def _per_head_chunks(x, dt, A, Bm, Cm, chunk, *more):
@@ -264,6 +299,15 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int) -> Tuple[torch.Tensor, torch.T
     if x.device.type == "cpu":
         y, states = _states_plain(x, dt, A, Bm, Cm, chunk)
         return _unlay(y, x.shape[1]).to(x.dtype), states
+    if x.device.type == "meta":
+        Bsz, S, H, P, G, N, Q = _check(x, dt, A, Bm, Cm, chunk)
+        if x.dtype == torch.bfloat16:
+            _check_mma(P, N)
+        y = torch.empty_like(x)
+        states = torch.empty((Bsz, H, math.ceil(S / Q) + 1, P, N), dtype=torch.float32,
+                             device=x.device)
+        _kernels.report_work("ssd_scan", ssd_scan_work(Bsz, S, H, P, G, N, chunk, x.element_size()))
+        return y, states
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
     Bsz, S, H, P, G, N, Q = _check(x, dt, A, Bm, Cm, chunk)
@@ -281,6 +325,9 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int) -> Tuple[torch.Tensor, torch.T
     ssd_scan.launches += 1
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed (code {rc})")
+    if _kernels.work_hook is not None:
+        _kernels.work_hook("ssd_scan", *ssd_scan_work(Bsz, S, H, P, G, N, chunk,
+                                                      x.element_size()))
     return y, states
 
 
@@ -289,6 +336,19 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, *, chunk: int):
     forward's ``states`` and the output gradient ``dy``."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, dy, chunk=chunk)
+    if x.device.type == "meta":
+        Bsz, S, H, P, G, N, Q = _check(x, dt, A, Bm, Cm, chunk, states, dy)
+        if x.dtype == torch.bfloat16:
+            _check_mma(P, N)
+        dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+        dB, dC, dA = torch.empty_like(Bm), torch.empty_like(Cm), torch.empty_like(A)
+        # The CUDA path's scratch: dB's and dC's per-head shares, dA's.
+        scratch = [torch.empty((Bsz, S, H, N), dtype=torch.float32, device=x.device),  # noqa: F841
+                   torch.empty((Bsz, S, H, N), dtype=torch.float32, device=x.device),
+                   torch.empty((Bsz, H), dtype=torch.float32, device=x.device)]
+        _kernels.report_work("ssd_scan_bwd", ssd_scan_bwd_work(
+            Bsz, S, H, P, G, N, chunk, x.element_size()))
+        return dx, ddt, dA, dB, dC
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_bwd runs on cpu or cuda, not {x.device}")
     Bsz, S, H, P, G, N, Q = _check(x, dt, A, Bm, Cm, chunk, states, dy)
@@ -319,6 +379,9 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, *, chunk: int):
     ssd_scan_bwd.launches += 1
     if rc != 0:
         raise RuntimeError(f"ssd_scan backward kernel launch failed (code {rc})")
+    if _kernels.work_hook is not None:
+        _kernels.work_hook("ssd_scan_bwd", *ssd_scan_bwd_work(Bsz, S, H, P, G, N, chunk,
+                                                              x.element_size()))
     return dx, ddt, dA, dB, dC
 
 

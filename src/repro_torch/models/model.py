@@ -526,6 +526,12 @@ class Model:
         return self.logits(params, h), new_caches
 
 
-def count_params_analytic(cfg: ModelConfig) -> int:
-    """Parameter count from the spec tree (exact)."""
-    return count_specs(Model(cfg).param_specs())
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameter count from the spec tree (exact). ``active_only``: each
+    MoE layer counted at top_k (+ shared) experts, not all of them."""
+    total = count_specs(Model(cfg).param_specs())
+    if active_only and cfg.moe is not None:
+        per_expert = 3 * cfg.d_model * cfg.moe.d_expert
+        n_moe_layers = cfg.n_layers - cfg.moe.first_k_dense
+        total -= (cfg.moe.n_experts - cfg.moe.top_k) * per_expert * n_moe_layers
+    return total

@@ -4,10 +4,11 @@ decode, and the speculative verify and replay).
 
 Plain functions, no tracing: PyTorch runs eagerly, so each step is the
 model call itself. The fastest-k worker mask, occupancy and ragged
-lengths enter as data, as in the reference. The train step also runs on
-a mesh (``repro_torch.dist.sharding``): see ``make_train_step``. The
-prefill, decode and init builders are single-device, as the reference
-runs them only through its dry run.
+lengths enter as data, as in the reference. The train, prefill and
+decode steps also run on a mesh (``repro_torch.dist.sharding``): see
+``make_train_step`` and ``make_decode_step``; the dry run
+(``repro_torch.launch.dryrun``) traces all three there.
+``make_init_fn`` is single-device.
 """
 
 from __future__ import annotations
@@ -61,6 +62,20 @@ def train_loss_fn(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
         loss = loss + 0.3 * model.mtp_loss(params, h, inputs, labels, mask, positions)
     return loss, {"ce": ce, "aux": aux, "denom": denom}
+
+
+def _mesh_context(params):
+    """The ambient context when the step runs on a mesh: one of more than
+    one rank, or DTensor params; else None."""
+    ctx = current_context()
+    if ctx is not None and (ctx.mesh.size() > 1 or any(
+            isinstance(p, DTensor) for p in tree_leaves(params, is_leaf=torch.is_tensor))):
+        return ctx
+    return None
+
+
+def _full_params(params):
+    return _unflatten(params, [full_value(p) for p in tree_leaves(params, is_leaf=torch.is_tensor)])
 
 
 def make_train_step(model: Model, optimizer: Optimizer, *,
@@ -173,7 +188,7 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         mesh = ctx.mesh
         leaves = tree_leaves(params, is_leaf=torch.is_tensor)
         places = targets(leaves, mesh)
-        full = _unflatten(params, [full_value(p) for p in leaves])
+        full = _full_params(params)
         wm = batch.get("worker_mask")
         rows = dict(batch)
         if wm is not None:
@@ -198,9 +213,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         return loss, metrics, _unflatten(params, out)
 
     def train_step(params, opt_state, batch):
-        ctx = current_context()
-        if ctx is not None and (ctx.mesh.size() > 1 or any(
-                isinstance(p, DTensor) for p in tree_leaves(params, is_leaf=torch.is_tensor))):
+        ctx = _mesh_context(params)
+        if ctx is not None:
             loss, metrics, grads = sharded_grads(params, batch, ctx)
         else:
             loss, metrics, grads = grads_for(params, micro_batches(batch))
@@ -219,22 +233,71 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
     return train_step
 
 
+def _rows_block(t, mesh, split):
+    """(the block of cache leaf ``t`` holding the split's rows whole along
+    every other dim, its placements): the leaf's shards over the split's
+    axes kept (they cut its batch dim), every other mesh dim gathered.
+    A plain tensor is taken whole."""
+    if not isinstance(t, DTensor):
+        return t, None
+    names = list(mesh.mesh_dim_names)
+    keep = [pl if names[i] in split.axes else Replicate() for i, pl in enumerate(t.placements)]
+    dims = {pl.dim for pl in keep if pl.is_shard()}
+    if any(not t.placements[names.index(a)].is_shard() for a in split.axes) or len(dims) > 1:
+        raise ValueError(f"a cache leaf laid out {t.placements} is not cut along its batch "
+                         f"dim over the batch split's axes {split.axes}")
+    return t.redistribute(mesh, keep).to_local(), keep
+
+
 def make_prefill_step(model: Model) -> Callable:
-    """(params, inputs (B, S)) -> the last position's logits (B, 1, V)."""
+    """(params, inputs (B, S)) -> the last position's logits (B, 1, V).
+
+    On a mesh (as ``make_train_step``): each parameter is gathered to its
+    full value, and the rank runs the single-device prefill on its own
+    rows (``row_split``), returning their logits."""
 
     @torch.no_grad()
     def prefill_step(params, inputs):
-        return model.prefill(params, inputs)
+        ctx = _mesh_context(params)
+        if ctx is None:
+            return model.prefill(params, inputs)
+        split = row_split(ctx.mesh, inputs.shape[0], ctx.dp)
+        with split_rows(split):
+            return model.prefill(_full_params(params), inputs[split.rows])
 
     return prefill_step
 
 
 def make_decode_step(model: Model) -> Callable:
-    """(params, token (B, 1), caches, cache_index) -> (logits, caches)."""
+    """(params, token (B, 1), caches, cache_index) -> (logits, caches).
+
+    On a mesh (as ``make_train_step``): each parameter is gathered to its
+    full value; each cache leaf (a DTensor laid out by the rules) is
+    gathered to the rank's rows (``row_split``) whole along its other
+    dims, the single-device decode step runs on those rows, and each
+    updated block is cut back to its leaf's placements (a local slice).
+    Returns the rank's rows of the logits and the caches as DTensors."""
 
     @torch.no_grad()
     def decode_step(params, token, caches, cache_index):
-        return model.decode_step(params, token, caches, cache_index)
+        ctx = _mesh_context(params)
+        if ctx is None:
+            return model.decode_step(params, token, caches, cache_index)
+        mesh = ctx.mesh
+        split = row_split(mesh, token.shape[0], ctx.dp)
+        leaves = tree_leaves(caches, is_leaf=torch.is_tensor)
+        blocks = [_rows_block(c, mesh, split) for c in leaves]
+        idx = cache_index
+        if torch.is_tensor(idx) and idx.dim() == 1:
+            idx = idx[split.rows]
+        with split_rows(split):
+            logits, new = model.decode_step(_full_params(params), token[split.rows],
+                                            _unflatten(caches, [b for b, _ in blocks]), idx)
+        out = []
+        for c, n, (_, keep) in zip(leaves, tree_leaves(new, is_leaf=torch.is_tensor), blocks):
+            out.append(n if keep is None else DTensor.from_local(
+                n, mesh, keep, run_check=False).redistribute(mesh, c.placements))
+        return logits, _unflatten(caches, out)
 
     return decode_step
 

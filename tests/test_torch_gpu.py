@@ -1058,3 +1058,78 @@ def test_int8_codec_on_the_card_matches_the_cpu(cuda, dtype):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
         assert torch.equal(a.cpu().view(bits), b.view(bits))
+
+
+def _meta_calls(dtype):
+    """(name, call(device) -> outputs) for every kernel wrapper at a small
+    shape: K3 / K4 with every row live, so that the card's work (its
+    lengths') is the meta branch's (every cache row)."""
+    g = torch.Generator().manual_seed(11)
+
+    def r(*shape, dt=dtype):
+        return torch.randn(shape, generator=g).to(dt)
+
+    q, k, v, do = r(2, 64, 4, 64), r(2, 64, 2, 64), r(2, 64, 2, 64), r(2, 64, 4, 64)
+    x, scale, gy = r(40, 256), 1 + 0.1 * r(256), r(40, 256)
+    dq, dk_, dv_ = r(3, 8, 64), r(3, 256, 2, 64), r(3, 256, 2, 64)
+    lengths = torch.full((3,), 256, dtype=torch.int32)
+    arena_k, arena_v = r(17, 16, 2, 64), r(17, 16, 2, 64)
+    tables = (torch.arange(48, dtype=torch.int32) % 16 + 1).reshape(3, 16)
+    xs, dts, A = r(2, 96, 4, 32), torch.rand(2, 96, 4, generator=g) * 0.1, -torch.rand(4, generator=g)
+    Bm, Cm, dy = r(2, 96, 1, 32), r(2, 96, 1, 32), r(2, 96, 4, 32)
+
+    def on(dev, *ts):
+        return [t.to(dev) for t in ts]
+
+    def flash(dev):
+        qq, kk, vv = on(dev, q, k, v)
+        return K.flash_attention_fwd(qq, kk, vv, causal=True)
+
+    def flash_bwd(dev):
+        qq, kk, vv, dd = on(dev, q, k, v, do)
+        o, lse = K.flash_attention_fwd(qq, kk, vv, causal=True) if dev != "meta" else (
+            torch.empty_like(qq), torch.empty((2, 4, 64), device="meta"))
+        return K.flash_attention_bwd(qq, kk, vv, o, lse, dd, causal=True)
+
+    def ssd_bwd(dev):
+        a = on(dev, xs, dts, A, Bm, Cm, dy)
+        _, states = K.ssd_scan_fwd(*a[:5], chunk=32)
+        return K.ssd_scan_bwd(*a[:5], states, a[5], chunk=32)
+
+    return [
+        ("rmsnorm", lambda dev: K.rms_norm(*on(dev, x, scale))),
+        ("rmsnorm_bwd", lambda dev: K.rms_norm_bwd(*on(dev, gy, x, scale))),
+        ("flash_attention", flash),
+        ("flash_attention_bwd", flash_bwd),
+        ("decode_attention", lambda dev: K.decode_attention(*on(dev, dq, dk_, dv_, lengths))),
+        ("paged_decode_attention",
+         lambda dev: K.paged_decode_attention(*on(dev, dq, arena_k, arena_v, tables, lengths))),
+        ("ssd_scan", lambda dev: K.ssd_scan_fwd(*on(dev, xs, dts, A, Bm, Cm), chunk=32)),
+        ("ssd_scan_bwd", ssd_bwd),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_meta_branches_match_the_cuda_path(cuda, dtype):
+    """Each wrapper's meta branch returns the shapes and dtypes of its CUDA
+    path's outputs and reports the same work for the same shapes, and
+    launches nothing; the CUDA path reports one work a launch."""
+    for name, call in _meta_calls(dtype):
+        seen = {"cuda": [], "meta": []}
+        for dev in ("cuda", "meta"):
+            K.work_hook = lambda n, f, b, dev=dev: seen[dev].append((n, f, b))
+            K.reset_launch_counts()
+            try:
+                out = call(dev)
+            finally:
+                K.work_hook = None
+            outs = out if isinstance(out, tuple) else (out,)
+            if dev == "cuda":
+                want = [(t.shape, t.dtype) for t in outs]
+                assert K.launch_counts()[name] >= 1, name
+            else:
+                assert [(t.shape, t.dtype) for t in outs] == want, name
+                assert all(t.device.type == "meta" for t in outs)
+                assert sum(K.launch_counts().values()) == 0, name
+        mine = [w for w in seen["cuda"] if w[0] == name]
+        assert mine and mine == [w for w in seen["meta"] if w[0] == name], (name, seen)

@@ -213,17 +213,43 @@ def test_paged_decode_attention_ragged_gqa_sweep():
 # Dispatch: no silent fallback off the CPU
 # ---------------------------------------------------------------------------
 
-def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
-    """Only a CPU tensor reaches a plain version; any other device either
-    launches the kernel (CUDA) or raises — here on the meta device."""
+class _OtherDevice:
+    """Stands in for a tensor on a device the wrappers do not take (a
+    CPU-only PyTorch can place no real tensor there)."""
+
+    device = torch.device("xpu")
+    requires_grad = False
+
+
+def test_wrappers_refuse_devices_other_than_cpu_and_cuda(monkeypatch):
+    """Only a CPU tensor reaches a plain version; a CUDA tensor launches the
+    kernel, a meta tensor takes the shape branch (the dry run's: outputs,
+    no launch, no plain version), and any other device raises."""
+    import importlib
+
+    # The package's ``decode_attention`` attribute is the wrapper, not the module.
+    kd = importlib.import_module("repro_torch.kernels.decode_attention")
+    kr = importlib.import_module("repro_torch.kernels.rmsnorm")
+
+    def never(*a, **k):
+        raise AssertionError("a meta tensor reached a plain version")
+
+    for mod, name in ((kr, "rms_norm_plain"), (kd, "decode_attention_plain"),
+                      (kd, "paged_decode_attention_plain")):
+        monkeypatch.setattr(mod, name, never)
     x = torch.empty((2, 8), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        rms_norm(x, torch.empty(8, device="meta"))
+    assert rms_norm(x, torch.empty(8, device="meta")).shape == (2, 8)
     q = torch.empty((1, 4, 8), device="meta")
     kv = torch.empty((1, 16, 2, 8), device="meta")
     lengths = torch.empty(1, dtype=torch.int32, device="meta")
+    assert decode_attention(q, kv, kv, lengths).shape == (1, 4, 8)
+    assert paged_decode_attention(q, kv, kv, torch.empty((1, 1), dtype=torch.int32,
+                                                          device="meta"), lengths).device == q.device
+    assert rms_norm.launches == decode_attention.launches == paged_decode_attention.launches == 0
+    other = _OtherDevice()
     with pytest.raises(ValueError, match="cpu or cuda"):
-        decode_attention(q, kv, kv, lengths)
+        rms_norm(other, other)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        paged_decode_attention(q, kv, kv, torch.empty((1, 1), dtype=torch.int32,
-                                                       device="meta"), lengths)
+        decode_attention(other, other, other, other)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        paged_decode_attention(other, other, other, other, other)

@@ -48,7 +48,10 @@ missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
            "repro_torch.core.simulation", "repro_torch.core.vector_sim",
            "repro_torch.dist.compression", "tools.chaos_search_torch",
            "repro_torch.dist.sharding", "repro_torch.dist.pipeline_parallel",
-           "repro_torch.configs.shapes"} - set(sys.modules)
+           "repro_torch.configs.shapes", "repro_torch.launch.specs",
+           "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+           "repro_torch.launch.perf_probe", "repro_torch.analysis.op_cost",
+           "repro_torch.analysis.roofline", "repro_torch.analysis.report"} - set(sys.modules)
 assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
