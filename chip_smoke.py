@@ -12,9 +12,10 @@ runs, in order, and exits non-zero at the first phase that fails:
    ptxas's registers and spills, and shows that K1's bf16 kernels on the
    main paths (forward, dQ and dK/dV at D 64, D 128 and D 80) and every
    instance of K5's bf16 kernels (the SSD scan's forward and backward)
-   hold tensor-core instructions (HMMA in ``cuobjdump -sass``) and spill
-   nothing, and that no instance of K3's and K4's split and merge kernels
-   and of K2's forward, backward and dscale-sum kernels spills;
+   hold tensor-core instructions (HMMA in ``cuobjdump -sass``, read
+   beside phases 3 and 4 and checked after phase 4) and spill nothing,
+   and that no instance of K3's and K4's split and merge kernels and of
+   K2's forward, backward and dscale-sum kernels spills;
 3. holds every kernel against its plain PyTorch version on the card, at
    the serving path's shapes, in f32 and bf16: K2 at a decode step's 1
    and 4 rows at D 2048, 4096 and 8192 and at the qk-norm's rows of D 128
@@ -90,12 +91,12 @@ runs, in order, and exits non-zero at the first phase that fails:
    at full width in f32, one right-padded prefill chunk and 4 decode ticks
    with a lane masked off through the kernels on the card against the
    plain versions on the CPU, over each pool (logits, recurrent states,
-   K/V rows); then at full width cut to 12 Mamba2 layers and 2 shared
-   calls (``Z_SERVE_LAYERS``; phases 16 and 17 serve the same cut), bf16,
+   K/V rows); then at full width cut to 6 Mamba2 layers and one shared
+   call (``Z_SERVE_LAYERS``; phases 16 and 17 serve the same cut), bf16,
    5 requests (prompts 16-96) through ``ServeEngine`` over each pool (4
    slots of 512 rows, 64-token chunks), every stream position held to teacher-forced
-   ``generate_offline`` and each decode step's launches counted (K2 29
-   times, K3 or K4 twice, nothing else); times K3 and K4 at the tick's
+   ``generate_offline`` and each decode step's launches counted (K2 15
+   times, K3 or K4 once, nothing else); times K3 and K4 at the tick's
    shape and K2 at its 4 rows of 4096, and profiles a decode tick of each
    pool and the scanned prefill per prompt token;
 16. serves speculatively (a draft model's masked ticks, one target verify
@@ -113,7 +114,7 @@ runs, in order, and exits non-zero at the first phase that fails:
    speculates on its contiguous pool is held to ``decode_step`` run token
    by token over the committed tokens. Every call's launches are counted (a llama
    draft tick K2 33 and K3 16 times, a verify K2 33 times and nothing
-   else; a zamba2 scan step K2 29 and K3/K4 twice), and so is each
+   else; a zamba2 scan step K2 15 and K3/K4 once), and so is each
    round's sequence of calls; every stream is held to teacher-forced
    offline decode; K2 is timed at a verify's 8 and 28 rows, and one
    steady llama round is profiled;
@@ -133,8 +134,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    serves 3 requests on a 4-block sharing arena (preempted, never
    sharing) and migrates one (its recurrent state moves).
    Every call's launches are counted as in phase 16 (a llama tick K2 33
-   and K3 or K4 16 times, a prefill chunk K2 33; a zamba2 step K2 29 and
-   K3/K4 twice), every arena drains clean, every stream is held to
+   and K3 or K4 16 times, a prefill chunk K2 33; a zamba2 step K2 15 and
+   K3/K4 once), every arena drains clean, every stream is held to
    teacher-forced offline decode, and ``snapshot_slot`` and
    ``restore_slot`` of a llama slot are timed against their byte bound;
 18. observability and the multi-replica fleet: (a) phase 4's traffic on
@@ -154,7 +155,7 @@ runs, in order, and exits non-zero at the first phase that fails:
 19. the registry's other GQA decoders at full width, each loaded alone
    (random bf16 weights from a seed, their bias and norm leaves made
    noisy; the memory held before each load and the peak after it
-   printed) and served cut in depth (qwen2.5-3b to 12 layers, the wide
+   printed) and served cut in depth (qwen2.5-3b to 8 layers, the wide
    models to 8: ``QWEN_SERVE_LAYERS``, ``W_LAYERS``): (a) qwen2.5-3b
    (q/k/v bias) serves the first 6 of phase 4's requests over both
    pools; (b) command-r-35b (LayerNorm, the parallel attention + FFN block, logit scale 0.0625), chameleon-34b
@@ -212,8 +213,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    deepseek-v3 at full width cut to 2 layers (1 MLA dense, 1 MLA MoE of 256 experts top
    8 plus a shared one, capacity-dropped; the MTP head on; 14.63 B
    parameters), bf16, remat full, Adafactor, 8 workers, 8 x 512 tokens,
-   12 steps, and (b) xlstm-125m at full width cut to 6 layers (phase
-   20's cut), bf16, remat full, momentum 0.9, 32 x 512 tokens, 12 steps,
+   11 steps, and (b) xlstm-125m at full width cut to 6 layers (phase
+   20's cut), bf16, remat full, momentum 0.9, 32 x 512 tokens, 11 steps,
    each with a worker
    failing at step 5 and rejoining at 10 (``train_full_width``: the
    stage walk, the fleet path, finite losses, the peak memory, and (e)
@@ -240,7 +241,7 @@ runs, in order, and exits non-zero at the first phase that fails:
    once (b)'s worker processes have ended.
    (b) the simulation engines: ``simulate_batch`` at
    ``benchmarks/perf_sim.py``'s Fig. 4 points (n 20, 24 seeds, cut to
-   5,000 iterations, adaptive-(k, beta) and adaptive-k) with its lanes in
+   2,500 iterations, adaptive-(k, beta) and adaptive-k) with its lanes in
    float64 on the card, held to the same call on the CPU (stage logs
    exactly, trajectories within 1e-9) and lanes 0 and 23 to the scalar
    ``simulate`` at those seeds, the wall seconds of each printed (the
@@ -294,7 +295,35 @@ runs, in order, and exits non-zero at the first phase that fails:
    989 TFLOP/s) must not exceed the profiled kernel time; K3 held at the
    decode step's shape; and the dry run's production cell
    (``python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape
-   train_4k``) in a subprocess, its artifact printed;
+   train_4k``) in a subprocess started with the script, its artifact
+   printed;
+26. the entry points' twins (``examples/*_torch.py``), through their
+   ``main``: (a) ``train_lm_torch --preset smollm --steps 48
+   --fail-worker-at 24``, smollm-135m at full width (30 layers, d 576,
+   9 / 3 heads of 64, vocab 49,152, tied) in f32 (no checkpoint: the
+   example writes one every 100 steps),
+   after a 2-layer cut's step on the card vs plain on the CPU as in phase
+   8: the loss must fall, the stage path be non-empty, the simulated time
+   printed, and the loop launch K1 30 / 30 and K2 61 / 61 a step and
+   nothing else; K1 (G 3, D 64) and K2 (D 576) held against plain in f32
+   at every batch shape the loop ran and at 32 x 128 tokens, and timed
+   there beside SDPA (pinned to its fastest backend, named), ``F.rms_norm``
+   and their bounds once (d) has ended; (b)
+   ``serve_lm_torch`` at README's four command lines (contiguous,
+   ``--paged``, ``--speculative --draft smollm``, ``--prefill-chunk 8``)
+   and at ``--arch zamba2`` and ``--arch xlstm``: every stream equal to
+   ``generate_offline`` on the card token for token, and each run's
+   launches counted (a dense model's every call K2 ``k2_per_call`` times
+   and every tick K3 or K4 once a layer; no kernel of the other pool);
+   (c) ``elastic_failover_torch`` (exact resume over 20 steps from an
+   async checkpoint, the fleet's path; K1 and K2 as the model says over
+   its 120 steps, and held to plain in f32 at every batch shape its loop
+   ran) and
+   ``elastic_serving_torch`` (zero drops, streams equal to offline
+   decode, a valid trace) as the reference runs them, their own
+   assertions holding; (d) ``python examples/serve_lm_torch.py --arch
+   smollm``, started in a subprocess first, must exit 0 and name the
+   card;
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
@@ -303,10 +332,13 @@ phase 17 under ``phase17_launches`` and in phase 18 under
 phase 20 under ``phase20_launches``, in phase 21 under
 ``phase21_launches``, in phase 22 under ``phase22_launches``, in
 phase 23 under ``phase23_launches``, in phase 24 under
-``phase24_launches`` and in phase 25 under ``phase25_launches``; then K4 again at block 8, the chaos
+``phase24_launches``, in phase 25 under ``phase25_launches`` and in
+phase 26 under ``phase26_launches``; then K4 again at block 8, the chaos
 fleet's geometry, with its times there and its launches in phase 23, and
 K1's forward and backward at D 80, hubert's main path, with their
-times at its shape and their launches in phase 22; the profiles under
+times at its shape and their launches in phase 22, and K1 and K2 in f32
+at smollm-135m's training shape (G 3; D 576) with their times there and
+their launches in phase 26's loop; the profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
@@ -322,7 +354,7 @@ under ``observed_serve`` and ``fleet``, phase 19's under ``gqa_configs``,
 phase 20's under ``mla_xlstm``, phase 21's under ``mla_xlstm_train``,
 phase 22's under ``hubert_train`` and ``sim_engines``, phase 23's under
 ``chaos_search`` and ``compression``, phase 24's under ``sharded_training``,
-phase 25's under ``dry_run``,
+phase 25's under ``dry_run``, phase 26's under ``entry_points``,
 the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
@@ -346,6 +378,7 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -617,7 +650,7 @@ def check_kernels() -> dict:
     )
     from repro_torch.kernels.decode_attention import sm_count
     from repro_torch.kernels.parity import (
-        DECODE_BLOCK, DECODE_SHAPES, RMS_CHUNK_SHAPES, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES,
+        DECODE_SHAPES, RMS_CHUNK_SHAPES, RMS_DECODE_SHAPES, RMS_VERIFY_SHAPES,
         SHARED_DECODE_SHAPES,
     )
     from repro_torch.kernels.rmsnorm import launch_plan
@@ -637,14 +670,14 @@ def check_kernels() -> dict:
                 print(f"    launch plan: {plan} (phase 2: no K2 instance spills)")
             if dtype == torch.bfloat16:
                 worst["rmsnorm"] = max(worst["rmsnorm"], err)
-        for H, Hkv, D, S, lens in DECODE_SHAPES:
+        for H, Hkv, D, S, lens, block in DECODE_SHAPES:
             B = len(lens)
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             live = lengths > 0
             q = torch.randn((B, H, D), generator=gen).to(dev, dtype)
             k = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dtype)
             v = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dtype)
-            k_ar, v_ar, tables = scatter_to_arena(k, v, lens, DECODE_BLOCK, gen)
+            k_ar, v_ar, tables = scatter_to_arena(k, v, lens, block, gen)
             paged = paged_decode_attention(q, k_ar, v_ar, tables, lengths)
             paged_ref = paged_decode_attention_plain(q, k_ar, v_ar, tables, lengths)
             out = decode_attention(q, k, v, lengths)
@@ -661,7 +694,8 @@ def check_kernels() -> dict:
             torch.cuda.synchronize()
             perr = (paged.float() - paged_ref.float()).abs().max().item()
             err = (out[live].float() - ref[live].float()).abs().max().item()
-            print(f"  K3/K4 decode {name} H={H} Hkv={Hkv} D={D} S={S} lengths={lens}: "
+            print(f"  K3/K4 decode {name} H={H} Hkv={Hkv} D={D} S={S} lengths={lens} "
+                  f"block={block}: "
                   f"K3 max|err|={err:.3e}, K4 max|err|={perr:.3e}; K3 == K4 bitwise: "
                   f"{bool(torch.equal(out, paged))}; repeat launches bitwise: {same}; each row "
                   f"== that row alone (B 1) bitwise: {alone}")
@@ -1300,8 +1334,8 @@ def profile_serving(model, params) -> list:
 
 #: Decode ticks in each profiled tick window, and in the warm-up before
 #: the windows (the engine's kernels are built and ran before); cut from
-#: 10 after 4 to fit the script's time limit.
-PROFILE_TICKS, PROFILE_WARMUP = 6, 2
+#: 10 after 4, then from 6 after 2, to fit the script's time limit.
+PROFILE_TICKS, PROFILE_WARMUP = 4, 1
 
 
 def tick_bytes(model, params, live_rows: int, experts_read: float = None,
@@ -1701,15 +1735,19 @@ def step_vs_plain(small, expect: dict) -> dict:
         du = (ua - ub).abs() / lr
         big = torch.minimum(ga.abs(), gb.abs()) >= 100 * eps
         bound = eps * dg_tol / ((ga.abs() + eps) * (gb.abs() + eps)) + 1e-6
-        a_ok &= bool((du[big] <= bound[big]).all())
-        n_in += int(big.sum())
-        if big.any():
-            worst_in = max(worst_in, du[big].max().item())
-        if not big.all():
-            k = int((~big).sum())
-            n_below += k
-            worst_below = max(worst_below, du[~big].max().item())
-            below.append((tuple(ga.shape), k, du[~big].max().item()))
+        # Masks, not boolean gathers: |du| >= 0, so a max over the
+        # elements outside a mask filled with 0 is the max over the mask
+        # (and a gather of an embedding-sized leaf costs seconds).
+        a_ok &= bool(((du <= bound) | ~big).all())
+        k = int(big.sum())
+        n_in += k
+        if k:
+            worst_in = max(worst_in, du.masked_fill(~big, 0).max().item())
+        if k < big.numel():
+            d = du.masked_fill(big, 0).max().item()
+            n_below += big.numel() - k
+            worst_below = max(worst_below, d)
+            below.append((tuple(ga.shape), big.numel() - k, d))
     print(f"  AdamW step (eps {eps}): max |grad diff| {worst_g:.3e} "
           f"({'ok' if g_ok else 'FAIL'}); {n_in} elements with |g| >= {100 * eps:g}: max "
           f"|update diff| {worst_in:.3e} lr ({'ok' if a_ok else 'FAIL'}); {n_below} below: "
@@ -1842,52 +1880,84 @@ def train_full_width(model, steps: int, global_batch: int = TRAIN_B,
 # Phase 10: training kernels' times and one profiled train step
 # ---------------------------------------------------------------------------
 
-def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = True) -> dict:
-    """K1 forward and backward at q (B, S, H, D), k/v (B, S, Hkv, D), bf16,
-    causal or not, beside their plain versions, SDPA and their bounds
-    (CUDA events, cold L2, median of 30)."""
+def sdpa_backend(fn):
+    """The fastest of SDPA's backends (flash, memory-efficient, cuDNN,
+    math) that runs ``fn`` (SDPA forward and backward) when pinned, by a
+    median of 10 ``time_ms`` launches of ``fn``: the yardstick is the best
+    one PyTorch call, whichever its dispatcher would pick."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(backend):
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    fn()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            times[backend] = time_ms(fn, n=10)
+    return min(times, key=times.get)
+
+
+def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = True,
+               dt: torch.dtype = torch.bfloat16) -> dict:
+    """K1 forward and backward at q (B, S, H, D), k/v (B, S, Hkv, D), in
+    ``dt`` (bf16 or f32), causal or not, beside their plain versions, SDPA
+    pinned to its fastest backend here (``sdpa_backend``, named in the
+    shape) and their bounds (CUDA events, cold L2, median of 30)."""
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_bwd_work,
         flash_attention_fwd, flash_attention_plain, flash_attention_work,
     )
 
-    dev, dt = torch.device("cuda"), torch.bfloat16
+    dev = torch.device("cuda")
+    peak, es, name = ((BF16_FLOPS, 2, "bf16") if dt == torch.bfloat16 else
+                      (F32_FLOPS, 4, "f32"))
     q = torch.randn((B, S, H, D), generator=gen).to(dev, dt)
     k = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
     v = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
     do = torch.randn((B, S, H, D), generator=gen).to(dev, dt)
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
-    fwd_flops, fwd_bytes = flash_attention_work(B, S, S, H, Hkv, D, D, 2, causal)
+    fwd_flops, fwd_bytes = flash_attention_work(B, S, S, H, Hkv, D, D, es, causal)
     out = {}
-    b, kind = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
+    b, kind = bound(fwd_bytes, fwd_flops, peak)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = Hkv != H
 
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
-
-    shape = (f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {Hkv}, {D}) bf16, "
-             f"{'causal' if causal else 'non-causal'}")
-    out["flash_attention"] = dict(
-        shape=shape,
-        ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal), n=30),
-        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=causal), n=30),
-        library_ms=time_ms(sdpa, n=30), bound_ms=b, bound_by=kind,
-        flops=fwd_flops,
-    )
-    bwd_flops, bwd_bytes = flash_attention_bwd_work(B, S, S, H, Hkv, D, D, 2, causal)
-    b, kind = bound(bwd_bytes, bwd_flops, BF16_FLOPS)
-    qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
 
     def sdpa_fwd_bwd():
         y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal, enable_gqa=gqa)
         y.backward(do.transpose(1, 2))
 
-    lib_fb = time_ms(sdpa_fwd_bwd, n=30)
-    lib_f = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
-                                                           enable_gqa=gqa), n=30)
+    backend = sdpa_backend(sdpa_fwd_bwd)
+    with sdpa_kernel(backend):
+        lib = time_ms(sdpa, n=30)
+        lib_fb = time_ms(sdpa_fwd_bwd, n=30)
+        lib_f = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                                               enable_gqa=gqa), n=30)
+    shape = (f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {Hkv}, {D}) {name}, "
+             f"{'causal' if causal else 'non-causal'}; SDPA {backend.name}")
+    out["flash_attention"] = dict(
+        shape=shape,
+        ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal), n=30),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=causal), n=30),
+        library_ms=lib, bound_ms=b, bound_by=kind,
+        flops=fwd_flops,
+    )
+    bwd_flops, bwd_bytes = flash_attention_bwd_work(B, S, S, H, Hkv, D, D, es, causal)
+    b, kind = bound(bwd_bytes, bwd_flops, peak)
     out["flash_attention_bwd"] = dict(
         shape=shape + ", with dO",
         ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), n=30),
@@ -1905,10 +1975,11 @@ def print_times(out: dict) -> None:
               + (f"; {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s" if "flops" in r else ""))
 
 
-def time_rmsnorm(rows: int, D: int, gen) -> dict:
-    """K2 forward and backward at x, g (rows, D) bf16 beside their plain
-    versions, ``F.rms_norm`` (forward; forward and backward less forward)
-    and their bounds (CUDA events, cold L2, median of 30)."""
+def time_rmsnorm(rows: int, D: int, gen, dt: torch.dtype = torch.bfloat16) -> dict:
+    """K2 forward and backward at x, g (rows, D) in ``dt`` (bf16 or f32)
+    beside their plain versions, ``F.rms_norm`` (forward; forward and
+    backward less forward) and their bounds (CUDA events, cold L2, median
+    of 30)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (
@@ -1916,7 +1987,8 @@ def time_rmsnorm(rows: int, D: int, gen) -> dict:
         rms_norm_work,
     )
 
-    dev, dt = torch.device("cuda"), torch.bfloat16
+    dev = torch.device("cuda")
+    es, name = (2, "bf16") if dt == torch.bfloat16 else (4, "f32")
     x = torch.randn((rows, D), generator=gen).to(dev, dt)
     g = torch.randn((rows, D), generator=gen).to(dev, dt)
     scale = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev, dt)
@@ -1928,18 +2000,18 @@ def time_rmsnorm(rows: int, D: int, gen) -> dict:
     lib_fb = time_ms(lib_rms_fb, n=30)
     lib_f = time_ms(lambda: F.rms_norm(xr, (D,), sr, 1e-6), n=30)
     out = {}
-    flops, nbytes = rms_norm_work(rows, D, 2)
+    flops, nbytes = rms_norm_work(rows, D, es)
     b, kind = bound(nbytes, flops)
     out["rmsnorm"] = dict(
-        shape=f"x ({rows}, {D}) bf16",
+        shape=f"x ({rows}, {D}) {name}",
         ms=time_ms(lambda: rms_norm(x, scale), n=30),
         plain_ms=time_ms(lambda: rms_norm_plain(x, scale), n=30),
         library_ms=lib_f, bound_ms=b, bound_by=kind,
     )
-    flops, nbytes = rms_norm_bwd_work(rows, D, 2)
+    flops, nbytes = rms_norm_bwd_work(rows, D, es)
     b, kind = bound(nbytes, flops)
     out["rmsnorm_bwd"] = dict(
-        shape=f"x, g ({rows}, {D}) bf16",
+        shape=f"x, g ({rows}, {D}) {name}",
         ms=time_ms(lambda: rms_norm_bwd(g, x, scale), n=30),
         plain_ms=time_ms(lambda: rms_norm_bwd_plain(g, x, scale), n=30),
         library_ms=lib_fb - lib_f, bound_ms=b, bound_by=kind,
@@ -1989,10 +2061,11 @@ def profile_train_step(model, params, opt=None, global_batch: int = TRAIN_B) -> 
 # Phase 11: the SSD scan (K5) against its plain version
 # ---------------------------------------------------------------------------
 
-#: zamba2-1.2b's loop takes ``ZAMBA_STEPS`` steps of ``ZAMBA_TRAIN_B`` x 512
-#: tokens at beta 1 (from 32 x 512, to fit the script's 1,200 s limit: K5,
-#: K1 and K2 are held at every batch shape the loop runs, 2 now, 6 then).
-ZAMBA_ARCH, ZAMBA_STEPS, ZAMBA_TRAIN_B = "zamba2-1.2b", 16, 8
+#: zamba2-1.2b's loop takes ``ZAMBA_STEPS`` steps (from 16) of
+#: ``ZAMBA_TRAIN_B`` x 512 tokens at beta 1 (from 32 x 512, to fit the
+#: script's 1,200 s limit: K5, K1 and K2 are held at every batch shape the
+#: loop runs, 2 now, 6 then).
+ZAMBA_ARCH, ZAMBA_STEPS, ZAMBA_TRAIN_B = "zamba2-1.2b", 12, 8
 
 
 def ssd_inputs(shape, dtype, gen, zamba: bool):
@@ -2187,10 +2260,10 @@ def time_ssd_kernels(cfg) -> dict:
 #: script's time limit).
 Z_SLOTS, Z_MAX_LEN, Z_CHUNK, Z_REQUESTS = 4, 512, 64, 5
 #: Phases 15-17 serve zamba2-1.2b at full width cut to ``Z_SERVE_LAYERS``
-#: Mamba2 layers and so 2 shared calls (from 38 and 6): a decode step is
-#: host-bound, its time goes with its launches, and the script at full
-#: depth ran past its 1,200 s limit on an H100.
-Z_SERVE_LAYERS = 12
+#: Mamba2 layers and so one shared call (from 38 and 6, then 12 and 2): a
+#: decode step is host-bound, its time goes with its launches, and the
+#: script at full depth ran past its 1,200 s limit on an H100.
+Z_SERVE_LAYERS = 6
 
 
 def zamba_workload(vocab: int, n: int = Z_REQUESTS, prompt=(16, 97), new=(8, 33),
@@ -2353,7 +2426,7 @@ def serve_zamba(model, params) -> tuple:
 #: and the prompt of the scanned prefill. Kept short: a zamba2 step is
 #: ~2100 launches, and reading a window's profiler events takes longer
 #: than running it.
-Z_PROFILE_TICKS, Z_PROFILE_PROMPT = 6, 16
+Z_PROFILE_TICKS, Z_PROFILE_PROMPT = 4, 16
 
 
 def profile_zamba_serving(model, params) -> list:
@@ -3435,11 +3508,13 @@ QWEN_REQUESTS = 6
 WIDE_ARCHS = ("command-r-35b", "chameleon-34b", "qwen3-moe-30b-a3b")
 W_REQUESTS, W_SLOTS, W_MAX_LEN, W_CHUNK = 5, 4, 512, 128
 #: Phase 19's serving runs full width cut to ``QWEN_SERVE_LAYERS`` layers
-#: (qwen2.5-3b, from 36) and ``W_LAYERS`` (the wide models, from 40 and
-#: 48): a decode tick is host-bound, its time goes with its launches,
-#: and the script at full depth ran past its 1,200 s limit on an H100.
-#: qwen2.5-3b still trains at full depth.
-QWEN_SERVE_LAYERS, W_LAYERS = 12, 8
+#: (qwen2.5-3b, from 36, then 12) and ``W_LAYERS`` (the wide models, from
+#: 40 and 48): a decode tick is host-bound, its time goes with its
+#: launches, and the script at full depth ran past its 1,200 s limit on an
+#: H100. qwen2.5-3b still trains at full depth. (At 6 layers one
+#: command-r-35b stream departed from offline decode at a top-2 gap of
+#: 0.1250, 4 bf16 ulps, one past the near-tie rule, on an H100.)
+QWEN_SERVE_LAYERS, W_LAYERS = 8, 8
 #: Leaves a model initializes to zeros or ones (norm scales and biases,
 #: q/k/v biases, xLSTM's gate and conv biases), and the noise added to them
 #: before serving, so that the biases, LayerNorm's affine and the qk-norm's
@@ -3450,7 +3525,7 @@ CONST_NOISE = 0.1
 #: (4096 tokens a step at k = 8). Its 3.09 B parameters in bf16 with f32
 #: AdamW moments hold ~29 GiB; 32 x 512 tokens would add ~36 GiB of
 #: saved products and ~30 GiB of f32 logits and their gradient.
-QWEN_TRAIN_B, QWEN_TRAIN_STEPS = 8, 12
+QWEN_TRAIN_B, QWEN_TRAIN_STEPS = 8, 11
 def serving_config(name: str):
     """The registry's config; an MoE routes dropless (capacity-dropped
     routing depends on the chunk's other tokens, so a served stream could
@@ -3946,7 +4021,7 @@ def phase20() -> dict:
 #: runs at the CPU tests' widths (``cfg.reduced``: d_model 128, 8 experts
 #: of top 2, vocab 512; MTP on): at full width the host's step and its
 #: f32 draw took ~95 s of the script's 1,200 on an H100 machine.
-DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_STEPS, DS_TRAIN_LR = 2, 8, 12, 3e-4
+DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_STEPS, DS_TRAIN_LR = 2, 8, 11, 3e-4
 #: The own-batch check's lr for deepseek: a fresh Adafactor's first step
 #: moves every weight by about lr, which at d_model 7168 is a large step
 #: (second-order effects, not the gradient's direction, decide whether a
@@ -3958,7 +4033,7 @@ DS_CHECK_LR = 1e-5
 #: bf16 weights: at lr 3e-4 a 155 M-parameter model's per-weight step,
 #: ~1e-4 lr, is far below a bf16 step of its weights), ``XL_TRAIN_B`` x 512
 #: tokens, ``XL_TRAIN_STEPS`` steps.
-XL_TRAIN_B, XL_TRAIN_STEPS, XL_TRAIN_LR, XL_MU = 32, 12, 0.5, 0.9
+XL_TRAIN_B, XL_TRAIN_STEPS, XL_TRAIN_LR, XL_MU = 32, 11, 0.5, 0.9
 
 
 def ds_train_config():
@@ -4124,11 +4199,11 @@ HUBERT_K6 = (1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0)
 HUBERT_MASKED_STEPS, HUBERT_LR = 3, 1e-4
 #: benchmarks/perf_sim.py's Fig. 4 points (n 20, s 20, 24 seeds, an eval
 #: every 10), cut from its 20,000 iterations to ``SIM_ITERS`` (a card's
-#: iteration is host-bound at ~1.4 ms; at 5,000 the lanes walk 15 of
-#: adaptive-(k, beta)'s 17 stages and 4 of adaptive-k's 10), and the seeds
-#: the scalar engine runs.
+#: iteration is host-bound at ~1.4 ms; at 5,000 the lanes walked 15 of
+#: adaptive-(k, beta)'s 17 stages and 4 of adaptive-k's 10; 2,500 since
+#: the entry points' phase), and the seeds the scalar engine runs.
 SIM_POINTS = (("fig4_kbeta", "adaptive_kbeta"), ("fig4_k", "adaptive_k"))
-SIM_N, SIM_SEEDS, SIM_ITERS, SIM_EVAL = 20, 24, 5_000, 10
+SIM_N, SIM_SEEDS, SIM_ITERS, SIM_EVAL = 20, 24, 2_500, 10
 SIM_SCALAR_SEEDS = (0, 23)
 #: Iterations of each point's profiled window on the card.
 SIM_PROFILE_ITERS = 256
@@ -5060,34 +5135,45 @@ def p25_step(label: str, step, card_args: tuple, meta_args: tuple, kernels: tupl
             "idle_share": prof["idle_share"], "launches": launches, "trace_s": meta_s}
 
 
-def p25_dryrun() -> dict:
+def start_dryrun() -> subprocess.Popen:
     """The production cell ``--arch llama3.2-1b --shape train_4k`` on the
-    (16, 16) mesh, in a process of its own (its fake group must not
-    meet this process's): its artifact line."""
+    (16, 16) mesh, in a process of its own (its fake group must not meet
+    this process's), started when the script starts: it needs no card,
+    and phase 25 (``p25_dryrun``) reads it."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+                             "--shape", "train_4k"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def p25_dryrun(proc: subprocess.Popen) -> dict:
+    """``start_dryrun``'s run: its exit, its last lines and its artifact."""
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
-                          "--shape", "train_4k"], cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    print("    " + "\n    ".join(res.stdout.strip().splitlines()[-3:]))
-    check(res.returncode == 0, f"the dry run failed: {res.stderr[-2000:]}")
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    print("    " + "\n    ".join(stdout.strip().splitlines()[-3:]))
+    check(proc.returncode == 0, f"the dry run failed: {stderr[-2000:]}")
     art = json.loads((ROOT / "artifacts" / "dryrun_torch"
                       / f"{ARCH}__train_4k__pod16x16__baseline.json").read_text())
     check(art["status"] == "OK", f"the dry run's cell is {art['status']}")
-    print(f"    artifact ({seconds:.1f} s with the imports): {json.dumps(art)}")
+    print(f"    artifact (started with the script; {time.perf_counter() - t0:.1f} s waited "
+          f"here): {json.dumps(art)}")
     return art
 
 
-def phase25(card: str) -> dict:
+def phase25(card: str, dryrun: subprocess.Popen) -> dict:
     """llama3.2-1b at full width and depth, bf16, world 1, no mesh: (a)
     phase 24's train step (8 x 512 tokens, 6 of 8 workers, AdamW, remat
     full) and (b) the contiguous decode step at B 4 over a 1024-row cache
     at its last row, each counted on meta and on the card
     (``p25_step``); K3 held at (b)'s shape (K1 and K2 at (a)'s are held in
-    phase 24); (c) the dry run's production cell in a subprocess."""
+    phase 24); (c) the dry run's production cell, ``dryrun``
+    (``start_dryrun``'s subprocess)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention, decode_attention_plain
     from repro_torch.launch.specs import abstract_state
@@ -5141,17 +5227,288 @@ def phase25(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"    (c) the dry run's production cell: {ARCH} x train_4k on the (16, 16) mesh")
-    out["dryrun"] = p25_dryrun()
+    out["dryrun"] = p25_dryrun(dryrun)
     out["launches"] = {k: out["train"]["launches"][k] + out["decode"]["launches"][k]
                        for k in out["train"]["launches"]}
     out["max_abs_err"] = {"decode_attention": err}
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the entry points (examples/*_torch.py)
+# ---------------------------------------------------------------------------
+
+#: ``train_lm_torch.py --preset smollm``: steps, and the step a worker
+#: fails at.
+P26_STEPS, P26_FAIL_AT = 48, 24
+#: ``serve_lm_torch.py``'s command lines: README's four, then the two
+#: recurrent caches.
+P26_SERVE = ((), ("--paged",), ("--speculative", "--draft", "smollm"), ("--prefill-chunk", "8"),
+             ("--arch", "zamba2"), ("--arch", "xlstm"))
+P26_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")
+
+
+def load_example(name: str):
+    """``examples/NAME.py`` as a module (a twin imports only the port)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def p26_train() -> dict:
+    """(a) smollm-135m at full width in f32: a 2-layer cut's step on the
+    card vs plain on the CPU, then ``train_lm_torch.main`` with a worker
+    failure; its launches a step, its records, and K1 (G 3, D 64) and K2
+    (D 576) held at every batch shape the loop ran and at 32 x 128 tokens
+    (beta 1). No ``--checkpoint-dir``: the example checkpoints every 100
+    steps, past this run's end (``p26_elastic`` writes and restores the
+    async checkpoints, at its reduced width)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    tl = load_example("train_lm_torch")
+    cfg = tl.preset_config("smollm", 128)
+    print(f"    {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}, remat {cfg.remat!r}")
+    small = dataclasses.replace(cfg, n_layers=2)
+    print("    one train step cut to 2 layers: kernels on the card vs plain on the CPU")
+    parity = step_vs_plain(small, per_step_launches(small))
+    per_step = per_step_launches(cfg)
+    argv = ["--preset", "smollm", "--steps", str(P26_STEPS), "--fail-worker-at",
+            str(P26_FAIL_AT)]
+    print(f"    train_lm_torch {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tl.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"    {P26_STEPS} steps in {wall:.1f} s, peak {peak / 2**30:.2f} GiB; launches "
+          f"{counts}; per step, from the model: {per_step}")
+    check(counts == {k: v * P26_STEPS for k, v in per_step.items()},
+          f"launch counts {counts} are not {P26_STEPS} x {per_step}")
+    check(bool(np.isfinite(rec["final_loss"])) and rec["final_loss"] < rec["start_loss"],
+          f"the loss did not fall: {rec['start_loss']} -> {rec['final_loss']}")
+    check(len(rec["stage_path"]) > 0, "the stage path is empty")
+    check(bool(np.isfinite(rec["sim_time"])) and rec["sim_time"] > 0,
+          f"simulated time {rec['sim_time']}")
+    worst = dict.fromkeys(P26_KERNELS, 0.0)
+    shapes = sorted(set(rec["compiled_shapes"]) | {(32, 128)})
+    print(f"    K1 and K2 vs plain PyTorch (f32) at the loop's batch shapes and at 32 x 128: "
+          f"{shapes}")
+    check_loop_shapes(cfg, shapes, worst)
+    return {"step_parity": parity, "records": rec, "steps": P26_STEPS, "wall_s": wall,
+            "peak_bytes": peak, "launches": counts, "per_step": per_step,
+            "max_abs_err": worst}
+
+
+def p26_times() -> dict:
+    """K1 (G 3, D 64) and K2 (D 576) at smollm-135m's 32 x 128 tokens in
+    f32, timed once nothing else of phase 26 runs on the card, from an
+    emptied allocator cache; the allocator's retries (a cudaFree and a
+    sync each, inside a timed call) and its reserved bytes are printed,
+    as SDPA's f32 backward (math: it allocates its scores) read 0.23 to
+    2.1 ms over runs."""
+    cfg = load_example("train_lm_torch").preset_config("smollm", 128)
+    print("    K1 (G 3, D 64) and K2 (D 576) times at 32 x 128 tokens, f32 (CUDA events, "
+          "cold L2, median of 30)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    retries = torch.cuda.memory_stats()["num_alloc_retries"]
+    gen = torch.Generator().manual_seed(SEED + 60)
+    times = time_flash(32, 128, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, gen,
+                       dt=torch.float32)
+    times.update(time_rmsnorm(32 * 128, cfg.d_model, gen, dt=torch.float32))
+    print_times(times)
+    print(f"    allocator: {torch.cuda.memory_stats()['num_alloc_retries'] - retries} retries "
+          f"while timing, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return times
+
+
+def p26_serve() -> dict:
+    """(b) ``serve_lm_torch.main`` at every command line of ``P26_SERVE``,
+    the target's and draft's weights drawn as the twin draws them (seeds 0
+    and 1) and handed over, so that every stream is held to the port's
+    ``generate_offline`` on the card token for token (a departure prints
+    its position and offline's top-2 gap there, and fails). Launches: a
+    dense model's every call runs K2 ``k2_per_call`` times and each decode
+    tick K3 (contiguous) or K4 (paged) once a layer; zamba2's shared
+    block K3; xLSTM K2 alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.parity import k2_per_call
+    from repro_torch.models import build_model
+    from repro_torch.serve import generate_offline
+
+    sl = load_example("serve_lm_torch")
+    out = {}
+    for argv in P26_SERVE:
+        label = " ".join(argv) or "--arch smollm"
+        args = sl.parse_args(list(argv))
+        model = build_model(get_config(args.arch).reduced())
+        params = model.init(0, device="cuda")
+        draft = (build_model(get_config(args.draft or args.arch).reduced()).init(1, device="cuda")
+                 if args.speculative else None)
+        reset_launch_counts()
+        rec = sl.main(list(argv), params=params, draft_params=draft)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        max_len = rec["serve"]["max_len"]
+        departures = []
+        for rid, (prompt, n) in rec["requests"].items():
+            stream = rec["streams"][rid]
+            if stream != generate_offline(model, params, prompt, n, max_len):
+                own, gaps = generate_offline(model, params, prompt, n, max_len, forced=stream)
+                i = next(j for j, (a, b) in enumerate(zip(stream, own)) if a != b)
+                departures.append((rid, i, gaps[i]))
+        cfg = model.cfg
+        p = rec["prefill"]
+        attn = "paged_decode_attention" if args.paged else "decode_attention"
+        other = "decode_attention" if args.paged else "paged_decode_attention"
+        if cfg.family == "xlstm":
+            expect = {"decode_attention": 0, "paged_decode_attention": 0}
+        elif model.recurrent or args.speculative:
+            expect = {other: 0}
+        else:
+            expect = {"rmsnorm": k2_per_call(cfg) * (p["calls"] + p["decode_ticks"]),
+                      attn: cfg.n_layers * p["decode_ticks"], other: 0}
+        expect.update(flash_attention=0, flash_attention_bwd=0, rmsnorm_bwd=0, ssd_scan=0,
+                      ssd_scan_bwd=0)
+        ok_launch = (counts["rmsnorm"] > 0 and all(counts[k] == v for k, v in expect.items())
+                     and (cfg.family == "xlstm" or counts[attn] > 0))
+        print(f"    {label}: {rec['serve']['arch']}, {rec['generated']['tokens']} tokens, "
+              f"{p['calls']} prefill calls, {p['decode_ticks']} ticks, launches {counts} "
+              f"({'ok' if ok_launch else 'FAIL'}); streams vs offline decode: "
+              f"{len(rec['streams']) - len(departures)} of {len(rec['streams'])} equal"
+              + "".join(f"; req{r} departs at {i} (offline top-2 gap {g:.3e})"
+                        for r, i, g in departures))
+        check(not departures, f"serve_lm_torch {label}: streams depart from offline decode")
+        check(ok_launch, f"serve_lm_torch {label}: launches {counts}, expected {expect}")
+        out[label] = {"launches": counts, "prefill": p, "generated": rec["generated"],
+                      "kv_arena": rec.get("kv_arena"), "speculation": rec.get("speculation"),
+                      "device": rec["serve"]["device"]}
+    return out
+
+
+def p26_elastic() -> dict:
+    """(c) ``elastic_failover_torch.main()`` and
+    ``elastic_serving_torch.main()`` on the card as the reference runs
+    them: their own assertions (exact resume from an async checkpoint;
+    zero drops, streams equal to offline decode, a valid trace) must hold.
+    The failover's 120 steps launch K1 and K2 as the model says a step,
+    and K1 and K2 (f32, D 32 and 64) are held to plain at every batch
+    shape its loop ran."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+    ef = load_example("elastic_failover_torch")
+    cfg = ef.build()[0].cfg
+    per_step = per_step_launches(cfg)
+    shapes, train = set(), ef.train
+
+    def recorded(*a, **kw):
+        res = train(*a, **kw)
+        shapes.update(tuple(s) for s in res["compiled_shapes"])
+        return res
+
+    ef.train = recorded
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = ef.main([])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    seconds = time.perf_counter() - t0
+    verdict = rec["records"][-1]
+    resume = next(r["fields"] for r in rec["records"] if r["kind"] == "resume_check")
+    print(f"    elastic_failover_torch: {seconds:.1f} s, {resume}; launches {counts}")
+    check(verdict["kind"] == "verdict" and verdict["fields"]["ok"], "no failover verdict")
+    check(counts == {k: v * 120 for k, v in per_step.items()},
+          f"failover launches {counts} are not 120 x {per_step}")
+    worst = dict.fromkeys(P26_KERNELS, 0.0)
+    print(f"    K1 and K2 vs plain PyTorch (f32) at the failover loop's batch shapes: "
+          f"{sorted(shapes)}")
+    check_loop_shapes(cfg, sorted(shapes), worst)
+    out["elastic_failover"] = {"launches": counts, "resume_check": resume, "seconds": seconds,
+                               "batch_shapes": sorted(shapes), "max_abs_err": worst}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = load_example("elastic_serving_torch").main([])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    summary = {k: float(v) for k, v in rec["summary"].items()}
+    verdict = rec["records"][-1]
+    print(f"    elastic_serving_torch: {time.perf_counter() - t0:.1f} s, completed "
+          f"{summary['completed']:.0f}, dropped {summary['dropped']:.0f}, trace events "
+          f"{verdict['fields']['trace_events']}; launches {counts}")
+    check(verdict["kind"] == "verdict" and verdict["fields"]["ok"], "no serving verdict")
+    check(counts["rmsnorm"] > 0 and counts["paged_decode_attention"] > 0
+          and counts["decode_attention"] > 0,
+          f"elastic serving did not run through K2, K3 (offline) and K4 (replicas): {counts}")
+    out["elastic_serving"] = {"launches": counts, "summary": summary,
+                              "trace_events": verdict["fields"]["trace_events"],
+                              "seconds": time.perf_counter() - t0}
+    return out
+
+
+def phase26(card: str) -> dict:
+    """The entry points: (d) ``python examples/serve_lm_torch.py --arch
+    smollm`` starts in a subprocess, while (a) ``p26_train``, (b)
+    ``p26_serve`` and (c) ``p26_elastic`` run here; then the subprocess
+    must have exited 0 and named the card. The kernels are timed
+    (``p26_times``) only after it has ended, so that nothing shares the
+    card with the timed launches."""
+    import os
+
+    name = torch.cuda.get_device_name(0)
+    cli = [sys.executable, str(ROOT / "examples" / "serve_lm_torch.py"), "--arch", "smollm"]
+    proc = subprocess.Popen(cli, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        print("    (a) train_lm_torch --preset smollm")
+        train = p26_train()
+        print("    (b) serve_lm_torch at README's command lines, zamba2 and xlstm")
+        serve = p26_serve()
+        print("    (c) elastic_failover_torch and elastic_serving_torch")
+        elastic = p26_elastic()
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    print(f"    (d) python examples/serve_lm_torch.py --arch smollm: exit {proc.returncode}")
+    for line in stdout.splitlines():
+        print("      " + line)
+    check(proc.returncode == 0, f"serve_lm_torch.py exited {proc.returncode}: {stderr[-2000:]}")
+    check(f"on {name})" in stdout, f"serve_lm_torch.py did not name the card {name!r}")
+    train["kernel_times"] = p26_times()
+    launches = {k: train["launches"][k] + sum(r["launches"][k] for r in serve.values())
+                + sum(r["launches"][k] for r in elastic.values()) for k in train["launches"]}
+    print(f"    launches over (a)-(c): {launches}; card {card}")
+    return {"train": train, "serve": serve, "elastic": elastic, "launches": launches,
+            "cli": {"argv": cli[1:], "exit": proc.returncode, "stdout": stdout}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    dryrun = start_dryrun()
+    try:
+        return run(dryrun)
+    finally:
+        if dryrun.poll() is None:
+            dryrun.kill()
+
+
+def run(dryrun: subprocess.Popen) -> int:
+    """Phases 1-26 (the module's docstring); ``dryrun`` is phase 25's
+    production cell, started with the script."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models import Model, count_params_analytic
@@ -5171,10 +5528,9 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line:
             print("    " + line.strip())
-    print("    K1's bf16 kernels on the main paths (cuobjdump -sass, ptxas -v):")
-    tensor_cores = check_tensor_cores(lib, _build.build_log())
-    print("    K5's bf16 kernels (cuobjdump -sass, ptxas -v):")
-    ssd_tensor_cores = check_ssd_tensor_cores(lib, _build.build_log())
+    # cuobjdump -sass over the library takes 15-25 s: it runs beside
+    # phases 3 and 4, and the tensor-core checks follow phase 4.
+    sass = ThreadPoolExecutor(1).submit(hmma_counts, lib)
     print("    K3's and K4's split and merge kernels (ptxas -v):")
     decode_resources = check_decode_resources(_build.build_log())
     print("    K2's forward, backward and dscale-sum kernels (ptxas -v):")
@@ -5192,6 +5548,11 @@ def main() -> int:
     torch.cuda.synchronize()
     runs = serve(model, params, workload(cfg.vocab_size))
     check_streams(model, params, workload(cfg.vocab_size), runs, MAX_LEN)
+    sass.result()
+    print("[2] (continued) K1's bf16 kernels on the main paths (cuobjdump -sass, ptxas -v):")
+    tensor_cores = check_tensor_cores(lib, _build.build_log())
+    print("    K5's bf16 kernels (cuobjdump -sass, ptxas -v):")
+    ssd_tensor_cores = check_ssd_tensor_cores(lib, _build.build_log())
 
     print("[5] timing (CUDA events, cold L2, median of 60)")
     times, long_decode = time_kernels(cfg, workload(cfg.vocab_size))
@@ -5440,11 +5801,21 @@ def main() -> int:
     print(f"[25] {ARCH} at full width and depth: the train and decode steps counted by "
           f"op_cost on meta tensors and on the card, timed beside their roofline terms; "
           f"the dry run's production cell")
-    p25 = phase25(card)
+    p25 = phase25(card, dryrun)
     phase25_seconds = time.perf_counter() - t25
     print(f"    phase 25 took {phase25_seconds:.1f} s; card {card}")
     worst["decode_attention"] = max(worst["decode_attention"],
                                     p25["max_abs_err"]["decode_attention"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t26 = time.perf_counter()
+    print("[26] the entry points: examples/train_lm_torch.py (smollm-135m at full width, "
+          "f32), serve_lm_torch.py, elastic_failover_torch.py, elastic_serving_torch.py and "
+          "a command line")
+    p26 = phase26(card)
+    phase26_seconds = time.perf_counter() - t26
+    print(f"    phase 26 took {phase26_seconds:.1f} s; card {card}")
 
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
@@ -5502,6 +5873,7 @@ def main() -> int:
             "phase23_launches": chaos["launches"].get(kname, 0),
             "phase24_launches": p24["launches"].get(kname, 0),
             "phase25_launches": p25["launches"].get(kname, 0),
+            "phase26_launches": p26["launches"].get(kname, 0),
         })
     # K4 at block 8, the chaos fleet's geometry: launches over phase 23's
     # runs, times at its decode tick's shape.
@@ -5531,6 +5903,27 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             "phase22_launches": hubert["launches"][kname],
         })
+    # K1 at G 3 (9 heads over 3, D 64) and K2 at D 576 in f32, smollm-135m's
+    # main path through train_lm_torch: launches over phase 26's loop, times
+    # at 32 x 128 tokens.
+    for kname in P26_KERNELS:
+        t = p26["train"]["kernel_times"][kname]
+        kernels.append({
+            "name": f"{kname} (smollm-135m, f32)", "route": "cuda",
+            "source": sources[kname][0], "replaces": sources[kname][1],
+            "launches": p26["train"]["launches"][kname],
+            "max_abs_err": p26["train"]["max_abs_err"][kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            "phase26_launches": p26["launches"][kname],
+        })
+    # Phase 26's launches on the rows of one shape: K4 at block 8 is
+    # elastic_serving_torch's replicas; no entry point runs K1 at D 80.
+    for k in kernels:
+        if k["name"] == "paged_decode_attention (block 8)":
+            k["phase26_launches"] = p26["elastic"]["elastic_serving"]["launches"][
+                "paged_decode_attention"]
+        k.setdefault("phase26_launches", 0)
     report = {
         "kernels": kernels,
         "card": name, "power_limit": limit,
@@ -5615,6 +6008,8 @@ def main() -> int:
         "phase24_seconds": phase24_seconds,
         "dry_run": {k: v for k, v in p25.items() if k != "launches"},
         "phase25_seconds": phase25_seconds,
+        "entry_points": {k: v for k, v in p26.items() if k != "launches"},
+        "phase26_seconds": phase26_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

@@ -19,9 +19,10 @@ __all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "SHARED_DECODE_SHAPES", "shared_bloc
            "NEAR_ULPS", "BF16_UNIT", "within", "flash_within", "ssd_within", "dscale_bf16_slack",
            "k2_per_call"]
 
-#: Flash decode (K3, K4) cases: H, Hkv, D, S, lengths (B = len(lengths));
-#: the paged form reads the same rows through a shuffled arena of
-#: ``DECODE_BLOCK``-row blocks. llama3.2-1b's serving geometry (32/8
+#: Flash decode (K3, K4) cases: H, Hkv, D, S, lengths (B = len(lengths)),
+#: block; the paged form reads the same rows through a shuffled arena of
+#: ``block``-row blocks (``DECODE_BLOCK`` but where a case says otherwise).
+#: llama3.2-1b's serving geometry (32/8
 #: heads, D 64, S 1024) and G = 3 (smollm) at lengths around a block
 #: and near S; the old small cases (S 256, G 1 to 8, D 32 to 128); lengths
 #: that land on the boundaries of 9 and of 16 splits (9 x k and 16 x k
@@ -34,11 +35,16 @@ __all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "SHARED_DECODE_SHAPES", "shared_bloc
 #: split boundary of a full row (128, 256, 384); and G = 8, the widest
 #: group the kernels take, at D 128 at the serving shapes of qwen2.5-3b
 #: (16 heads over 2, S 1024), of command-r-35b and chameleon-34b (64 over
-#: 8, S 512) and of qwen3-moe-30b-a3b (32 over 4, S 512). A
-#: length of 0 is K4's empty row (zeros); K3's contract is length >= 1, so
-#: it is held to plain on live rows only.
+#: 8, S 512) and of qwen3-moe-30b-a3b (32 over 4, S 512); and the reduced
+#: configs that ``examples/serve_lm_torch.py`` and
+#: ``examples/elastic_serving_torch.py`` serve in f32: smollm's 4 heads
+#: over 2 at D 32 in a 48-row cache (4 slots, blocks of 16), zamba2's
+#: shared block (4 over 4, D 64, 48 rows), and smollm's at 64 rows in
+#: blocks of 8 (2 slots a replica; the offline oracle's B 1 is each row
+#: alone). A length of 0 is K4's empty row (zeros); K3's contract is
+#: length >= 1, so it is held to plain on live rows only.
 DECODE_BLOCK = 16
-DECODE_SHAPES = [
+DECODE_SHAPES = [(*case, DECODE_BLOCK) for case in [
     (32, 8, 64, 1024, [1, 15, 16, 17]), (32, 8, 64, 1024, [1000, 1024, 500, 33]),
     (32, 8, 64, 1024, [0, 1, 15, 1000]), (9, 3, 64, 1024, [1, 15, 16, 17]),
     (9, 3, 64, 1024, [1000, 1024, 500, 33]), (9, 3, 64, 1024, [0, 1, 15, 1000]),
@@ -53,7 +59,9 @@ DECODE_SHAPES = [
     (16, 2, 128, 1024, [1, 15, 16, 17]), (16, 2, 128, 1024, [1000, 1024, 500, 33]),
     (64, 8, 128, 512, [0, 1, 47, 512]), (64, 8, 128, 512, [300, 129, 511, 256]),
     (32, 4, 128, 512, [1, 16, 200, 512]),
-]
+    (4, 2, 32, 48, [1, 16, 17, 41]), (4, 2, 32, 48, [0, 8, 33, 40]),
+    (4, 4, 64, 48, [1, 16, 17, 41]),
+]] + [(4, 2, 32, 64, [9, 28], 8), (4, 2, 32, 64, [0, 8, 17, 63], 8)]
 
 #: Paged flash decode (K4) over SHARED block tables, as prefix sharing
 #: leaves them: H, Hkv, D, S, lengths, shared blocks. Rows 0 and 1 name
@@ -105,12 +113,17 @@ def shared_block_arena(Hkv: int, D: int, S: int, lens, shared: int, gen: torch.G
 #: chameleon-34b's 64 query and 8 key heads, qwen3-moe-30b-a3b's 32 and
 #: 4; deepseek-v3's d_model 7168 and its MLA q_norm (1536) and kv_norm
 #: (512); and xlstm-125m's d_model 768 (the block norms and the sLSTM's)
-#: and its mLSTM's inner norm (2 x 768 = 1536).
+#: and its mLSTM's inner norm (2 x 768 = 1536); and the reduced configs
+#: that ``examples/serve_lm_torch.py`` and ``elastic_serving_torch.py``
+#: serve (f32, d_model 128; zamba2's and xLSTM's inner norms of 256): a
+#: tick of 1, 2 or 4 lanes, a 16-token prefill and a verify of 4 tokens.
 RMS_DECODE_SHAPES = [(1, 1, 2048), (4, 1, 2048), (1, 1, 4096), (4, 1, 4096),
                      (1, 1, 8192), (4, 1, 8192),
                      (4, 1, 64, 128), (4, 1, 8, 128), (4, 1, 32, 128), (4, 1, 4, 128),
                      (1, 1, 7168), (4, 1, 7168), (1, 1, 1536), (4, 1, 1536),
-                     (1, 1, 512), (4, 1, 512), (1, 1, 768), (4, 1, 768)]
+                     (1, 1, 512), (4, 1, 512), (1, 1, 768), (4, 1, 768),
+                     (1, 1, 128), (2, 1, 128), (4, 1, 128), (1, 16, 128), (4, 4, 128),
+                     (1, 1, 256), (4, 1, 256)]
 
 #: RMSNorm (K2) forward at a llama3.2-1b speculative verify's rows: 4
 #: lanes of a window of 1 + gamma tokens, gamma 1 to 6 (8 to 28 rows of
@@ -130,9 +143,13 @@ RMS_CHUNK_SHAPES = [(1, 128, 8192), (1, 128, 64, 128), (1, 128, 8, 128),
 #: xLSTM loops (rows, D): deepseek-v3's 8 x 512 tokens, and 7 x 512 while
 #: a worker of 8 is down, at d_model 7168, q_norm 1536 and kv_norm 512;
 #: xlstm-125m's 32 x 512, and 21 x 512 of a beta stage, at d_model 768
-#: and the mLSTM's inner 1536.
+#: and the mLSTM's inner 1536; and smollm-135m's 32 x 128 tokens at beta
+#: 1 at d_model 576 (4.5 x 128: ``examples/train_lm_torch.py --preset
+#: smollm``, f32); and ``examples/elastic_failover_torch.py``'s 32 x 64
+#: tokens at d_model 64, and 28 x 64, the batch its loop runs most (f32).
 RMS_TRAIN_SHAPES = [(4096, 7168), (3584, 7168), (4096, 1536), (3584, 1536), (4096, 512),
-                    (3584, 512), (16384, 768), (10752, 768), (16384, 1536), (10752, 1536)]
+                    (3584, 512), (16384, 768), (10752, 768), (16384, 1536), (10752, 1536),
+                    (4096, 576), (2048, 64), (1792, 64)]
 
 #: Flash attention (K1) shapes: B, Sq, Skv, H, Hkv, D, Dv. The reference's
 #: kernel-test shapes (tests/test_kernels.py), G = 3 (smollm), ragged and
@@ -142,7 +159,11 @@ RMS_TRAIN_SHAPES = [(4096, 7168), (3584, 7168), (4096, 1536), (3584, 1536), (409
 #: qwen2.5-3b's (16 heads over 2, G = 8, D 128) at 8 rows of 512, and
 #: hubert-xlarge's D = Dv = 80: a reduced ragged case (Sq != Skv, neither
 #: a multiple of a tile) and its training shape (MHA, 16 heads, 32 x 512
-#: frames; the encoder runs it non-causal).
+#: frames; the encoder runs it non-causal), and smollm-135m's training
+#: shape (9 heads over 3, G = 3, D 64) at 32 rows of 128 tokens
+#: (``examples/train_lm_torch.py --preset smollm``, f32), and
+#: ``examples/elastic_failover_torch.py``'s (4 heads over 2, D 32, 64
+#: tokens) at its largest batch, 32 rows.
 FLASH_SHAPES = [
     (2, 128, 128, 4, 2, 64, 64), (1, 256, 256, 8, 8, 64, 64), (1, 200, 200, 4, 1, 64, 64),
     (2, 128, 128, 4, 2, 128, 128), (1, 64, 64, 2, 2, 32, 32), (1, 384, 384, 6, 3, 64, 64),
@@ -150,6 +171,7 @@ FLASH_SHAPES = [
     (4, 512, 512, 32, 8, 64, 64), (32, 512, 512, 32, 8, 64, 64),
     (32, 512, 512, 32, 32, 128, 128), (8, 512, 512, 16, 2, 128, 128),
     (2, 77, 100, 4, 4, 80, 80), (32, 512, 512, 16, 16, 80, 80),
+    (32, 128, 128, 9, 3, 64, 64), (32, 64, 64, 4, 2, 32, 32),
 ]
 
 #: SSD scan (K5) shapes: B, S, H, P, G, N, chunk. The reference's kernel-

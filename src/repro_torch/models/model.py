@@ -63,7 +63,7 @@ from .transformer import (
     segment_plan,
 )
 
-__all__ = ["Model", "count_params_analytic"]
+__all__ = ["Model", "build_model", "count_params_analytic"]
 
 
 def _block_decode(
@@ -524,6 +524,10 @@ class Model:
             new_caches.append(seg_new)
         h = norm_apply(params["final_norm"], h, cfg.norm)
         return self.logits(params, h), new_caches
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -62,7 +62,6 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import NULL_BLOCK
-from repro_torch.models.layers import tree_leaves
 from repro_torch.obs import NULL_OBS, Observability
 from repro_torch.runtime.steps import (
     make_slot_decode_step,
@@ -112,12 +111,36 @@ class MigrationTicket:
 _INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
+def _numpy_dtype_str(dtype: torch.dtype) -> str:
+    """numpy's ``dtype.str`` of the array the reference hashes for a leaf
+    of ``dtype``: ``'<f4'``, ``'<i4'``, and ``'<V2'`` for bf16 (the
+    ``ml_dtypes`` type numpy holds bf16 in)."""
+    if dtype == torch.bfloat16:
+        return "<V2"
+    return torch.empty((), dtype=dtype).numpy().dtype.str
+
+
+def _sorted_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict / list / tuple tree in the order
+    ``jax.tree_util`` flattens it: a dict's values sorted by key, None
+    left out."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _sorted_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _sorted_leaves(t)]
+    return [tree]
+
+
 def ticket_checksum(ticket: MigrationTicket) -> str:
     """SHA-256 over the ticket's resume-relevant content: the prompt, the
     budget, the emitted tokens, the pending token, the snapshot's position
-    and block count, and every snapshot leaf (shape, dtype and raw
-    bytes). ``deadline`` is left out: the owner rewrites it in flight
-    (deadlines are clock-local)."""
+    and block count, and every snapshot leaf (shape, numpy's dtype string
+    and raw bytes) in ``jax.tree_util``'s order. A ticket whose fields
+    and leaves equal a reference ticket's has the reference's digest.
+    ``deadline`` is left out: the owner rewrites it in flight (deadlines
+    are clock-local)."""
     h = hashlib.sha256()
     h.update(np.ascontiguousarray(np.asarray(ticket.prompt, np.int32)).tobytes())
     h.update(np.int64(ticket.max_new_tokens).tobytes())
@@ -126,8 +149,10 @@ def ticket_checksum(ticket: MigrationTicket) -> str:
     snap = ticket.snapshot
     h.update(np.int64(snap.position).tobytes())
     h.update(np.int64(snap.n_blocks).tobytes())
-    for leaf in tree_leaves(snap.data, is_leaf=torch.is_tensor):
-        h.update(str((tuple(leaf.shape), str(leaf.dtype))).encode())
+    for leaf in _sorted_leaves(snap.data):
+        # The reference's ``np.ascontiguousarray`` makes a 0-d leaf (1,).
+        shape = tuple(leaf.shape) or (1,)
+        h.update(str((shape, _numpy_dtype_str(leaf.dtype))).encode())
         raw = leaf.detach().contiguous().view(_INT_OF_WIDTH[leaf.element_size()])
         h.update(raw.cpu().numpy().tobytes())
     return h.hexdigest()
@@ -152,6 +177,10 @@ class EngineStats:
     virtual_seconds: float = 0.0
     wall_seconds: float = 0.0
     decode_wall_seconds: float = 0.0   # host clock around decode ticks and rounds
+
+    @property
+    def tokens_per_vsec(self) -> float:
+        return self.generated_tokens / max(self.virtual_seconds, 1e-12)
 
     @property
     def decode_tokens_per_wsec(self) -> float:

@@ -82,6 +82,10 @@ class Request:
     def cancelled(self) -> bool:
         return self.t_cancelled is not None
 
+    @property
+    def latency(self) -> float:
+        return (self.t_done - self.arrival) if self.t_done is not None else np.inf
+
 
 @dataclasses.dataclass(frozen=True)
 class CostModel:

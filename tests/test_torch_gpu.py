@@ -36,7 +36,7 @@ from repro_torch import kernels as K
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention_rounding_terms
 from repro_torch.kernels.parity import (
-    DECODE_BLOCK, DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, RMS_CHUNK_SHAPES, RMS_DECODE_SHAPES,
+    DECODE_SHAPES, FLASH_SHAPES, NEAR_ULPS, RMS_CHUNK_SHAPES, RMS_DECODE_SHAPES,
     RMS_TRAIN_SHAPES, RMS_VERIFY_SHAPES,
     SHARED_DECODE_SHAPES, SSD_SHAPES, dscale_bf16_slack,
     flash_within, k2_per_call, shared_block_arena, ssd_within, within,
@@ -88,14 +88,14 @@ def test_rms_norm_kernel_at_decode_rows(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,D,S,lens", DECODE_SHAPES)
-def test_decode_kernels_match_plain(cuda, dtype, H, Hkv, D, S, lens):
+@pytest.mark.parametrize("H,Hkv,D,S,lens,bs", DECODE_SHAPES)
+def test_decode_kernels_match_plain(cuda, dtype, H, Hkv, D, S, lens, bs):
     """K3 and K4 against their plain versions at ``parity.DECODE_SHAPES``
-    (K3 on live rows: its contract is length >= 1); K3 == K4 bit for bit
-    on identical rows, a second launch gives the same bits (the splits
-    merge in a fixed order), and a length-0 row is exact zeros."""
+    (K3 on live rows: its contract is length >= 1; K4 in blocks of
+    ``bs``); K3 == K4 bit for bit on identical rows, a second launch gives
+    the same bits (the splits merge in a fixed order), and a length-0 row
+    is exact zeros."""
     g = torch.Generator().manual_seed(1)
-    bs = DECODE_BLOCK
     B = len(lens)
     q = torch.randn((B, H, D), generator=g).to(cuda, dtype)
     k = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
@@ -132,13 +132,13 @@ def test_decode_kernels_match_plain(cuda, dtype, H, Hkv, D, S, lens):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,D,S,lens", [c for c in DECODE_SHAPES if len(c[4]) > 1])
-def test_decode_rows_do_not_depend_on_the_batch(cuda, dtype, H, Hkv, D, S, lens):
+@pytest.mark.parametrize("H,Hkv,D,S,lens,bs", [c for c in DECODE_SHAPES if len(c[4]) > 1])
+def test_decode_rows_do_not_depend_on_the_batch(cuda, dtype, H, Hkv, D, S, lens, bs):
     """The split plan reads no batch size: row b of a K3 and of a K4 launch
     over the batch equals, bit for bit, a launch of row b alone at the
     same max_rows (K3 on live rows, its contract being length >= 1)."""
     g = torch.Generator().manual_seed(3)
-    bs, B = DECODE_BLOCK, len(lens)
+    B = len(lens)
     T = S // bs
     q = torch.randn((B, H, D), generator=g).to(cuda, dtype)
     k = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)

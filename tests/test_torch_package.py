@@ -23,7 +23,11 @@ from repro_torch.models import Model
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
-_BLOCKED = """
+#: The entry points' twins (``examples/*_torch.py``).
+TWINS = ("serve_lm_torch", "train_lm_torch", "elastic_failover_torch",
+         "elastic_serving_torch", "quickstart_torch")
+
+_BLOCKED = f"TWINS = {TWINS!r}\n" + """
 import importlib.abc, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -36,6 +40,10 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(mod.name)
 import chip_smoke
 import tools.chaos_search_torch
+import importlib.util
+for twin in TWINS:
+    spec = importlib.util.spec_from_file_location(twin, f"examples/{twin}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 missing = {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
@@ -64,8 +72,9 @@ def _env():
 
 
 def test_port_imports_without_jax_or_reference():
-    """Every module of the port and chip_smoke.py import with jax and the
-    reference package blocked, and none of them gets loaded."""
+    """Every module of the port, chip_smoke.py and the entry points'
+    twins import with jax and the reference package blocked, and none of
+    them gets loaded."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED], env=_env(), cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -76,6 +85,7 @@ def test_no_source_names_jax_or_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_tiles.py",
                                          ROOT / "tools" / "rmsnorm_tiles.py",
                                          ROOT / "tools" / "chaos_search_torch.py"]
+    files += [ROOT / "examples" / f"{twin}.py" for twin in TWINS]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -115,7 +125,9 @@ def test_aliases_resolve_like_reference():
 
 def test_entry_points_default_to_the_card():
     """device defaults to "cuda"; without a card that raises instead of
-    falling back to the CPU."""
+    falling back to the CPU, in the package and in the entry points'
+    twins run with no ``--device`` (all but quickstart's, which uses no
+    card), which exit non-zero."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
     model = Model(get_config("smollm-135m").reduced())
@@ -124,6 +136,28 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.blank_caches(1, 16)
     assert resolve_device("cpu").type == "cpu"
+    # All at once: each spends its time importing torch.
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "examples" / f"{twin}.py")],
+                              env=_env(), cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for twin in TWINS if twin != "quickstart_torch"]
+    for proc in procs:
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode != 0
+        assert "no CUDA device is available" in err, err[-2000:]
+
+
+def test_build_model_like_reference():
+    """The port's ``repro_torch.models`` exports every name of the
+    reference's ``repro.models`` (``build_model`` among them)."""
+    import repro.models
+    import repro_torch.models
+    from repro_torch.models import build_model
+
+    assert set(repro.models.__all__) <= set(repro_torch.models.__all__)
+    cfg = get_config("smollm-135m").reduced()
+    model = build_model(cfg)
+    assert isinstance(model, Model) and model.cfg == cfg
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
