@@ -10,7 +10,8 @@ runs, in order, and exits non-zero at the first phase that fails:
    turns TF32 off for float32 matrix products and convolutions;
 2. builds the port's CUDA kernels from ``src/repro_torch/csrc``, prints
    ptxas's registers and spills, and shows that K1's bf16 kernels on the
-   main paths (forward, dQ and dK/dV at D 64, D 128 and D 80) and every
+   main paths (forward, dQ and dK/dV at D 64, D 128 and D 80), its f32
+   (3xTF32) kernels at D 64, 32, 128 and 80 (TF32 HMMA) and every
    instance of K5's bf16 kernels (the SSD scan's forward and backward)
    hold tensor-core instructions (HMMA in ``cuobjdump -sass``, read
    beside phases 3 and 4 and checked after phase 4) and spill nothing,
@@ -53,7 +54,7 @@ runs, in order, and exits non-zero at the first phase that fails:
    llama3.2-1b's, zamba2's shared block's, qwen2.5-3b's, hubert-xlarge's
    at D 80 and a reduced ragged D 80 case), causal and not, in f32
    and bf16, plus the training shape with q and k scaled by 4 (scores
-   near 100), and the RMSNorm forward and backward (K2) at the training
+   near 100) in both, and the RMSNorm forward and backward (K2) at the training
    rows of both models' widths (D 2048 and 4096), each a second launch
    bit for bit;
 8. takes one train step of llama3.2-1b at full width, cut to 2 layers,
@@ -307,8 +308,11 @@ runs, in order, and exits non-zero at the first phase that fails:
    printed, and the loop launch K1 30 / 30 and K2 61 / 61 a step and
    nothing else; K1 (G 3, D 64) and K2 (D 576) held against plain in f32
    at every batch shape the loop ran and at 32 x 128 tokens, and timed
-   there beside SDPA (pinned to its fastest backend, named), ``F.rms_norm``
-   and their bounds once (d) has ended; (b)
+   there beside SDPA (pinned to its fastest backend, named; K1 also beside
+   SDPA's efficient backend on k/v expanded to 9 heads beforehand),
+   ``F.rms_norm`` and their bounds (K1's at the 3xTF32 rate) once (d) has
+   ended, with K1's device ms a loop step (its launches a step at those
+   times); (b)
    ``serve_lm_torch`` at README's four command lines (contiguous,
    ``--paged``, ``--speculative --draft smollm``, ``--prefill-chunk 8``)
    and at ``--arch zamba2`` and ``--arch xlstm``: every stream equal to
@@ -389,6 +393,9 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+#: H100 SXM dense TF32 over the three products a 3xTF32 product takes: the
+#: rate K1's f32 kernels can reach.
+TF32X3_FLOPS = 494.7e12 / 3
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: bf16 RMSNorm outputs reach |y| of 4-5, where one bf16 rounding step is
@@ -425,11 +432,17 @@ def card_line() -> str:
 #: zamba2-1.2b's shared block's D 128 and hubert-xlarge's D 80 (D = Dv).
 K1_TC_KERNELS = ("fa_fwd_mma", "fa_bwd_dq_mma", "fa_bwd_dkdv_mma")
 K1_TC_DIMS = (64, 128, 80)
+#: K1's f32 (3xTF32) kernels the paths launch: smollm-135m's D 64
+#: (train_lm_torch), elastic_failover_torch's D 32, and the 2-layer f32
+#: step-parity cuts' 128 (zamba2's shared block) and 80 (hubert-xlarge).
+K1_TF32_KERNELS = ("fa_fwd_tf32", "fa_bwd_dq_tf32", "fa_bwd_dkdv_tf32")
+K1_TF32_DIMS = (64, 32, 128, 80)
 
 
 def k1_instance(mangled: str):
-    """(kernel, D, Dv) of a mangled K1 bf16 kernel name, else None."""
-    m = re.search(r"(fa_(?:fwd|bwd_dq|bwd_dkdv)_mma)ILi(\d+)ELi(\d+)E", mangled)
+    """(kernel, D, Dv) of a mangled K1 tensor-core kernel name (bf16 or
+    f32), else None."""
+    m = re.search(r"(fa_(?:fwd|bwd_dq|bwd_dkdv)_(?:mma|tf32))ILi(\d+)ELi(\d+)E", mangled)
     return (m.group(1), int(m.group(2)), int(m.group(3))) if m else None
 
 
@@ -451,51 +464,63 @@ def ptxas_resources(log: str) -> dict:
     return out
 
 
-#: A SASS line that holds an HMMA instruction.
+#: A SASS line that holds an HMMA instruction; one on TF32 operands.
 HMMA_LINE = re.compile(r"^[^\n]*\bHMMA\b", re.M)
+HMMA_TF32_LINE = re.compile(r"^[^\n]*\bHMMA\.\S*TF32", re.M)
 
 
-def sass_hmma_counts(sass: str) -> dict:
-    """{function: lines holding HMMA} of ``cuobjdump -sass`` output, each
-    function's lines running from its ``Function : name`` line to the
+def sass_hmma_counts(sass: str, line: re.Pattern = HMMA_LINE) -> dict:
+    """{function: lines matching ``line``} of ``cuobjdump -sass`` output,
+    each function's lines running from its ``Function : name`` line to the
     next one's."""
     counts = {}
     for part in re.split(r"^[^\n]*Function : ", sass, flags=re.M)[1:]:
         head, _, body = part.partition("\n")
-        counts[head.split()[0]] = len(HMMA_LINE.findall(body))
+        counts[head.split()[0]] = len(line.findall(body))
     return counts
 
 
 @functools.lru_cache(maxsize=None)
-def hmma_counts(library: Path) -> dict:
-    """{mangled function: count of HMMA instructions} in the library's
-    SASS (``cuobjdump -sass``, from the toolkit that built it), read once
-    for K1's and K5's checks."""
+def sass_text(library: Path) -> str:
+    """The library's SASS (``cuobjdump -sass``, from the toolkit that built
+    it), read once for K1's and K5's checks."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
+    return subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
                           capture_output=True, text=True).stdout
-    return sass_hmma_counts(sass)
+
+
+def hmma_counts(library: Path) -> dict:
+    """{mangled function: count of HMMA instructions} in the library."""
+    return sass_hmma_counts(sass_text(library))
 
 
 def check_tensor_cores(library: Path, log: str) -> dict:
-    """Each K1 bf16 kernel of the main paths issues HMMA and spills
-    nothing; {"kernel D/Dv": {"hmma", "registers", "spill_bytes"}}."""
+    """Each K1 kernel of the paths issues HMMA (the f32 ones on TF32
+    operands) and spills nothing;
+    {"kernel D/Dv": {"hmma", "registers", "spill_bytes"}}."""
     res = {k1_instance(name): r for name, r in ptxas_resources(log).items() if k1_instance(name)}
     hmma = {k1_instance(name): n for name, n in hmma_counts(library).items()
             if k1_instance(name)}
+    tf32 = {k1_instance(name): n
+            for name, n in sass_hmma_counts(sass_text(library), HMMA_TF32_LINE).items()
+            if k1_instance(name)}
+    instances = ([(kern, d) for kern in K1_TC_KERNELS for d in K1_TC_DIMS]
+                 + [(kern, d) for kern in K1_TF32_KERNELS for d in K1_TF32_DIMS])
     out = {}
-    for kern in K1_TC_KERNELS:
-        for d in K1_TC_DIMS:
-            key = (kern, d, d)
-            check(key in res and key in hmma, f"{kern}<{d}, {d}> is missing from the build")
-            regs, spill = res[key]
-            out[f"{kern} D{d}/Dv{d}"] = dict(hmma=hmma[key], registers=regs, spill_bytes=spill)
-            print(f"    {kern}<D {d}, Dv {d}>: {hmma[key]} HMMA, {regs} registers, "
-                  f"{spill} bytes spilled")
-            check(hmma[key] > 0, f"{kern}<{d}, {d}> issues no HMMA: no tensor cores")
-            check(spill == 0, f"{kern}<{d}, {d}> spills {spill} bytes")
+    for kern, d in instances:
+        key = (kern, d, d)
+        check(key in res and key in hmma, f"{kern}<{d}, {d}> is missing from the build")
+        regs, spill = res[key]
+        out[f"{kern} D{d}/Dv{d}"] = dict(hmma=hmma[key], tf32_hmma=tf32[key], registers=regs,
+                                         spill_bytes=spill)
+        print(f"    {kern}<D {d}, Dv {d}>: {hmma[key]} HMMA ({tf32[key]} TF32), {regs} "
+              f"registers, {spill} bytes spilled")
+        check(hmma[key] > 0, f"{kern}<{d}, {d}> issues no HMMA: no tensor cores")
+        if kern in K1_TF32_KERNELS:
+            check(tf32[key] > 0, f"{kern}<{d}, {d}> issues no TF32 HMMA")
+        check(spill == 0, f"{kern}<{d}, {d}> spills {spill} bytes")
     return out
 
 
@@ -1568,10 +1593,9 @@ def check_training_kernels() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         cases = [(shape, causal, 1.0) for shape in FLASH_SHAPES for causal in (True, False)]
-        if bf16:
-            # The training shape with scores reaching ~100: the online
-            # rescale and exponentials that underflow.
-            cases.append(((TRAIN_B, TRAIN_S, TRAIN_S, 32, 8, 64, 64), True, SCORE_MUL))
+        # The training shape with scores reaching ~100: the online rescale
+        # and exponentials that underflow (f32: products in 3xTF32).
+        cases.append(((TRAIN_B, TRAIN_S, TRAIN_S, 32, 8, 64, 64), True, SCORE_MUL))
         for shape, causal, mul in cases:
             e_o, e_b = hold_flash(shape, causal, dtype, gen, mul)
             if bf16:
@@ -1909,7 +1933,11 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = Tru
     """K1 forward and backward at q (B, S, H, D), k/v (B, S, Hkv, D), in
     ``dt`` (bf16 or f32), causal or not, beside their plain versions, SDPA
     pinned to its fastest backend here (``sdpa_backend``, named in the
-    shape) and their bounds (CUDA events, cold L2, median of 30)."""
+    shape) and their bounds (CUDA events, cold L2, median of 30). In f32
+    the bound's operations run at the 3xTF32 rate (``TF32X3_FLOPS``); with
+    GQA in f32, where SDPA takes only its math backend, SDPA's efficient
+    backend is timed as well on k/v expanded to H heads beforehand
+    (``library_expanded_ms``: the expansion is not timed)."""
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
 
@@ -1920,7 +1948,7 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = Tru
 
     dev = torch.device("cuda")
     peak, es, name = ((BF16_FLOPS, 2, "bf16") if dt == torch.bfloat16 else
-                      (F32_FLOPS, 4, "f32"))
+                      (TF32X3_FLOPS, 4, "f32"))
     q = torch.randn((B, S, H, D), generator=gen).to(dev, dt)
     k = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
     v = torch.randn((B, S, Hkv, D), generator=gen).to(dev, dt)
@@ -1949,6 +1977,28 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = Tru
                                                                enable_gqa=gqa), n=30)
     shape = (f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {Hkv}, {D}) {name}, "
              f"{'causal' if causal else 'non-causal'}; SDPA {backend.name}")
+    expanded = {}
+    if gqa and dt == torch.float32:
+        from torch.nn.attention import SDPBackend
+
+        ke, ve = (t.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
+                  for t in (kt, vt))
+
+        def sdpa_exp(grad: bool):
+            y = F.scaled_dot_product_attention(qr, ke, ve, is_causal=causal)
+            if grad:
+                y.backward(do.transpose(1, 2))
+
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            try:
+                fb_e = time_ms(lambda: sdpa_exp(True), n=30)
+                f_e = time_ms(lambda: sdpa_exp(False), n=30)
+                expanded = {"flash_attention": f_e, "flash_attention_bwd": fb_e - f_e}
+                shape += (f"; SDPA EFFICIENT_ATTENTION on k/v expanded to {H} heads before "
+                          "the timed calls")
+            except RuntimeError as e:   # the backend refused: no second reading
+                print(f"    SDPA EFFICIENT_ATTENTION on expanded k/v refused: {e}")
+                expanded = {"flash_attention": None, "flash_attention_bwd": None}
     out["flash_attention"] = dict(
         shape=shape,
         ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal), n=30),
@@ -1956,6 +2006,8 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = Tru
         library_ms=lib, bound_ms=b, bound_by=kind,
         flops=fwd_flops,
     )
+    if expanded:
+        out["flash_attention"]["library_expanded_ms"] = expanded["flash_attention"]
     bwd_flops, bwd_bytes = flash_attention_bwd_work(B, S, S, H, Hkv, D, D, es, causal)
     b, kind = bound(bwd_bytes, bwd_flops, peak)
     out["flash_attention_bwd"] = dict(
@@ -1965,13 +2017,18 @@ def time_flash(B: int, S: int, H: int, Hkv: int, D: int, gen, causal: bool = Tru
                                                            causal=causal), n=30),
         library_ms=lib_fb - lib_f, bound_ms=b, bound_by=kind, flops=bwd_flops,
     )
+    if expanded:
+        out["flash_attention_bwd"]["library_expanded_ms"] = expanded["flash_attention_bwd"]
     return out
 
 
 def print_times(out: dict) -> None:
     for name, r in out.items():
         print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              f"library {r['library_ms']:.4f} ms"
+              + (f" (expanded: {r['library_expanded_ms']:.4f} ms)"
+                 if r.get("library_expanded_ms") is not None else "")
+              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               + (f"; {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s" if "flops" in r else ""))
 
 
@@ -5486,7 +5543,13 @@ def phase26(card: str) -> dict:
         print("      " + line)
     check(proc.returncode == 0, f"serve_lm_torch.py exited {proc.returncode}: {stderr[-2000:]}")
     check(f"on {name})" in stdout, f"serve_lm_torch.py did not name the card {name!r}")
-    train["kernel_times"] = p26_times()
+    train["kernel_times"] = kt = p26_times()
+    per_step = train["per_step"]
+    train["k1_ms_per_step"] = sum(per_step[k] * kt[k]["ms"]
+                                  for k in ("flash_attention", "flash_attention_bwd"))
+    print(f"    K1 device ms a train_lm_torch step: {train['k1_ms_per_step']:.4f} "
+          f"({per_step['flash_attention']} forward and {per_step['flash_attention_bwd']} "
+          "backward launches a step, each at its time above)")
     launches = {k: train["launches"][k] + sum(r["launches"][k] for r in serve.values())
                 + sum(r["launches"][k] for r in elastic.values()) for k in train["launches"]}
     print(f"    launches over (a)-(c): {launches}; card {card}")
@@ -5530,7 +5593,7 @@ def run(dryrun: subprocess.Popen) -> int:
             print("    " + line.strip())
     # cuobjdump -sass over the library takes 15-25 s: it runs beside
     # phases 3 and 4, and the tensor-core checks follow phase 4.
-    sass = ThreadPoolExecutor(1).submit(hmma_counts, lib)
+    sass = ThreadPoolExecutor(1).submit(sass_text, lib)
     print("    K3's and K4's split and merge kernels (ptxas -v):")
     decode_resources = check_decode_resources(_build.build_log())
     print("    K2's forward, backward and dscale-sum kernels (ptxas -v):")
@@ -5910,11 +5973,14 @@ def run(dryrun: subprocess.Popen) -> int:
         t = p26["train"]["kernel_times"][kname]
         kernels.append({
             "name": f"{kname} (smollm-135m, f32)", "route": "cuda",
-            "source": sources[kname][0], "replaces": sources[kname][1],
+            "source": ("src/repro_torch/csrc/flash_attention_tf32.cu"
+                       if kname.startswith("flash") else sources[kname][0]),
+            "replaces": sources[kname][1],
             "launches": p26["train"]["launches"][kname],
             "max_abs_err": p26["train"]["max_abs_err"][kname],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            "library_expanded_ms": t.get("library_expanded_ms"),
             "phase26_launches": p26["launches"][kname],
         })
     # Phase 26's launches on the rows of one shape: K4 at block 8 is

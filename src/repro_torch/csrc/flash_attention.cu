@@ -62,12 +62,9 @@
 //     first measured no faster (tools/flash_tiles.py).
 //   * 4 warps (64 query rows) a block in every launch.
 //
-// f32 (the parity checks' dtype): f32 FMAs from shared memory
-// (`fa_fwd`, `fa_bwd_dq`, `fa_bwd_dkdv`), since TF32 tensor cores would
-// change their precision. One block of 256 threads per (b, h, 64-row
-// tile); each thread owns a 4 x 4 tile of scores; f32 tiles padded by one
-// word; q scaled by 1/sqrt(D) after its f32 cast, as the Pallas kernel
-// does (kernel.py:47).
+// f32: tensor cores too, in 3xTF32 (`fa_fwd_tf32`, `fa_bwd_dq_tf32`,
+// `fa_bwd_dkdv_tf32`): flash_attention_tf32.cu, a source of its own so
+// that nvcc builds it beside this one.
 //
 // Backward (both dtypes; deterministic, no atomics), two launches:
 //   1. dQ: one block per (b, h, q tile). It first forms
@@ -80,459 +77,14 @@
 //   S and dP are formed in both launches (7 products where 5 would do):
 //   the price of the fixed summation order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_attention.cuh"
 
-#include <type_traits>
-
+namespace repro_fa {
 namespace {
-
-constexpr int kBQ = 64;          // query rows per tile
-constexpr int kBKV = 64;         // key rows per tile
-constexpr int kThreads = 256;    // 16 x 16 threads: ty = tid / 16, tx = tid % 16
-constexpr int kLDP = 65;         // padded row stride of the 64 x 64 score tiles
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// Sum / max over the 16 threads of one row group (a half-warp).
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// dst[r * ld + c] = mul * src[r * stride + c] for r < 64 and c < ncols,
-// zero for r >= valid (rows past the ragged end).
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restrict__ src,
-                                          int64_t stride, int valid, int ncols, float mul) {
-  for (int idx = threadIdx.x; idx < 64 * ncols; idx += kThreads) {
-    const int r = idx / ncols, c = idx - r * ncols;
-    dst[r * ld + c] = r < valid ? to_f(src[r * stride + c]) * mul : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32: forward
-// ---------------------------------------------------------------------------
-
-template <int D, int DV>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * ((size_t)kBQ * (D + 1) + (size_t)kBKV * (D + 1) +
-                          (size_t)kBKV * (DV + 1) + (size_t)kBQ * kLDP);
-}
-
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-       T* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
-       float scale, int causal) {
-  constexpr int LDQ = D + 1, LDK = D + 1, LDV = DV + 1, CV = DV / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBQ * LDQ;
-  float* sV = sK + kBKV * LDK;
-  float* sP = sV + kBKV * LDV;
-
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int64_t qs = (int64_t)H * D, ks = (int64_t)Hkv * D, vs = (int64_t)Hkv * DV;
-
-  load_tile(sQ, LDQ, q + ((int64_t)b * Sq + q0) * qs + (int64_t)h * D, qs,
-            min(kBQ, Sq - q0), D, scale);
-
-  float m[4], l[4], acc[4][CV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CV; ++c) acc[i][c] = 0.f;
-  }
-
-  const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBKV) {
-    __syncthreads();   // the previous tile's sK / sV / sP are consumed
-    const int valid = min(kBKV, Skv - k0);
-    load_tile(sK, LDK, k + ((int64_t)b * Skv + k0) * ks + (int64_t)hk * D, ks, valid, D, 1.f);
-    load_tile(sV, LDV, v + ((int64_t)b * Skv + k0) * vs + (int64_t)hk * DV, vs, valid, DV, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * LDQ + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * LDK + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        ok[j] = col < Skv && (!causal || col <= row);
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps += p;
-        sP[(ty * 4 + i) * kLDP + tx + 16 * j] = p;
-      }
-      ps = row_sum(ps);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CV; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBKV; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty * 4 + i) * kLDP + kk];
-#pragma unroll
-      for (int c = 0; c < CV; ++c) {
-        const float vv = sV[kk * LDV + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float ll = fmaxf(l[i], 1e-30f);
-    const float inv = 1.f / ll;
-    T* orow = o + ((int64_t)b * Sq + row) * ((int64_t)H * DV) + (int64_t)h * DV;
-#pragma unroll
-    for (int c = 0; c < CV; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] * inv);
-    if (tx == 0) lse[((int64_t)b * H + h) * Sq + row] = m[i] + logf(ll);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32: backward 1, Delta and dQ
-// ---------------------------------------------------------------------------
-
-template <int D, int DV>
-constexpr size_t dq_smem() {
-  return sizeof(float) * ((size_t)kBQ * (D + 1) + (size_t)kBQ * (DV + 1) +
-                          (size_t)kBKV * (D + 1) + (size_t)kBKV * (DV + 1) +
-                          (size_t)kBQ * kLDP + 2 * kBQ);
-}
-
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
-          float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
-          float scale, int causal) {
-  constexpr int LDQ = D + 1, LDO = DV + 1, LDK = D + 1, LDV = DV + 1;
-  constexpr int CD = D / 16, CV = DV / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kBQ * LDQ;
-  float* sK = sdO + kBQ * LDO;
-  float* sV = sK + kBKV * LDK;
-  float* sdS = sV + kBKV * LDV;
-  float* sL = sdS + kBQ * kLDP;
-  float* sD = sL + kBQ;
-
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int64_t qs = (int64_t)H * D, os = (int64_t)H * DV;
-  const int64_t ks = (int64_t)Hkv * D, vs = (int64_t)Hkv * DV;
-  const int nq = min(kBQ, Sq - q0);
-  const int64_t lrow = ((int64_t)b * H + h) * Sq + q0;
-
-  load_tile(sQ, LDQ, q + ((int64_t)b * Sq + q0) * qs + (int64_t)h * D, qs, nq, D, scale);
-  load_tile(sdO, LDO, dout + ((int64_t)b * Sq + q0) * os + (int64_t)h * DV, os, nq, DV, 1.f);
-  __syncthreads();
-
-  // Delta_i = sum_c dO[i, c] * O[i, c] for this block's rows.
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    float part = 0.f;
-    if (r < nq) {
-      const T* orow = o + ((int64_t)b * Sq + q0 + r) * os + (int64_t)h * DV;
-#pragma unroll
-      for (int c = 0; c < CV; ++c)
-        part = fmaf(sdO[r * LDO + tx + 16 * c], to_f(orow[tx + 16 * c]), part);
-    }
-    part = row_sum(part);
-    if (tx == 0) {
-      sD[r] = part;
-      sL[r] = r < nq ? lse[lrow + r] : 0.f;
-      if (r < nq) delta[lrow + r] = part;
-    }
-  }
-
-  float acc[4][CD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-
-  const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBKV) {
-    __syncthreads();
-    const int valid = min(kBKV, Skv - k0);
-    load_tile(sK, LDK, k + ((int64_t)b * Skv + k0) * ks + (int64_t)hk * D, ks, valid, D, 1.f);
-    load_tile(sV, LDV, v + ((int64_t)b * Skv + k0) * vs + (int64_t)hk * DV, vs, valid, DV, 1.f);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * LDQ + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * LDK + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-#pragma unroll 8
-    for (int d = 0; d < DV; ++d) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sdO[(ty * 4 + i) * LDO + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sV[(tx + 16 * j) * LDV + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(a[i], bv[j], dp[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = r < nq && col < Skv && (!causal || col <= row);
-        const float p = ok ? expf(s[i][j] - sL[r]) : 0.f;
-        sdS[r * kLDP + tx + 16 * j] = p * (dp[i][j] - sD[r]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBKV; ++kk) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sdS[(ty * 4 + i) * kLDP + kk];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        const float kv = sK[kk * LDK + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nq) continue;
-    T* drow = dq + ((int64_t)b * Sq + q0 + r) * qs + (int64_t)h * D;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) drow[tx + 16 * c] = from_f<T>(acc[i][c] * scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32: backward 2, dK and dV, summed over the G query heads inside the block
-// ---------------------------------------------------------------------------
-
-template <int D, int DV>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * ((size_t)kBKV * (D + 1) + (size_t)kBKV * (DV + 1) +
-                          (size_t)kBQ * (D + 1) + (size_t)kBQ * (DV + 1) +
-                          2 * (size_t)kBKV * kLDP + 2 * kBQ);
-}
-
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-            int Sq, int Skv, int H, int Hkv, float scale, int causal) {
-  constexpr int LDK = D + 1, LDV = DV + 1, LDQ = D + 1, LDO = DV + 1;
-  constexpr int CD = D / 16, CV = DV / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kBKV * LDK;
-  float* sQ = sV + kBKV * LDV;
-  float* sdO = sQ + kBQ * LDQ;
-  float* sP = sdO + kBQ * LDO;        // P^T: [key row][query col]
-  float* sdS = sP + kBKV * kLDP;      // dS^T
-  float* sL = sdS + kBKV * kLDP;
-  float* sD = sL + kBQ;
-
-  const int k0 = blockIdx.x * kBKV, hk = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hkv;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int64_t qs = (int64_t)H * D, os = (int64_t)H * DV;
-  const int64_t ks = (int64_t)Hkv * D, vs = (int64_t)Hkv * DV;
-  const int nk = min(kBKV, Skv - k0);
-
-  load_tile(sK, LDK, k + ((int64_t)b * Skv + k0) * ks + (int64_t)hk * D, ks, nk, D, 1.f);
-  load_tile(sV, LDV, v + ((int64_t)b * Skv + k0) * vs + (int64_t)hk * DV, vs, nk, DV, 1.f);
-
-  float ak[4][CD], av[4][CV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < CD; ++c) ak[i][c] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CV; ++c) av[i][c] = 0.f;
-  }
-
-  // Causal: only query rows >= k0 see this tile; start at their q tile.
-  const int q_begin = causal ? (k0 / kBQ) * kBQ : 0;
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    for (int q0 = q_begin; q0 < Sq; q0 += kBQ) {
-      const int nq = min(kBQ, Sq - q0);
-      const int64_t lrow = ((int64_t)b * H + h) * Sq + q0;
-      __syncthreads();
-      load_tile(sQ, LDQ, q + ((int64_t)b * Sq + q0) * qs + (int64_t)h * D, qs, nq, D, scale);
-      load_tile(sdO, LDO, dout + ((int64_t)b * Sq + q0) * os + (int64_t)h * DV, os, nq, DV, 1.f);
-      if (threadIdx.x < kBQ) {
-        sL[threadIdx.x] = threadIdx.x < nq ? lse[lrow + threadIdx.x] : 0.f;
-        sD[threadIdx.x] = threadIdx.x < nq ? delta[lrow + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-
-      // Transposed tiles: rows are keys (ty * 4 + i), columns queries (tx + 16 j).
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float a[4], bq[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sK[(ty * 4 + i) * LDK + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bq[j] = sQ[(tx + 16 * j) * LDQ + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bq[j], s[i][j]);
-      }
-#pragma unroll 8
-      for (int d = 0; d < DV; ++d) {
-        float a[4], bo[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sV[(ty * 4 + i) * LDV + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bo[j] = sdO[(tx + 16 * j) * LDO + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(a[i], bo[j], dp[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i, key = k0 + r;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j, row = q0 + c;
-          const bool ok = r < nk && c < nq && (!causal || key <= row);
-          const float p = ok ? expf(s[i][j] - sL[c]) : 0.f;
-          sP[r * kLDP + c] = p;
-          sdS[r * kLDP + c] = p * (dp[i][j] - sD[c]);
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int qq = 0; qq < kBQ; ++qq) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          p[i] = sP[(ty * 4 + i) * kLDP + qq];
-          ds[i] = sdS[(ty * 4 + i) * kLDP + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < CV; ++c) {
-          const float dov = sdO[qq * LDO + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) av[i][c] = fmaf(p[i], dov, av[i][c]);
-        }
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-          const float qv = sQ[qq * LDQ + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) ak[i][c] = fmaf(ds[i], qv, ak[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nk) continue;
-    T* krow = dk + ((int64_t)b * Skv + k0 + r) * ks + (int64_t)hk * D;
-    T* vrow = dv + ((int64_t)b * Skv + k0 + r) * vs + (int64_t)hk * DV;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) krow[tx + 16 * c] = from_f<T>(ak[i][c]);
-#pragma unroll
-    for (int c = 0; c < CV; ++c) vrow[tx + 16 * c] = from_f<T>(av[i][c]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor-core building blocks
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -541,27 +93,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 // times that choice and the others below against these constants).
 constexpr int kFwdWarps = 4;
 constexpr int kMmaWarps = 4;     // warps of the bf16 backward launches
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes global -> shared, asynchronously; zeros where !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8.
@@ -656,42 +187,6 @@ __device__ __forceinline__ void mma_acc_b(float (&c)[N / 8][4], const float (&ac
       mma_bf16(c[2 * nn + 1], a, b[2], b[3]);
     }
   }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
-}
-
-// ROWS rows of COLS bf16 from global (row stride `stride` elements) into
-// shared memory with row stride COLS + 8, by 16-byte cp.async; rows at or
-// past `valid` are zero-filled (their source address is row 0). Where the
-// tile's 16-byte chunks do not divide among the threads (D 80: 10 a row,
-// 320 for a 32-row tile over 128 threads) the last round is partial.
-template <int ROWS, int COLS, int NT>
-__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int64_t stride, int valid) {
-  constexpr int CPR = COLS / 8, CHUNKS = ROWS * CPR;
-  static_assert(COLS % 8 == 0, "rows are copied in 16-byte chunks");
-#pragma unroll
-  for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
-    const int c = threadIdx.x + i * NT;
-    if (CHUNKS % NT != 0 && c >= CHUNKS) break;
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * (COLS + 8) + col, src + (int64_t)(ok ? r : 0) * stride + col, ok);
-  }
-}
-
-// Row `row` (= this thread's g or g + 8) of an m16n8 tile pair of f32
-// accumulators, scaled by `mul`, as bf16 pairs at dst[8 c + 2 t4].
-template <int N>
-__device__ __forceinline__ void store_row(bf16* dst, const float (&c)[N][4], int half, int t4,
-                                          float mul) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i + 2 * t4) =
-        __floats2bfloat162_rn(c[i][2 * half] * mul, c[i][2 * half + 1] * mul);
 }
 
 // ---------------------------------------------------------------------------
@@ -1088,109 +583,55 @@ fa_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Host side
+// Launches
 // ---------------------------------------------------------------------------
 
-struct Args {
-  const void *q, *k, *v, *o, *dout, *lse;
-  void *out, *lse_out, *delta, *dq, *dk, *dv;
-  int B, Sq, Skv, H, Hkv;
-  float scale;
-  int causal;
-  cudaStream_t stream;
-};
-
-template <typename Kern, typename... A>
-int launch(Kern kern, dim3 grid, int threads, size_t smem, cudaStream_t stream, A... args) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<grid, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D, int DV>
-int launch_fwd(const Args& a) {
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-          *v = static_cast<const T*>(a.v);
-  T* out = static_cast<T*>(a.out);
-  float* lse = static_cast<float*>(a.lse_out);
-  if constexpr (std::is_same<T, bf16>::value) {
+struct Bf16Fwd {
+  template <int D, int DV>
+  static int run(const Args& a) {
     constexpr int BQ = 16 * kFwdWarps;
     return launch(fa_fwd_mma<D, DV, kFwdWarps>, dim3((a.Sq + BQ - 1) / BQ, a.H, a.B),
-                  kFwdWarps * 32, fwd_mma_smem<D, DV, kFwdWarps>(), a.stream, q, k, v, out, lse,
-                  a.Sq, a.Skv, a.H, a.Hkv, a.scale, a.causal);
-  } else {
-    return launch(fa_fwd<T, D, DV>, dim3((a.Sq + kBQ - 1) / kBQ, a.H, a.B), kThreads,
-                  fwd_smem<D, DV>(), a.stream, q, k, v, out, lse, a.Sq, a.Skv, a.H, a.Hkv,
-                  a.scale, a.causal);
+                  kFwdWarps * 32, fwd_mma_smem<D, DV, kFwdWarps>(), a.stream,
+                  static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                  static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
+                  static_cast<float*>(a.lse_out), a.Sq, a.Skv, a.H, a.Hkv, a.scale, a.causal);
   }
-}
+};
 
-template <typename T, int D, int DV>
-int launch_bwd(const Args& a) {
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-          *v = static_cast<const T*>(a.v), *o = static_cast<const T*>(a.o),
-          *dout = static_cast<const T*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse);
-  float* delta = static_cast<float*>(a.delta);
-  T *dq = static_cast<T*>(a.dq), *dk = static_cast<T*>(a.dk), *dv = static_cast<T*>(a.dv);
-  int e;
-  if constexpr (std::is_same<T, bf16>::value) {
+struct Bf16Bwd {
+  template <int D, int DV>
+  static int run(const Args& a) {
+    const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
+               *v = static_cast<const bf16*>(a.v), *dout = static_cast<const bf16*>(a.dout);
+    const float* lse = static_cast<const float*>(a.lse);
+    float* delta = static_cast<float*>(a.delta);
     constexpr int BQ = 16 * kMmaWarps, BKV = 16 * kMmaWarps;
-    e = launch(fa_bwd_dq_mma<D, DV>, dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), kMmaWarps * 32,
-               dq_mma_smem<D, DV>(), a.stream, q, k, v, o, dout, lse, delta, dq, a.Sq, a.Skv,
-               a.H, a.Hkv, a.scale, a.causal);
+    const int e = launch(fa_bwd_dq_mma<D, DV>, dim3((a.Sq + BQ - 1) / BQ, a.H, a.B),
+                         kMmaWarps * 32, dq_mma_smem<D, DV>(), a.stream, q, k, v,
+                         static_cast<const bf16*>(a.o), dout, lse, delta,
+                         static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H, a.Hkv, a.scale, a.causal);
     if (e != 0) return e;
     return launch(fa_bwd_dkdv_mma<D, DV>, dim3((a.Skv + BKV - 1) / BKV, a.Hkv, a.B),
                   kMmaWarps * 32, dkv_mma_smem<D, DV>(), a.stream, q, k, v, dout, lse,
-                  (const float*)delta, dk, dv, a.Sq, a.Skv, a.H, a.Hkv, a.scale, a.causal);
-  } else {
-    e = launch(fa_bwd_dq<T, D, DV>, dim3((a.Sq + kBQ - 1) / kBQ, a.H, a.B), kThreads,
-               dq_smem<D, DV>(), a.stream, q, k, v, o, dout, lse, delta, dq, a.Sq, a.Skv, a.H,
-               a.Hkv, a.scale, a.causal);
-    if (e != 0) return e;
-    return launch(fa_bwd_dkdv<T, D, DV>, dim3((a.Skv + kBKV - 1) / kBKV, a.Hkv, a.B), kThreads,
-                  dkv_smem<D, DV>(), a.stream, q, k, v, dout, lse, (const float*)delta, dk, dv,
+                  (const float*)delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
                   a.Sq, a.Skv, a.H, a.Hkv, a.scale, a.causal);
   }
-}
-
-template <typename T, bool BWD, int D>
-int dispatch_dv(const Args& a, int Dv) {
-  switch (Dv) {
-    case 32: return BWD ? launch_bwd<T, D, 32>(a) : launch_fwd<T, D, 32>(a);
-    case 64: return BWD ? launch_bwd<T, D, 64>(a) : launch_fwd<T, D, 64>(a);
-    case 128: return BWD ? launch_bwd<T, D, 128>(a) : launch_fwd<T, D, 128>(a);
-  }
-  return -1;
-}
-
-// D and Dv each in {32, 64, 128}, or D = Dv = 80 (hubert-xlarge's heads),
-// a pair of its own so that the build does not grow by the whole cross
-// product.
-template <typename T, bool BWD>
-int dispatch_d(const Args& a, int D, int Dv) {
-  switch (D) {
-    case 32: return dispatch_dv<T, BWD, 32>(a, Dv);
-    case 64: return dispatch_dv<T, BWD, 64>(a, Dv);
-    case 128: return dispatch_dv<T, BWD, 128>(a, Dv);
-    case 80:
-      if (Dv == 80) return BWD ? launch_bwd<T, 80, 80>(a) : launch_fwd<T, 80, 80>(a);
-  }
-  return -1;
-}
+};
 
 template <bool BWD>
 int dispatch(const Args& a, int D, int Dv, int dtype) {
   if (a.B <= 0 || a.Sq <= 0 || a.Skv <= 0 || a.Hkv <= 0 || a.H % a.Hkv) return -1;
   if (a.B > 65535 || a.H > 65535) return -1;
-  if (dtype == 0) return dispatch_d<float, BWD>(a, D, Dv);
-  if (dtype == 1) return dispatch_d<bf16, BWD>(a, D, Dv);
+  if ((a.Sq + 63) / 64 > 65535 || (a.Skv + 63) / 64 > 65535) return -1;   // f32 grids' z
+  if (dtype == 0) return launch_tf32(a, BWD, D, Dv);
+  if (dtype == 1) {
+    return BWD ? dispatch_head_dims<Bf16Bwd>(a, D, Dv) : dispatch_head_dims<Bf16Fwd>(a, D, Dv);
+  }
   return -1;
 }
 
 }  // namespace
+}  // namespace repro_fa
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
 // its launches (0 = launched), or -1 for arguments the kernels do not take.
@@ -1198,11 +639,11 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
                                          void* out, void* lse, int B, int Sq, int Skv,
                                          int H, int Hkv, int D, int Dv, float scale,
                                          int causal, int dtype, void* stream) {
-  Args a{};
+  repro_fa::Args a{};
   a.q = q; a.k = k; a.v = v; a.out = out; a.lse_out = lse;
   a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.Hkv = Hkv;
   a.scale = scale; a.causal = causal; a.stream = static_cast<cudaStream_t>(stream);
-  return dispatch<false>(a, D, Dv, dtype);
+  return repro_fa::dispatch<false>(a, D, Dv, dtype);
 }
 
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -1210,10 +651,10 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                          void* delta, void* dq, void* dk, void* dv, int B,
                                          int Sq, int Skv, int H, int Hkv, int D, int Dv,
                                          float scale, int causal, int dtype, void* stream) {
-  Args a{};
+  repro_fa::Args a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout; a.lse = lse;
   a.delta = delta; a.dq = dq; a.dk = dk; a.dv = dv;
   a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.Hkv = Hkv;
   a.scale = scale; a.causal = causal; a.stream = static_cast<cudaStream_t>(stream);
-  return dispatch<true>(a, D, Dv, dtype);
+  return repro_fa::dispatch<true>(a, D, Dv, dtype);
 }

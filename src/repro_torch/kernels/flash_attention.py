@@ -1,6 +1,6 @@
 """Flash attention: the hand-written CUDA kernels
-(``csrc/flash_attention.cu``), forward (K1) and backward, and their plain
-PyTorch versions.
+(``csrc/flash_attention.cu``, bf16; ``csrc/flash_attention_tf32.cu``,
+f32), forward (K1) and backward, and their plain PyTorch versions.
 
 Port of the Pallas TPU kernel ``flash_attention_fwd``
 (``src/repro/kernels/flash_attention/kernel.py``): GQA attention, causal
@@ -19,7 +19,9 @@ two launches count as one).
 
 In bf16 the kernels run on the tensor cores and round P and dS to bf16
 before their second product; ``flash_attention_rounding_terms`` gives
-what that may move each output by, for ``parity.flash_within``.
+what that may move each output by, for ``parity.flash_within``. In f32
+they run on the tensor cores too, in 3xTF32 (each operand split into two
+TF32 parts, three products), and are held to ``parity.within``'s f32 rule.
 
 Meta tensors take a shape branch: the CUDA path's outputs (and the
 backward's ``delta`` scratch), no launch. ``flash_attention_work`` and

@@ -221,8 +221,9 @@ def flash_within(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype,
     of its size, so the output by at most ``BF16_UNIT`` times the sum of
     the terms' sizes (``terms``: ``flash_attention_rounding_terms``).
     Where scores are large, dS reaches tens and that bound exceeds
-    ``within``'s bf16 rule. The f32 kernels round nothing early: ``within``
-    alone."""
+    ``within``'s bf16 rule. The f32 kernels form every product in 3xTF32,
+    P and dS split as every other operand, so each product carries about
+    2^-21 of its size: ``within``'s f32 rule alone."""
     if dtype == torch.float32:
         return within(out, ref, dtype)
     return within(out, ref, dtype, BF16_UNIT * terms.float())

@@ -278,3 +278,137 @@ def test_flash_rule_rejects_a_dropped_tile(shape, causal, mul):
     p[..., tile] = 0
     out32 = torch.einsum("bhgqk,bkhd->bqhgd", p, vf).reshape(o32.shape)
     assert not flash_within(out32, refs32[0], torch.float32, None)[1]
+
+
+# --- The f32 kernels' 3xTF32 products, emulated on the CPU ----------------
+
+
+def _tf32(x):
+    """f32 ``x`` rounded to nearest at 10 mantissa bits, ties away from
+    zero: ``cvt.rna.tf32.f32`` (the low 13 bits of the pattern cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(eq, a, b):
+    """``einsum(eq, a, b)`` as the f32 kernels form it: each f32 operand
+    split into big = tf32(x) and small = tf32(x - big), and small . big +
+    big . small summed before big . big, in f32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    cross = torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small)
+    return cross + torch.einsum(eq, a_big, b_big)
+
+
+def _mm_tf32(eq, a, b):
+    """One TF32 product: each operand rounded to TF32 once."""
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _recompute(q, k, v, do, causal, mm, o=None, lse=None):
+    """(out, dq, dk, dv) of the kernels' recompute in the inputs' dtype,
+    every one of its seven products through ``mm``: S = (q / sqrt(D)) K^T
+    (q scaled before it is split), O = P V / l, then from ``o`` and
+    ``lse`` (the plain forward's, as the card's checks pass them; else
+    this forward's) P = exp(S - LSE), dP = dO V^T, dS = P o (dP - Delta)
+    formed and then split, dV = P^T dO, dQ = dS K / sqrt(D),
+    dK = dS^T (q / sqrt(D))."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    qs = q.reshape(B, Sq, Hkv, G, D) * (1.0 / math.sqrt(D))
+    s = mm("bqhgd,bkhd->bhgqk", qs, k)
+    if causal:
+        keep = torch.arange(Sq)[:, None] >= torch.arange(Skv)
+        s = s.masked_fill(~keep, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    out = mm("bhgqk,bkhd->bqhgd", p, v) / l.permute(0, 3, 1, 2, 4)
+    if o is None:
+        o, lse = out.reshape(B, Sq, H, Dv), (m + torch.log(l)).reshape(B, H, Sq)
+    p = torch.exp(s - lse.to(q.dtype).reshape(B, Hkv, G, Sq, 1))
+    dof = do.reshape(B, Sq, Hkv, G, Dv)
+    delta = (dof * o.to(q.dtype).reshape(B, Sq, Hkv, G, Dv)).sum(-1)
+    ds = p * (mm("bqhgd,bkhd->bhgqk", dof, v) - delta.permute(0, 2, 3, 1)[..., None])
+    dv = mm("bhgqk,bqhgd->bkhd", p, dof)
+    dq = mm("bhgqk,bkhd->bqhgd", ds, k) * (1.0 / math.sqrt(D))
+    dk = mm("bhgqk,bqhgd->bkhd", ds, qs)
+    return out.reshape(B, Sq, H, Dv), dq.reshape(B, Sq, H, D), dk, dv
+
+
+def _f32_case(shape, mul, seed=31):
+    """q, k, v, dO from a seeded numpy generator, q and k scaled by ``mul``."""
+    rng = np.random.default_rng(seed)
+    B, Sq, Skv, H, Hkv, D, Dv = shape
+    arrs = [rng.normal(size=s).astype(np.float32) for s in
+            ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, Dv), (B, Sq, H, Dv))]
+    arrs[0] *= mul
+    arrs[1] *= mul
+    return [torch.from_numpy(a) for a in arrs]
+
+
+def _f64_refs(q, k, v, do, causal):
+    """The plain version's recompute in float64 (exact products), and a
+    check that it is the plain version's function: the f32 plain forward
+    and backward lie within the f32 rule of it."""
+    refs = _recompute(*(t.double() for t in (q, k, v, do)), causal, torch.einsum)
+    o, lse, plain = _plain_all(q, k, v, do, causal)
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), plain[:1] + plain[1:], refs):
+        assert within(got, ref, torch.float32)[1], ("plain", name)
+    return o, lse, refs
+
+
+#: Reduced cases of the f32 paths: smollm-135m's G 3 at D 64, the failover's
+#: D 32, D 128 with D != Dv, hubert's D 80 (bidirectional, Sq != Skv), and
+#: scores near 100 (q and k scaled by 4) at G 2 and G 3.
+TF32X3_CASES = [
+    ((2, 128, 128, 9, 3, 64, 64), True, 1.0),
+    ((2, 64, 64, 4, 2, 32, 32), True, 1.0),
+    ((2, 77, 100, 6, 2, 128, 64), False, 1.0),
+    ((2, 77, 100, 4, 4, 80, 80), False, 1.0),
+    ((2, 128, 128, 4, 2, 64, 64), True, 4.0),
+    ((2, 128, 128, 9, 3, 64, 64), True, 4.0),
+]
+
+
+@pytest.mark.parametrize("shape,causal,mul", TF32X3_CASES)
+def test_3xtf32_products_pass_the_f32_rule(shape, causal, mul):
+    """Every product of the forward and backward in 3xTF32 (P and dS split
+    too) keeps out, dq, dk and dv within ``parity.within``'s f32 rule of
+    the f64 recompute, at unit and at large scores."""
+    q, k, v, do = _f32_case(shape, mul)
+    o, lse, refs = _f64_refs(q, k, v, do, causal)
+    got = _recompute(q, k, v, do, causal, _mm_3xtf32, o, lse)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, refs):
+        err, ok = within(a, b, torch.float32)
+        assert ok, (name, err)
+
+
+@pytest.mark.parametrize("shape,causal,mul", [TF32X3_CASES[1], TF32X3_CASES[5]])
+def test_one_tf32_product_fails_the_f32_rule(shape, causal, mul):
+    """The rule has teeth: the same recompute with one TF32 product each
+    (operands rounded to 10 mantissa bits once) leaves every output
+    outside the f32 rule."""
+    q, k, v, do = _f32_case(shape, mul)
+    o, lse, refs = _f64_refs(q, k, v, do, causal)
+    got = _recompute(q, k, v, do, causal, _mm_tf32, o, lse)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, refs):
+        assert not within(a, b, torch.float32)[1], name
+
+
+def test_tf32_split_rounds_to_nearest():
+    """``_tf32`` is ``cvt.rna``: ties away from zero, 10 mantissa bits; big
+    + small holds x to 2^-21 of |x|, where big alone is off by up to
+    2^-11."""
+    one = torch.tensor([1.0, -1.0], dtype=torch.float32)
+    ulp = 2.0 ** -10
+    assert torch.equal(_tf32(one * (1 + ulp / 2)), one * (1 + ulp))      # a tie: away
+    assert torch.equal(_tf32(one * (1 + ulp / 2 - 2 ** -23)), one)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=4096).astype(np.float32))
+    big = _tf32(x)
+    small = _tf32(x - big)
+    assert torch.equal(big.view(torch.int32) & 0x1FFF, torch.zeros(4096, dtype=torch.int32))
+    rel = ((big.double() + small.double() - x.double()).abs() / x.double().abs()).max()
+    assert rel <= 2.0 ** -21
+    assert ((big.double() - x.double()).abs() / x.double().abs()).max() > 2.0 ** -12

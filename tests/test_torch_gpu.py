@@ -503,10 +503,32 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, causal, B, Sq, Skv, H,
     _hold_flash(cuda, dtype, causal, (B, Sq, Skv, H, Hkv, D, Dv))
 
 
-def test_flash_attention_kernels_at_large_scores(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_at_large_scores(cuda, dtype):
     """llama3.2-1b's training shape with q and k scaled by 4: scores near
-    100 exercise the online rescale and exponentials that underflow."""
-    _hold_flash(cuda, torch.bfloat16, True, (32, 512, 512, 32, 8, 64, 64), mul=4.0)
+    100 exercise the online rescale and exponentials that underflow (in
+    f32, under products in 3xTF32)."""
+    _hold_flash(cuda, dtype, True, (32, 512, 512, 32, 8, 64, 64), mul=4.0)
+
+
+@pytest.mark.parametrize("shape", [(32, 128, 128, 9, 3, 64, 64), (32, 64, 64, 4, 2, 32, 32)],
+                         ids=["smollm-135m", "elastic_failover"])
+def test_flash_attention_f32_repeats_bit_for_bit(cuda, shape):
+    """The f32 forward and backward launched twice give the same bits at
+    the training entry points' shapes: no atomics, every sum (the dK/dV
+    launch's over the G query heads too) in a fixed order. The exact
+    resume of ``elastic_failover_torch`` on the card rests on it."""
+    B, Sq, Skv, H, Hkv, D, Dv = shape
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn((B, Sq, H, D), generator=g).to(cuda)
+    k = torch.randn((B, Skv, Hkv, D), generator=g).to(cuda)
+    v = torch.randn((B, Skv, Hkv, Dv), generator=g).to(cuda)
+    do = torch.randn((B, Sq, H, Dv), generator=g).to(cuda)
+    (o1, l1), (o2, l2) = (K.flash_attention_fwd(q, k, v, causal=True) for _ in range(2))
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    first, second = (K.flash_attention_bwd(q, k, v, o1, l1, do, causal=True) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
