@@ -328,6 +328,25 @@ runs, in order, and exits non-zero at the first phase that fails:
    assertions holding; (d) ``python examples/serve_lm_torch.py --arch
    smollm``, started in a subprocess first, must exit 0 and name the
    card;
+27. llama3.2-1b at full width and depth computed tensor-parallel over
+   "model" on a (1, 2) ("data", "model") mesh: two processes, each with
+   the card as device 0, join a gloo group (NCCL refuses two ranks on
+   one device) from a ``file://`` rendezvous (``p27_launch``; a rank
+   that fails or a launch past ``P27_TIMEOUT`` s fails the phase). (a)
+   phase 24's parameters, batches and AdamW: 3 steps whose losses and
+   grad norms must be within ``P27_LOSS_RTOL`` / ``P27_GNORM_RTOL`` of
+   phase 24's plain step, whose K1 / K2 launches a step are the plain
+   step's, with K1 given each rank's 16 of the 32 q heads over 4 of the
+   8 kv heads and every tensor of the step on the card; a second launch
+   must repeat every bit (metrics, a digest of every block); (b) the f32
+   2-layer cut, one SGD step on the mesh against the plain f32 step
+   (``P27_F32_RTOL`` / ``P27_F32_ATOL``); (c) K1 forward and backward at
+   the ranks' shapes (bf16 at 8 x 512, f32 at 8 x 128) held to plain, and
+   timed at the bf16 one beside SDPA and its bound; (d) per rank, one
+   step counted by ``op_cost`` (its ``all_reduce`` count and bytes must
+   equal the meta count of the same step on a fake (1, 2) group, traced
+   in a process started with the script) and one profiled (wall and
+   device ms, launches by class);
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
@@ -336,13 +355,16 @@ phase 17 under ``phase17_launches`` and in phase 18 under
 phase 20 under ``phase20_launches``, in phase 21 under
 ``phase21_launches``, in phase 22 under ``phase22_launches``, in
 phase 23 under ``phase23_launches``, in phase 24 under
-``phase24_launches``, in phase 25 under ``phase25_launches`` and in
-phase 26 under ``phase26_launches``; then K4 again at block 8, the chaos
+``phase24_launches``, in phase 25 under ``phase25_launches``, in
+phase 26 under ``phase26_launches`` and in phase 27 (both ranks' steps
+of (a)) under ``phase27_launches``; then K4 again at block 8, the chaos
 fleet's geometry, with its times there and its launches in phase 23, and
 K1's forward and backward at D 80, hubert's main path, with their
 times at its shape and their launches in phase 22, and K1 and K2 in f32
 at smollm-135m's training shape (G 3; D 576) with their times there and
-their launches in phase 26's loop; the profiles under
+their launches in phase 26's loop, and K1 at a rank's heads of phase
+27's mesh with its times there and its launches in phase 27; the
+profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
 zamba2's shape under ``zamba_flash_times``, K2's at D 4096 under
@@ -359,7 +381,7 @@ phase 20's under ``mla_xlstm``, phase 21's under ``mla_xlstm_train``,
 phase 22's under ``hubert_train`` and ``sim_engines``, phase 23's under
 ``chaos_search`` and ``compression``, phase 24's under ``sharded_training``,
 phase 25's under ``dry_run``, phase 26's under ``entry_points``,
-the launch floor, phase 2's tensor-core
+phase 27's under ``tensor_parallel``, the launch floor, phase 2's tensor-core
 reports under ``k1_tensor_cores`` and ``k5_tensor_cores`` and its
 decode-kernel and K2 reports under ``decode_kernel_resources`` and
 ``k2_resources``), the card line
@@ -374,6 +396,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import re
 import shutil
@@ -4819,7 +4842,7 @@ P24_MASK = [1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 0.0, 1.0]
 P24_PIPE = (2, 4, 512)
 
 
-def p24_batches(cfg, steps: int) -> list:
+def p24_batches(cfg, steps: int, device: str = "cuda") -> list:
     from repro_torch.data import StagedBatcher, TokenStream
 
     b = StagedBatcher(TokenStream(cfg.vocab_size, seed=SEED + 40), n_workers=8,
@@ -4827,9 +4850,9 @@ def p24_batches(cfg, steps: int) -> list:
     out = []
     for _ in range(steps):
         arr = b.batch_for_stage(1.0)
-        out.append({"inputs": torch.from_numpy(arr["inputs"]).cuda(),
-                    "labels": torch.from_numpy(arr["labels"]).cuda(),
-                    "worker_mask": torch.tensor(P24_MASK, device="cuda"), "lr": 3e-4})
+        out.append({"inputs": torch.from_numpy(arr["inputs"]).to(device),
+                    "labels": torch.from_numpy(arr["labels"]).to(device),
+                    "worker_mask": torch.tensor(P24_MASK, device=device), "lr": 3e-4})
     return out
 
 
@@ -5557,21 +5580,436 @@ def phase26(card: str) -> dict:
             "cli": {"argv": cli[1:], "exit": proc.returncode, "stdout": stdout}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: tensor-parallel compute over "model" on two ranks of the card
+# ---------------------------------------------------------------------------
+
+#: Phase 27: a (1, 2) ("data", "model") mesh of two processes sharing the
+#: card over gloo (NCCL refuses two ranks on one device); phase 24's
+#: seed, batches (8 x 512 tokens, k = 6 of 8) and AdamW at lr 3e-4 for
+#: ``P27_STEPS`` steps; the f32 cut's batch (8 x 128, the same mask, SGD
+#: at lr 0.1); each launch of the two ranks must end within
+#: ``P27_TIMEOUT`` seconds.
+P27_MESH, P27_STEPS, P27_TIMEOUT = (1, 2), 3, 420
+P27_F32_B, P27_F32_S, P27_F32_LR = 8, 128, 0.1
+#: The tensor-parallel bf16 step against phase 24's plain step, stated
+#: before any card run of it. The plain step rounds each row-parallel
+#: product (attention's ``wo``, the MLP's ``w_out``) to bf16 once; a rank
+#: rounds its half-sum to bf16 and the gloo sum rounds again, and the
+#: backward's input gradients of the column-parallel products are summed
+#: the same way: about 2 extra roundings of 2^-8 a layer forward and 2
+#: backward, 64 over 16 layers, a random walk to ~8 x 2^-8 = 3e-2 of a
+#: branch's magnitude at worst (cuBLAS's split at half the columns moves
+#: its own roundings as much). The loss is a mean of 3,072 tokens' CE
+#: (~11.9 at these weights): a per-token perturbation that large moves
+#: it by under 2e-3 relative. The grad norm sums 1.24e9 squares, moved
+#: by the same relative perturbations: 2e-2. Later steps add AdamW's
+#: sign flips where a gradient is near zero, which move the loss to
+#: second order.
+P27_LOSS_RTOL, P27_GNORM_RTOL = 2e-3, 2e-2
+#: The f32 cut against the plain f32 step: relative in loss and grad norm,
+#: absolute in every updated parameter.
+P27_F32_RTOL, P27_F32_ATOL = 1e-5, 1e-6
+#: K1's local shapes on a rank: 16 of llama's 32 q heads over 4 of its 8
+#: kv heads (``parity.FLASH_SHAPES``), bf16 at the step's 8 x 512 and f32
+#: at the cut's 8 x 128.
+P27_FLASH = ((P24_B, TRAIN_S, TRAIN_S, 16, 4, 64, 64), torch.bfloat16), \
+    ((P27_F32_B, P27_F32_S, P27_F32_S, 16, 4, 64, 64), torch.float32)
+
+
+def p27_digest(tree) -> str:
+    """sha256 over the bytes of every leaf's local block, in tree order."""
+    from torch.distributed.tensor import DTensor
+
+    h = hashlib.sha256()
+    for t in leaves_of(tree):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def p27_on_card(*trees) -> bool:
+    """Whether every tensor leaf's local block lies on the card."""
+    from torch.distributed.tensor import DTensor
+
+    return all((t.to_local() if isinstance(t, DTensor) else t).is_cuda
+               for tree in trees for t in leaves_of(tree))
+
+
+def p27_setup(cfg, mesh):
+    """(model, DTensor params laid out by ``DEFAULT_RULES`` from phase 24's
+    seeded init, their shardings, the TP-only gather layout)."""
+    from repro_torch.dist.sharding import DEFAULT_RULES, make_sharding_fn, shard_tree
+    from repro_torch.launch.specs import gather_shardings
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ParamSpec, tree_map
+
+    model = Model(cfg)
+    shardings = tree_map(make_sharding_fn(mesh, DEFAULT_RULES), model.param_specs(),
+                         is_leaf=lambda x: isinstance(x, ParamSpec))
+    params = shard_tree(model.init(SEED, device="cuda"), shardings)
+    return model, params, shardings, gather_shardings(model, mesh, DEFAULT_RULES)
+
+
+def p27_steps(rank: int, mesh, full: bool) -> dict:
+    """(a) ``P27_STEPS`` tensor-parallel AdamW steps of llama3.2-1b at full
+    width and depth from phase 24's parameters and batches: metrics, the
+    K1 / K2 launches, the shapes K1 was given, a digest of the rank's
+    blocks after the steps. With ``full``, (d): one more step counted by
+    ``op_cost`` (its collectives by kind and source) and two more under
+    ``window`` (wall ms, device ms and launches by class)."""
+    from repro_torch.analysis.op_cost import counting
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import activation_sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import attention
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+
+    cfg = get_config(ARCH)
+    model, params, shardings, gather = p27_setup(cfg, mesh)
+    opt = adamw()
+    state = opt.init(params)
+    step = make_train_step(model, opt, param_shardings=shardings, gather_shardings=gather)
+    batches = p24_batches(cfg, P27_STEPS + (3 if full else 0))
+    shapes, flash = set(), attention._flash_kernel
+
+    def seen(q, k, v, **kw):
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, v, **kw)
+
+    attention._flash_kernel = seen
+    metrics, on_card = [], True
+    try:
+        with activation_sharding(mesh):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for batch in batches[:P27_STEPS]:
+                _, state, m = step(params, state, batch)
+                on_card &= all(v.is_cuda for v in m.values() if torch.is_tensor(v))
+                metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                                float(m["contributors"])))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()
+    finally:
+        attention._flash_kernel = flash
+    wq = params["stack"][0][0]["attn"]["wq"]
+    out = {"metrics": metrics, "launches": launches, "seconds": seconds,
+           "k1_shapes": sorted(shapes), "wq_local": list(wq.to_local().shape),
+           "wq_placements": [repr(p) for p in wq.placements],
+           # The optimizer's step count is a host scalar, in the plain step too.
+           "on_card": on_card and p27_on_card(params, {k: v for k, v in state.items()
+                                                       if k != "step"}),
+           "digest": p27_digest(params)}
+    print(f"    rank {rank}: {P27_STEPS} steps in {seconds:.2f} s; (loss, grad norm, "
+          f"contributors) {metrics}; wq block {out['wq_local']} {out['wq_placements']}; K1 "
+          f"q / k {out['k1_shapes']}; launches {launches}", flush=True)
+    if not full:
+        return out
+    with activation_sharding(mesh):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with counting((params, state, batches[P27_STEPS])) as cost:
+            step(params, state, batches[P27_STEPS])
+        torch.cuda.synchronize()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["profile"] = window(f"rank {rank}: tensor-parallel train step",
+                                lambda: step(params, state, batches[P27_STEPS + 1]),
+                                lambda: step(params, state, batches[P27_STEPS + 2]), 1, "step")
+    out["collective_counts"] = dict(cost.collective_counts)
+    out["collective_bytes"] = dict(cost.collective_bytes)
+    out["collective_sources"] = cost.top_collective_sources(40)
+    print(f"    rank {rank}: collectives of a counted step {out['collective_counts']}, bytes "
+          f"{out['collective_bytes']}; peak {out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    return out
+
+
+def p27_f32(rank: int, mesh) -> dict:
+    """(b) llama3.2-1b at full width cut to 2 layers in f32
+    (``cut_for_parity``): one SGD step on the mesh against the plain
+    single-device step on the card from the same parameters and batch;
+    loss and grad norm within ``P27_F32_RTOL``, every block of every
+    updated parameter within ``P27_F32_ATOL`` of the plain step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import StagedBatcher, TokenStream
+    from repro_torch.dist.sharding import activation_sharding, local_block
+    from repro_torch.models import Model
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import make_train_step
+
+    small = cut_for_parity(get_config(ARCH))
+    b = StagedBatcher(TokenStream(small.vocab_size, seed=SEED + 44), n_workers=8,
+                      global_batch=P27_F32_B, seq_len=P27_F32_S).batch_for_stage(1.0)
+    batch = {"inputs": torch.from_numpy(b["inputs"]).cuda(),
+             "labels": torch.from_numpy(b["labels"]).cuda(),
+             "worker_mask": torch.tensor(P24_MASK, device="cuda"), "lr": P27_F32_LR}
+    opt = sgd()
+    plain = Model(small).init(SEED, device="cuda")
+    _, _, m_plain = make_train_step(Model(small), opt)(plain, opt.init(plain), batch)
+    model, params, shardings, gather = p27_setup(small, mesh)
+    step = make_train_step(model, opt, param_shardings=shardings, gather_shardings=gather)
+    with activation_sharding(mesh):
+        _, _, m = step(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    delta = max(float((p.to_local() - local_block(q, mesh, p.placements)).abs().max())
+                for p, q in zip(leaves_of(params), leaves_of(plain)))
+    out = {"loss": [float(m["loss"]), float(m_plain["loss"])],
+           "grad_norm": [float(m["grad_norm"]), float(m_plain["grad_norm"])],
+           "max_param_delta": delta, "on_card": p27_on_card(params)}
+    print(f"    rank {rank}: f32 2-layer cut, one SGD step at {P27_F32_B} x {P27_F32_S}: loss "
+          f"{out['loss'][0]:.8f} vs plain {out['loss'][1]:.8f}, grad norm "
+          f"{out['grad_norm'][0]:.8f} vs {out['grad_norm'][1]:.8f}, max |param delta| "
+          f"{delta:.3e}", flush=True)
+    return out
+
+
+def p27_rank(rank: int, workdir: str, mode: str) -> None:
+    """One rank of phase 27, in a process of its own (``p27_launch``): the
+    card as device 0, a gloo group from a ``file://`` rendezvous in
+    ``workdir``, a (1, 2) mesh; (a) and, with ``mode`` "full", (d) and
+    (b). Writes ``rank_<rank>.json`` there, or ``error_<rank>.txt``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = Path(workdir)
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{d / 'pg'}", rank=rank,
+                                world_size=2)
+        _build.load_library()
+        mesh = make_mesh(P27_MESH, ("data", "model"), device="cuda", backend="gloo")
+        out = {"rank": rank, "backend": str(dist.get_backend()),
+               "mesh": [list(mesh.shape), list(mesh.mesh_dim_names)]}
+        out["steps"] = p27_steps(rank, mesh, mode == "full")
+        if mode == "full":
+            out["f32"] = p27_f32(rank, mesh)
+        (d / f"rank_{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        (d / f"error_{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def p27_launch(mode: str) -> list:
+    """Both ranks of ``p27_rank`` as processes of their own sessions; each
+    must exit 0 within ``P27_TIMEOUT`` s (else both are killed and the
+    phase fails). Their logs are printed; their results, rank order."""
+    import os
+    import signal
+    import tempfile
+
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_p27_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.p27_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])")
+    logs = [open(d / f"log_{r}.txt", "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(r), str(d), mode],
+                              cwd=ROOT, env=env, stdout=logs[r], stderr=subprocess.STDOUT,
+                              start_new_session=True) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, P27_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    for r in range(2):
+        print("\n".join(f"    [rank {r}] {line}" for line in
+                        (d / f"log_{r}.txt").read_text().strip().splitlines()[-40:]))
+    errors = "".join((d / f"error_{r}.txt").read_text() for r in range(2)
+                     if (d / f"error_{r}.txt").exists())
+    codes = [p.returncode for p in procs]
+    ok = codes == [0, 0]
+    results = ([json.loads((d / f"rank_{r}.json").read_text()) for r in range(2)]
+               if ok else [])
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"    launch ({mode}): exit codes {codes} after {seconds:.1f} s")
+    check(ok, f"phase 27's ranks ({mode}) failed or ran past {P27_TIMEOUT} s: exit codes "
+              f"{codes}; {errors[-3000:]}")
+    for r in results:
+        r["launch_seconds"] = seconds
+    return results
+
+
+def p27_meta() -> None:
+    """The tensor-parallel train step of (a) traced on meta tensors over a
+    fake group of 2 ranks on the (1, 2) mesh, counted by ``op_cost`` as
+    rank 0; prints its counts as a JSON line (``start_p27_meta``)."""
+    from repro_torch.analysis.op_cost import counting
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import DEFAULT_RULES, activation_sharding, make_sharding_fn
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import abstract_state, gather_shardings
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ParamSpec, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+
+    cfg = get_config(ARCH)
+    model, opt = Model(cfg), adamw()
+    mesh = make_test_mesh(P27_MESH, ("data", "model"))
+    params, state = abstract_state(model, mesh, DEFAULT_RULES, opt)
+    shardings = tree_map(make_sharding_fn(mesh, DEFAULT_RULES), model.param_specs(),
+                         is_leaf=lambda x: isinstance(x, ParamSpec))
+    step = make_train_step(model, opt, param_shardings=shardings,
+                           gather_shardings=gather_shardings(model, mesh, DEFAULT_RULES))
+    batch = p25_meta(p24_batches(cfg, 1, device="cpu")[0])
+    t0 = time.perf_counter()
+    with activation_sharding(mesh), counting((params, state, batch)) as cost:
+        step(params, state, batch)
+    print(json.dumps({"collective_counts": dict(cost.collective_counts),
+                      "collective_bytes": dict(cost.collective_bytes),
+                      "collective_sources": cost.top_collective_sources(40),
+                      "flops": cost.flops, "trace_s": time.perf_counter() - t0}))
+
+
+def start_p27_meta() -> subprocess.Popen:
+    """``p27_meta`` in a process of its own (its fake group must not meet
+    another), started with the script: it needs no card."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    code = "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; chip_smoke.p27_meta()"
+    return subprocess.Popen([sys.executable, "-c", code, str(ROOT)], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def p27_meta_result(proc: subprocess.Popen) -> dict:
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    check(proc.returncode == 0, f"phase 27's meta count failed: {stderr[-2000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def phase27(card: str, plain_metrics: list, meta_proc: subprocess.Popen) -> dict:
+    """llama3.2-1b at full width and depth on a (1, 2) ("data", "model")
+    mesh of two processes sharing the card over gloo: (a) the
+    tensor-parallel step's losses and grad norms against phase 24's plain
+    step (``plain_metrics``) within ``P27_LOSS_RTOL`` / ``P27_GNORM_RTOL``,
+    the same K1 / K2 launches a step as the plain step, K1 given 16 of
+    the 32 q heads, every tensor of the step on the card, and a second
+    launch equal bit for bit; (b) the f32 cut within ``P27_F32_RTOL`` /
+    ``P27_F32_ATOL``; (c) K1 at the local shapes against its plain
+    version, timed there; (d) each rank's collectives a step equal to the
+    meta count's (``meta_proc``), its wall and device ms and launches by
+    class."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    (a), (d), (b): two ranks (gloo on the card, a file:// rendezvous), mesh "
+          f"{P27_MESH} ('data', 'model'); {P27_STEPS} AdamW steps at {P24_B} x {TRAIN_S} "
+          f"tokens, k = 6 of 8, from phase 24's seed")
+    first = p27_launch("full")
+    print("    (a) again: a second launch of the same steps")
+    second = p27_launch("repeat")
+    per_step = per_step_launches(cfg)
+    want = [tuple(m) for m in plain_metrics[:P27_STEPS]]
+    for r, (a, b) in enumerate(zip(first, second)):
+        s = a["steps"]
+        got = [tuple(m) for m in s["metrics"]]
+        worst_l = max(abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(got, want))
+        worst_g = max(abs(g[1] - w[1]) / abs(w[1]) for g, w in zip(got, want))
+        print(f"    rank {r}: loss within {worst_l:.3e} relative of phase 24's plain step "
+              f"(limit {P27_LOSS_RTOL:g}), grad norm within {worst_g:.3e} (limit "
+              f"{P27_GNORM_RTOL:g}); contributors {[g[2] for g in got]}")
+        check(worst_l <= P27_LOSS_RTOL and worst_g <= P27_GNORM_RTOL,
+              f"rank {r}: the tensor-parallel step departs from the plain step: {got} vs {want}")
+        check([g[2] for g in got] == [w[2] for w in want], f"rank {r}: contributors differ")
+        check(s["metrics"] == b["steps"]["metrics"] and s["digest"] == b["steps"]["digest"],
+              f"rank {r}: a second launch differs: {s['metrics']} / {b['steps']['metrics']}, "
+              f"digest {s['digest']} / {b['steps']['digest']}")
+        check(s["on_card"] and b["steps"]["on_card"] and a["f32"]["on_card"],
+              f"rank {r}: a tensor of the step is not on the card")
+        check(s["launches"] == {k: v * P27_STEPS for k, v in per_step.items()},
+              f"rank {r}: launches {s['launches']} are not {P27_STEPS} x {per_step}")
+        check(s["wq_local"] == [cfg.d_model, cfg.n_heads // 2, cfg.head_dim]
+              and [list(q) for q, _ in s["k1_shapes"]] == [[P24_B, TRAIN_S, cfg.n_heads // 2,
+                                                             cfg.head_dim]]
+              and [list(k) for _, k in s["k1_shapes"]] == [[P24_B, TRAIN_S,
+                                                             cfg.n_kv_heads // 2, cfg.head_dim]],
+              f"rank {r}: K1 was not given the rank's heads: {s['k1_shapes']}")
+        f = a["f32"]
+        check(abs(f["loss"][0] - f["loss"][1]) <= P27_F32_RTOL * abs(f["loss"][1])
+              and abs(f["grad_norm"][0] - f["grad_norm"][1]) <= P27_F32_RTOL * f["grad_norm"][1]
+              and f["max_param_delta"] <= P27_F32_ATOL,
+              f"rank {r}: the f32 cut departs from the plain f32 step: {f}")
+    check(first[0]["steps"]["metrics"] == first[1]["steps"]["metrics"],
+          "the ranks' metrics differ")
+    print(f"    (a) a second launch: metrics and every block's bits equal on both ranks")
+    print("    (c) K1 at the local shapes vs plain")
+    gen = torch.Generator().manual_seed(SEED + 45)
+    errs = [hold_flash(shape, True, dt, gen) for shape, dt in P27_FLASH]
+    times = time_flash(P24_B, TRAIN_S, 16, 4, 64, gen)
+    print_times(times)
+    meta = p27_meta_result(meta_proc)
+    print(f"    (d) the meta count of the same step on a fake (1, 2) group (traced in "
+          f"{meta['trace_s']:.1f} s): {meta['collective_counts']}, bytes "
+          f"{meta['collective_bytes']}")
+    for r, a in enumerate(first):
+        s = a["steps"]
+        same = (s["collective_counts"].get("all-reduce_count") ==
+                meta["collective_counts"].get("all-reduce_count")
+                and s["collective_bytes"].get("all-reduce") ==
+                meta["collective_bytes"].get("all-reduce"))
+        print(f"    rank {r}: all_reduce {s['collective_counts'].get('all-reduce_count')} a "
+              f"step, {s['collective_bytes'].get('all-reduce')} bytes (meta "
+              f"{meta['collective_counts'].get('all-reduce_count')}, "
+              f"{meta['collective_bytes'].get('all-reduce')}: "
+              f"{'equal' if same else 'DIFFER'}); other collectives "
+              f"{ {k: v for k, v in s['collective_counts'].items() if 'all-reduce' not in k} }")
+        check(same, f"rank {r}: the card's all_reduces differ from the meta count")
+    launches = defaultdict(int)
+    for a in first:
+        for k, v in a["steps"]["launches"].items():
+            launches[k] += v
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"):
+        check(launches[k] > 0, f"phase 27's main path launched no {k}")
+    return {"ranks": first, "repeat": [a["steps"] for a in second], "meta": meta,
+            "launches": dict(launches), "kernel_times": times,
+            "max_abs_err": {"flash_attention": max(e for e, _ in errs),
+                            "flash_attention_bwd": max(e for _, e in errs)},
+            "tolerances": {"loss_rtol": P27_LOSS_RTOL, "grad_norm_rtol": P27_GNORM_RTOL,
+                           "f32_rtol": P27_F32_RTOL, "f32_atol": P27_F32_ATOL}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    dryrun = start_dryrun()
+    dryrun, meta = start_dryrun(), start_p27_meta()
     try:
-        return run(dryrun)
+        return run(dryrun, meta)
     finally:
-        if dryrun.poll() is None:
-            dryrun.kill()
+        for proc in (dryrun, meta):
+            if proc.poll() is None:
+                proc.kill()
 
 
-def run(dryrun: subprocess.Popen) -> int:
-    """Phases 1-26 (the module's docstring); ``dryrun`` is phase 25's
-    production cell, started with the script."""
+def run(dryrun: subprocess.Popen, meta: subprocess.Popen) -> int:
+    """Phases 1-27 (the module's docstring); ``dryrun`` is phase 25's
+    production cell and ``meta`` phase 27's meta count, both started with
+    the script."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models import Model, count_params_analytic
@@ -5879,6 +6317,20 @@ def run(dryrun: subprocess.Popen) -> int:
     p26 = phase26(card)
     phase26_seconds = time.perf_counter() - t26
     print(f"    phase 26 took {phase26_seconds:.1f} s; card {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t27 = time.perf_counter()
+    print(f"[27] {ARCH} at full width and depth, tensor-parallel over 'model' on a (1, 2) mesh "
+          f"of two ranks sharing the card: phase 24's steps, the f32 cut, K1 at the local "
+          f"shapes, the collectives against the meta count")
+    p27 = phase27(card, p24["steps"]["metrics"], meta)
+    phase27_seconds = time.perf_counter() - t27
+    print(f"    phase 27 took {phase27_seconds:.1f} s; card {card}")
+    train_worst["flash_attention"] = max(train_worst["flash_attention"],
+                                         p27["max_abs_err"]["flash_attention"])
+    train_worst["flash_attention_bwd"] = max(train_worst["flash_attention_bwd"],
+                                             p27["max_abs_err"]["flash_attention_bwd"])
 
     name, limit = [s.strip() for s in card.split(",", 1)]
     sources = {
@@ -5937,6 +6389,7 @@ def run(dryrun: subprocess.Popen) -> int:
             "phase24_launches": p24["launches"].get(kname, 0),
             "phase25_launches": p25["launches"].get(kname, 0),
             "phase26_launches": p26["launches"].get(kname, 0),
+            "phase27_launches": p27["launches"].get(kname, 0),
         })
     # K4 at block 8, the chaos fleet's geometry: launches over phase 23's
     # runs, times at its decode tick's shape.
@@ -5983,6 +6436,18 @@ def run(dryrun: subprocess.Popen) -> int:
             "library_expanded_ms": t.get("library_expanded_ms"),
             "phase26_launches": p26["launches"][kname],
         })
+    # K1 at a rank's heads of the (1, 2) mesh (16 of 32 over 4 of 8, bf16):
+    # launches over both ranks' steps of phase 27 (a), times at its shape.
+    for kname in ("flash_attention", "flash_attention_bwd"):
+        t = p27["kernel_times"][kname]
+        kernels.append({
+            "name": f"{kname} ({ARCH}, a rank of the (1, 2) mesh)", "route": "cuda",
+            "source": sources[kname][0], "replaces": sources[kname][1],
+            "launches": p27["launches"][kname], "max_abs_err": p27["max_abs_err"][kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            "phase27_launches": p27["launches"][kname],
+        })
     # Phase 26's launches on the rows of one shape: K4 at block 8 is
     # elastic_serving_torch's replicas; no entry point runs K1 at D 80.
     for k in kernels:
@@ -5990,6 +6455,7 @@ def run(dryrun: subprocess.Popen) -> int:
             k["phase26_launches"] = p26["elastic"]["elastic_serving"]["launches"][
                 "paged_decode_attention"]
         k.setdefault("phase26_launches", 0)
+        k.setdefault("phase27_launches", 0)
     report = {
         "kernels": kernels,
         "card": name, "power_limit": limit,
@@ -6076,6 +6542,8 @@ def run(dryrun: subprocess.Popen) -> int:
         "phase25_seconds": phase25_seconds,
         "entry_points": {k: v for k, v in p26.items() if k != "launches"},
         "phase26_seconds": phase26_seconds,
+        "tensor_parallel": {k: v for k, v in p27.items() if k != "launches"},
+        "phase27_seconds": phase27_seconds,
         "seconds": time.perf_counter() - t_start,
     }
     print(json.dumps(report))

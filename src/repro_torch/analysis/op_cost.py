@@ -25,7 +25,11 @@ through ``repro_torch.kernels.work_hook``, every hand-written kernel:
                         ``COLLECTIVES`` names, with ``{kind}_count``; each
                         attributed to the innermost stack frame in
                         ``repro_torch`` (which stands in for HLO's
-                        ``op_name`` metadata);
+                        ``op_name`` metadata): the tensor-parallel step's
+                        gather to the TP-only layout (``tp_block``), its
+                        ``all_reduce``s over "model" by the model line
+                        that issued them (``dist/tensor_parallel.py``'s
+                        own lines for the backward's);
   * peak_bytes       -- the most live storage bytes: the arguments' storages
                         plus every storage an op creates, less each one when
                         its last tensor is freed (weak references);
@@ -63,6 +67,7 @@ COLLECTIVES = (
 
 _PKG = Path(__file__).resolve().parents[1]
 _SELF = Path(__file__).resolve()
+_TP = _PKG / "dist" / "tensor_parallel.py"
 
 #: aten ops that move no data although their schemas do not mark them views.
 _NO_BYTES = {
@@ -154,11 +159,14 @@ class OpCost:
 
 def _source() -> str:
     """``file:line (function)`` of the innermost frame in the port's
-    package outside this module."""
+    package outside this module; a collective that ``dist/tensor_parallel.py``
+    issues in the forward is attributed to the line that called it, one
+    it issues in the backward to its own ``backward``."""
     f = sys._getframe(2)
     while f is not None:
         path = Path(f.f_code.co_filename)
-        if path != _SELF and _PKG in path.parents:
+        if path != _SELF and _PKG in path.parents and (
+                path != _TP or f.f_code.co_name == "backward"):
             return f"{path.relative_to(_PKG)}:{f.f_lineno} ({f.f_code.co_name})"
         f = f.f_back
     return "(unattributed)"

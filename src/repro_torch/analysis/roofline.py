@@ -14,7 +14,9 @@ the port's ``artifacts/dryrun_torch/`` or the reference's
 track MODEL_FLOPS / (global counted FLOPs): how much of the executed
 compute is algorithmically necessary (6 N_active D for training,
 2 N_active D for prefill, 2 N_active B for decode) -- remat recompute,
-rows repeated over the "model" axis and capacity padding all show here.
+rows repeated over the "model" axis (a port step that gathers its
+parameters whole: ``WHOLE_MARK`` in the artifact's ``variant_note``) and
+capacity padding all show here.
 The port's ``hbm_bytes`` is its eager traffic (every op's operands and
 outputs), so its memory term is an upper bound a fused program would
 undercut.
@@ -28,7 +30,7 @@ from pathlib import Path
 from typing import List, Optional
 
 __all__ = ["RooflineRow", "model_flops_for", "analyze_artifact", "load_rows", "format_table",
-           "PEAK_FLOPS", "HBM_BW", "LINK_BW"]
+           "PEAK_FLOPS", "HBM_BW", "LINK_BW", "WHOLE_MARK"]
 
 PEAK_FLOPS = 989e12     # dense bf16 / card (H100 SXM5 datasheet)
 HBM_BW = 3.35e12        # bytes/s / card (HBM3)
@@ -72,7 +74,19 @@ def model_flops_for(art: dict) -> float:
     return 2.0 * n_active * B
 
 
+#: How a port artifact's ``variant_note`` marks a step that gathers every
+#: parameter whole (no tensor-parallel compute over "model").
+WHOLE_MARK = "parameters gathered whole"
+
+
 def _note(art: dict, dominant: str, useful: float) -> str:
+    whole = WHOLE_MARK in (art.get("variant_note") or "")
+    if dominant == "collective" and not whole and "fits" in art:
+        return (
+            "collective-bound: the gather over the FSDP axis and the all_reduces over "
+            "'model' of tensor-parallel compute; overlap them with the products or "
+            "reuse gathered weights across accumulation microbatches"
+        )
     if dominant == "collective":
         return (
             "collective-bound: every parameter gathered whole each step; cut by "
@@ -85,11 +99,16 @@ def _note(art: dict, dominant: str, useful: float) -> str:
             "rope, softmax, optimizer), keep attention tiles resident (K1 / K3), "
             "drop f32 intermediates"
         )
-    if useful < 0.25:
+    if useful < 0.25 and (whole or "fits" not in art):
         return (
             "compute-bound but <25% useful: rows repeated over 'model' (no "
             "tensor-parallel compute) and remat recompute -- shard the products "
             "over 'model' or use selective remat"
+        )
+    if useful < 0.25:
+        return (
+            "compute-bound but <25% useful: remat recompute and the products a dim "
+            "'model' does not divide leaves whole on every rank -- selective remat"
         )
     return "compute-bound: push tensor-core utilization (bf16 GEMMs, K1 / K5 tiles)"
 

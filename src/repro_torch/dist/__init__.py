@@ -1,13 +1,15 @@
 """Distributed-execution substrate of the port (``repro.dist``): the
 logical-axis sharding rules and the ambient activation-sharding context
 on ``torch.distributed`` (``sharding.py``), masked fastest-k aggregation
-(``collectives.py``), the int8 error-feedback codec (``compression.py``)
-and GPipe over a mesh axis (``pipeline_parallel.py``).
+(``collectives.py``), tensor-parallel compute over ``"model"``
+(``tensor_parallel.py``), the int8 error-feedback codec
+(``compression.py``) and GPipe over a mesh axis (``pipeline_parallel.py``).
 
 A mesh is a ``DeviceMesh`` (``make_mesh``); parameters and optimizer
 state on it are DTensors laid out by the rules, and the train step
-(``repro_torch.runtime.steps``) runs the single-device loss on each
-rank's rows of the batch."""
+(``repro_torch.runtime.steps``) runs the loss on each rank's rows of the
+batch: the dense decoders' tensor-parallel on the rank's blocks of the
+TP-only layout, the other families on full parameters."""
 
 from .collectives import check_worker_major, contributors, example_weights, masked_weighted_ce
 from .compression import Int8Codec, ef_compress_tree

@@ -27,12 +27,19 @@ jax's ``NamedSharding`` gives the same spec.
 The ambient context (:func:`activation_sharding`) carries ``(mesh,
 dp_axes, seq_axis, rules)`` as in the reference, plus the rank's row
 split of the batch being stepped (:class:`RowSplit`, set by the train
-step through :func:`split_rows`). Under a split the model computes on its
-own rows as plain tensors; the MoE dispatch and the losses read the split
-to reduce their global counts (:func:`split_sum`). Activations are plain
-(local) tensors, so :func:`constrain_batch` / :func:`constrain_logical`
-return them unchanged; a ``DTensor`` is redistributed to the derived
-placements. Outside a context both are no-ops, as in the reference.
+step through :func:`split_rows`) and its tensor-parallel view
+(:class:`TPView`, set through :func:`tensor_parallel`). Under a split the
+model computes on its own rows as plain tensors; the MoE dispatch and the
+losses read the split to reduce their global counts (:func:`split_sum`).
+Under a tensor-parallel view the dense decoders compute on the rank's
+blocks of the TP-only layout (:func:`tp_rules`: the rules with ``embed``
+replicated, as the reference's ZeRO-1 gather): each product is split over
+``"model"`` exactly where its parameter's block is cut there
+(``repro_torch.dist.tensor_parallel`` holds the collectives GSPMD would
+insert). Activations are plain (local) tensors, so :func:`constrain_batch`
+/ :func:`constrain_logical` return them unchanged; a ``DTensor`` is
+redistributed to the derived placements. Outside a context both are
+no-ops, as in the reference.
 
 Mesh axes of size 1 never communicate: every reduction here skips them.
 """
@@ -79,6 +86,14 @@ __all__ = [
     "split_sum",
     "split_gather",
     "in_context",
+    "TP_AXIS",
+    "TPView",
+    "tp_view",
+    "tensor_parallel",
+    "current_tp",
+    "tp_rules",
+    "tp_placements",
+    "tp_block",
     "LeafShards",
     "full_value",
     "land",
@@ -306,18 +321,25 @@ def shard_tree(tree, shardings):
     return tree_map(one, tree, shardings, is_leaf=torch.is_tensor)
 
 
-def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda"):
+def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda",
+              backend: Optional[str] = None):
     """The port's ``jax.make_mesh``: a ``DeviceMesh`` of ``shape`` named
     ``axes`` over the default process group, whose world size must be
     the product of ``shape``. On the card (the default) the group must
-    run NCCL, on the CPU gloo: there is no fallback to another backend."""
+    run NCCL, on the CPU gloo: there is no fallback to another backend.
+    ``backend="gloo"`` asks for a CUDA mesh over gloo explicitly: ranks
+    that share one card, where NCCL refuses two ranks on a device (gloo
+    stages CUDA tensors through host memory)."""
     kind = torch.device(device).type
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed.init_process_group first")
     if math.prod(shape) != dist.get_world_size():
         raise ValueError(f"mesh {tuple(shape)} needs {math.prod(shape)} ranks, the world "
                          f"has {dist.get_world_size()}")
-    want = {"cuda": "nccl", "cpu": "gloo"}.get(kind)
+    if backend is not None and (kind, backend) != ("cuda", "gloo"):
+        raise ValueError(f"an explicit backend is gloo on a cuda mesh, not {backend!r} on "
+                         f"{kind}")
+    want = backend or {"cuda": "nccl", "cpu": "gloo"}.get(kind)
     backend = str(dist.get_backend())
     if want is None or want not in backend:
         raise ValueError(f"a {kind} mesh runs on {want or 'no'} backend, the process "
@@ -334,12 +356,22 @@ class RowSplit(NamedTuple):
     """The rank's share of a batch: rows ``rows`` of it, block ``index``
     of ``n`` over the data-parallel ``axes`` of size > 1 that
     ``batch_pspec`` kept (pod-major). Ranks along other axes hold the
-    same rows."""
+    same rows; under a tensor-parallel view (:class:`TPView`) the ranks
+    along ``"model"`` hold different shards of those rows' products."""
 
     axes: Tuple[str, ...]
     n: int
     index: int
     rows: slice
+
+
+class TPView(NamedTuple):
+    """The rank's place along the tensor-parallel mesh axis: the axis's
+    process group, this rank's ``index`` along it and its ``size``."""
+
+    group: Any
+    index: int
+    size: int
 
 
 class ActContext(NamedTuple):
@@ -348,6 +380,7 @@ class ActContext(NamedTuple):
     seq_axis: Optional[str]
     rules: ShardingRules
     split: Optional[RowSplit] = None
+    tp: Optional[TPView] = None
 
 
 _ACT_CTX: contextvars.ContextVar = contextvars.ContextVar("repro_torch_act_ctx", default=None)
@@ -406,6 +439,74 @@ def split_rows(split: RowSplit):
         yield
     finally:
         _ACT_CTX.reset(token)
+
+
+#: The mesh axis that tensor-parallel compute splits products over.
+TP_AXIS = "model"
+
+
+def tp_view(mesh) -> Optional[TPView]:
+    """The rank's :class:`TPView` on ``mesh``: None where the mesh has no
+    ``"model"`` axis or it has size 1 (nothing to split)."""
+    sizes = _axis_sizes(mesh)
+    if sizes.get(TP_AXIS, 1) == 1:
+        return None
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    return TPView(mesh.get_group(TP_AXIS), coord[TP_AXIS], sizes[TP_AXIS])
+
+
+@contextlib.contextmanager
+def tensor_parallel(view: Optional[TPView]):
+    """Run the enclosed forward (and its backward) on the rank's blocks of
+    the TP-only layout (inside an :func:`activation_sharding` context);
+    ``None`` runs it whole."""
+    ctx = _ACT_CTX.get()
+    if ctx is None:
+        raise RuntimeError("tensor_parallel needs an activation_sharding context")
+    token = _ACT_CTX.set(ctx._replace(tp=view))
+    try:
+        yield
+    finally:
+        _ACT_CTX.reset(token)
+
+
+def current_tp() -> Optional[TPView]:
+    """The active tensor-parallel view, else None."""
+    ctx = _ACT_CTX.get()
+    return None if ctx is None else ctx.tp
+
+
+def tp_rules(rules: ShardingRules) -> ShardingRules:
+    """The TP-only gather layout of ``rules``: the FSDP axis (``embed``)
+    replicated, every other rule kept (the reference's ZeRO-1
+    ``rules.replace(embed=None)``)."""
+    return rules.replace(embed=None)
+
+
+def tp_placements(placements, mesh) -> Tuple:
+    """``placements`` with every mesh dim but ``"model"`` replicated: a
+    leaf's block in the TP-only layout when its own layout is the
+    rules' (``tp_rules`` changes no ``"model"`` entry)."""
+    return tuple(pl if name == TP_AXIS else Replicate()
+                 for name, pl in zip(_axis_sizes(mesh), placements))
+
+
+def tp_block(t: torch.Tensor, placements) -> torch.Tensor:
+    """A parameter leaf's local block in the TP-only ``placements`` (every
+    mesh dim but ``"model"`` replicated): a DTensor gathered over the
+    other mesh dims of size > 1 that cut it (its local block where none
+    does), a plain full tensor cut to the rank's ``"model"`` block."""
+    if not isinstance(t, DTensor):
+        ctx = _ACT_CTX.get()
+        return t if ctx is None else local_block(t, ctx.mesh, placements)
+    mesh, sizes = t.device_mesh, _axis_sizes(t.device_mesh)
+    if any(name != TP_AXIS and not pl.is_replicate() for name, pl in zip(sizes, placements)):
+        raise ValueError(f"a TP-only layout {tuple(placements)} cuts a mesh dim other than "
+                         f"{TP_AXIS!r}: it gathers over every other axis")
+    if all(size == 1 or pl == want
+           for size, pl, want in zip(sizes.values(), t.placements, placements)):
+        return t.to_local()
+    return t.redistribute(mesh, placements).to_local()
 
 
 def current_split() -> Optional[RowSplit]:
@@ -552,13 +653,16 @@ def full_value(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if LeafShards.of(t) is None else t.full_tensor()
 
 
-def land(g: torch.Tensor, mesh, axes: Sequence[str], placements) -> DTensor:
-    """A full-shape gradient ``g``, partial over the mesh ``axes``, summed
-    there and cut to ``placements`` (a reduce-scatter where a summed axis
-    shards the leaf). With nothing to sum or cut, ``g`` is the block."""
+def land(g: torch.Tensor, mesh, axes: Sequence[str], placements, held=None) -> DTensor:
+    """A gradient ``g``, the rank's block under ``held`` placements (default
+    replicated everywhere: a full-shape gradient), partial over the mesh
+    ``axes``, summed there and cut to ``placements`` (a reduce-scatter
+    where a summed axis shards the leaf). With nothing to sum or cut,
+    ``g`` is the block."""
     sizes = _axis_sizes(mesh)
-    cut = any(pl.is_shard() and size > 1 for pl, size in zip(placements, sizes.values()))
-    if not axes and not cut:
+    held = tuple(held) if held is not None else (Replicate(),) * len(sizes)
+    if not axes and all(size == 1 or pl == h
+                        for pl, h, size in zip(placements, held, sizes.values())):
         return DTensor.from_local(g, mesh, placements, run_check=False)
-    partial = [Partial() if name in axes else Replicate() for name in sizes]
+    partial = [Partial() if name in axes else h for name, h in zip(sizes, held)]
     return DTensor.from_local(g, mesh, partial, run_check=False).redistribute(mesh, placements)

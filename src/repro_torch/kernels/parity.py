@@ -163,7 +163,10 @@ RMS_TRAIN_SHAPES = [(4096, 7168), (3584, 7168), (4096, 1536), (3584, 1536), (409
 #: shape (9 heads over 3, G = 3, D 64) at 32 rows of 128 tokens
 #: (``examples/train_lm_torch.py --preset smollm``, f32), and
 #: ``examples/elastic_failover_torch.py``'s (4 heads over 2, D 32, 64
-#: tokens) at its largest batch, 32 rows.
+#: tokens) at its largest batch, 32 rows; and llama3.2-1b's local shape
+#: on a rank of a (1, 2) ("data", "model") mesh (16 of its 32 q heads
+#: over 4 of its 8 kv heads, D 64) at the tensor-parallel step's 8 rows
+#: of 512 (bf16) and at its f32 2-layer cut's 8 rows of 128.
 FLASH_SHAPES = [
     (2, 128, 128, 4, 2, 64, 64), (1, 256, 256, 8, 8, 64, 64), (1, 200, 200, 4, 1, 64, 64),
     (2, 128, 128, 4, 2, 128, 128), (1, 64, 64, 2, 2, 32, 32), (1, 384, 384, 6, 3, 64, 64),
@@ -172,6 +175,7 @@ FLASH_SHAPES = [
     (32, 512, 512, 32, 32, 128, 128), (8, 512, 512, 16, 2, 128, 128),
     (2, 77, 100, 4, 4, 80, 80), (32, 512, 512, 16, 16, 80, 80),
     (32, 128, 128, 9, 3, 64, 64), (32, 64, 64, 4, 2, 32, 32),
+    (8, 512, 512, 16, 4, 64, 64), (8, 128, 128, 16, 4, 64, 64),
 ]
 
 #: SSD scan (K5) shapes: B, S, H, P, G, N, chunk. The reference's kernel-

@@ -17,14 +17,22 @@ What the port cannot reproduce, and how the artifact says so:
     time to build the abstract state, ``compile_s`` the time to trace.
   * Only rank 0 is traced, over a backend that moves nothing: collective
     bytes are counted, not timed.
-  * The port's steps gather every parameter whole on each rank and
-    compute the same rows along "model" (``runtime/steps.py``): with
-    "model" > 1 the per-device FLOPs and peak exceed the reference's.
-    ``useful_ratio`` (``analysis.roofline``) and ``fits`` (peak <= the
-    card's 80 GiB) show it cell by cell; tensor-parallel compute is the
-    lever.
+  * The dense decoders' train and prefill steps compute tensor-parallel
+    over "model" (``runtime/steps.py``, ``dist/tensor_parallel.py``):
+    each parameter gathered over the FSDP axes to its TP-only block once
+    a step, each product split where its weight is cut, the
+    ``all_reduce``s over "model" counted by source. Their decode step and
+    every step of the other families (MoE, MLA, the Mamba2 hybrid, xLSTM,
+    the audio encoder) gather every parameter whole and compute the same
+    rows along "model": there the per-device FLOPs and peak exceed the
+    reference's, ``variant_note`` says so, and ``useful_ratio``
+    (``analysis.roofline``) and ``fits`` (peak <= the card's 80 GiB) show
+    it cell by cell.
   * Variants that only change XLA's layout trace the baseline program;
-    ``variant_note`` names what was dropped.
+    ``variant_note`` names what was dropped. ``zero1`` hands the step the
+    TP-only layout (``sharding.tp_rules``) as ``gather_shardings``, as
+    the reference's does; the baseline derives the same layout from the
+    parameters' own placements.
   * Decode caches are built on meta at full length (``long_500k``'s
     524,288 rows too): they cost nothing here, and ``fits`` judges them.
     The decode kernels count every cache row as live (a full cache).
@@ -47,7 +55,11 @@ import time
 import traceback
 from pathlib import Path
 
+import torch
+from torch.distributed.tensor import DTensor
+
 from repro_torch.analysis.op_cost import counting, tensor_bytes
+from repro_torch.analysis.roofline import WHOLE_MARK
 from repro_torch.configs import SHAPES, cell_status, get_config, list_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import (
@@ -55,14 +67,15 @@ from repro_torch.dist.sharding import (
 )
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import (
-    abstract_state, decode_input_specs, global_batch, prefill_input_specs, train_input_specs,
+    abstract_state, decode_input_specs, gather_shardings, global_batch, prefill_input_specs,
+    train_input_specs,
 )
 from repro_torch.models.layers import ParamSpec, tree_map
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.runtime.steps import make_decode_step, make_prefill_step, make_train_step
 
-__all__ = ["ARTIFACTS", "CARD_BYTES", "rules_for", "dp_axes_for", "accum_for",
+__all__ = ["ARTIFACTS", "CARD_BYTES", "WHOLE_NOTE", "variant_note", "rules_for", "dp_axes_for", "accum_for",
            "seq_axis_for", "optimizer_for", "apply_variant", "dryrun_cell", "trace_cell",
            "main"]
 
@@ -73,7 +86,6 @@ CARD_BYTES = 80 * 2**30
 #: Variants whose effect in the reference is a layout XLA alone acts on:
 #: the port traces the baseline program for them.
 _LAYOUT_ONLY = {
-    "zero1": "gather_shardings dropped: the port's step always gathers to full values",
     "zero1_state": "the TP-only parameter layout dropped: the port's optimizer steps "
                    "blocks laid out as their parameters",
     "zero1_state_noseq": "the TP-only parameter layout dropped (as zero1_state); "
@@ -81,6 +93,22 @@ _LAYOUT_ONLY = {
     "seq_shard": "the port's activations are plain tensors: no sequence layout",
     "no_seq_shard": "the port's activations are plain tensors: no sequence layout",
 }
+
+
+#: ``variant_note`` of a cell whose step gathers every parameter whole.
+WHOLE_NOTE = (f"{WHOLE_MARK}: tensor-parallel compute covers the dense decoders' train "
+              "and prefill steps")
+
+
+def variant_note(model: Model, kind: str, variant: str):
+    """What the cell's trace leaves out: a layout-only variant's dropped
+    layout, and the whole gather of a step without tensor-parallel
+    compute; None where nothing is."""
+    notes = [_LAYOUT_ONLY.get(variant)]
+    if kind == "decode" or not model.tensor_parallel:
+        notes.append(WHOLE_NOTE)
+    notes = [n for n in notes if n]
+    return "; ".join(notes) or None
 
 
 # -- the reference's policy functions, word for word ------------------------
@@ -178,8 +206,9 @@ def trace_cell(cfg: ModelConfig, shape, mesh, variant: str = "baseline"):
             params, opt_state = abstract_state(model, mesh, rules, optimizer)
             shardings = tree_map(make_sharding_fn(mesh, rules), model.param_specs(),
                                  is_leaf=lambda x: isinstance(x, ParamSpec))
+            gather = gather_shardings(model, mesh, rules) if variant == "zero1" else None
             step = make_train_step(model, optimizer, accum_steps=accum,
-                                   param_shardings=shardings)
+                                   param_shardings=shardings, gather_shardings=gather)
             args = (params, opt_state,
                     global_batch(train_input_specs(cfg, shape, mesh, rules=rules)))
         elif shape.kind == "prefill":
@@ -195,6 +224,9 @@ def trace_cell(cfg: ModelConfig, shape, mesh, variant: str = "baseline"):
         with counting(args) as cost:
             out = step(*args)
         t_trace = time.time() - t0 - t_build
+    # The rank's own output: a DTensor's local block.
+    out = tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, out,
+                   is_leaf=torch.is_tensor)
     return cost, tensor_bytes(out), t_build, t_trace, accum, seq_axis
 
 
@@ -225,7 +257,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "kind": shape.kind,
         "mesh": mesh_name,
         "variant": variant,
-        "variant_note": _LAYOUT_ONLY.get(variant),
+        "variant_note": variant_note(Model(cfg), shape.kind, variant),
         "n_devices": mesh.size(),
         "lower_s": round(t_build, 1),
         "compile_s": round(t_trace, 1),

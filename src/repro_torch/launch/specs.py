@@ -5,7 +5,9 @@ No storage: the dry run traces against these. Where the reference's
 ``ShapeDtypeStruct`` carries a sharding, the stand-in is a DTensor over
 the mesh, its local block a meta tensor laid out as
 ``repro_torch.dist.sharding.NamedSharding`` places the same spec.
-Parameters come from ``Model.param_specs`` through the rules; the
+Parameters come from ``Model.param_specs`` through the rules (and
+``gather_shardings`` gives their TP-only layout, which the dense
+decoders' tensor-parallel steps compute on); the
 optimizer state from the port's own DTensor-aware ``Optimizer.init`` on
 those parameters (each leaf laid out as its parameter, Adafactor's row
 and column statistics without the reduced dim), not from matching shapes
@@ -27,13 +29,13 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.dist.sharding import (
-    NamedSharding, PartitionSpec as P, ShardingRules, batch_pspec, make_sharding_fn,
+    NamedSharding, PartitionSpec as P, ShardingRules, batch_pspec, make_sharding_fn, tp_rules,
 )
 from repro_torch.models.layers import DTYPES, ParamSpec, tree_map
 from repro_torch.models.model import Model
 
 __all__ = ["train_input_specs", "prefill_input_specs", "decode_input_specs",
-           "abstract_state", "n_workers_for", "global_batch", "stand_in"]
+           "abstract_state", "gather_shardings", "n_workers_for", "global_batch", "stand_in"]
 
 #: The learning rate the dry run's train step is given.
 DRY_LR = 1e-4
@@ -132,6 +134,14 @@ def abstract_state(model: Model, mesh, rules: ShardingRules, optimizer=None):
     if optimizer is None:
         return params, None
     return params, optimizer.init(params)
+
+
+def gather_shardings(model: Model, mesh, rules: ShardingRules):
+    """Every parameter's TP-only layout (``sharding.tp_rules``: the FSDP
+    axis replicated), the reference's ZeRO-1 ``gather_shardings``: the
+    blocks the tensor-parallel train step gathers each parameter to."""
+    return tree_map(make_sharding_fn(mesh, tp_rules(rules)), model.param_specs(),
+                    is_leaf=lambda x: isinstance(x, ParamSpec))
 
 
 def global_batch(specs: Dict[str, Any]) -> Dict[str, Any]:

@@ -37,6 +37,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.dist.sharding import current_tp
+from repro_torch.dist.tensor_parallel import copy_to_tp, reduce_from_tp
 from repro_torch.kernels import decode_attention as _decode_kernel
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import paged_decode_attention as _paged_decode_kernel
@@ -46,6 +48,7 @@ from .layers import ParamSpec, apply_rope, norm_apply, norm_specs
 __all__ = [
     "NEG_INF", "KV_SEQ_ALIGN", "NULL_BLOCK", "round_kv_len", "paged_kv_view",
     "cache_row_update", "cache_rows_update", "decode_lengths", "cached_decode", "gqa_specs",
+    "heads_split", "local_kv_heads", "gqa_tp_partial",
     "mea_attention", "decode_attention", "gqa_apply", "gqa_prefill",
     "gqa_cache_spec", "mla_specs", "mla_apply", "mla_prefill", "mla_cache_spec",
 ]
@@ -180,17 +183,74 @@ def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return out
 
 
+def heads_split(params: Dict, cfg: ModelConfig) -> bool:
+    """Whether ``params`` holds the rank's block of the q heads (a
+    tensor-parallel view's TP-only layout cut ``heads`` over ``"model"``)."""
+    return params["wq"].shape[1] != cfg.n_heads
+
+
+def local_kv_heads(cfg: ModelConfig, n_local: int, index: int):
+    """The kv heads that q heads ``[index * n_local, (index + 1) *
+    n_local)`` read, as a slice where they group evenly (each read by the
+    same number of consecutive q heads), else one kv head for each q head
+    (a local group of 1)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    reads = [h // G for h in range(index * n_local, (index + 1) * n_local)]
+    first, n = reads[0], reads[-1] - reads[0] + 1
+    if n_local % n == 0 and reads == [first + i // (n_local // n) for i in range(n_local)]:
+        return slice(first, first + n)
+    return torch.tensor(reads)
+
+
+def _kv_leaves(params: Dict, cfg: ModelConfig):
+    """The kv projection's leaves the rank computes with: its own block
+    where ``kv_heads`` is cut like ``heads``; where it is replicated but
+    the q heads are cut (it does not divide ``"model"``), the kv heads
+    its q heads read (their gradients are partial over ``"model"``:
+    ``gqa_tp_partial``)."""
+    names = ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
+    leaves = {n: params[n] for n in names}
+    if not heads_split(params, cfg) or params["wk"].shape[1] != cfg.n_kv_heads:
+        return leaves
+    tp = current_tp()
+    heads = local_kv_heads(cfg, params["wq"].shape[1], 0 if tp is None else tp.index)
+    dim = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
+    if isinstance(heads, slice):
+        return {n: t.narrow(dim[n], heads.start, heads.stop - heads.start)
+                for n, t in leaves.items()}
+    return {n: t.index_select(dim[n], heads.to(t.device)) for n, t in leaves.items()}
+
+
+def gqa_tp_partial(params: Dict, cfg: ModelConfig) -> set:
+    """The attention leaves (by name) replicated over ``"model"`` but read
+    by the rank's share of the heads, whose gradients are partial sums
+    over ``"model"``: the qk-norm scales where the q heads are cut, and
+    the kv projection where ``kv_heads`` is replicated but the q heads
+    are cut."""
+    if not heads_split(params, cfg):
+        return set()
+    out = {"q_norm", "k_norm"} & set(params)
+    if params["wk"].shape[1] == cfg.n_kv_heads:
+        out |= {"wk", "wv", "bk", "bv"} & set(params)
+    return out
+
+
 def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
     """x (B, S, d) -> q (B, S, H, D), k/v (B, S, Hkv, D), with bias,
-    qk-norm and RoPE as the config asks."""
+    qk-norm and RoPE as the config asks. Under a tensor-parallel view
+    whose layout cuts ``heads``, the rank's q heads and the kv heads they
+    read (``_kv_leaves``), column-parallel on ``x``."""
+    if heads_split(params, cfg):
+        x = copy_to_tp(x)
+    kv = _kv_leaves(params, cfg)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    k = torch.einsum("bsd,dhk->bshk", x, kv["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, kv["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        k = k + kv["bk"]
+        v = v + kv["bv"]
     if cfg.qk_norm:
         q = norm_apply(params["q_norm"], q.contiguous(), "rmsnorm")
         k = norm_apply(params["k_norm"], k.contiguous(), "rmsnorm")
@@ -269,7 +329,9 @@ def gqa_apply(
     block_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The GQA block. Without a cache (training): attention over the whole
-    sequence through K1, returning (out, None). With one: one-token
+    sequence through K1, returning (out, None); under a tensor-parallel
+    view whose layout cuts ``heads``, over the rank's heads (K1 at the
+    local head counts), ``wo`` row-parallel. With one: one-token
     decode — write the token's K/V row at ``cache_index`` (scalar or
     (B,)) and attend against the cache, K4 over the arena with
     ``block_table``, else K3."""
@@ -279,7 +341,9 @@ def gqa_apply(
         # views, and K1 takes only contiguous inputs.
         out = _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=cfg.causal and not cfg.is_encoder)
-        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
+        out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+        # Row-parallel on the rank's heads: made whole before the residual.
+        return (reduce_from_tp(out) if heads_split(params, cfg) else out), None
     out, new_cache = cached_decode(q, k, v, cache, cache_index, block_table=block_table)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), new_cache
 

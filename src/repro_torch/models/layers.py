@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.tensor_parallel import copy_to_tp, reduce_from_tp
 from repro_torch.kernels import rms_norm as _rms_norm_kernel
 
 __all__ = [
@@ -313,11 +314,20 @@ def mlp_specs(d: int, d_ff: int, glu: bool, dtype: str) -> Dict[str, ParamSpec]:
     return out
 
 
-def mlp_apply(params: Dict, x: torch.Tensor, act: str, glu: bool) -> torch.Tensor:
+def mlp_apply(params: Dict, x: torch.Tensor, act: str, glu: bool,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The (gated) MLP. Under a tensor-parallel view, ``w_in`` / ``w_gate``
+    holding fewer than ``d_ff`` columns are the rank's ffn block: the
+    products are column-parallel on them and row-parallel on ``w_out``,
+    whose partial sum is made whole before it is returned."""
+    split = d_ff is not None and params["w_in"].shape[-1] != d_ff
+    if split:
+        x = copy_to_tp(x)
     h = x @ params["w_in"]
     if glu:
         g = x @ params["w_gate"]
         h = activation(act)(g) * h
     else:
         h = activation(act)(h)
-    return h @ params["w_out"]
+    out = h @ params["w_out"]
+    return reduce_from_tp(out) if split else out

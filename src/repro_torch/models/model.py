@@ -41,6 +41,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import masked_weighted_ce
 from repro_torch.dist.sharding import constrain_batch
+from repro_torch.dist.tensor_parallel import copy_to_tp, vocab_parallel_ce, vocab_parallel_embed
 from . import attention as attn
 from . import xlstm, zamba
 from .layers import (
@@ -50,6 +51,7 @@ from .layers import (
     init_from_specs,
     norm_apply,
     norm_specs,
+    tree_leaves,
     tree_map,
 )
 from .transformer import (
@@ -157,6 +159,28 @@ class Model:
         return self.cfg.family in ("ssm", "hybrid")
 
     @property
+    def tensor_parallel(self) -> bool:
+        """Whether the train and prefill steps compute tensor-parallel over
+        ``"model"`` on a mesh: the dense decoders (families ``dense`` and
+        ``vlm``, blocks ``dense`` and ``parallel``). The other families
+        gather every parameter whole."""
+        return (self.cfg.family in ("dense", "vlm") and self.cfg.input_kind == "tokens"
+                and all(seg.kind in ("dense", "parallel") for seg in self.segments))
+
+    def tp_partial(self, params: Dict) -> List[bool]:
+        """For each leaf of ``params`` (the rank's TP-only blocks, in
+        ``tree_leaves`` order): whether its gradient is a partial sum over
+        ``"model"``, a leaf replicated there but read by the rank's share
+        of a split product (``attention.gqa_tp_partial``)."""
+        flags = tree_map(lambda _: False, params, is_leaf=torch.is_tensor)
+        for layers, flag_layers in zip(params["stack"], flags["stack"]):
+            for layer, flag in zip(layers, flag_layers):
+                for name in attn.gqa_tp_partial(layer["attn"], self.cfg):
+                    flag["attn"][name] = tree_map(lambda _: True, layer["attn"][name],
+                                                  is_leaf=torch.is_tensor)
+        return tree_leaves(flags, is_leaf=lambda x: isinstance(x, bool))
+
+    @property
     def recurrent(self) -> bool:
         """Whether some block carries recurrent state (the hybrid's Mamba2
         layers, xLSTM's mLSTM / sLSTM blocks), which cannot rewind."""
@@ -222,6 +246,9 @@ class Model:
         row of ``pos_conv_w``, plus ``pos_conv_b`` (the reference's
         order of sums)."""
         if self.cfg.input_kind == "tokens":
+            if params["embed"].shape[0] != self.cfg.vocab_size:
+                # The rank's vocab rows (a tensor-parallel view).
+                return vocab_parallel_embed(params["embed"], inputs)
             return params["embed"][inputs.long()]
         x = inputs.to(params["frame_proj"].dtype) @ params["frame_proj"]
         w = params["pos_conv_w"]
@@ -245,11 +272,15 @@ class Model:
         return norm_apply(params["final_norm"], h, cfg.norm), aux
 
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
+        """(B, S, V) logits of the final-normed ``h``; under a tensor-parallel
+        view whose layout cuts ``vocab``, the rank's columns (B, S, V / m)
+        of the tied table or the untied head, column-parallel on ``h``."""
         cfg = self.cfg
-        if cfg.tie_embeddings or cfg.input_kind != "tokens":
-            out = h @ params["embed"].t()
-        else:
-            out = h @ params["head"]
+        tied = cfg.tie_embeddings or cfg.input_kind != "tokens"
+        w = params["embed"].t() if tied else params["head"]
+        if w.shape[-1] != cfg.vocab_size:
+            h = copy_to_tp(h)
+        out = h @ w
         if cfg.logit_scale != 1.0:
             out = out * cfg.logit_scale
         if cfg.logit_softcap > 0:
@@ -276,7 +307,7 @@ class Model:
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-        ce, _ = masked_weighted_ce(self.logits(params, h), labels, mask)
+        ce, _ = vocab_parallel_ce(self.logits(params, h), labels, mask, vocab=cfg.vocab_size)
         loss = ce + cfg.moe.router_aux_weight * aux if cfg.moe is not None else ce
         metrics = {"ce": ce, "aux": aux}
         if cfg.mtp:

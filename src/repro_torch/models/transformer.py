@@ -110,14 +110,16 @@ def ffn_apply(params: Dict, h: torch.Tensor, cfg: ModelConfig,
     for a dense FFN, so that serving makes no zero on the card)."""
     if kind in ("moe", "mla_moe"):
         return moe.moe_apply(params["ffn"], h, cfg)
-    return mlp_apply(params["ffn"], h, cfg.act, cfg.glu), None
+    return mlp_apply(params["ffn"], h, cfg.act, cfg.glu, cfg.d_ff), None
 
 
 def block_ffn(params: Dict, x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
               cfg: ModelConfig, kind: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The rest of a block after its attention ``a`` of the normed ``h`` ->
     (x_out, aux_loss or None): the parallel block adds the FFN of the same
-    ``h``; the others add ``a`` and then the FFN of the post-attention norm."""
+    ``h``; the others add ``a`` and then the FFN of the post-attention norm.
+    Under a tensor-parallel view ``a`` and the FFN come back whole (each
+    reduced after its row-parallel product), so each is added once."""
     if kind == "parallel":
         f, aux = ffn_apply(params, h, cfg, kind)
         return x + a + f, aux

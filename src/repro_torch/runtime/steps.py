@@ -6,7 +6,10 @@ Plain functions, no tracing: PyTorch runs eagerly, so each step is the
 model call itself. The fastest-k worker mask, occupancy and ragged
 lengths enter as data, as in the reference. The train, prefill and
 decode steps also run on a mesh (``repro_torch.dist.sharding``): see
-``make_train_step`` and ``make_decode_step``; the dry run
+``make_train_step`` and ``make_decode_step``. The dense decoders' train
+and prefill steps compute tensor-parallel over ``"model"``
+(``repro_torch.dist.tensor_parallel``); the decode step and the other
+families gather every parameter whole. The dry run
 (``repro_torch.launch.dryrun``) traces all three there.
 ``make_init_fn`` is single-device.
 """
@@ -16,12 +19,14 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.dist.collectives import contributors, example_weights, masked_weighted_ce
+from repro_torch.dist.collectives import contributors, example_weights
 from repro_torch.dist.sharding import (
-    current_context, full_value, land, row_split, split_rows, split_sum,
+    TP_AXIS, current_context, full_value, land, row_split, split_rows, split_sum,
+    tensor_parallel, tp_block, tp_placements, tp_view,
 )
+from repro_torch.dist.tensor_parallel import vocab_parallel_ce
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer, chunked_global_norm, clip_scale
@@ -51,8 +56,8 @@ def train_loss_fn(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
     inputs, labels = batch["inputs"], batch["labels"]
     positions = torch.arange(labels.shape[1], device=labels.device)
     h, aux = model.hidden(params, inputs, positions)
-    ce, denom = masked_weighted_ce(model.logits(params, h), labels,
-                                   batch.get("mask"), batch.get("worker_mask"))
+    ce, denom = vocab_parallel_ce(model.logits(params, h), labels, batch.get("mask"),
+                                  batch.get("worker_mask"), vocab=cfg.vocab_size)
     loss = ce
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux
@@ -78,6 +83,32 @@ def _full_params(params):
     return _unflatten(params, [full_value(p) for p in tree_leaves(params, is_leaf=torch.is_tensor)])
 
 
+def _tp_for(model: Model, ctx):
+    """The step's tensor-parallel view: the dense decoders' on a mesh whose
+    ``"model"`` axis does not split the batch (``pure_dp`` takes every axis
+    for rows), else None (compute whole)."""
+    if not model.tensor_parallel or TP_AXIS in ctx.dp:
+        return None
+    return tp_view(ctx.mesh)
+
+
+def _own(p, mesh) -> Tuple:
+    """A parameter leaf's placements (a plain tensor: replicated)."""
+    return tuple(p.placements) if isinstance(p, DTensor) else (Replicate(),) * mesh.ndim
+
+
+def _gather_layout(leaves, places, gather_shardings, mesh) -> List[Tuple]:
+    """Each leaf's placements in the TP-only layout: ``gather_shardings``'
+    (NamedShardings matching the params), else its own ``places`` with
+    every mesh dim but ``"model"`` replicated."""
+    if gather_shardings is None:
+        return [tp_placements(pl, mesh) for pl in places]
+    want = [tuple(sh.placements) for sh in tree_leaves(gather_shardings)]
+    if len(want) != len(leaves):
+        raise ValueError(f"gather_shardings has {len(want)} leaves, the params {len(leaves)}")
+    return want
+
+
 def make_train_step(model: Model, optimizer: Optimizer, *,
                     clip_norm: Optional[float] = 1.0, accum_steps: int = 1,
                     param_shardings=None, gather_shardings=None) -> Callable:
@@ -99,25 +130,32 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
     On a mesh: inside an ``activation_sharding`` context whose mesh has
     more than one rank, or with DTensor params, every rank is given the
     same global batch and
-      * gathers each parameter to its full value once a step (the
-        reference's ZeRO-1 discipline, reused by every microbatch);
-      * runs the single-device loss on its own rows of each microbatch
-        (``row_split``: ``batch_pspec``'s block at its coordinate; ranks
-        along other axes, and along axes ``batch_pspec`` relaxed, compute
-        the same rows), as plain tensors, so the kernels see plain
-        tensors; the normalizers are global, so its loss is its share;
-      * sums the gradients over the data axes it split and lands each in
+      * gathers each parameter once a step (the reference's ZeRO-1
+        discipline, reused by every microbatch): for the dense decoders
+        (``Model.tensor_parallel``) over the FSDP axes only, to its block
+        in the TP-only layout (``gather_shardings``, by default the
+        parameter's own placements with every mesh dim but ``"model"``
+        replicated: ``DEFAULT_RULES.replace(embed=None)`` for parameters
+        laid out by the default rules), and the forward and backward run
+        tensor-parallel on those blocks (``dist.tensor_parallel``); the
+        other families gather each parameter to its full value and
+        compute whole;
+      * runs the loss on its own rows of each microbatch (``row_split``:
+        ``batch_pspec``'s block at its coordinate; ranks along axes
+        ``batch_pspec`` relaxed compute the same rows, ranks along
+        ``"model"`` different shards of their products), as plain
+        tensors, so the kernels see plain tensors; the normalizers are
+        global, so its loss is its share;
+      * sums the gradients over the data axes it split (and, for a leaf
+        replicated over ``"model"`` but read by split products,
+        ``Model.tp_partial``, over ``"model"`` as well) and lands each in
         its parameter's placements (``Partial`` -> the parameter's, a
         reduce-scatter where the parameter is sharded);
       * takes the norm from local squares summed over the mesh dims that
         shard each leaf, and steps the local blocks in place.
     The metrics are the global ones, the same on every rank.
     ``param_shardings`` (NamedShardings matching params) names the
-    gradients' layout, which must be the params' own. ``gather_shardings``
-    is accepted; the step always gathers to full values, as the
-    reference's TP-only gather layout has no counterpart until
-    tensor-parallel compute exists."""
-    del gather_shardings
+    gradients' layout, which must be the params' own."""
 
     def grads_of(params, batch) -> Tuple[torch.Tensor, Dict, list]:
         """loss, metrics and the gradient tree (in the params' dtypes)."""
@@ -177,8 +215,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
                 if param_shardings is not None else [None] * len(leaves))
         out = []
         for p, pl in zip(leaves, want):
-            own = p.placements if isinstance(p, DTensor) else (Replicate(),) * mesh.ndim
-            if pl is not None and tuple(pl) != tuple(own):
+            own = _own(p, mesh)
+            if pl is not None and tuple(pl) != own:
                 raise ValueError(f"a parameter laid out {own} where param_shardings says "
                                  f"{tuple(pl)}: distribute it with shard_tree first")
             out.append(own)
@@ -188,7 +226,13 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         mesh = ctx.mesh
         leaves = tree_leaves(params, is_leaf=torch.is_tensor)
         places = targets(leaves, mesh)
-        full = _full_params(params)
+        tp = _tp_for(model, ctx)
+        if tp is None:
+            held = [None] * len(leaves)
+            full = _full_params(params)
+        else:
+            held = _gather_layout(leaves, places, gather_shardings, mesh)
+            full = _unflatten(params, [tp_block(p, h) for p, h in zip(leaves, held)])
         wm = batch.get("worker_mask")
         rows = dict(batch)
         if wm is not None:
@@ -202,13 +246,16 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
                 # One "worker" a row: the rank's rows need not be whole workers.
                 m["worker_mask"] = micro["row_w"][split.rows]
             local.append(m)
-        with split_rows(split):
+        with split_rows(split), tensor_parallel(tp):
             loss, metrics, grads = grads_for(full, local)
             loss = split_sum(loss)
             metrics = dict(metrics, ce=split_sum(metrics["ce"]), aux=split_sum(metrics["aux"]))
+        partial = ([False] * len(leaves) if tp is None else
+                   model.tp_partial(full))
         out = []
-        for g, p, pl in zip(tree_leaves(grads, is_leaf=torch.is_tensor), leaves, places):
-            g = land(g, mesh, split.axes, pl)
+        for g, p, pl, h, part in zip(tree_leaves(grads, is_leaf=torch.is_tensor), leaves,
+                                     places, held, partial):
+            g = land(g, mesh, split.axes + ((TP_AXIS,) if part else ()), pl, held=h)
             out.append(g if isinstance(p, DTensor) else g.to_local())
         return loss, metrics, _unflatten(params, out)
 
@@ -252,18 +299,38 @@ def _rows_block(t, mesh, split):
 def make_prefill_step(model: Model) -> Callable:
     """(params, inputs (B, S)) -> the last position's logits (B, 1, V).
 
-    On a mesh (as ``make_train_step``): each parameter is gathered to its
-    full value, and the rank runs the single-device prefill on its own
-    rows (``row_split``), returning their logits."""
+    On a mesh (as ``make_train_step``): the rank runs the prefill on its
+    own rows (``row_split``). The dense decoders gather each parameter
+    over the FSDP axes to its TP-only block (its own placements with every
+    mesh dim but ``"model"`` replicated) and run tensor-parallel,
+    returning the logits as a
+    DTensor: the rank's rows over the split's axes, its vocab columns
+    over ``"model"`` where the layout cuts ``vocab`` (replicated where it
+    does not). The other families gather each parameter to its full value
+    and return their rows' logits."""
 
     @torch.no_grad()
     def prefill_step(params, inputs):
         ctx = _mesh_context(params)
         if ctx is None:
             return model.prefill(params, inputs)
-        split = row_split(ctx.mesh, inputs.shape[0], ctx.dp)
-        with split_rows(split):
-            return model.prefill(_full_params(params), inputs[split.rows])
+        mesh = ctx.mesh
+        split = row_split(mesh, inputs.shape[0], ctx.dp)
+        tp = _tp_for(model, ctx)
+        if tp is None:
+            with split_rows(split):
+                return model.prefill(_full_params(params), inputs[split.rows])
+        leaves = tree_leaves(params, is_leaf=torch.is_tensor)
+        held = [tp_placements(_own(p, mesh), mesh) for p in leaves]
+        blocks = _unflatten(params, [tp_block(p, h) for p, h in zip(leaves, held)])
+        with split_rows(split), tensor_parallel(tp):
+            logits = model.prefill(blocks, inputs[split.rows])
+        names = list(mesh.mesh_dim_names)
+        vocab_cut = logits.shape[-1] != model.cfg.vocab_size
+        placements = [Shard(0) if name in split.axes else
+                      Shard(logits.ndim - 1) if name == TP_AXIS and vocab_cut else Replicate()
+                      for name in names]
+        return DTensor.from_local(logits, mesh, placements, run_check=False)
 
     return prefill_step
 

@@ -1,5 +1,7 @@
 """The ranks of ``tests/test_torch_multirank.py``: 8 gloo processes on the
-CPU run the port's multi-rank paths on a (4, 2) ("data", "model") mesh.
+CPU run the port's multi-rank paths on a (4, 2) ("data", "model") mesh,
+and the tensor-parallel cases on it and on a (2, 4) mesh over the same
+ranks.
 
     python tests/_torch_multirank.py DIR
 
@@ -44,6 +46,29 @@ CASES = {
     "d_momentum": dict(arch="smollm-135m", over={}, opt="momentum", lr=0.1, steps=1,
                        drop=(6,)),
 }
+#: The tensor-parallel cases, each run on both meshes (``TP_MESHES``):
+#: reduced llama3.2-1b (4 / 2 heads: at "model" = 4 the kv heads are
+#: replicated and each rank's q head reads kv head index // 2);
+#: qwen2.5-3b (q/k/v biases, kv heads replicated at 4); command-r-35b (the
+#: parallel block, LayerNorm, logit_scale 0.0625); chameleon-34b (qk-norm,
+#: an untied head); smollm-135m at its own 9 / 3 heads, which divide
+#: neither 2 nor 4 (its attention computed whole, its MLP and vocab
+#: split). ``noisy``: the reference's zero and one leaves (biases, norm
+#: scales) get seeded noise (``tests/_noisy.py``) on both sides.
+TP_CASES = {
+    "llama": dict(arch="llama3.2-1b", over={}, opt="adamw", lr=1e-3, steps=2, drop=(1,)),
+    "qwen": dict(arch="qwen2.5-3b", over={}, opt="sgd", lr=0.1, steps=2, drop=(4,),
+                 noisy=True),
+    "command_r": dict(arch="command-r-35b", over={}, opt="momentum", lr=0.1, steps=2,
+                      drop=(7,), noisy=True),
+    "chameleon": dict(arch="chameleon-34b", over={}, opt="sgd", lr=0.1, steps=2, drop=(2, 3),
+                      noisy=True),
+    "smollm": dict(arch="smollm-135m", over={"n_heads": 9, "n_kv_heads": 3}, opt="sgd",
+                   lr=0.1, steps=2, drop=(0,)),
+}
+TP_MESHES = {"4x2": MESH, "2x4": MESH2}
+#: The vocab-parallel cross-entropy alone: logits (ROWS, SEQ, CE_VOCAB).
+CE_VOCAB = 96
 #: The loop: 6 steps, worker 1 fails at step 1 and rejoins at step 4.
 #: Seven workers' batches are 14 rows at beta 0.5, which 4 data ranks do
 #: not divide (the relaxed split: every rank computes every row), and 28
@@ -111,14 +136,22 @@ def _replicas_equal(tree, mesh) -> bool:
     return True
 
 
-def run_step_case(name, spec, src, mesh, out, meta):
+def run_step_case(name, spec, src, mesh, out, meta, key=None):
+    """``spec``'s steps on ``mesh`` from ``src``'s parameters and batches
+    under ``name``; results under ``key`` (default ``name``). A
+    tensor-parallel case (``key`` given) first runs the prefill step on
+    the first batch's inputs, and records the head counts K1 was given."""
     from repro_torch.configs import get_config
-    from repro_torch.dist.sharding import activation_sharding, make_sharding_fn, shard_tree
+    from repro_torch.dist.sharding import (
+        activation_sharding, make_sharding_fn, shard_tree, tp_rules, DEFAULT_RULES,
+    )
     from repro_torch.models import Model
+    from repro_torch.models import attention
     from repro_torch.models.layers import ParamSpec, tree_map
     from repro_torch.optim import get_optimizer
-    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.runtime.steps import make_prefill_step, make_train_step
 
+    key = key or name
     cfg = cut(get_config(spec["arch"]), spec["over"])
     model = Model(cfg)
     like = model.init(0, device="cpu")
@@ -130,20 +163,76 @@ def run_step_case(name, spec, src, mesh, out, meta):
     params = shard_tree(params, shardings)
     opt = get_optimizer(spec["opt"])
     state = opt.init(params)
-    step = make_train_step(model, opt, param_shardings=shardings)
+    # The TP-only layout handed over as the reference's ZeRO-1 does.
+    gather = tree_map(make_sharding_fn(mesh, tp_rules(DEFAULT_RULES)), model.param_specs(),
+                      is_leaf=lambda x: isinstance(x, ParamSpec))
+    step = make_train_step(model, opt, param_shardings=shardings, gather_shardings=gather)
     metrics = {k: [] for k in ("loss", "ce", "aux", "denom", "grad_norm", "contributors")}
-    with activation_sharding(mesh):
-        for s in range(spec["steps"]):
-            batch = {k: torch.from_numpy(src[f"{name}/{k}"][s])
-                     for k in ("inputs", "labels", "mask", "worker_mask")}
-            batch["lr"] = spec["lr"]
-            params, state, m = step(params, state, batch)
-            for k in metrics:
-                metrics[k].append(float(m[k]))
+    heads = set()
+    flash = attention._flash_kernel
+
+    def seen(q, k, v, **kw):
+        heads.add((q.shape[2], k.shape[2]))
+        return flash(q, k, v, **kw)
+
+    attention._flash_kernel = seen
+    try:
+        with activation_sharding(mesh):
+            if key != name:
+                logits = make_prefill_step(model)(params, torch.from_numpy(
+                    src[f"{name}/inputs"][0]))
+                out[f"{key}/prefill"] = logits.full_tensor().numpy()
+                meta.setdefault(key, {})["prefill_placements"] = [repr(p) for p in
+                                                                  logits.placements]
+            for s in range(spec["steps"]):
+                batch = {k: torch.from_numpy(src[f"{name}/{k}"][s])
+                         for k in ("inputs", "labels", "mask", "worker_mask")}
+                batch["lr"] = spec["lr"]
+                params, state, m = step(params, state, batch)
+                for k in metrics:
+                    metrics[k].append(float(m[k]))
+    finally:
+        attention._flash_kernel = flash
     for i, p in enumerate(_leaves(params)):
-        out[f"{name}/p{i}"] = _full(p).numpy()
-    meta[name] = {"metrics": metrics, "replicas_equal": _replicas_equal(params, mesh),
-                  "state_replicas_equal": _replicas_equal(state, mesh)}
+        out[f"{key}/p{i}"] = _full(p).numpy()
+    meta.setdefault(key, {}).update(
+        metrics=metrics, replicas_equal=_replicas_equal(params, mesh),
+        state_replicas_equal=_replicas_equal(state, mesh), k1_heads=sorted(heads))
+
+
+def run_vocab_ce(src, mesh, name, out, meta):
+    """``vocab_parallel_ce`` on the rank's rows (over "data") and vocab
+    columns (over "model") of ``src``'s logits, with its mask and worker
+    mask: the loss summed over the rows' ranks, and the gradient of the
+    logits, each block written into a zero array of the full shape and
+    summed over every rank."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import (
+        activation_sharding, row_split, split_rows, split_sum, tensor_parallel, tp_view,
+    )
+    from repro_torch.dist.tensor_parallel import vocab_parallel_ce
+
+    logits = torch.from_numpy(src["ce/logits"])
+    labels = torch.from_numpy(src["ce/labels"])
+    mask, wm = torch.from_numpy(src["ce/mask"]), torch.from_numpy(src["ce/worker_mask"])
+    tp = tp_view(mesh)
+    with activation_sharding(mesh):
+        split = row_split(mesh, logits.shape[0], ("data",))
+        per = CE_VOCAB // tp.size
+        cols = slice(tp.index * per, (tp.index + 1) * per)
+        local = logits[split.rows, :, cols].clone().requires_grad_(True)
+        rows_w = wm.repeat_interleave(logits.shape[0] // wm.shape[0])[split.rows]
+        with split_rows(split), tensor_parallel(tp):
+            loss, denom = vocab_parallel_ce(local, labels[split.rows], mask[split.rows],
+                                            rows_w, vocab=CE_VOCAB)
+            loss.backward()
+            total = split_sum(loss.detach())
+    grad = torch.zeros_like(logits)
+    grad[split.rows, :, cols] = local.grad
+    dist.all_reduce(grad)
+    out[f"ce_{name}/grad"] = grad.numpy()
+    meta[f"ce_{name}"] = {"loss": float(total), "denom": float(denom)}
 
 
 def run_pipeline(src, mesh, out, meta):
@@ -219,6 +308,11 @@ def rank_main(rank: int, d: str) -> None:
     try:
         for name, spec in CASES.items():
             run_step_case(name, spec, src, mesh, out, meta)
+        meshes = {"4x2": mesh, "2x4": make_mesh(MESH2, AXES, device="cpu")}
+        for mesh_name, m in meshes.items():
+            for name, spec in TP_CASES.items():
+                run_step_case(name, spec, src, m, out, meta, key=f"{name}@{mesh_name}")
+            run_vocab_ce(src, m, mesh_name, out, meta)
         run_pipeline(src, mesh, out, meta)
         run_constrain(mesh, meta)
         run_loops(d, mesh, meta)

@@ -294,14 +294,14 @@ _TEST_MESH = textwrap.dedent("""
     from repro_torch.models.layers import tree_leaves
 
     from repro_torch.analysis.op_cost import counting
-    from repro_torch.dist.sharding import full_value
+    from repro_torch.dist.sharding import full_value, tp_block, tp_placements
 
     mesh = make_test_mesh((4, 2), ("data", "model"))
     out = {}
     for arch in ("llama3.2-1b", "qwen3-moe-30b-a3b", "zamba2-1.2b"):
         cfg = get_config(arch).reduced(dtype="bfloat16", remat="full")
         params, _ = abstract_state(Model(cfg), mesh, dr.rules_for(cfg, "baseline", "train"))
-        sharded = gathers = 0
+        sharded = gathers = tp_gathers = 0
         for p in tree_leaves(params, is_leaf=lambda t: hasattr(t, "shape")):
             if LeafShards.of(p) is None:
                 continue
@@ -313,41 +313,89 @@ _TEST_MESH = textwrap.dedent("""
             # gather's output is the full leaf, an earlier one a part.
             assert got == full if sum(len(m) for m in LeafShards.of(p).dims.values()) == 1 \
                 else full < got < 2 * full, (p.shape, p.placements, got, full)
+            # To the TP-only layout: one gather over "data" of a leaf cut
+            # there, whose output is the leaf's block over "model".
+            with counting() as one:
+                block = tp_block(p, tp_placements(p.placements, mesh))
+            tp_got = one.collective_bytes["all-gather"]
+            over_data = p.placements[0].is_shard()
+            assert tp_got == (block.numel() * block.element_size() if over_data else 0)
+            assert block.numel() * LeafShards.of(p).parts() == p.numel() * (
+                4 if over_data else 1), (p.shape, p.placements)
             sharded += full
             gathers += got
+            tp_gathers += tp_got
         for kind, shape in (("train", ShapeSpec("t", "train", 64, 8)),
                             ("prefill", ShapeSpec("p", "prefill", 64, 8)),
                             ("decode", ShapeSpec("d", "decode", 64, 8))):
             cost, out_bytes, *_ = dr.trace_cell(cfg, shape, mesh)
+            products = cost.flops - sum(w["flops"] for w in cost.kernel_work.values())
             out[f"{arch} {kind}"] = dict(cost.as_dict(), sharded_bytes=sharded,
-                                         gather_bytes=gathers,
-                                         sources=cost.top_collective_sources())
+                                         gather_bytes=gathers, tp_gather_bytes=tp_gathers,
+                                         product_flops=products,
+                                         sources=cost.top_collective_sources(30))
     print(json.dumps(out))
 """)
 
 
+def _llama_split_product_flops(cfg, data: int, model: int, batch: int, seq: int) -> float:
+    """The matrix-product FLOPs of reduced llama's tensor-parallel train
+    step on one rank, from the config: its rows (batch / data x seq
+    tokens) through its blocks of q (H / m heads), k and v (Hkv / m, or
+    the one kv head its q heads read), o, the gated MLP (d_ff / m) and
+    the tied head (V / m), at 2 FLOPs a multiply-add. Each product runs
+    backward once (two products: the input's and the weight's
+    gradients). Under full remat each block's forward runs twice, but the
+    recompute stops after the last product whose output the backward
+    reads (PyTorch's checkpoint early stop): ``w_out``, the block's last
+    product, runs forward once."""
+    T = batch // data * seq
+    d, hd, ffl = cfg.d_model, cfg.head_dim, cfg.d_ff // model
+    hl = cfg.n_heads // model
+    kvl = cfg.n_kv_heads // model if cfg.n_kv_heads % model == 0 else 1
+    layer = 2 * T * (d * hl * hd + 2 * d * kvl * hd + hl * hd * d + 3 * d * ffl)
+    w_out = 2 * T * ffl * d
+    head = 2 * T * d * (cfg.vocab_size // model)
+    return cfg.n_layers * (layer * (2 + 2) - w_out) + head * (1 + 2)
+
+
 def test_dryrun_cell_on_a_test_mesh():
     """Reduced llama (and an MoE and the hybrid) traced on a (4, 2) fake
-    mesh: the step's parameter gathers are exactly one ``full_value`` of
-    each sharded leaf (a leaf cut along one mesh dim: its full bytes; cut
-    along both, DTensor gathers one dim at a time, and the first gather's
-    part adds to them), its reduce-scatters land the gradients back;
-    prefill and decode gather the same parameters."""
+    mesh. Llama's train and prefill steps compute tensor-parallel: their
+    parameter gathers are exactly one gather of each leaf to its TP-only
+    layout (over "data" only: a leaf cut there gives its block over
+    "model"; nothing else is gathered), and the train step's products
+    count the FLOPs ``_llama_split_product_flops`` gives for the split.
+    Llama's decode step and every step of the MoE and the hybrid gather
+    exactly one ``full_value`` of each sharded leaf (a leaf cut along one
+    mesh dim: its full bytes; cut along both, DTensor gathers one dim at
+    a time, and the first gather's part adds to them). Train steps'
+    reduce-scatters land the gradients back."""
     got = json.loads(_run(["-c", _TEST_MESH]).strip().splitlines()[-1])
     for name, c in got.items():
         arch, kind = name.split()
+        tp = arch == "llama3.2-1b" and kind != "decode"
         gathered = sum(b for s, b in c["sources"] if "(full_value)" in s)
-        assert gathered == c["gather_bytes"], name
-        assert c["sharded_bytes"] < gathered < 2 * c["sharded_bytes"], name
+        to_tp = sum(b for s, b in c["sources"] if "(tp_block)" in s)
+        if tp:
+            assert gathered == 0 and to_tp == c["tp_gather_bytes"], name
+            assert 0 < to_tp < c["sharded_bytes"], name
+            assert c["collective_bytes"]["all-gather"] == to_tp, name
+            assert c["collective_bytes"]["all-reduce"] > 0, name
+        else:
+            assert to_tp == 0 and gathered == c["gather_bytes"], name
+            assert c["sharded_bytes"] < gathered < 2 * c["sharded_bytes"], name
         assert c["flops"] > 0 and c["peak_bytes"] > c["argument_bytes"] > 0, name
         assert c["unknown_trip_counts"] == 0
         if kind == "train":
             assert c["collective_bytes"]["reduce-scatter"] > 0, name
             assert {"rmsnorm", "rmsnorm_bwd"} <= set(c["kernel_work"]), name
-        if arch == "llama3.2-1b":
-            assert c["collective_bytes"]["all-gather"] == (
-                c["gather_bytes"] + (0 if kind != "decode" else
-                                      sum(b for s, b in c["sources"] if "_rows_block" in s)))
+        if arch == "llama3.2-1b" and kind == "decode":
+            assert c["collective_bytes"]["all-gather"] == c["gather_bytes"] + sum(
+                b for s, b in c["sources"] if "_rows_block" in s)
+    cfg = get_config("llama3.2-1b").reduced(dtype="bfloat16", remat="full")
+    assert got["llama3.2-1b train"]["product_flops"] == _llama_split_product_flops(
+        cfg, 4, 2, 8, 64)
     assert "ssd_scan_bwd" in got["zamba2-1.2b train"]["kernel_work"]
     assert "decode_attention" in got["llama3.2-1b decode"]["kernel_work"]
 

@@ -1,7 +1,9 @@
 """The port's multi-rank training on 8 gloo ranks of the CPU, a (4, 2)
 ("data", "model") mesh, against the reference's single-device numbers
 (its own multi-device step fails on jax 0.9.0, so it is no oracle) and
-the port's single-process loop.
+the port's single-process loop; and its tensor-parallel compute over
+"model" (the dense decoders' train and prefill steps, the vocab-parallel
+cross-entropy) on that mesh and on a (2, 4) mesh over the same ranks.
 
 One spawned group (``tests/_torch_multirank.py``) runs every case; the
 parent computes the reference's numbers with JAX and hands the ranks the
@@ -25,6 +27,7 @@ import torch
 
 import repro.models.moe as jmoe
 from repro.configs import get_config as ref_config
+from repro.dist.collectives import masked_weighted_ce as j_masked_weighted_ce
 from repro.dist.pipeline_parallel import pipeline_forward as j_pipeline_forward
 from repro.dist.pipeline_parallel import stage_params as j_stage_params
 from repro.models import build_model
@@ -38,9 +41,10 @@ from repro_torch.models import Model, params_from_numpy
 from repro_torch.models.layers import ParamSpec, tree_leaves, tree_map
 from repro_torch.optim import get_optimizer
 from repro_torch.runtime import FaultEvent, TrainLoopConfig, train
+from _noisy import with_noise
 from _torch_multirank import (
-    CASES, LOOP_EVENTS, LOOP_STEPS, N_WORKERS, PIPE_D, PIPE_L, PIPE_MB, PIPE_MICRO, ROWS,
-    SEQ, cut, loop_setup,
+    CASES, CE_VOCAB, LOOP_EVENTS, LOOP_STEPS, N_WORKERS, PIPE_D, PIPE_L, PIPE_MB, PIPE_MICRO,
+    ROWS, SEQ, TP_CASES, TP_MESHES, cut, loop_setup,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -78,10 +82,13 @@ def _reference_case(name, spec, src, want):
     ref = build_model(cut(ref_config(spec["arch"]), spec["over"]))
     cfg = cut(get_config(spec["arch"]), spec["over"])
     jp = jax.jit(ref.init)(jax.random.PRNGKey(0))
+    if spec.get("noisy"):
+        jp = jax.tree.map(jnp.asarray, with_noise(jax.tree.map(np.asarray, jp), 0))
     for i, p in enumerate(_port_leaves(cfg, jp)):
         src[f"{name}/p{i}"] = p
     batches = _batches(name, spec, cfg.vocab_size)
     src.update({f"{name}/{k}": v for k, v in batches.items()})
+    prefill = np.asarray(jax.jit(ref.prefill)(jp, jnp.asarray(batches["inputs"][0])))
     opt = jopt.get_optimizer(spec["opt"])
     step = jax.jit(j_make_train_step(ref, opt))
     state = opt.init(jp)
@@ -91,7 +98,29 @@ def _reference_case(name, spec, src, want):
         jp, state, m = step(jp, state, {**batch, "lr": jnp.float32(spec["lr"])})
         for k in metrics:
             metrics[k].append(float(m[k]))
-    want[name] = {"metrics": metrics, "params": _port_leaves(cfg, jp)}
+    want[name] = {"metrics": metrics, "params": _port_leaves(cfg, jp), "prefill": prefill}
+
+
+def _reference_ce(src, want):
+    """Logits, labels, a token mask and a worker mask dropping workers 1
+    and 6 for the vocab-parallel cross-entropy; the reference's
+    ``masked_weighted_ce`` on the full logits and ``jax.grad`` of it."""
+    rng = np.random.default_rng(11)
+    logits = (rng.standard_normal((ROWS, SEQ, CE_VOCAB)) * 3).astype(np.float32)
+    labels = rng.integers(0, CE_VOCAB, size=(ROWS, SEQ)).astype(np.int32)
+    mask = (rng.random((ROWS, SEQ)) > 0.25).astype(np.float32)
+    wm = np.ones(N_WORKERS, np.float32)
+    wm[[1, 6]] = 0.0
+    src.update({"ce/logits": logits, "ce/labels": labels, "ce/mask": mask,
+                "ce/worker_mask": wm})
+
+    def loss(lg):
+        return j_masked_weighted_ce(lg, jnp.asarray(labels), jnp.asarray(mask),
+                                    jnp.asarray(wm))[0]
+
+    value, grad = jax.value_and_grad(loss)(jnp.asarray(logits))
+    want["ce"] = {"loss": float(value), "grad": np.asarray(grad),
+                  "denom": float((mask * np.repeat(wm, ROWS // N_WORKERS)[:, None]).sum())}
 
 
 @pytest.fixture(scope="module")
@@ -104,6 +133,9 @@ def run(tmp_path_factory, monkeypatch_module):
             monkeypatch_module.setattr(jmoe, "_dp_group_count", lambda T: 4)
         _reference_case(name, spec, src, want)
         monkeypatch_module.undo()
+    for name, spec in TP_CASES.items():
+        _reference_case(name, spec, src, want)
+    _reference_ce(src, want)
     rng = np.random.default_rng(0)
     src["pipe/W"] = (rng.standard_normal((PIPE_L, PIPE_D, PIPE_D)) * 0.2).astype(np.float32)
     src["pipe/x"] = rng.standard_normal((PIPE_MICRO, PIPE_MB, PIPE_D)).astype(np.float32)
@@ -184,6 +216,81 @@ def _close_adamw(got, want, what):
     over = diff > 1e-6 + 1e-5 * np.abs(want)
     assert over.mean() <= 1e-3, (what, int(over.sum()))
     assert diff.max() <= 1e-4, (what, float(diff.max()))
+
+
+TP_KEYS = [f"{name}@{mesh}" for mesh in TP_MESHES for name in TP_CASES]
+
+
+@pytest.mark.parametrize("key", TP_KEYS)
+def test_tensor_parallel_step_matches_single_device_reference(run, key):
+    """The dense decoders' tensor-parallel train step on each mesh (the
+    TP-only layout handed over as ``gather_shardings``): loss and grad
+    norm within 1e-5 relative of the reference's single-device step,
+    contributors exact, every parameter leaf within 1e-5 relative / 1e-6
+    absolute (AdamW's as ``_close_adamw``), and every block of every
+    parameter and optimizer-state leaf, the leaves replicated over
+    "model" among them, bit-identical on the ranks that hold it."""
+    want, got, meta = run
+    name = key.split("@")[0]
+    w, g = want[name], meta[key]
+    for k in ("loss", "grad_norm", "aux"):
+        _close(g["metrics"][k], w["metrics"][k], 1e-5, 1e-7, f"{key} {k}")
+    assert g["metrics"]["contributors"] == w["metrics"]["contributors"]
+    for i, p in enumerate(w["params"]):
+        if TP_CASES[name]["opt"] == "adamw":
+            _close_adamw(got[f"{key}/p{i}"], p, f"{key} leaf {i}")
+        else:
+            _close(got[f"{key}/p{i}"], p, 1e-5, 1e-6, f"{key} leaf {i}")
+    assert g["replicas_equal"] and g["state_replicas_equal"]
+
+
+@pytest.mark.parametrize("key", TP_KEYS)
+def test_tensor_parallel_prefill_matches_reference(run, key):
+    """The prefill step's logits, a DTensor of the rank's rows over "data"
+    and its vocab columns over "model", equal the reference's ``prefill``
+    within 1e-5 of their largest magnitude once gathered."""
+    want, got, meta = run
+    name = key.split("@")[0]
+    ref = want[name]["prefill"]
+    assert got[f"{key}/prefill"].shape == ref.shape
+    _close(got[f"{key}/prefill"], ref, 0, 1e-5 * np.abs(ref).max(), f"{key} prefill")
+    data = key.split("@")[1].split("x")[0]
+    assert meta[key]["prefill_placements"] == [
+        "Shard(dim=0)" if ROWS % int(data) == 0 else "Replicate()", "Shard(dim=2)"]
+
+
+@pytest.mark.parametrize("key", TP_KEYS)
+def test_k1_runs_on_the_ranks_heads(run, key):
+    """K1 is given the rank's q heads, H / m of them where "model" (m)
+    divides H (all H where it does not), and the kv heads they read: the
+    rank's Hkv / m where that divides, else one kv head for each local
+    where the rank's q heads all read one kv head, else one for each."""
+    _, _, meta = run
+    name, mesh = key.split("@")
+    cfg = cut(get_config(TP_CASES[name]["arch"]), TP_CASES[name]["over"])
+    m = TP_MESHES[mesh][1]
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if H % m:
+        want = (H, Hkv)
+    elif Hkv % m == 0:
+        want = (H // m, Hkv // m)
+    else:
+        want = (H // m, 1 if (H // Hkv) % (H // m) == 0 else H // m)
+    assert [tuple(h) for h in meta[key]["k1_heads"]] == [want], (key, meta[key]["k1_heads"])
+
+
+@pytest.mark.parametrize("mesh", list(TP_MESHES))
+def test_vocab_parallel_ce_matches_masked_weighted_ce(run, mesh):
+    """``vocab_parallel_ce`` over each rank's rows and vocab columns, with a
+    token mask and a worker mask: its loss summed over the rows' ranks
+    within 1e-6 relative of the reference's ``masked_weighted_ce`` on the
+    full logits, the global denominator exact, and the assembled gradient
+    of the logits within 1e-7 of ``jax.grad``'s."""
+    want, got, meta = run
+    w, g = want["ce"], meta[f"ce_{mesh}"]
+    _close(g["loss"], w["loss"], 1e-6, 0, f"{mesh} loss")
+    assert g["denom"] == w["denom"]
+    _close(got[f"ce_{mesh}/grad"], w["grad"], 0, 1e-7, f"{mesh} grad")
 
 
 def test_dropped_rank_contributes_nothing(run):
