@@ -346,7 +346,20 @@ runs, in order, and exits non-zero at the first phase that fails:
    step counted by ``op_cost`` (its ``all_reduce`` count and bytes must
    equal the meta count of the same step on a fake (1, 2) group, traced
    in a process started with the script) and one profiled (wall and
-   device ms, launches by class);
+   device ms, launches by class); (e) from the same load of phase 24's
+   parameters, before (a) trains them, 6 tensor-parallel decode steps
+   of 4 lanes over seeded caches of 1,024 rows (lanes at 100, 509, 700
+   and 1,000: lane 1's writes cross the ranks' boundary, lane 0 never
+   reaches rank 1's rows) under both cache layouts of the reference's
+   rules, ``sp_decode`` (each rank's 512 rows, K3's partial form over
+   them, the ranks' partial softmaxes merged) and ``no_sp_decode`` (each
+   rank's 4 of the 8 kv heads): logits and each cache block within
+   ``P27_DEC_RTOL`` of the plain single-rank decode step, greedy tokens
+   equal but at near-ties, K2 and K3 launched as a plain tick launches
+   them at the rank's shapes, a second launch equal bit for bit, the
+   collectives of a counted step equal to the meta count; the f32 cut's
+   decode within ``P27_F32_RTOL``; K3 and its partial form timed at the
+   rank's shapes;
 
 and prints the ``kernels`` JSON line (eight kernels, each with its
 launches on the zamba2 serving path under ``zamba_serve_launches``, in
@@ -357,13 +370,15 @@ phase 20 under ``phase20_launches``, in phase 21 under
 phase 23 under ``phase23_launches``, in phase 24 under
 ``phase24_launches``, in phase 25 under ``phase25_launches``, in
 phase 26 under ``phase26_launches`` and in phase 27 (both ranks' steps
-of (a)) under ``phase27_launches``; then K4 again at block 8, the chaos
+of (a) and (e)) under ``phase27_launches``; then K4 again at block 8, the chaos
 fleet's geometry, with its times there and its launches in phase 23, and
 K1's forward and backward at D 80, hubert's main path, with their
 times at its shape and their launches in phase 22, and K1 and K2 in f32
 at smollm-135m's training shape (G 3; D 576) with their times there and
-their launches in phase 26's loop, and K1 at a rank's heads of phase
-27's mesh with its times there and its launches in phase 27; the
+their launches in phase 26's loop, K1 at a rank's heads of phase
+27's mesh with its times there and its launches in phase 27, and K3 at
+a rank's rows (its partial form) and at a rank's heads of phase 27 (e)
+with their times there and their launches in (e); the
 profiles under
 ``profile``, ``train_profile`` and ``zamba_train_profile``, K3's and K4's
 long-context times under ``decode_long_context``, K1's times at
@@ -581,26 +596,35 @@ def check_ssd_tensor_cores(library: Path, log: str) -> dict:
 
 
 #: A decode kernel's instance in a mangled name: split or merge, dtype,
-#: row functor and, for the split kernel, lanes per row, 16-byte pieces per
-#: lane and the query group it is built for.
-DECODE_ENTRY = re.compile(r"decode_(split|merge)_kernelI(f|13__nv_bfloat16)NS_\d+"
+#: output type (f32, or q's dtype as a substitution ``S<n>_``), row functor
+#: and, for the split kernel, lanes per row, 16-byte pieces per lane and
+#: the query group it is built for. K3's partial form writes f32: in f32
+#: it is K3's own instances, in bf16 its own (contiguous rows only).
+DECODE_ENTRY = re.compile(r"decode_(split|merge)_kernelI(f|13__nv_bfloat16)(f|S\d*_)NS_\d+"
                           r"(Contiguous|Paged)RowsE(?:Li(\d+)ELi(\d+)ELi(\d+)E)?")
+#: 36 split and 4 merge instances of K3 / K4 (both dtypes and row
+#: functors), and the bf16 partial form's 8 split and 1 merge.
+DECODE_INSTANCES = 49
 
 
 def check_decode_resources(log: str) -> dict:
-    """K3's and K4's kernels (split-KV split and merge) spill nothing;
+    """K3's and K4's kernels (split-KV split and merge; K3's partial form's
+    bf16 instances, "f32 out") spill nothing;
     {"split bf16 Paged LPR 8 NC 1 G<=4": {"registers", "spill_bytes"}, ...}."""
     out = {}
     for name, (regs, spill) in ptxas_resources(log).items():
         m = DECODE_ENTRY.search(name)
         if not m:
             continue
-        kind, dt, rows, lpr, nc, gm = m.groups()
+        kind, dt, o, rows, lpr, nc, gm = m.groups()
         key = f"{kind} {'f32' if dt == 'f' else 'bf16'} {rows}"
+        if dt != "f" and o == "f":
+            key += " f32 out"
         if kind == "split":
             key += f" LPR {lpr} NC {nc} G<={gm}"
         out[key] = dict(registers=regs, spill_bytes=spill)
-    check(len(out) == 40, f"{len(out)} decode kernel instances in the build, not 40")
+    check(len(out) == DECODE_INSTANCES,
+          f"{len(out)} decode kernel instances in the build, not {DECODE_INSTANCES}")
     for key, r in sorted(out.items()):
         print(f"    {key}: {r['registers']} registers, {r['spill_bytes']} bytes spilled")
         check(r["spill_bytes"] == 0, f"decode kernel {key} spills {r['spill_bytes']} bytes")
@@ -691,10 +715,14 @@ def check_kernels() -> dict:
     each gives the same bits, each row equals a launch of that row alone
     bit for bit (K3 on live rows), and a length-0 row is exact zeros; K4
     also over the shared block tables of ``parity.SHARED_DECODE_SHAPES``
-    (``hold_shared_tables``)."""
+    (``hold_shared_tables``). K3's partial form at the same shapes: its
+    f32 output within ``TOL[float32]`` and its lse within 1e-5 (relative,
+    1e-5 absolute) of plain on live rows, exact zeros and -inf on rows
+    of length 0, its output rounded to q's dtype equal to K3's bit for
+    bit, and a second launch bit for bit."""
     from repro_torch.kernels import (
-        decode_attention, decode_attention_plain, paged_decode_attention,
-        paged_decode_attention_plain,
+        decode_attention, decode_attention_partial, decode_attention_partial_plain,
+        decode_attention_plain, paged_decode_attention, paged_decode_attention_plain,
     )
     from repro_torch.kernels.decode_attention import sm_count
     from repro_torch.kernels.parity import (
@@ -705,7 +733,8 @@ def check_kernels() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
-    worst = {"rmsnorm": 0.0, "decode_attention": 0.0, "paged_decode_attention": 0.0}
+    worst = {"rmsnorm": 0.0, "decode_attention": 0.0, "paged_decode_attention": 0.0,
+             "decode_attention_partial": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for shape in (RMS_DECODE_SHAPES + RMS_VERIFY_SHAPES + RMS_CHUNK_SHAPES
@@ -753,9 +782,27 @@ def check_kernels() -> dict:
             check(torch.equal(out, paged), "K3 and K4 differ on identical rows")
             check(same, "a second launch of K3 or K4 gave other bits")
             check(alone, "a row of K3 or K4 differs from a launch of that row alone")
+            part, lse = decode_attention_partial(q, k, v, lengths)
+            pref, pref_lse = decode_attention_partial_plain(q, k, v, lengths)
+            again = decode_attention_partial(q, k, v, lengths)
+            torch.cuda.synchronize()
+            xerr = (part[live] - pref[live]).abs().max().item()
+            lerr = ((lse[live] - pref_lse[live]).abs()
+                    / (1 + pref_lse[live].abs())).max().item()
+            print(f"    K3 partial: out max|err|={xerr:.3e}, lse max|err|/(1+|lse|)="
+                  f"{lerr:.3e}; rounded == K3 bitwise: "
+                  f"{bool(torch.equal(part.to(dtype), out))}")
+            check(xerr <= TOL[torch.float32] and lerr <= 1e-5,
+                  f"K3's partial form {name} {lens} disagrees with plain")
+            check(bool((part[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all()),
+                  "K3's partial form: a row of length 0 is not zeros and -inf")
+            check(torch.equal(part.to(dtype), out), "K3's partial form rounded differs from K3")
+            check(torch.equal(again[0], part) and torch.equal(again[1], lse),
+                  "a second launch of K3's partial form gave other bits")
             if dtype == torch.bfloat16:
                 worst["decode_attention"] = max(worst["decode_attention"], err)
                 worst["paged_decode_attention"] = max(worst["paged_decode_attention"], perr)
+                worst["decode_attention_partial"] = max(worst["decode_attention_partial"], xerr)
         for H, Hkv, D, S, lens, shared in SHARED_DECODE_SHAPES:
             perr = hold_shared_tables(H, Hkv, D, S, lens, shared, dtype, gen)
             if dtype == torch.bfloat16:
@@ -5615,6 +5662,38 @@ P27_F32_RTOL, P27_F32_ATOL = 1e-5, 1e-6
 #: at the cut's 8 x 128.
 P27_FLASH = ((P24_B, TRAIN_S, TRAIN_S, 16, 4, 64, 64), torch.bfloat16), \
     ((P27_F32_B, P27_F32_S, P27_F32_S, 16, 4, 64, 64), torch.float32)
+#: (e) the tensor-parallel decode step: phase 4's 4 lanes over contiguous
+#: caches of 1,024 rows (512 a rank under ``sp_decode``), seeded contents,
+#: each lane at its own position from ``P27_DEC_START`` for
+#: ``P27_DEC_STEPS`` steps (lane 1's writes cross the ranks' boundary at
+#: 512, lane 0's sequence never reaches rank 1's rows), under both
+#: layouts of the reference's rules.
+P27_DEC_B, P27_DEC_S, P27_DEC_STEPS = N_SLOTS, MAX_LEN, 6
+P27_DEC_START = (100, 509, 700, 1000)
+P27_DEC_LAYOUTS = ("sp_decode", "no_sp_decode")
+#: (e) against the plain single-rank decode step, stated before any card
+#: run of it: logits within ``P27_DEC_RTOL`` of the largest plain logit,
+#: the caches within ``P27_DEC_RTOL`` of the largest plain cache value.
+#: As in (a), each row-parallel product (attention's ``wo``, the MLP's
+#: ``w_out``) rounds a rank's half-sum to bf16 and the gloo sum rounds
+#: again: 2 extra roundings of 2^-8 a layer, a random walk over the
+#: layers (the merge of the two ranks' partial softmaxes is f32 and
+#: rounds once, as K3 does). A CPU rehearsal of (e) (two gloo ranks, the
+#: plain kernels) read 1.5e-2 at 2 layers of d 128 and 4.2e-2 at 16
+#: layers of d 512 (logits; caches 2.0e-2): the walk's sqrt(8). The limit
+#: is 2.5 times the 16-layer reading; the planted faults
+#: (``P27_FAULTS``: a dropped partial, kv heads read in the wrong order)
+#: must read above it, so each run shows that the limit catches them.
+#: Greedy tokens must be equal except where the plain top-2 gap is below
+#: ``TIE_TOL`` (the near-tie rule of the other phases); the departures
+#: there are counted and printed.
+#: The f32 2-layer cut: within ``P27_F32_RTOL`` relative.
+P27_DEC_RTOL = 1e-1
+#: The library's partial form (``efficient_partial``, bf16 output) against
+#: K3's (f32 output) on the live lanes: the output within bf16's rounding
+#: of values under 1 with room (2^-8 = 3.9e-3, doubled and more), the
+#: log-sum-exp (f32 in both) far within it.
+P27_LIB_ATOL = 1e-2
 
 
 def p27_digest(tree) -> str:
@@ -5636,9 +5715,10 @@ def p27_on_card(*trees) -> bool:
                for tree in trees for t in leaves_of(tree))
 
 
-def p27_setup(cfg, mesh):
+def p27_setup(cfg, mesh, keep_full: bool = False):
     """(model, DTensor params laid out by ``DEFAULT_RULES`` from phase 24's
-    seeded init, their shardings, the TP-only gather layout)."""
+    seeded init, their shardings, the TP-only gather layout); with
+    ``keep_full``, the seeded full params as well (the plain steps')."""
     from repro_torch.dist.sharding import DEFAULT_RULES, make_sharding_fn, shard_tree
     from repro_torch.launch.specs import gather_shardings
     from repro_torch.models import Model
@@ -5647,17 +5727,23 @@ def p27_setup(cfg, mesh):
     model = Model(cfg)
     shardings = tree_map(make_sharding_fn(mesh, DEFAULT_RULES), model.param_specs(),
                          is_leaf=lambda x: isinstance(x, ParamSpec))
-    params = shard_tree(model.init(SEED, device="cuda"), shardings)
-    return model, params, shardings, gather_shardings(model, mesh, DEFAULT_RULES)
+    full = model.init(SEED, device="cuda")
+    # The blocks are copies where a rank's block is not the whole leaf:
+    # the train step updates them in place, never the full values.
+    params = shard_tree(tree_map(torch.clone, full, is_leaf=torch.is_tensor) if keep_full
+                        else full, shardings)
+    out = (model, params, shardings, gather_shardings(model, mesh, DEFAULT_RULES))
+    return out + (full,) if keep_full else out
 
 
-def p27_steps(rank: int, mesh, full: bool) -> dict:
+def p27_steps(rank: int, mesh, full: bool, setup: tuple) -> dict:
     """(a) ``P27_STEPS`` tensor-parallel AdamW steps of llama3.2-1b at full
     width and depth from phase 24's parameters and batches: metrics, the
     K1 / K2 launches, the shapes K1 was given, a digest of the rank's
-    blocks after the steps. With ``full``, (d): one more step counted by
-    ``op_cost`` (its collectives by kind and source) and two more under
-    ``window`` (wall ms, device ms and launches by class)."""
+    blocks after the steps. ``setup`` is ``p27_setup``'s (model, params,
+    shardings, gather shardings). With ``full``, (d): one more step
+    counted by ``op_cost`` (its collectives by kind and source) and two
+    more under ``window`` (wall ms, device ms and launches by class)."""
     from repro_torch.analysis.op_cost import counting
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import activation_sharding
@@ -5667,7 +5753,7 @@ def p27_steps(rank: int, mesh, full: bool) -> dict:
     from repro_torch.runtime import make_train_step
 
     cfg = get_config(ARCH)
-    model, params, shardings, gather = p27_setup(cfg, mesh)
+    model, params, shardings, gather = setup
     opt = adamw()
     state = opt.init(params)
     step = make_train_step(model, opt, param_shardings=shardings, gather_shardings=gather)
@@ -5765,18 +5851,235 @@ def p27_f32(rank: int, mesh) -> dict:
     return out
 
 
+def p27_dec_inputs(model) -> tuple:
+    """(e)'s inputs on the card: caches of ``P27_DEC_B`` lanes and
+    ``P27_DEC_S`` rows filled from a seeded CUDA generator (rows standing
+    for earlier tokens), the tokens of each step and the lanes' first
+    positions."""
+    from repro_torch.models.layers import tree_map
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 46)
+    caches = tree_map(lambda t: torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype),
+                      model.blank_caches(P27_DEC_B, P27_DEC_S, device="cuda"),
+                      is_leaf=torch.is_tensor)
+    tokens = torch.randint(0, model.cfg.vocab_size, (P27_DEC_STEPS, P27_DEC_B, 1),
+                           generator=gen, device="cuda")
+    return caches, tokens, torch.tensor(P27_DEC_START, device="cuda")
+
+
+def p27_whole(t, mesh) -> torch.Tensor:
+    """A DTensor's full value on the card, gathered with ``dist.all_gather``
+    over each mesh dim that shards it (gloo runs the list form on CUDA
+    tensors; DTensor's ``full_tensor`` calls ``all_gather_into_tensor``,
+    which gloo does not run on them)."""
+    import torch.distributed as dist
+
+    out = t.to_local().contiguous()
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard() and mesh.size(i) > 1:
+            parts = [torch.empty_like(out) for _ in range(mesh.size(i))]
+            dist.all_gather(parts, out, group=mesh.get_group(i))
+            out = torch.cat(parts, dim=pl.dim)
+    return out
+
+
+def p27_replicas_equal(tree, mesh) -> bool:
+    """Every DTensor block of ``tree`` holds the same bits on every rank that
+    holds it (the ranks that differ only along mesh dims not cutting it)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    mine = []
+    for t in leaves_of(tree):
+        if isinstance(t, DTensor):
+            key = tuple(c if pl.is_shard() else None
+                        for c, pl in zip(mesh.get_coordinate(), t.placements))
+            mine.append((key, p27_digest([t])))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    seen = {}
+    return all(seen.setdefault((i, key), d) == d
+               for blocks in every for i, (key, d) in enumerate(blocks))
+
+
+def p27_decode(rank: int, mesh, model, params, full, rtol: float, counted: bool,
+               planted: bool) -> dict:
+    """(e) ``P27_DEC_STEPS`` tensor-parallel decode steps of ``model`` on the
+    mesh from ``params`` (DTensors laid out by ``DEFAULT_RULES``) under each
+    layout of ``P27_DEC_LAYOUTS`` (the caches laid out by
+    ``SP_DECODE_RULES`` or ``DEFAULT_RULES``), against the plain
+    single-rank ``make_decode_step`` from ``full`` on the same inputs:
+    logits and each cache block within ``rtol`` of the plain step's
+    largest magnitude, greedy tokens equal but at plain near-ties, the
+    replicated blocks equal on both ranks, every tensor on the card; the
+    launches of the steps, the (q, k) shapes K3 and its partial form were
+    given, a digest of the logits and caches. With ``counted``, one more
+    step counted by ``op_cost`` (its collectives by kind and source); with
+    ``planted``, the steps again with a planted fault on rank 1
+    (``p27_faults``): their logits' largest difference from the plain
+    step's, relative to its largest logit."""
+    from repro_torch.analysis.op_cost import counting
+    from repro_torch.dist.sharding import (
+        DEFAULT_RULES, SP_DECODE_RULES, activation_sharding, local_block, make_sharding_fn,
+        shard_tree,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import attention
+    from repro_torch.models.layers import ParamSpec, tree_map
+    from repro_torch.runtime.steps import make_decode_step
+
+    caches0, tokens, start = p27_dec_inputs(model)
+    step = make_decode_step(model)
+    plain_c = tree_map(torch.clone, caches0, is_leaf=torch.is_tensor)
+    plain = []
+    for s in range(P27_DEC_STEPS):
+        logits, plain_c = step(full, tokens[s], plain_c, start + s)
+        plain.append(logits.float())
+    out = {}
+    k3, partial = attention._decode_kernel, attention._decode_partial_kernel
+    for layout in P27_DEC_LAYOUTS:
+        rules = SP_DECODE_RULES if layout == "sp_decode" else DEFAULT_RULES
+        specs = model.cache_specs(P27_DEC_B, P27_DEC_S)
+
+        def fresh():
+            return shard_tree(tree_map(torch.clone, caches0, is_leaf=torch.is_tensor),
+                              tree_map(make_sharding_fn(mesh, rules), specs,
+                                       is_leaf=lambda x: isinstance(x, ParamSpec)))
+
+        caches = fresh()
+        shapes = set()
+
+        def seen_k3(q, k, v, lengths):
+            shapes.add(("k3", tuple(q.shape), tuple(k.shape)))
+            return k3(q, k, v, lengths)
+
+        def seen_partial(q, k, v, lengths):
+            shapes.add(("partial", tuple(q.shape), tuple(k.shape)))
+            return partial(q, k, v, lengths)
+
+        attention._decode_kernel, attention._decode_partial_kernel = seen_k3, seen_partial
+        got = []
+        try:
+            with activation_sharding(mesh, rules=rules):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                for s in range(P27_DEC_STEPS):
+                    logits, caches = step(params, tokens[s], caches, start + s)
+                    got.append(logits)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = launch_counts()
+        finally:
+            attention._decode_kernel, attention._decode_partial_kernel = k3, partial
+        errs, flips, near = [], 0, 0
+        for lg, pl in zip(got, plain):
+            whole = p27_whole(lg, mesh).float()
+            delta = float((whole - pl).abs().max())
+            errs.append(delta / float(pl.abs().max()))
+            top2 = pl[:, -1].topk(2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            differ = whole[:, -1].argmax(-1) != pl[:, -1].argmax(-1)
+            flips += int((differ & (gap >= TIE_TOL)).sum())
+            near += int((differ & (gap < TIE_TOL)).sum())
+        cache_errs, equal = [], 0
+        for c, pc in zip(leaves_of(caches), leaves_of(plain_c)):
+            mine = c.to_local().float()
+            want = local_block(pc, mesh, c.placements).float()
+            cache_errs.append(float((mine - want).abs().max() / pc.float().abs().max()))
+            equal += int((mine == want).sum())
+        rec = {"logits_rel_err": errs, "greedy_flips": flips, "near_tie_departures": near,
+               "cache_rel_err": max(cache_errs),
+               "cache_equal_share": equal / sum(c.to_local().numel()
+                                                for c in leaves_of(caches)),
+               "replicas_equal": p27_replicas_equal(caches, mesh),
+               "on_card": p27_on_card(caches, [lg.to_local() for lg in got]),
+               "placements": [repr(p) for p in leaves_of(caches)[0].placements],
+               "cache_local": list(leaves_of(caches)[0].to_local().shape),
+               "launches": launches, "seconds": seconds,
+               "kernels": sorted([k, list(q), list(c)] for k, q, c in shapes),
+               "digest": p27_digest([lg.to_local() for lg in got] + leaves_of(caches)),
+               "within": max(errs) <= rtol and max(cache_errs) <= rtol and flips == 0}
+        print(f"    rank {rank}: (e) {layout}: {P27_DEC_STEPS} steps in {seconds:.2f} s; "
+              f"logits within {max(errs):.3e} of plain's largest, caches {max(cache_errs):.3e} "
+              f"({rec['cache_equal_share']:.4f} of the block's values equal); greedy flips "
+              f"{flips}, near-tie departures {near} (plain gaps under {TIE_TOL:g}); cache block "
+              f"{rec['cache_local']} "
+              f"{rec['placements']}; K3 given {rec['kernels']}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        if counted:
+            with activation_sharding(mesh, rules=rules):
+                torch.cuda.synchronize()
+                with counting((params, caches)) as cost:
+                    step(params, tokens[0], caches, start + P27_DEC_STEPS)
+                torch.cuda.synchronize()
+            rec.update(collective_counts=dict(cost.collective_counts),
+                       collective_bytes=dict(cost.collective_bytes),
+                       collective_sources=cost.top_collective_sources(40))
+            print(f"    rank {rank}: (e) {layout}: collectives of a counted step "
+                  f"{rec['collective_counts']}, bytes {rec['collective_bytes']}", flush=True)
+        if planted:
+            bad_k3, bad_partial = p27_faults(rank, k3, partial)
+            attention._decode_kernel, attention._decode_partial_kernel = bad_k3, bad_partial
+            bad, caches = [], fresh()
+            try:
+                with activation_sharding(mesh, rules=rules):
+                    for s in range(P27_DEC_STEPS):
+                        logits, caches = step(params, tokens[s], caches, start + s)
+                        bad.append(p27_whole(logits, mesh).float())
+            finally:
+                attention._decode_kernel, attention._decode_partial_kernel = k3, partial
+            rec["planted_rel_err"] = max(float((b - pl).abs().max() / pl.abs().max())
+                                         for b, pl in zip(bad, plain))
+            print(f"    rank {rank}: (e) {layout}: with {P27_FAULTS[layout]}, logits within "
+                  f"{rec['planted_rel_err']:.3e} of plain's largest (limit {rtol:g})",
+                  flush=True)
+        out[layout] = rec
+    return out
+
+
+#: (e)'s planted faults, one a layout, each on rank 1 only: the merge
+#: without rank 1's partials, K3 reading rank 1's kv heads in reverse.
+P27_FAULTS = {"sp_decode": "rank 1's partials dropped",
+              "no_sp_decode": "rank 1's kv heads read in reverse"}
+
+
+def p27_faults(rank: int, k3, partial) -> tuple:
+    """``k3`` and ``partial`` (K3 and its partial form as ``attention``
+    calls them) with ``P27_FAULTS`` planted on rank 1: its partials given
+    weight 0 (out zeros, lse -inf) and its K3 given its kv heads in
+    reverse order. Rank 0's are the kernels themselves."""
+    if rank != 1:
+        return k3, partial
+
+    def dropped(q, k, v, lengths):
+        o, lse = partial(q, k, v, lengths)
+        return torch.zeros_like(o), torch.full_like(lse, -float("inf"))
+
+    def reversed_heads(q, k, v, lengths):
+        return k3(q, k.flip(2).contiguous(), v.flip(2).contiguous(), lengths)
+
+    return reversed_heads, dropped
+
+
 def p27_rank(rank: int, workdir: str, mode: str) -> None:
     """One rank of phase 27, in a process of its own (``p27_launch``): the
     card as device 0, a gloo group from a ``file://`` rendezvous in
-    ``workdir``, a (1, 2) mesh; (a) and, with ``mode`` "full", (d) and
-    (b). Writes ``rank_<rank>.json`` there, or ``error_<rank>.txt``."""
+    ``workdir``, a (1, 2) mesh; (e) and (a) from one load of phase 24's
+    seeded parameters and, with ``mode`` "full", (d), (b) and (e) at the
+    f32 cut. Writes ``rank_<rank>.json`` there, or ``error_<rank>.txt``; a
+    fatal signal's traceback goes to its log (``faulthandler``)."""
+    import faulthandler
     import traceback
 
     import torch.distributed as dist
 
+    from repro_torch.configs import get_config
     from repro_torch.dist.sharding import make_mesh
     from repro_torch.kernels import _build
 
+    faulthandler.enable()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     d = Path(workdir)
@@ -5788,9 +6091,21 @@ def p27_rank(rank: int, workdir: str, mode: str) -> None:
         mesh = make_mesh(P27_MESH, ("data", "model"), device="cuda", backend="gloo")
         out = {"rank": rank, "backend": str(dist.get_backend()),
                "mesh": [list(mesh.shape), list(mesh.mesh_dim_names)]}
-        out["steps"] = p27_steps(rank, mesh, mode == "full")
+        cfg = get_config(ARCH)
+        # Phase 24's seeded parameters, loaded once: (e) decodes from them,
+        # then (a) trains them in place.
+        *setup, full = p27_setup(cfg, mesh, keep_full=True)
+        out["decode"] = p27_decode(rank, mesh, setup[0], setup[1], full, P27_DEC_RTOL,
+                                   mode == "full", mode == "full")
+        del full
+        out["steps"] = p27_steps(rank, mesh, mode == "full", tuple(setup))
+        del setup
         if mode == "full":
             out["f32"] = p27_f32(rank, mesh)
+            small = cut_for_parity(cfg)
+            model, params, _, _, full = p27_setup(small, mesh, keep_full=True)
+            out["decode_f32"] = p27_decode(rank, mesh, model, params, full, P27_F32_RTOL,
+                                           False, True)
         (d / f"rank_{rank}.json").write_text(json.dumps(out))
         dist.barrier()
         dist.destroy_process_group()
@@ -5848,18 +6163,25 @@ def p27_launch(mode: str) -> list:
 
 
 def p27_meta() -> None:
-    """The tensor-parallel train step of (a) traced on meta tensors over a
-    fake group of 2 ranks on the (1, 2) mesh, counted by ``op_cost`` as
-    rank 0; prints its counts as a JSON line (``start_p27_meta``)."""
+    """The tensor-parallel train step of (a) and a decode step of (e) under
+    each layout, traced on meta tensors over a fake group of 2 ranks on the
+    (1, 2) mesh, counted by ``op_cost`` as rank 0; prints their counts as
+    a JSON line (``start_p27_meta``)."""
     from repro_torch.analysis.op_cost import counting
     from repro_torch.configs import get_config
-    from repro_torch.dist.sharding import DEFAULT_RULES, activation_sharding, make_sharding_fn
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.dist.sharding import (
+        DEFAULT_RULES, SP_DECODE_RULES, activation_sharding, make_sharding_fn,
+    )
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.specs import abstract_state, gather_shardings
+    from repro_torch.launch.specs import (
+        abstract_state, decode_input_specs, gather_shardings, global_batch,
+    )
     from repro_torch.models import Model
     from repro_torch.models.layers import ParamSpec, tree_map
     from repro_torch.optim import adamw
     from repro_torch.runtime import make_train_step
+    from repro_torch.runtime.steps import make_decode_step
 
     cfg = get_config(ARCH)
     model, opt = Model(cfg), adamw()
@@ -5873,10 +6195,22 @@ def p27_meta() -> None:
     t0 = time.perf_counter()
     with activation_sharding(mesh), counting((params, state, batch)) as cost:
         step(params, state, batch)
+    decode = {}
+    for layout in P27_DEC_LAYOUTS:
+        rules = SP_DECODE_RULES if layout == "sp_decode" else DEFAULT_RULES
+        ins = global_batch(decode_input_specs(
+            cfg, ShapeSpec("p27e", "decode", P27_DEC_S, P27_DEC_B), mesh, rules))
+        idx = torch.empty((P27_DEC_B,), dtype=torch.int64, device="meta")
+        with activation_sharding(mesh, rules=rules), counting((params, ins)) as dcost:
+            make_decode_step(model)(params, ins["token"], ins["caches"], idx)
+        decode[layout] = {"collective_counts": dict(dcost.collective_counts),
+                          "collective_bytes": dict(dcost.collective_bytes),
+                          "collective_sources": dcost.top_collective_sources(40)}
     print(json.dumps({"collective_counts": dict(cost.collective_counts),
                       "collective_bytes": dict(cost.collective_bytes),
                       "collective_sources": cost.top_collective_sources(40),
-                      "flops": cost.flops, "trace_s": time.perf_counter() - t0}))
+                      "flops": cost.flops, "decode": decode,
+                      "trace_s": time.perf_counter() - t0}))
 
 
 def start_p27_meta() -> subprocess.Popen:
@@ -5900,6 +6234,128 @@ def p27_meta_result(proc: subprocess.Popen) -> dict:
     return json.loads(stdout.strip().splitlines()[-1])
 
 
+def p27_check_decode(cfg, first: list, second: list) -> dict:
+    """(e)'s checks on both ranks' results: each layout within
+    ``P27_DEC_RTOL`` of the plain step (logits, caches, greedy tokens but
+    at near-ties), the replicated blocks equal, every tensor on the card,
+    a second launch equal bit for bit, K2 and K3 launched as a plain
+    decode tick launches them (K3 once a layer a step: its partial form
+    under ``sp_decode``) at the rank's shapes; the f32 cut within
+    ``P27_F32_RTOL``; each layout's planted fault (``P27_FAULTS``) outside
+    both limits. Returns (e)'s launches over both ranks and layouts."""
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, S = P27_DEC_B, P27_DEC_S
+    want_kernels = {"sp_decode": [["partial", [B, H, D], [B, S // 2, Hkv, D]]],
+                    "no_sp_decode": [["k3", [B, H // 2, D], [B, S, Hkv // 2, D]]]}
+    per_step = {k: v * P27_DEC_STEPS for k, v in step_launches(cfg, False).items()}
+    launches = defaultdict(int)
+    for r, (a, b) in enumerate(zip(first, second)):
+        for layout in P27_DEC_LAYOUTS:
+            d, again, f = a["decode"][layout], b["decode"][layout], a["decode_f32"][layout]
+            check(d["within"], f"rank {r}: (e) {layout} departs from the plain decode step: "
+                               f"logits {d['logits_rel_err']}, caches {d['cache_rel_err']}, "
+                               f"{d['greedy_flips']} greedy flips past a near-tie")
+            check(d["replicas_equal"] and d["on_card"] and f["on_card"],
+                  f"rank {r}: (e) {layout}: replicated blocks differ or a tensor is off the card")
+            check(d["digest"] == again["digest"],
+                  f"rank {r}: (e) {layout}: a second launch gave other bits")
+            check(d["launches"] == per_step,
+                  f"rank {r}: (e) {layout}: launches {d['launches']}, not {per_step}")
+            check(d["kernels"] == want_kernels[layout],
+                  f"rank {r}: (e) {layout}: K3 was given {d['kernels']}, not "
+                  f"{want_kernels[layout]}")
+            check(f["within"], f"rank {r}: (e) the f32 cut's {layout} departs from plain: "
+                               f"logits {f['logits_rel_err']}, caches {f['cache_rel_err']}")
+            check(d["planted_rel_err"] > P27_DEC_RTOL and f["planted_rel_err"] > P27_F32_RTOL,
+                  f"rank {r}: (e) {layout} with {P27_FAULTS[layout]} reads "
+                  f"{d['planted_rel_err']:.3e} (f32 cut {f['planted_rel_err']:.3e}), within "
+                  f"the limit {P27_DEC_RTOL:g} ({P27_F32_RTOL:g}): the check would miss it")
+            for k, v in d["launches"].items():
+                launches[k] += v
+        print(f"    rank {r}: (e) " + "; ".join(
+            f"{layout}: logits within {max(a['decode'][layout]['logits_rel_err']):.3e} "
+            f"(limit {P27_DEC_RTOL:g}; with {P27_FAULTS[layout]} "
+            f"{a['decode'][layout]['planted_rel_err']:.3e}), caches "
+            f"{a['decode'][layout]['cache_rel_err']:.3e}, greedy flips "
+            f"{a['decode'][layout]['greedy_flips']} (departures at plain gaps under {TIE_TOL:g}: "
+            f"{a['decode'][layout]['near_tie_departures']}), "
+            f"f32 cut {max(a['decode_f32'][layout]['logits_rel_err']):.3e} / "
+            f"{a['decode_f32'][layout]['cache_rel_err']:.3e} (limit {P27_F32_RTOL:g}; with the "
+            f"fault {a['decode_f32'][layout]['planted_rel_err']:.3e})"
+            for layout in P27_DEC_LAYOUTS))
+    print("    (e) a second launch: logits and caches equal bit for bit on both ranks")
+    return dict(launches)
+
+
+def efficient_partial(q, k, v, lengths):
+    """One PyTorch call that computes K3's partial form: SDPA's
+    memory-efficient kernel with its log-sum-exp
+    (``aten._scaled_dot_product_efficient_attention``, natural log, f32)
+    on k/v expanded to q's heads beforehand (it has no GQA) under an
+    additive length mask. Returns the call, its inputs made beforehand."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    kx = k.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
+    vx = v.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
+    live = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    bias = torch.zeros((B, H, 1, S), dtype=q.dtype, device=q.device)
+    bias.masked_fill_(~live[:, None, None, :], -1e30)
+    qx = q[:, :, None]
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qx, kx, vx, bias, True)
+
+
+def time_p27_decode(gen) -> dict:
+    """K3 at a rank's shapes of (e) (llama's heads, bf16, the lanes at
+    ``P27_DEC_START``): its partial form at ``sp_decode``'s block of 512
+    rows (rank 0's lengths and rank 1's, where two lanes have no live row)
+    beside its plain version, K3 on the same rows, the bound and one
+    library call that returns the log-sum-exp beside the output
+    (``efficient_partial``; held to the kernel on the live lanes within
+    ``P27_LIB_ATOL``, so that it is the same function); K3 at
+    ``no_sp_decode``'s 16 q heads over 4 kv heads of the 1,024 rows beside
+    plain, SDPA and the bound (``time_decode``)."""
+    from repro_torch.kernels import (
+        decode_attention, decode_attention_partial, decode_attention_partial_plain,
+    )
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_partial_work, sm_count, split_plan,
+    )
+
+    out = {}
+    rows = P27_DEC_S // 2
+    for r in range(2):
+        lens = [max(0, min(n + 1 - r * rows, rows)) for n in P27_DEC_START]
+        q, k, v, lengths, *_ = decode_inputs(P27_DEC_B, rows, 32, 8, 64, lens, gen)
+        flops, nbytes = decode_attention_partial_work(P27_DEC_B, 32, 8, 64, 2, sum(lens))
+        b, kind = bound(nbytes, flops)
+        lib = efficient_partial(q, k, v, lengths)
+        o, lse = decode_attention_partial(q, k, v, lengths)
+        lo, llse = lib()[:2]
+        live = lengths > 0
+        lib_err = [float((lo[:, :, 0].float() - o)[live].abs().max()),
+                   float((llse[..., 0] - lse)[live].abs().max())]
+        check(max(lib_err) <= P27_LIB_ATOL,
+              f"the library's partial form departs from the kernel's: {lib_err}")
+        t = dict(shape=f"q ({P27_DEC_B}, 32, 64), cache ({P27_DEC_B}, {rows}, 8, 64) bf16, "
+                       f"lengths {lens}", n_splits=split_plan(8, rows, sm_count(0)),
+                 ms=time_ms(lambda: decode_attention_partial(q, k, v, lengths)),
+                 plain_ms=time_ms(lambda: decode_attention_partial_plain(q, k, v, lengths)),
+                 library_ms=time_ms(lib), library_err=lib_err, bound_ms=b, bound_by=kind,
+                 k3_ms=time_ms(lambda: decode_attention(q, k, v, lengths)))
+        print(f"  decode_attention_partial, rank {r}'s rows: {t['shape']}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} "
+              f"ms (out / lse within {lib_err[0]:.2e} / {lib_err[1]:.2e} of the kernel's on "
+              f"live lanes), K3 {t['k3_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), {t['n_splits']} splits")
+        out[f"sp_decode_rank{r}"] = t
+    lens = [n + 1 for n in P27_DEC_START]
+    t = time_decode(P27_DEC_B, P27_DEC_S, 16, 4, 64, lens, gen)["decode_attention"]
+    print_kernel_times({"decode_attention, a rank's heads": t})
+    out["no_sp_decode"] = t
+    return out
+
+
 def phase27(card: str, plain_metrics: list, meta_proc: subprocess.Popen) -> dict:
     """llama3.2-1b at full width and depth on a (1, 2) ("data", "model")
     mesh of two processes sharing the card over gloo: (a) the
@@ -5911,7 +6367,9 @@ def phase27(card: str, plain_metrics: list, meta_proc: subprocess.Popen) -> dict
     ``P27_F32_ATOL``; (c) K1 at the local shapes against its plain
     version, timed there; (d) each rank's collectives a step equal to the
     meta count's (``meta_proc``), its wall and device ms and launches by
-    class."""
+    class; (e) the tensor-parallel decode under both cache layouts against
+    the plain decode step (``p27_check_decode``), its collectives against
+    the meta count, and K3 timed at the rank's shapes."""
     from repro_torch.configs import get_config
 
     cfg = get_config(ARCH)
@@ -5957,15 +6415,29 @@ def phase27(card: str, plain_metrics: list, meta_proc: subprocess.Popen) -> dict
     check(first[0]["steps"]["metrics"] == first[1]["steps"]["metrics"],
           "the ranks' metrics differ")
     print(f"    (a) a second launch: metrics and every block's bits equal on both ranks")
+    dec_launches = p27_check_decode(cfg, first, second)
     print("    (c) K1 at the local shapes vs plain")
     gen = torch.Generator().manual_seed(SEED + 45)
     errs = [hold_flash(shape, True, dt, gen) for shape, dt in P27_FLASH]
     times = time_flash(P24_B, TRAIN_S, 16, 4, 64, gen)
     print_times(times)
+    print("    (e) K3 at a rank's shapes (CUDA events, cold L2, median of 60)")
+    decode_times = time_p27_decode(torch.Generator().manual_seed(SEED + 47))
     meta = p27_meta_result(meta_proc)
     print(f"    (d) the meta count of the same step on a fake (1, 2) group (traced in "
           f"{meta['trace_s']:.1f} s): {meta['collective_counts']}, bytes "
           f"{meta['collective_bytes']}")
+    for layout in P27_DEC_LAYOUTS:
+        m = meta["decode"][layout]
+        for r, a in enumerate(first):
+            d = a["decode"][layout]
+            same = (d["collective_counts"] == m["collective_counts"]
+                    and d["collective_bytes"] == m["collective_bytes"])
+            print(f"    (e) {layout}, rank {r}: a decode step's collectives "
+                  f"{d['collective_counts']}, bytes {d['collective_bytes']} (meta "
+                  f"{m['collective_counts']}, {m['collective_bytes']}: "
+                  f"{'equal' if same else 'DIFFER'})")
+            check(same, f"rank {r}: (e) {layout}'s collectives differ from the meta count")
     for r, a in enumerate(first):
         s = a["steps"]
         same = (s["collective_counts"].get("all-reduce_count") ==
@@ -5983,10 +6455,15 @@ def phase27(card: str, plain_metrics: list, meta_proc: subprocess.Popen) -> dict
     for a in first:
         for k, v in a["steps"]["launches"].items():
             launches[k] += v
-    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"):
+    for k, v in dec_launches.items():
+        launches[k] += v
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd",
+              "decode_attention"):
         check(launches[k] > 0, f"phase 27's main path launched no {k}")
-    return {"ranks": first, "repeat": [a["steps"] for a in second], "meta": meta,
-            "launches": dict(launches), "kernel_times": times,
+    return {"ranks": first, "repeat": [{"steps": a["steps"], "decode": a["decode"]}
+                                       for a in second], "meta": meta,
+            "launches": dict(launches), "decode_launches": dec_launches,
+            "decode_times": decode_times, "kernel_times": times,
             "max_abs_err": {"flash_attention": max(e for e, _ in errs),
                             "flash_attention_bwd": max(e for _, e in errs)},
             "tolerances": {"loss_rtol": P27_LOSS_RTOL, "grad_norm_rtol": P27_GNORM_RTOL,
@@ -6323,7 +6800,8 @@ def run(dryrun: subprocess.Popen, meta: subprocess.Popen) -> int:
     t27 = time.perf_counter()
     print(f"[27] {ARCH} at full width and depth, tensor-parallel over 'model' on a (1, 2) mesh "
           f"of two ranks sharing the card: phase 24's steps, the f32 cut, K1 at the local "
-          f"shapes, the collectives against the meta count")
+          f"shapes, the collectives against the meta count, the decode step under both "
+          f"cache layouts")
     p27 = phase27(card, p24["steps"]["metrics"], meta)
     phase27_seconds = time.perf_counter() - t27
     print(f"    phase 27 took {phase27_seconds:.1f} s; card {card}")
@@ -6447,6 +6925,26 @@ def run(dryrun: subprocess.Popen, meta: subprocess.Popen) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             "phase27_launches": p27["launches"][kname],
+        })
+    # K3 at a rank's rows (its partial form; sp_decode) and at a rank's
+    # heads (no_sp_decode) of phase 27 (e), llama3.2-1b on the (1, 2) mesh:
+    # launches over both ranks' steps of that layout, times at rank 0's
+    # shape (the partial form's library call: ``efficient_partial``).
+    for layout, key, label, err in (
+            ("sp_decode", "sp_decode_rank0", "a rank's rows, sp_decode, partial form",
+             worst["decode_attention_partial"]),
+            ("no_sp_decode", "no_sp_decode", "a rank's heads, no_sp_decode",
+             worst["decode_attention"])):
+        t = p27["decode_times"][key]
+        n = sum(r["decode"][layout]["launches"]["decode_attention"] for r in p27["ranks"])
+        kernels.append({
+            "name": f"decode_attention ({ARCH}, {label})", "route": "cuda",
+            "source": sources["decode_attention"][0],
+            "replaces": sources["decode_attention"][1],
+            "launches": n, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            "phase27_launches": n,
         })
     # Phase 26's launches on the rows of one shape: K4 at block 8 is
     # elastic_serving_torch's replicas; no entry point runs K1 at D 80.

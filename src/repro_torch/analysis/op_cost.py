@@ -27,9 +27,10 @@ through ``repro_torch.kernels.work_hook``, every hand-written kernel:
                         ``repro_torch`` (which stands in for HLO's
                         ``op_name`` metadata): the tensor-parallel step's
                         gather to the TP-only layout (``tp_block``), its
-                        ``all_reduce``s over "model" by the model line
-                        that issued them (``dist/tensor_parallel.py``'s
-                        own lines for the backward's);
+                        collectives over "model" by the model line that
+                        issued them and the ``dist/tensor_parallel.py``
+                        function and line that ran them (its own
+                        ``backward`` lines for the backward's);
   * peak_bytes       -- the most live storage bytes: the arguments' storages
                         plus every storage an op creates, less each one when
                         its last tensor is freed (weak references);
@@ -160,14 +161,19 @@ class OpCost:
 def _source() -> str:
     """``file:line (function)`` of the innermost frame in the port's
     package outside this module; a collective that ``dist/tensor_parallel.py``
-    issues in the forward is attributed to the line that called it, one
-    it issues in the backward to its own ``backward``."""
+    issues in the forward is attributed to the line that called it,
+    followed by ``via`` its own line there (so the two reduces of one
+    call, the merge's, stay apart), one it issues in the backward to its
+    own ``backward``."""
     f = sys._getframe(2)
+    via = ""
     while f is not None:
         path = Path(f.f_code.co_filename)
+        if path == _TP and f.f_code.co_name != "backward":
+            via = f" via {f.f_code.co_name}:{f.f_lineno}"   # the outermost there
         if path != _SELF and _PKG in path.parents and (
                 path != _TP or f.f_code.co_name == "backward"):
-            return f"{path.relative_to(_PKG)}:{f.f_lineno} ({f.f_code.co_name})"
+            return f"{path.relative_to(_PKG)}:{f.f_lineno} ({f.f_code.co_name}){via}"
         f = f.f_back
     return "(unattributed)"
 

@@ -43,7 +43,14 @@
 //     combines them in split order. With one split the split kernel
 //     writes the output itself. A row whose splits are all empty (K4 at
 //     length 0) merges to exact zeros: the running max starts at the
-//     finite kNegInf, never at -inf, so no exp(-inf - -inf) = NaN arises.
+//     finite kNegInf, never at -inf, so no exp(-inf - -inf) = NaN arises;
+//   * the partial form (repro_decode_attention_fwd with an lse: a rank's
+//     block of a cache cut along its rows) is the same launches with an
+//     f32 output O, normalised but not rounded to q's dtype, and each
+//     (sequence, head)'s log-sum-exp of its scores in natural units,
+//     (m + log2 l) ln 2, or -inf where no row is live (l = 0; its output
+//     is exact zeros), so that a merge of partials across ranks gives it
+//     weight 0.
 // K3 and K4 are one template with two row-address functors, so on the
 // same rows (and the same n_splits) they produce bit-identical results.
 // No tensor cores: G <= 8 query rows per kv head do not fill an mma tile.
@@ -135,6 +142,25 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
+// Eight (bf16) or four (f32) output values of one lane: in q's dtype as
+// one 16-byte store; in f32 (the partial form's output) as float4s.
+template <typename O, int N>
+__device__ __forceinline__ void store_vals(O* dst, const float (&o)[N]) {
+  *reinterpret_cast<uint4*>(dst) = Vec<O>::pack(o);
+}
+template <int N>
+__device__ __forceinline__ void store_vals(float* dst, const float (&o)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; e += 4)
+    *reinterpret_cast<float4*>(dst + e) = make_float4(o[e], o[e + 1], o[e + 2], o[e + 3]);
+}
+
+// A row's log-sum-exp in natural units from its (m, l) in log2 units;
+// -inf where no row was live.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : -INFINITY;
+}
+
 // Row addresses of (sequence b, kv head h) in a contiguous cache
 // (B, S, Hkv, D): ``offsets`` gives the element offsets of the U rows
 // base + u * RPW + grp (u < U); ``fetch`` (what offsets needs from memory
@@ -220,12 +246,15 @@ __device__ __forceinline__ void combine(float& m, float& l, float (&acc)[N], flo
 }
 
 // One block per (split, kv head h, sequence b). LPR lanes per row, NC
-// 16-byte pieces per lane per row (NC * LPR * VEC >= D), GM >= G.
-template <typename T, typename Rows, int LPR, int NC, int GM>
+// 16-byte pieces per lane per row (NC * LPR * VEC >= D), GM >= G. O is
+// the output's type: T, or float for the partial form, which also writes
+// each row's log-sum-exp to ``lse`` (null otherwise).
+template <typename T, typename O, typename Rows, int LPR, int NC, int GM>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const int* __restrict__ lengths, T* __restrict__ out,
-                    float* __restrict__ ws_acc, float* __restrict__ ws_ml, int n_heads,
+                    const int* __restrict__ lengths, O* __restrict__ out,
+                    float* __restrict__ lse, float* __restrict__ ws_acc,
+                    float* __restrict__ ws_ml, int n_heads,
                     int n_kv_heads, int head_dim, int max_rows, float scale, Rows rows) {
   constexpr int VEC = Vec<T>::N;
   constexpr int RPW = 32 / LPR;        // rows a warp covers per load
@@ -444,7 +473,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const float den = fmaxf(l[g], 1e-30f);   // length 0 -> zeros
 #pragma unroll
         for (int e = 0; e < VEC; ++e) o[e] = acc[g][n * VEC + e] / den;
-        *reinterpret_cast<uint4*>(out + (head0 + g) * D + c * VEC) = Vec<T>::pack(o);
+        store_vals(out + (head0 + g) * D + c * VEC, o);
       } else {
         float* dst = ws_acc + ((head0 + g) * n_splits + split) * D + c * VEC;
 #pragma unroll
@@ -458,6 +487,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       float* ml = ws_ml + ((head0 + g) * n_splits + split) * 2;
       ml[0] = m[g];
       ml[1] = l[g];
+    } else if (lse != nullptr && li == 0) {
+      lse[head0 + g] = row_lse(m[g], l[g]);
     }
   }
 }
@@ -466,11 +497,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // combined in split order. The splits' (m, l) are read at once into
 // shared memory; thread t owns the 16 bytes of output at values
 // VEC * t .. VEC * t + VEC - 1 and reads its splits' pieces eight splits
-// at a time. Rows (the split kernel's functor) only names the kernel.
-template <typename T, typename Rows>
+// at a time. Rows (the split kernel's functor) only names the kernel; O
+// and ``lse`` are the split kernel's.
+template <typename T, typename O, typename Rows>
 __global__ void __launch_bounds__(kMaxD / Vec<T>::N)
 decode_merge_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
-                    T* __restrict__ out, int n_heads, int head_dim, int n_splits) {
+                    O* __restrict__ out, float* __restrict__ lse, int n_heads, int head_dim,
+                    int n_splits) {
   constexpr int VEC = Vec<T>::N;
   __shared__ float s_m[kMaxSplits], s_l[kMaxSplits], s_w[kMaxSplits];
   const int64_t bh = (int64_t)blockIdx.y * n_heads + blockIdx.x;
@@ -506,7 +539,8 @@ decode_merge_kernel(const float* __restrict__ ws_acc, const float* __restrict__ 
   const float den = fmaxf(l, 1e-30f);   // all splits empty -> zeros
 #pragma unroll
   for (int e = 0; e < VEC; ++e) a[e] /= den;
-  *reinterpret_cast<uint4*>(out + bh * head_dim + d) = Vec<T>::pack(a);
+  store_vals(out + bh * head_dim + d, a);
+  if (lse != nullptr && threadIdx.x == 0) lse[bh] = row_lse(mx, l);
 }
 
 bool shape_ok(int B, int H, int Hkv, int D, int n_splits) {
@@ -514,54 +548,55 @@ bool shape_ok(int B, int H, int Hkv, int D, int n_splits) {
          D % 8 == 0 && n_splits >= 1 && n_splits <= kMaxSplits;
 }
 
-template <typename T, typename Rows, int LPR, int NC>
+template <typename T, typename O, typename Rows, int LPR, int NC>
 void launch_split(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                  float* ws, int B, int H, int Hkv, int D, int max_rows, int n_splits, Rows rows,
-                  cudaStream_t stream) {
+                  float* lse, float* ws, int B, int H, int Hkv, int D, int max_rows,
+                  int n_splits, Rows rows, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
   const dim3 grid(n_splits, Hkv, B);
   float* ws_ml = ws ? ws + (int64_t)B * H * n_splits * D : nullptr;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
+  O* ot = static_cast<O*>(out);
   if (H / Hkv <= 4)
-    decode_split_kernel<T, Rows, LPR, NC, 4><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, lengths, ot, ws, ws_ml, H, Hkv, D, max_rows, scale, rows);
+    decode_split_kernel<T, O, Rows, LPR, NC, 4><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, lengths, ot, lse, ws, ws_ml, H, Hkv, D, max_rows, scale, rows);
   else
-    decode_split_kernel<T, Rows, LPR, NC, 8><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, lengths, ot, ws, ws_ml, H, Hkv, D, max_rows, scale, rows);
+    decode_split_kernel<T, O, Rows, LPR, NC, 8><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, lengths, ot, lse, ws, ws_ml, H, Hkv, D, max_rows, scale, rows);
 }
 
 // The split launch (lanes per row from D), then, with more than one
-// split, the merge; cudaGetLastError() after both.
-template <typename T, typename Rows>
+// split, the merge; cudaGetLastError() after both. O = T writes the
+// output in q's dtype; O = float with ``lse`` is the partial form.
+template <typename T, typename Rows, typename O = T>
 int launch(const void* q, const void* k, const void* v, const int* lengths, void* out, void* ws,
            int B, int H, int Hkv, int D, int max_rows, int n_splits, Rows rows,
-           cudaStream_t stream) {
+           cudaStream_t stream, float* lse = nullptr) {
   if (n_splits > 1 && ws == nullptr) return -1;
   float* wsf = static_cast<float*>(ws);
   const int n_vec = D / Vec<T>::N;   // 16-byte pieces per row
   if (n_vec <= 4)
-    launch_split<T, Rows, 4, 1>(q, k, v, lengths, out, wsf, B, H, Hkv, D, max_rows, n_splits,
-                                rows, stream);
+    launch_split<T, O, Rows, 4, 1>(q, k, v, lengths, out, lse, wsf, B, H, Hkv, D, max_rows,
+                                   n_splits, rows, stream);
   else if (n_vec <= 8)
-    launch_split<T, Rows, 8, 1>(q, k, v, lengths, out, wsf, B, H, Hkv, D, max_rows, n_splits,
-                                rows, stream);
+    launch_split<T, O, Rows, 8, 1>(q, k, v, lengths, out, lse, wsf, B, H, Hkv, D, max_rows,
+                                   n_splits, rows, stream);
   else if (n_vec <= 16)
-    launch_split<T, Rows, 16, 1>(q, k, v, lengths, out, wsf, B, H, Hkv, D, max_rows, n_splits,
-                                 rows, stream);
+    launch_split<T, O, Rows, 16, 1>(q, k, v, lengths, out, lse, wsf, B, H, Hkv, D, max_rows,
+                                    n_splits, rows, stream);
   else if (n_vec <= 32)
-    launch_split<T, Rows, 32, 1>(q, k, v, lengths, out, wsf, B, H, Hkv, D, max_rows, n_splits,
-                                 rows, stream);
+    launch_split<T, O, Rows, 32, 1>(q, k, v, lengths, out, lse, wsf, B, H, Hkv, D, max_rows,
+                                    n_splits, rows, stream);
   else if constexpr (Vec<T>::N == 4)   // f32 above D 128
-    launch_split<T, Rows, 32, 2>(q, k, v, lengths, out, wsf, B, H, Hkv, D, max_rows, n_splits,
-                                 rows, stream);
+    launch_split<T, O, Rows, 32, 2>(q, k, v, lengths, out, lse, wsf, B, H, Hkv, D, max_rows,
+                                    n_splits, rows, stream);
   else
     return -1;
   if (n_splits > 1)
-    decode_merge_kernel<T, Rows><<<dim3(H, B), kMaxD / Vec<T>::N, 0, stream>>>(
-        wsf, wsf + (int64_t)B * H * n_splits * D, static_cast<T*>(out), H, D, n_splits);
+    decode_merge_kernel<T, O, Rows><<<dim3(H, B), kMaxD / Vec<T>::N, 0, stream>>>(
+        wsf, wsf + (int64_t)B * H * n_splits * D, static_cast<O*>(out), lse, H, D, n_splits);
   return (int)cudaGetLastError();
 }
 
@@ -569,22 +604,30 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
 
 // K3. q (B, H, D), k/v (B, S, Hkv, D), lengths (B,) int32, out (B, H, D);
 // ws: f32 workspace of B * H * n_splits * (D + 2) values (unused, and may
-// be null, when n_splits is 1). dtype: 0 = float32, 1 = bfloat16. Every
-// pointer 16-byte aligned, D a multiple of 8. Returns cudaGetLastError()
-// after the launches (0 = launched), or -1 for a shape the kernel does not
+// be null, when n_splits is 1). dtype: 0 = float32, 1 = bfloat16. lse
+// null: out in q's dtype. lse non-null selects K3's partial form: out is
+// f32 (B, H, D) whatever q's dtype (normalised, not rounded), and lse f32
+// (B, H) each row's log-sum-exp of its scaled scores in natural units,
+// -inf where lengths[b] <= 0 (whose out is exact zeros). Every pointer
+// 16-byte aligned, D a multiple of 8. Returns cudaGetLastError() after
+// the launches (0 = launched), or -1 for a shape the kernel does not
 // take.
 extern "C" int repro_decode_attention_fwd(const void* q, const void* k, const void* v,
-                                          const void* lengths, void* out, void* ws, int B,
-                                          int H, int Hkv, int D, int S, int n_splits, int dtype,
-                                          void* stream) {
+                                          const void* lengths, void* out, void* lse, void* ws,
+                                          int B, int H, int Hkv, int D, int S, int n_splits,
+                                          int dtype, void* stream) {
   if (!shape_ok(B, H, Hkv, D, n_splits) || S <= 0) return -1;
   ContiguousRows rows{(int64_t)S * Hkv * D, (int64_t)Hkv * D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(lengths);
-  if (dtype == 0)
-    return launch<float>(q, k, v, lens, out, ws, B, H, Hkv, D, S, n_splits, rows, s);
-  if (dtype == 1)
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0)   // f32: K3 and its partial form are one instance
+    return launch<float>(q, k, v, lens, out, ws, B, H, Hkv, D, S, n_splits, rows, s, l);
+  if (dtype == 1 && l == nullptr)
     return launch<__nv_bfloat16>(q, k, v, lens, out, ws, B, H, Hkv, D, S, n_splits, rows, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, ContiguousRows, float>(q, k, v, lens, out, ws, B, H, Hkv, D,
+                                                        S, n_splits, rows, s, l);
   return -1;
 }
 

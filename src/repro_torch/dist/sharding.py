@@ -94,6 +94,7 @@ __all__ = [
     "tp_rules",
     "tp_placements",
     "tp_block",
+    "kv_layout",
     "LeafShards",
     "full_value",
     "land",
@@ -367,11 +368,16 @@ class RowSplit(NamedTuple):
 
 class TPView(NamedTuple):
     """The rank's place along the tensor-parallel mesh axis: the axis's
-    process group, this rank's ``index`` along it and its ``size``."""
+    process group, this rank's ``index`` along it and its ``size``; and,
+    in a decode step, where ``"model"`` cuts the GQA caches (``kv``,
+    :func:`kv_layout`): ``"seq"`` (each rank holds a block of every
+    sequence's rows), ``"heads"`` (a block of the kv heads) or None
+    (replicated)."""
 
     group: Any
     index: int
     size: int
+    kv: Optional[str] = None
 
 
 class ActContext(NamedTuple):
@@ -507,6 +513,32 @@ def tp_block(t: torch.Tensor, placements) -> torch.Tensor:
            for size, pl, want in zip(sizes.values(), t.placements, placements)):
         return t.to_local()
     return t.redistribute(mesh, placements).to_local()
+
+
+def kv_layout(leaves: Sequence[torch.Tensor]) -> Optional[str]:
+    """Where ``"model"`` cuts a decode step's GQA cache leaves (B, S, Hkv,
+    D) as their placements lay them out: ``"seq"`` where it shards dim 1
+    (``SP_DECODE_RULES``' ``act_kv_seq``; ``kv_heads`` then finds
+    ``"model"`` taken and stays whole), ``"heads"`` where it shards dim 2
+    (``DEFAULT_RULES`` where the kv heads divide it), None where it cuts
+    neither (they do not divide it, or it has size 1). Every leaf must
+    agree."""
+    found = set()
+    for t in leaves:
+        dim = None
+        if isinstance(t, DTensor):
+            sizes = _axis_sizes(t.device_mesh)
+            pl = t.placements[list(sizes).index(TP_AXIS)] if TP_AXIS in sizes else None
+            if pl is not None and pl.is_shard() and sizes[TP_AXIS] > 1:
+                dim = pl.dim % t.ndim
+        if dim not in (None, 1, 2):
+            raise ValueError(f"a cache leaf is cut over {TP_AXIS!r} along dim {dim}, "
+                             "neither its rows nor its kv heads")
+        found.add({None: None, 1: "seq", 2: "heads"}[dim])
+    if len(found) > 1:
+        raise ValueError(f"the cache leaves are laid out {sorted(map(str, found))} over "
+                         f"{TP_AXIS!r}: one layout a step")
+    return found.pop() if found else None
 
 
 def current_split() -> Optional[RowSplit]:

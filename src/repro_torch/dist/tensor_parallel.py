@@ -1,6 +1,7 @@
 """Tensor-parallel compute over ``"model"``: the collectives GSPMD inserts
-into the reference's train and prefill steps when a product's weight is
-cut along ``"model"`` (``DEFAULT_RULES``: heads, kv_heads, ffn and vocab).
+into the reference's train, prefill and decode steps when a product's
+weight is cut along ``"model"`` (``DEFAULT_RULES``: heads, kv_heads, ffn
+and vocab), or a decode cache's rows (``SP_DECODE_RULES``: act_kv_seq).
 
 The dense decoders run on the rank's blocks of the TP-only layout
 (``sharding.tp_rules``) under a ``sharding.tensor_parallel`` view:
@@ -13,7 +14,11 @@ The dense decoders run on the rank's blocks of the TP-only layout
     ffn) gives a partial sum, made whole by :func:`reduce_from_tp`
     (``all_reduce`` forward, identity backward), before any term is added;
   * the embedding lookup and the cross-entropy run on the rank's vocab
-    rows (:func:`vocab_parallel_embed`, :func:`vocab_parallel_ce`).
+    rows (:func:`vocab_parallel_embed`, :func:`vocab_parallel_ce`);
+  * a decode step over a cache cut along its rows gathers the token's
+    heads (:func:`gather_from_tp`), attends over the rank's rows (K3's
+    partial form) and merges the ranks' partial softmaxes
+    (:func:`merge_partials_over_tp`): distributed flash decode.
 
 Every rank issues the same collectives in the same order: nothing here
 branches on the rank. Outside a view, or on a mesh whose ``"model"`` has
@@ -30,8 +35,8 @@ import torch.distributed as dist
 from .collectives import example_weights, masked_weighted_ce
 from .sharding import current_tp, split_sum
 
-__all__ = ["copy_to_tp", "reduce_from_tp", "vocab_parallel_embed", "vocab_parallel_ce",
-           "vocab_rows"]
+__all__ = ["copy_to_tp", "reduce_from_tp", "gather_from_tp", "merge_partials_over_tp",
+           "vocab_parallel_embed", "vocab_parallel_ce", "vocab_rows"]
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -74,6 +79,44 @@ def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
     """A row-parallel product's partial sum made whole over ``"model"``."""
     tp = current_tp()
     return x if tp is None else _ReduceFromTP.apply(x, tp.group)
+
+
+def gather_from_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole of ``x`` along ``dim``, where each rank of ``"model"`` holds
+    an equal block of it in rank order (the token's q, k or v heads of a
+    column-parallel projection): one ``all_gather``. Decode only: it
+    carries no gradient."""
+    tp = current_tp()
+    if tp is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x, group=tp.group)
+    return torch.cat(parts, dim=dim)
+
+
+def merge_partials_over_tp(out: torch.Tensor, lse: torch.Tensor,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """The softmax over every rank's rows from each rank's partial one:
+    ``out`` f32 (..., D), the rank's normalised output over its rows, and
+    ``lse`` f32 (...), their log-sum-exp (-inf where the rank holds no
+    live row; K3's partial form). One ``all_reduce(MAX)`` of ``lse``,
+    then one ``all_reduce(SUM)`` of ``[out * w, w]`` stacked, w = exp(lse
+    - max), in f32, and the quotient rounded to ``dtype`` once. The
+    largest lse is floored at the least finite f32, so a row live on no
+    rank gives weights 0 and exact zeros, never NaN. B * H * (D + 1) values a layer:
+    the work GSPMD inserts outside the reference's Pallas kernel, so it
+    stays plain PyTorch. Outside a view (or at ``"model"`` = 1) ``out``
+    rounded to ``dtype``."""
+    tp = current_tp()
+    if tp is None:
+        return out.to(dtype)
+    top = lse.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=tp.group)
+    w = torch.exp(lse - top.clamp(min=torch.finfo(torch.float32).min))
+    both = torch.cat([out * w[..., None], w[..., None]], dim=-1)
+    dist.all_reduce(both, group=tp.group)
+    return (both[..., :-1] / both[..., -1:].clamp(min=1e-30)).to(dtype)
 
 
 def vocab_rows(local: int) -> Tuple[int, int]:

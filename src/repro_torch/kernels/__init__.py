@@ -9,6 +9,7 @@ wrapper                       replaces (Pallas TPU kernel)
 ``flash_attention``           ``kernels/flash_attention/kernel.py::flash_attention_fwd``
 ``flash_attention_bwd``       (XLA's gradient of the jnp attention)
 ``decode_attention``          ``kernels/decode_attention/kernel.py::decode_attention_fwd``
+``decode_attention_partial``  (the same, on a rank's rows: K3's kernels)
 ``paged_decode_attention``    ``kernels/decode_attention/kernel.py::paged_decode_attention_fwd``
 ``ssd_scan``                  ``kernels/ssd_scan/kernel.py::ssd_scan_fwd``
 ``ssd_scan_bwd``              (XLA's gradient of ``mamba2.ssd_chunked``)
@@ -46,6 +47,9 @@ def report_work(name: str, work) -> None:
 
 from .decode_attention import (  # noqa: E402
     decode_attention,
+    decode_attention_partial,
+    decode_attention_partial_plain,
+    decode_attention_partial_work,
     decode_attention_plain,
     decode_attention_work,
     paged_decode_attention,
@@ -75,14 +79,17 @@ __all__ = [
     "flash_attention", "flash_attention_fwd", "flash_attention_plain",
     "flash_attention_bwd", "flash_attention_bwd_plain",
     "decode_attention", "decode_attention_plain",
+    "decode_attention_partial", "decode_attention_partial_plain",
     "paged_decode_attention", "paged_decode_attention_plain",
     "ssd_scan", "ssd_scan_fwd", "ssd_scan_plain", "ssd_scan_bwd", "ssd_scan_bwd_plain",
     "rms_norm_work", "rms_norm_bwd_work", "flash_attention_work", "flash_attention_bwd_work",
-    "decode_attention_work", "paged_decode_attention_work", "ssd_scan_work",
+    "decode_attention_work", "decode_attention_partial_work", "paged_decode_attention_work",
+    "ssd_scan_work",
     "ssd_scan_bwd_work",
 ]
 
-#: name -> wrapper; each wrapper's ``launches`` counts kernel launches.
+#: name -> wrapper; each wrapper's ``launches`` counts kernel launches
+#: (``decode_attention_partial`` counts on ``decode_attention``'s).
 KERNELS = {
     "rmsnorm": rms_norm,
     "rmsnorm_bwd": rms_norm_bwd,

@@ -120,7 +120,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P
     ]
     lib.repro_flash_attention_bwd.restype = I
-    lib.repro_decode_attention_fwd.argtypes = [P] * 6 + [I] * 7 + [P]
+    lib.repro_decode_attention_fwd.argtypes = [P] * 7 + [I] * 7 + [P]
     lib.repro_decode_attention_fwd.restype = I
     lib.repro_paged_decode_attention_fwd.argtypes = [P] * 7 + [I] * 8 + [P]
     lib.repro_paged_decode_attention_fwd.restype = I

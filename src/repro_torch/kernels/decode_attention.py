@@ -28,13 +28,22 @@ and ``paged_decode_attention_work`` give one launch's (FLOPs, bytes) for
 its live rows: on the card the lengths' (read only while
 ``work_hook`` is set), on meta, where no value exists, every row of the
 cache (a full cache, the dry run's decode cell).
+
+``decode_attention_partial`` is K3's partial form, for a cache cut along
+its rows across ranks (the sequence-parallel decode of
+``models/attention.py``): the same split and merge kernels, instantiated
+with an f32 output that is normalised but not rounded to q's dtype, and
+each (sequence, head)'s log-sum-exp, so that the ranks' partial softmaxes
+merge exactly (``dist.tensor_parallel.merge_partials_over_tp``). It
+counts its launches on ``decode_attention.launches`` and reports its
+work under K3's name: it launches K3's kernels.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
@@ -46,6 +55,9 @@ __all__ = [
     "NEG_INF",
     "decode_attention",
     "decode_attention_plain",
+    "decode_attention_partial",
+    "decode_attention_partial_plain",
+    "decode_attention_partial_work",
     "paged_decode_attention",
     "paged_decode_attention_plain",
     "paged_kv_view",
@@ -107,6 +119,15 @@ def decode_attention_work(B: int, H: int, Hkv: int, D: int, elem_bytes: int,
     flops = live * H * (4 * D + 5)
     nbytes = 2 * B * H * D * elem_bytes + B * 4 + 2 * live * Hkv * D * elem_bytes
     return flops, nbytes
+
+
+def decode_attention_partial_work(B: int, H: int, Hkv: int, D: int, elem_bytes: int,
+                                  live: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one launch of K3's partial form: K3's work, with
+    its output written in f32 and each (row, head)'s log-sum-exp (f32)
+    written as well."""
+    flops, nbytes = decode_attention_work(B, H, Hkv, D, elem_bytes, live)
+    return flops, nbytes + B * H * D * (4 - elem_bytes) + B * H * 4
 
 
 def paged_decode_attention_work(B: int, H: int, Hkv: int, D: int, elem_bytes: int,
@@ -179,6 +200,30 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def decode_attention_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's partial form in plain PyTorch -> (out f32 (B, H, D), lse f32
+    (B, H)): ``decode_attention_plain``'s softmax over the live rows, its
+    output left in f32, and ``lse`` = log sum exp of the scaled scores
+    over those rows. A row with no live row (length <= 0) gives out exact
+    zeros and lse -inf: weight 0 in any merge whose largest lse is
+    finite."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qf = scale_query(q).float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k.float())
+    pos = torch.arange(S, device=q.device)
+    valid = pos[None, None, None, :] < lengths.to(q.device)[:, None, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", torch.exp(s - lse[..., None]), v.float())
+    live = (lengths.to(q.device) > 0)[:, None, None]
+    out = torch.where(live[..., None], out, torch.zeros_like(out))
+    lse = torch.where(live, lse, torch.full_like(lse, -math.inf))
+    return out.reshape(B, H, D), lse.reshape(B, H)
+
+
 def paged_decode_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
                                  v_arena: torch.Tensor, block_tables: torch.Tensor,
                                  lengths: torch.Tensor) -> torch.Tensor:
@@ -230,6 +275,50 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "multiple of 8)")
 
 
+def _contiguous_decode(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lengths: torch.Tensor, partial: bool
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The launch K3 and its partial form share, on a meta or CUDA tensor
+    -> (out, lse): out in q's dtype and lse None, or with ``partial`` out
+    f32 and lse f32 (B, H). Both count on ``decode_attention.launches``
+    and report their work under K3's name: they launch K3's kernels."""
+    if q.device.type not in ("meta", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    odt = torch.float32 if partial else q.dtype
+    work = decode_attention_partial_work if partial else decode_attention_work
+    if q.device.type == "meta":
+        _check_shapes(q, k, v, lengths)
+        out = torch.empty((B, H, D), dtype=odt, device=q.device)
+        lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if partial else None
+        ws = _workspace(q, split_plan(Hkv, S, META_SMS))  # noqa: F841
+        _kernels.report_work("decode_attention", work(B, H, Hkv, D, q.element_size(), B * S))
+        return out, lse
+    _check(q, k, v, lengths)
+    if k.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(f"batch mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"lengths {tuple(lengths.shape)}")
+    out = torch.empty((B, H, D), dtype=odt, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if partial else None
+    n_splits = split_plan(Hkv, S, sm_count(q.device.index))
+    ws = _workspace(q, n_splits)
+    lib = _build.load_library()
+    rc = lib.repro_decode_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), None if ws is None else ws.data_ptr(),
+        B, H, Hkv, D, S, n_splits, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    decode_attention.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed (code {rc})")
+    if _kernels.work_hook is not None:
+        _kernels.work_hook("decode_attention", *work(
+            B, H, Hkv, D, q.element_size(), _live(lengths)[0]))
+    return out, lse
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """K3: q (B, H, D) against a contiguous cache k/v (B, S, Hkv, D),
@@ -237,39 +326,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _refuse_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
-    if q.device.type == "meta":
-        _check_shapes(q, k, v, lengths)
-        B, H, D = q.shape
-        S, Hkv = k.shape[1], k.shape[2]
-        out = torch.empty_like(q)
-        ws = _workspace(q, split_plan(Hkv, S, META_SMS))  # noqa: F841
-        _kernels.report_work("decode_attention", decode_attention_work(
-            B, H, Hkv, D, q.element_size(), B * S))
-        return out
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
-    _check(q, k, v, lengths)
-    B, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    if k.shape[0] != B or lengths.shape != (B,):
-        raise ValueError(f"batch mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"lengths {tuple(lengths.shape)}")
-    out = torch.empty_like(q)
-    n_splits = split_plan(Hkv, S, sm_count(q.device.index))
-    ws = _workspace(q, n_splits)
-    lib = _build.load_library()
-    rc = lib.repro_decode_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), B, H, Hkv, D, S, n_splits, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    decode_attention.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed (code {rc})")
-    if _kernels.work_hook is not None:
-        _kernels.work_hook("decode_attention", *decode_attention_work(
-            B, H, Hkv, D, q.element_size(), _live(lengths)[0]))
-    return out
+    return _contiguous_decode("decode_attention", q, k, v, lengths, False)[0]
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's partial form: q (B, H, D) against a contiguous cache (or a
+    rank's block of its rows) k/v (B, S, Hkv, D), masked past ``lengths``
+    (B,), which may be 0 -> (out f32 (B, H, D), lse f32 (B, H)). ``out``
+    is the softmax-weighted mean of the live V rows in f32, not rounded
+    to q's dtype; ``lse`` the log-sum-exp of the live rows' scaled scores
+    (natural log). Contract at a row with no live row (length <= 0): out
+    exact zeros and lse -inf, so a cross-rank merge gives it weight 0.
+    The split plan is the block's own (``split_plan`` of its S). Has no
+    backward: raises under grad."""
+    _refuse_grad("decode_attention_partial", q, k, v)
+    if q.device.type == "cpu":
+        return decode_attention_partial_plain(q, k, v, lengths)
+    return _contiguous_decode("decode_attention_partial", q, k, v, lengths, True)
 
 
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,

@@ -41,8 +41,14 @@ __all__ = ["DECODE_BLOCK", "DECODE_SHAPES", "SHARED_DECODE_SHAPES", "shared_bloc
 #: over 2 at D 32 in a 48-row cache (4 slots, blocks of 16), zamba2's
 #: shared block (4 over 4, D 64, 48 rows), and smollm's at 64 rows in
 #: blocks of 8 (2 slots a replica; the offline oracle's B 1 is each row
-#: alone). A length of 0 is K4's empty row (zeros); K3's contract is
-#: length >= 1, so it is held to plain on live rows only.
+#: alone); and a rank's shapes in llama3.2-1b's tensor-parallel decode on
+#: two ranks (``chip_smoke.py`` phase 27 (e), lanes at [101, 510, 701,
+#: 1001]): under ``sp_decode`` every q head over a rank's 512 of the 1,024
+#: rows, rank 0's lengths and rank 1's (clamp(length - 512, 0, 512): two
+#: lanes with no live row there), under ``no_sp_decode`` 16 q heads over 4
+#: kv heads of the whole cache. A length of 0 is K4's empty row (zeros)
+#: and K3's partial form's (zeros, lse -inf); K3's contract is length >=
+#: 1, so it is held to plain on live rows only.
 DECODE_BLOCK = 16
 DECODE_SHAPES = [(*case, DECODE_BLOCK) for case in [
     (32, 8, 64, 1024, [1, 15, 16, 17]), (32, 8, 64, 1024, [1000, 1024, 500, 33]),
@@ -61,6 +67,8 @@ DECODE_SHAPES = [(*case, DECODE_BLOCK) for case in [
     (32, 4, 128, 512, [1, 16, 200, 512]),
     (4, 2, 32, 48, [1, 16, 17, 41]), (4, 2, 32, 48, [0, 8, 33, 40]),
     (4, 4, 64, 48, [1, 16, 17, 41]),
+    (32, 8, 64, 512, [101, 510, 512, 512]), (32, 8, 64, 512, [0, 0, 189, 489]),
+    (16, 4, 64, 1024, [101, 510, 701, 1001]),
 ]] + [(4, 2, 32, 64, [9, 28], 8), (4, 2, 32, 64, [0, 8, 17, 63], 8)]
 
 #: Paged flash decode (K4) over SHARED block tables, as prefix sharing

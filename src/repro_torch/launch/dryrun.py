@@ -17,13 +17,18 @@ What the port cannot reproduce, and how the artifact says so:
     time to build the abstract state, ``compile_s`` the time to trace.
   * Only rank 0 is traced, over a backend that moves nothing: collective
     bytes are counted, not timed.
-  * The dense decoders' train and prefill steps compute tensor-parallel
-    over "model" (``runtime/steps.py``, ``dist/tensor_parallel.py``):
-    each parameter gathered over the FSDP axes to its TP-only block once
-    a step, each product split where its weight is cut, the
-    ``all_reduce``s over "model" counted by source. Their decode step and
-    every step of the other families (MoE, MLA, the Mamba2 hybrid, xLSTM,
-    the audio encoder) gather every parameter whole and compute the same
+  * The dense decoders' train, prefill and decode steps compute
+    tensor-parallel over "model" (``runtime/steps.py``,
+    ``dist/tensor_parallel.py``): each parameter gathered over the FSDP
+    axes to its TP-only block once a step, each product split where its
+    weight is cut, the collectives over "model" counted by source (a
+    decode step's gather of the token's heads, the two reduces of its
+    partial-softmax merge, the row-parallel reduces). Their decode caches
+    stay in their rules' layout: cut along their rows under
+    ``sp_decode`` (K3's partial form over the rank's rows), along their
+    kv heads under ``no_sp_decode`` where those divide "model". Every
+    step of the other families (MoE, MLA, the Mamba2 hybrid, xLSTM, the
+    audio encoder) gathers every parameter whole and computes the same
     rows along "model": there the per-device FLOPs and peak exceed the
     reference's, ``variant_note`` says so, and ``useful_ratio``
     (``analysis.roofline``) and ``fits`` (peak <= the card's 80 GiB) show
@@ -35,7 +40,8 @@ What the port cannot reproduce, and how the artifact says so:
     parameters' own placements.
   * Decode caches are built on meta at full length (``long_500k``'s
     524,288 rows too): they cost nothing here, and ``fits`` judges them.
-    The decode kernels count every cache row as live (a full cache).
+    The decode kernels count every row of the rank's block as live (a
+    full cache).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
@@ -96,16 +102,16 @@ _LAYOUT_ONLY = {
 
 
 #: ``variant_note`` of a cell whose step gathers every parameter whole.
-WHOLE_NOTE = (f"{WHOLE_MARK}: tensor-parallel compute covers the dense decoders' train "
-              "and prefill steps")
+WHOLE_NOTE = (f"{WHOLE_MARK}: tensor-parallel compute covers the dense decoders' train, "
+              "prefill and decode steps")
 
 
-def variant_note(model: Model, kind: str, variant: str):
+def variant_note(model: Model, variant: str):
     """What the cell's trace leaves out: a layout-only variant's dropped
     layout, and the whole gather of a step without tensor-parallel
     compute; None where nothing is."""
     notes = [_LAYOUT_ONLY.get(variant)]
-    if kind == "decode" or not model.tensor_parallel:
+    if not model.tensor_parallel:
         notes.append(WHOLE_NOTE)
     notes = [n for n in notes if n]
     return "; ".join(notes) or None
@@ -257,7 +263,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "kind": shape.kind,
         "mesh": mesh_name,
         "variant": variant,
-        "variant_note": variant_note(Model(cfg), shape.kind, variant),
+        "variant_note": variant_note(Model(cfg), variant),
         "n_devices": mesh.size(),
         "lower_s": round(t_build, 1),
         "compile_s": round(t_trace, 1),

@@ -10,7 +10,10 @@ Three execution paths share one set of GQA weights:
     into the cache, and attend causally with the chunked online-softmax
     ``mea_attention`` (plain PyTorch, as the reference computes it in jnp);
   * decode (``gqa_apply`` with a cache): one query per sequence against
-    its cache through kernel K3 (contiguous) or K4 (paged block arena).
+    its cache through kernel K3 (contiguous) or K4 (paged block arena);
+    under a tensor-parallel view (``_tp_decode``) K3 runs at the rank's
+    heads, or at the rank's block of the cache's rows (K3's partial form)
+    with the ranks' partial softmaxes merged, as the cache is laid out.
 
 MLA (``mla_apply``, ``mla_prefill``) caches the latent stream instead:
 {"ckv": (B, S, kv_lora_rank), "k_rope": (B, S, qk_rope_head_dim)}, written
@@ -38,8 +41,11 @@ import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.dist.sharding import current_tp
-from repro_torch.dist.tensor_parallel import copy_to_tp, reduce_from_tp
+from repro_torch.dist.tensor_parallel import (
+    copy_to_tp, gather_from_tp, merge_partials_over_tp, reduce_from_tp,
+)
 from repro_torch.kernels import decode_attention as _decode_kernel
+from repro_torch.kernels import decode_attention_partial as _decode_partial_kernel
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import paged_decode_attention as _paged_decode_kernel
 from repro_torch.kernels.decode_attention import NEG_INF, paged_kv_view, scale_query
@@ -47,7 +53,8 @@ from .layers import ParamSpec, apply_rope, norm_apply, norm_specs
 
 __all__ = [
     "NEG_INF", "KV_SEQ_ALIGN", "NULL_BLOCK", "round_kv_len", "paged_kv_view",
-    "cache_row_update", "cache_rows_update", "decode_lengths", "cached_decode", "gqa_specs",
+    "cache_row_update", "cache_block_row_update", "cache_rows_update", "decode_lengths",
+    "cached_decode", "gqa_specs",
     "heads_split", "local_kv_heads", "gqa_tp_partial",
     "mea_attention", "decode_attention", "gqa_apply", "gqa_prefill",
     "gqa_cache_spec", "mla_specs", "mla_apply", "mla_prefill", "mla_cache_spec",
@@ -101,6 +108,24 @@ def cache_row_update(
         return cache
     rows = torch.arange(B, device=cache.device)
     cache[rows, idx.clamp(0, cache.shape[1] - 1)] = new
+    return cache
+
+
+def cache_block_row_update(cache: torch.Tensor, new: torch.Tensor, idx, first: int,
+                           total: int) -> torch.Tensor:
+    """``cache_row_update`` on a block of a cache's rows, in place: ``cache``
+    (B, S_block, ...) holds rows ``[first, first + S_block)`` of a
+    ``total``-row cache. Each row's offset is clamped into [0, total - 1]
+    as ``cache_row_update`` clamps it; a row whose offset falls in the
+    block is written there, every other row keeps its contents (another
+    rank's block holds it). No branch reads the offsets' values."""
+    B, S = new.shape[0], cache.shape[1]
+    at = _per_row(idx, B, cache.device).clamp(0, total - 1) - first
+    inside = (at >= 0) & (at < S)
+    at = at.clamp(0, S - 1)
+    rows = torch.arange(B, device=cache.device)
+    keep = inside.reshape(B, *(1,) * (new.dim() - 2))
+    cache[rows, at] = torch.where(keep, new[:, 0].to(cache.dtype), cache[rows, at])
     return cache
 
 
@@ -236,14 +261,15 @@ def gqa_tp_partial(params: Dict, cfg: ModelConfig) -> set:
 
 
 def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, kv: Optional[Dict] = None):
     """x (B, S, d) -> q (B, S, H, D), k/v (B, S, Hkv, D), with bias,
     qk-norm and RoPE as the config asks. Under a tensor-parallel view
     whose layout cuts ``heads``, the rank's q heads and the kv heads they
-    read (``_kv_leaves``), column-parallel on ``x``."""
+    read (``_kv_leaves``; ``kv``, the kv projection's leaves, where the
+    caller chooses them), column-parallel on ``x``."""
     if heads_split(params, cfg):
         x = copy_to_tp(x)
-    kv = _kv_leaves(params, cfg)
+    kv = _kv_leaves(params, cfg) if kv is None else kv
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, kv["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, kv["wv"])
@@ -335,6 +361,8 @@ def gqa_apply(
     decode — write the token's K/V row at ``cache_index`` (scalar or
     (B,)) and attend against the cache, K4 over the arena with
     ``block_table``, else K3."""
+    if cache is not None and block_table is None and current_tp() is not None:
+        return _tp_decode(params, x, cfg, positions, cache, cache_index)
     q, k, v = _project_qkv(params, x, cfg, positions)
     if cache is None:
         # RoPE hands back fresh tensors; the projections may be strided
@@ -346,6 +374,72 @@ def gqa_apply(
         return (reduce_from_tp(out) if heads_split(params, cfg) else out), None
     out, new_cache = cached_decode(q, k, v, cache, cache_index, block_table=block_table)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), new_cache
+
+
+def _tp_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+               cache: Dict, cache_index) -> Tuple[torch.Tensor, Dict]:
+    """One decode token under a tensor-parallel view, as GSPMD partitions the
+    reference's decode step over ``"model"`` (``current_tp().kv``: where
+    ``"model"`` cuts the contiguous cache):
+
+      * ``"seq"`` (``sp_decode``): the rank holds rows ``[first, first +
+        S_block)`` of every kv head. Every q head attends over them, so
+        the token's q heads (and its k/v heads where ``wk`` is cut) are
+        gathered over ``"model"``; its K/V row is written by the rank
+        whose block holds ``cache_index`` (per row); K3's partial form
+        runs over the block at lengths ``clamp(length - first, 0,
+        S_block)``, and the ranks' partials are merged
+        (``merge_partials_over_tp``);
+      * ``"heads"`` (``no_sp_decode``, kv heads dividing ``"model"``): K3
+        at the rank's q heads over its kv heads; attention needs no
+        collective;
+      * None (the cache replicated over ``"model"``): where the q heads are
+        cut, ``wk`` / ``wv`` are replicated, so every rank computes and
+        writes every kv head (the replicas stay equal) and K3 reads the kv
+        heads its q heads read (``local_kv_heads``); where they are not
+        (heads dividing neither), the attention is whole.
+
+    Where the q heads are cut, the rank keeps its heads of the output and
+    ``wo`` is row-parallel, made whole by ``reduce_from_tp``."""
+    tp = current_tp()
+    split = heads_split(params, cfg)
+    names = ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
+    kv_cut = params["wk"].shape[1] != cfg.n_kv_heads
+    if (tp.kv == "heads") != kv_cut and tp.kv != "seq":
+        raise ValueError(f"a cache laid out {tp.kv!r} over 'model' beside a kv projection "
+                         f"of {params['wk'].shape[1]} of {cfg.n_kv_heads} heads")
+    q, k, v = _project_qkv(params, x, cfg, positions, kv={n: params[n] for n in names})
+    B = q.shape[0]
+    if tp.kv == "seq":
+        if split:
+            q = gather_from_tp(q, 2)
+        if kv_cut:
+            k, v = gather_from_tp(k, 2), gather_from_tp(v, 2)
+        rows = cache["k"].shape[1]
+        first, total = tp.index * rows, tp.size * rows
+        ck = cache_block_row_update(cache["k"], k, cache_index, first, total)
+        cv = cache_block_row_update(cache["v"], v, cache_index, first, total)
+        lengths = (decode_lengths(cache_index, B, q.device) - first).clamp(0, rows)
+        part, lse = _decode_partial_kernel(q[:, 0].contiguous(), ck, cv, lengths)
+        out = merge_partials_over_tp(part, lse, q.dtype)
+        if split:
+            n = cfg.n_heads // tp.size
+            out = out[:, tp.index * n:(tp.index + 1) * n]
+        out = out[:, None]
+    else:
+        ck = cache_row_update(cache["k"], k, cache_index)
+        cv = cache_row_update(cache["v"], v, cache_index)
+        rk, rv = ck, cv
+        if split and not kv_cut:
+            heads = local_kv_heads(cfg, q.shape[2], tp.index)
+            if isinstance(heads, slice):
+                rk, rv = ck[:, :, heads].contiguous(), cv[:, :, heads].contiguous()
+            else:
+                heads = heads.to(ck.device)
+                rk, rv = ck.index_select(2, heads), cv.index_select(2, heads)
+        out = decode_attention(q, rk, rv, length=decode_lengths(cache_index, B, q.device))
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return (reduce_from_tp(y) if split else y), {"k": ck, "v": cv}
 
 
 def cached_decode(

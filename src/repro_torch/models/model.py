@@ -160,10 +160,11 @@ class Model:
 
     @property
     def tensor_parallel(self) -> bool:
-        """Whether the train and prefill steps compute tensor-parallel over
-        ``"model"`` on a mesh: the dense decoders (families ``dense`` and
-        ``vlm``, blocks ``dense`` and ``parallel``). The other families
-        gather every parameter whole."""
+        """Whether the train, prefill and decode steps compute tensor-parallel
+        over ``"model"`` on a mesh: the dense decoders (families ``dense``
+        and ``vlm``, blocks ``dense`` and ``parallel``; decode over their
+        contiguous caches, the only ones the reference runs on a mesh).
+        The other families gather every parameter whole in every step."""
         return (self.cfg.family in ("dense", "vlm") and self.cfg.input_kind == "tokens"
                 and all(seg.kind in ("dense", "parallel") for seg in self.segments))
 

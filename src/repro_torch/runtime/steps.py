@@ -6,10 +6,10 @@ Plain functions, no tracing: PyTorch runs eagerly, so each step is the
 model call itself. The fastest-k worker mask, occupancy and ragged
 lengths enter as data, as in the reference. The train, prefill and
 decode steps also run on a mesh (``repro_torch.dist.sharding``): see
-``make_train_step`` and ``make_decode_step``. The dense decoders' train
-and prefill steps compute tensor-parallel over ``"model"``
-(``repro_torch.dist.tensor_parallel``); the decode step and the other
-families gather every parameter whole. The dry run
+``make_train_step`` and ``make_decode_step``. The dense decoders' train,
+prefill and decode steps compute tensor-parallel over ``"model"``
+(``repro_torch.dist.tensor_parallel``); the other families gather every
+parameter whole. The dry run
 (``repro_torch.launch.dryrun``) traces all three there.
 ``make_init_fn`` is single-device.
 """
@@ -23,7 +23,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.dist.collectives import contributors, example_weights
 from repro_torch.dist.sharding import (
-    TP_AXIS, current_context, full_value, land, row_split, split_rows, split_sum,
+    TP_AXIS, current_context, full_value, kv_layout, land, row_split, split_rows, split_sum,
     tensor_parallel, tp_block, tp_placements, tp_view,
 )
 from repro_torch.dist.tensor_parallel import vocab_parallel_ce
@@ -90,6 +90,25 @@ def _tp_for(model: Model, ctx):
     if not model.tensor_parallel or TP_AXIS in ctx.dp:
         return None
     return tp_view(ctx.mesh)
+
+
+def _tp_blocks(params, mesh):
+    """Each parameter gathered over the FSDP axes to its TP-only block (its
+    own placements with every mesh dim but ``"model"`` replicated)."""
+    leaves = tree_leaves(params, is_leaf=torch.is_tensor)
+    return _unflatten(params, [tp_block(p, tp_placements(_own(p, mesh), mesh))
+                               for p in leaves])
+
+
+def _split_logits(logits, model: Model, mesh, split):
+    """A tensor-parallel step's logits as a DTensor: the rank's rows over the
+    split's axes, its vocab columns over ``"model"`` where the layout cuts
+    ``vocab`` (replicated where it does not)."""
+    vocab_cut = logits.shape[-1] != model.cfg.vocab_size
+    placements = [Shard(0) if name in split.axes else
+                  Shard(logits.ndim - 1) if name == TP_AXIS and vocab_cut else Replicate()
+                  for name in mesh.mesh_dim_names]
+    return DTensor.from_local(logits, mesh, placements, run_check=False)
 
 
 def _own(p, mesh) -> Tuple:
@@ -280,19 +299,23 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
     return train_step
 
 
-def _rows_block(t, mesh, split):
-    """(the block of cache leaf ``t`` holding the split's rows whole along
-    every other dim, its placements): the leaf's shards over the split's
-    axes kept (they cut its batch dim), every other mesh dim gathered.
-    A plain tensor is taken whole."""
+def _rows_block(t, mesh, split, tp: bool = False):
+    """(the block of cache leaf ``t`` holding the split's rows, its
+    placements): the leaf's shards over the split's axes kept (they cut
+    its batch dim) and, with ``tp``, its shard over ``"model"`` (its rows
+    or its kv heads: ``sharding.kv_layout``); every other mesh dim of size
+    > 1 gathered. A plain tensor is taken whole."""
     if not isinstance(t, DTensor):
         return t, None
     names = list(mesh.mesh_dim_names)
-    keep = [pl if names[i] in split.axes else Replicate() for i, pl in enumerate(t.placements)]
-    dims = {pl.dim for pl in keep if pl.is_shard()}
+    keep = [pl if names[i] in split.axes or (tp and names[i] == TP_AXIS) or mesh.size(i) == 1
+            else Replicate() for i, pl in enumerate(t.placements)]
+    dims = {pl.dim for i, pl in enumerate(keep) if pl.is_shard() and names[i] in split.axes}
     if any(not t.placements[names.index(a)].is_shard() for a in split.axes) or len(dims) > 1:
         raise ValueError(f"a cache leaf laid out {t.placements} is not cut along its batch "
                          f"dim over the batch split's axes {split.axes}")
+    if tuple(keep) == tuple(t.placements):
+        return t.to_local(), keep
     return t.redistribute(mesh, keep).to_local(), keep
 
 
@@ -320,17 +343,9 @@ def make_prefill_step(model: Model) -> Callable:
         if tp is None:
             with split_rows(split):
                 return model.prefill(_full_params(params), inputs[split.rows])
-        leaves = tree_leaves(params, is_leaf=torch.is_tensor)
-        held = [tp_placements(_own(p, mesh), mesh) for p in leaves]
-        blocks = _unflatten(params, [tp_block(p, h) for p, h in zip(leaves, held)])
         with split_rows(split), tensor_parallel(tp):
-            logits = model.prefill(blocks, inputs[split.rows])
-        names = list(mesh.mesh_dim_names)
-        vocab_cut = logits.shape[-1] != model.cfg.vocab_size
-        placements = [Shard(0) if name in split.axes else
-                      Shard(logits.ndim - 1) if name == TP_AXIS and vocab_cut else Replicate()
-                      for name in names]
-        return DTensor.from_local(logits, mesh, placements, run_check=False)
+            logits = model.prefill(_tp_blocks(params, mesh), inputs[split.rows])
+        return _split_logits(logits, model, mesh, split)
 
     return prefill_step
 
@@ -338,12 +353,20 @@ def make_prefill_step(model: Model) -> Callable:
 def make_decode_step(model: Model) -> Callable:
     """(params, token (B, 1), caches, cache_index) -> (logits, caches).
 
-    On a mesh (as ``make_train_step``): each parameter is gathered to its
-    full value; each cache leaf (a DTensor laid out by the rules) is
-    gathered to the rank's rows (``row_split``) whole along its other
-    dims, the single-device decode step runs on those rows, and each
-    updated block is cut back to its leaf's placements (a local slice).
-    Returns the rank's rows of the logits and the caches as DTensors."""
+    On a mesh (as ``make_train_step``), the rank runs the decode step on
+    its own rows (``row_split``); each cache leaf is a DTensor laid out by
+    the rules. The dense decoders (``Model.tensor_parallel``) gather each
+    parameter over the FSDP axes to its TP-only block and run
+    tensor-parallel over ``"model"`` on each cache leaf's local block,
+    never gathered: cut along its rows (``SP_DECODE_RULES``' act_kv_seq),
+    along its kv heads (``DEFAULT_RULES`` where they divide ``"model"``)
+    or replicated (``sharding.kv_layout``; ``attention._tp_decode``); the
+    logits come back as a DTensor as ``make_prefill_step``'s. The other
+    families, and a mesh whose ``"model"`` splits the batch
+    (``pure_dp``), gather each parameter to its full value and each cache
+    leaf to the rank's rows whole along its other dims, run the
+    single-device step on those rows and return their logits. The
+    updated caches come back in their leaves' own placements."""
 
     @torch.no_grad()
     def decode_step(params, token, caches, cache_index):
@@ -352,18 +375,29 @@ def make_decode_step(model: Model) -> Callable:
             return model.decode_step(params, token, caches, cache_index)
         mesh = ctx.mesh
         split = row_split(mesh, token.shape[0], ctx.dp)
+        tp = _tp_for(model, ctx)
         leaves = tree_leaves(caches, is_leaf=torch.is_tensor)
-        blocks = [_rows_block(c, mesh, split) for c in leaves]
+        blocks = [_rows_block(c, mesh, split, tp is not None) for c in leaves]
         idx = cache_index
         if torch.is_tensor(idx) and idx.dim() == 1:
             idx = idx[split.rows]
-        with split_rows(split):
-            logits, new = model.decode_step(_full_params(params), token[split.rows],
-                                            _unflatten(caches, [b for b, _ in blocks]), idx)
+        local = _unflatten(caches, [b for b, _ in blocks])
+        if tp is None:
+            with split_rows(split):
+                logits, new = model.decode_step(_full_params(params), token[split.rows], local,
+                                                idx)
+        else:
+            with split_rows(split), tensor_parallel(tp._replace(kv=kv_layout(leaves))):
+                logits, new = model.decode_step(_tp_blocks(params, mesh), token[split.rows],
+                                                local, idx)
+            logits = _split_logits(logits, model, mesh, split)
         out = []
         for c, n, (_, keep) in zip(leaves, tree_leaves(new, is_leaf=torch.is_tensor), blocks):
-            out.append(n if keep is None else DTensor.from_local(
-                n, mesh, keep, run_check=False).redistribute(mesh, c.placements))
+            if keep is not None:
+                n = DTensor.from_local(n, mesh, keep, run_check=False)
+                if tuple(keep) != tuple(c.placements):
+                    n = n.redistribute(mesh, c.placements)
+            out.append(n)
         return logits, _unflatten(caches, out)
 
     return decode_step

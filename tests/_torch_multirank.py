@@ -67,6 +67,16 @@ TP_CASES = {
                    lr=0.1, steps=2, drop=(0,)),
 }
 TP_MESHES = {"4x2": MESH, "2x4": MESH2}
+#: The tensor-parallel decode of each ``TP_CASES`` config on each mesh,
+#: under both cache layouts of the reference's rules (``DECODE_LAYOUTS``:
+#: ``sp_decode``, the cache's rows over "model", and ``no_sp_decode``, its
+#: kv heads where they divide "model", else replicated): ``DEC_STEPS``
+#: steps of ``DEC_B`` lanes over a seeded cache of ``DEC_S`` rows, each
+#: lane at its own position from ``DEC_START``. At "model" = 2 (blocks of
+#: 16 rows) and 4 (blocks of 8) lane 1's writes cross a block boundary
+#: (15 to 16), and lane 0's sequence never reaches the last block.
+DEC_B, DEC_S, DEC_STEPS, DEC_START = 4, 32, 3, (3, 14, 20, 28)
+DECODE_LAYOUTS = ("sp_decode", "no_sp_decode")
 #: The vocab-parallel cross-entropy alone: logits (ROWS, SEQ, CE_VOCAB).
 CE_VOCAB = 96
 #: The loop: 6 steps, worker 1 fails at step 1 and rejoins at step 4.
@@ -200,6 +210,72 @@ def run_step_case(name, spec, src, mesh, out, meta, key=None):
         state_replicas_equal=_replicas_equal(state, mesh), k1_heads=sorted(heads))
 
 
+def run_decode_case(name, spec, src, mesh, mesh_name, out, meta):
+    """``make_decode_step`` of ``spec``'s config on ``mesh`` from ``src``'s
+    initial parameters (laid out by ``DEFAULT_RULES``) and seeded caches
+    (laid out by each layout's rules), ``DEC_STEPS`` steps: each step's
+    logits and the final caches gathered, whether every replicated block
+    of the caches holds the same bits on every rank that holds it, their
+    placements, and the (q, k) shapes K3 and its partial form were
+    given."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (
+        DEFAULT_RULES, SP_DECODE_RULES, activation_sharding, make_sharding_fn, shard_tree,
+    )
+    from repro_torch.models import Model
+    from repro_torch.models import attention
+    from repro_torch.models.layers import ParamSpec, tree_map
+    from repro_torch.runtime.steps import make_decode_step
+
+    cfg = cut(get_config(spec["arch"]), spec["over"])
+    model = Model(cfg)
+    like = model.init(0, device="cpu")
+    it = iter(range(len(_leaves(like))))
+    params = tree_map(lambda t: torch.from_numpy(src[f"{name}/p{next(it)}"]).to(t.dtype),
+                      like, is_leaf=torch.is_tensor)
+    params = shard_tree(params, tree_map(make_sharding_fn(mesh, DEFAULT_RULES),
+                                         model.param_specs(),
+                                         is_leaf=lambda x: isinstance(x, ParamSpec)))
+    tokens = torch.from_numpy(src[f"{name}/dec_tokens"])
+    step = make_decode_step(model)
+    k3, partial = attention._decode_kernel, attention._decode_partial_kernel
+    for layout in DECODE_LAYOUTS:
+        rules = SP_DECODE_RULES if layout == "sp_decode" else DEFAULT_RULES
+        blank = model.blank_caches(DEC_B, DEC_S, device="cpu")
+        it = iter(range(len(_leaves(blank))))
+        caches = tree_map(lambda t: torch.from_numpy(src[f"{name}/dec_c{next(it)}"]), blank,
+                          is_leaf=torch.is_tensor)
+        caches = shard_tree(caches, tree_map(make_sharding_fn(mesh, rules),
+                                             model.cache_specs(DEC_B, DEC_S),
+                                             is_leaf=lambda x: isinstance(x, ParamSpec)))
+        key = f"{name}@{mesh_name}/{layout}"
+        seen = set()
+
+        def seen_k3(q, k, v, lengths):
+            seen.add(("k3", tuple(q.shape), tuple(k.shape)))
+            return k3(q, k, v, lengths)
+
+        def seen_partial(q, k, v, lengths):
+            seen.add(("partial", tuple(q.shape), tuple(k.shape)))
+            return partial(q, k, v, lengths)
+
+        attention._decode_kernel, attention._decode_partial_kernel = seen_k3, seen_partial
+        try:
+            with activation_sharding(mesh, rules=rules):
+                for s in range(DEC_STEPS):
+                    logits, caches = step(params, tokens[s], caches,
+                                          torch.tensor(DEC_START) + s)
+                    out[f"{key}/logits{s}"] = logits.full_tensor().numpy()
+        finally:
+            attention._decode_kernel, attention._decode_partial_kernel = k3, partial
+        for i, c in enumerate(_leaves(caches)):
+            out[f"{key}/c{i}"] = _full(c).numpy()
+        meta[key] = {"replicas_equal": _replicas_equal(caches, mesh),
+                     "placements": [repr(p) for p in _leaves(caches)[0].placements],
+                     "logits_placements": [repr(p) for p in logits.placements],
+                     "kernels": sorted([k, list(q), list(c)] for k, q, c in seen)}
+
+
 def run_vocab_ce(src, mesh, name, out, meta):
     """``vocab_parallel_ce`` on the rank's rows (over "data") and vocab
     columns (over "model") of ``src``'s logits, with its mask and worker
@@ -312,6 +388,7 @@ def rank_main(rank: int, d: str) -> None:
         for mesh_name, m in meshes.items():
             for name, spec in TP_CASES.items():
                 run_step_case(name, spec, src, m, out, meta, key=f"{name}@{mesh_name}")
+                run_decode_case(name, spec, src, m, mesh_name, out, meta)
             run_vocab_ce(src, m, mesh_name, out, meta)
         run_pipeline(src, mesh, out, meta)
         run_constrain(mesh, meta)

@@ -10,6 +10,7 @@ smollm-135m in f32 with the port's seeded weights.
 3. The reference's regression schedules stay clean on the port.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import json
 import os
 import sys

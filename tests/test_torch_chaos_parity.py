@@ -12,6 +12,7 @@ written by the reference replays through the port with the same
 signature.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import math
 import os
 import sys

@@ -14,6 +14,7 @@ against the reference's (``repro.dist.compression``), on the CPU.
    absmax / 127 is subnormal gets scale 0 from the reference.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ full-width parameter counts, LayerNorm, the serving engine over both
 pools, and selective remat.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import collections
 import dataclasses
 

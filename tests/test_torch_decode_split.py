@@ -11,9 +11,18 @@ arithmetic, and is held to the plain versions (``decode_attention_plain``,
 (``decode_ref``, ``paged_decode_ref``). Inputs come from one seeded numpy
 generator. Tolerance: 2e-5 in f32, 2e-2 in bf16 (both round once to bf16
 at the end, from f32 sums taken in other orders).
+
+K3's partial form (``decode_attention_partial``: the f32 output and each
+row's log-sum-exp, for a rank's block of a cache cut along its rows) is
+held here too: its plain version against an f64 softmax, two blocks of a
+cache merged by the cross-rank merge's formula against the whole, a
+block with no live row included, and the emulation's (m, l) turned into
+the kernels' lse.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import inspect
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +30,10 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention import decode_ref, paged_decode_ref
-from repro_torch.kernels import decode_attention_plain, paged_decode_attention_plain
+from repro_torch.kernels import (
+    decode_attention_partial, decode_attention_partial_plain, decode_attention_plain,
+    paged_decode_attention_plain,
+)
 from repro_torch.kernels.decode_attention import (
     GRANULE,
     MAX_SPLITS,
@@ -83,22 +95,29 @@ def _split_state(qg, k, v, r0, r1):
     return m, p.sum(dim=-1), p @ v[r0:r1].float()
 
 
-def _split_merge(q, k, v, lengths, n_splits):
+def _split_merge(q, k, v, lengths, n_splits, partial=False):
     """What the split and merge kernels compute: q (B, H, D), contiguous
     k/v (B, S, Hkv, D), lengths (B,) -> (B, H, D) in q's dtype; a
-    length-0 row gives zeros."""
+    length-0 row gives zeros. With ``partial`` (K3's partial form): (out
+    f32, lse (B, H)), lse = (m + log2 l) ln 2 from the merged state, -inf
+    where l is 0 (``row_lse`` in the source)."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     qf = scale_query(q).float().reshape(B, Hkv, G, D) * LOG2E
     out = torch.empty(B, Hkv, G, D)
+    lse = torch.empty(B, Hkv, G)
     for b in range(B):
-        length = min(int(lengths[b]), S)
+        length = max(0, min(int(lengths[b]), S))
         for h in range(Hkv):
             states = [_split_state(qf[b, h], k[b, :, h], v[b, :, h], r0, r1)
                       for r0, r1 in split_rows(length, n_splits)]
-            _, l, acc = _merge(states)
+            m, l, acc = _merge(states)
             out[b, h] = acc / torch.clamp(l, min=1e-30)[:, None]
+            lse[b, h] = torch.where(l > 0, (m + torch.log2(l)) * math.log(2.0),
+                                    torch.full_like(l, -math.inf))
+    if partial:
+        return out.reshape(B, H, D), lse.reshape(B, H)
     return out.reshape(B, H, D).to(q.dtype)
 
 
@@ -299,3 +318,147 @@ def test_split_merge_is_one_softmax_for_any_split_count():
     want = decode_attention_plain(q, k, v, lengths)
     for n in (1, 2, 3, 7, 19, 25, 64):
         torch.testing.assert_close(_split_merge(q, k, v, lengths, n), want, atol=2e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K3's partial form: a rank's block of a cache's rows, merged across ranks
+# ---------------------------------------------------------------------------
+
+def _f64_softmax(q, k, v, lengths):
+    """(out, lse) in f64 numpy: q scaled in its own dtype as the kernels do,
+    a softmax over each row's live rows; a row with none gives zeros and
+    -inf."""
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    qs = scale_query(q).double().numpy().reshape(B, Hkv, H // Hkv, D)
+    kd, vd = k.double().numpy(), v.double().numpy()
+    out, lse = np.zeros((B, Hkv, H // Hkv, D)), np.full((B, Hkv, H // Hkv), -np.inf)
+    for b in range(B):
+        n = int(lengths[b])
+        if n <= 0:
+            continue
+        s_ = np.einsum("hgd,shd->hgs", qs[b], kd[b, :n])
+        top = s_.max(-1, keepdims=True)
+        e = np.exp(s_ - top)
+        lse[b] = (top[..., 0] + np.log(e.sum(-1)))
+        out[b] = np.einsum("hgs,shd->hgd", e / e.sum(-1, keepdims=True), vd[b, :n])
+    return out.reshape(B, H, D), lse.reshape(B, H)
+
+
+def _merge_partials(parts):
+    """The cross-rank merge's formula (``merge_partials_over_tp``) over a
+    list of (out f32, lse) partials, in f32: the largest lse floored at
+    the least finite f32, weights exp(lse - max), the weighted outputs summed and
+    divided by the summed weights (floored at 1e-30)."""
+    top = torch.stack([lse for _, lse in parts]).amax(0).clamp(
+        min=torch.finfo(torch.float32).min)
+    num = sum(out * torch.exp(lse - top)[..., None] for out, lse in parts)
+    den = sum(torch.exp(lse - top) for _, lse in parts)
+    return num / den.clamp(min=1e-30)[..., None]
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_partial_plain_matches_an_f64_softmax(dtype, G):
+    """``decode_attention_partial_plain`` (the CPU path of the wrapper)
+    against an f64 softmax: out within 2e-6 and lse within 2e-6 relative
+    in f32 terms on live rows (f32 sums against f64), whatever q's dtype
+    (the output is not rounded to it); a length-0 row gives exact zeros
+    and lse -inf."""
+    B, D = len(LENGTHS), 64
+    H = G * HKV
+    q, k, v = (torch.from_numpy(_np(s_)).to(TDT[dtype])
+               for s_ in ((B, H, D), (B, S, HKV, D), (B, S, HKV, D)))
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32)
+    out, lse = decode_attention_partial(q, k, v, lengths)
+    assert out.dtype == torch.float32 and lse.dtype == torch.float32
+    assert torch.equal(out, decode_attention_partial_plain(q, k, v, lengths)[0])
+    want_out, want_lse = _f64_softmax(q, k, v, lengths)
+    live = lengths > 0
+    np.testing.assert_allclose(out[live].numpy(), want_out[live.numpy()], atol=2e-6)
+    np.testing.assert_allclose(lse[live].numpy(), want_lse[live.numpy()], rtol=2e-6,
+                               atol=2e-6)
+    assert (out[~live] == 0).all() and torch.isneginf(lse[~live]).all()
+    # The output is the plain K3's before its rounding to q's dtype.
+    np.testing.assert_allclose(_f32(out[live].to(q.dtype)),
+                               _f32(decode_attention_plain(q, k, v, lengths)[live]),
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_blocks_of_a_cache_merged_equal_the_whole(G, parts):
+    """A cache cut along its rows into ``parts`` equal blocks, as
+    ``sp_decode`` cuts it over "model": each block's partial form at the
+    local lengths clamp(length - first, 0, rows) (rows 0 for every lane
+    shorter than the block's first row: blocks with no live row), merged
+    by the cross-rank formula, equals the partial form over the whole
+    cache within 1e-6 relative (f32), and its lse the whole's."""
+    B, D = len(LENGTHS), 64
+    H = G * HKV
+    q, k, v = (torch.from_numpy(_np(s_)) for s_ in ((B, H, D), (B, S, HKV, D), (B, S, HKV, D)))
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32)
+    rows = S // parts
+    blocks = []
+    for i in range(parts):
+        local = (lengths - i * rows).clamp(0, rows)
+        blocks.append(decode_attention_partial(q, k[:, i * rows:(i + 1) * rows].contiguous(),
+                                               v[:, i * rows:(i + 1) * rows].contiguous(),
+                                               local))
+    assert any(bool((b[1] == -math.inf).any()) for b in blocks), "no block without live rows"
+    whole, whole_lse = decode_attention_partial(q, k, v, lengths)
+    merged = _merge_partials(blocks)
+    live = lengths > 0
+    scale = whole[live].abs().max()
+    np.testing.assert_allclose(merged[live].numpy(), whole[live].numpy(), rtol=0,
+                               atol=1e-6 * float(scale))
+    assert (merged[~live] == 0).all() and torch.isfinite(merged).all()
+    lse = torch.logsumexp(torch.stack([b[1] for b in blocks]), 0)
+    np.testing.assert_allclose(lse[live].numpy(), whole_lse[live].numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 5, 40])
+def test_split_merge_emulation_gives_the_partial_form(n_splits):
+    """The kernels' arithmetic with an f32 output and the lse written from
+    the merged (m, l) (``_split_merge(..., partial=True)``, one split
+    writing it from the split kernel) equals the plain partial form: out
+    within 2e-6, lse within 2e-6 relative; a length-0 row zeros and
+    -inf (the lse within 2e-6 absolute near 0)."""
+    B, H, D = len(LENGTHS), 8, 64
+    q, k, v = (torch.from_numpy(_np(s_)).to(torch.bfloat16)
+               for s_ in ((B, H, D), (B, S, HKV, D), (B, S, HKV, D)))
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32)
+    out, lse = _split_merge(q, k, v, lengths, n_splits, partial=True)
+    want, want_lse = decode_attention_partial_plain(q, k, v, lengths)
+    live = lengths > 0
+    np.testing.assert_allclose(out[live].numpy(), want[live].numpy(), atol=2e-6)
+    np.testing.assert_allclose(lse[live].numpy(), want_lse[live].numpy(), rtol=2e-6,
+                               atol=2e-6)
+    assert (out[~live] == 0).all() and torch.isneginf(lse[~live]).all()
+    assert torch.equal(out.to(q.dtype), _split_merge(q, k, v, lengths, n_splits))
+
+
+def test_partial_form_on_meta_reports_the_blocks_rows():
+    """The dry run's meta branch of K3's partial form: f32 (B, H, D) and
+    (B, H) outputs, no launch, and one report under K3's name of
+    ``decode_attention_partial_work`` over every row of the rank's block
+    (a full cache), which adds the f32 output and the lse to K3's bytes."""
+    import repro_torch.kernels as K
+
+    B, H, Hkv, D, S = 4, 32, 8, 64, 512
+    q = torch.empty((B, H, D), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((B, S, Hkv, D), dtype=torch.bfloat16, device="meta")
+    lengths = torch.empty((B,), dtype=torch.int32, device="meta")
+    seen, launches = [], K.decode_attention.launches
+    K.work_hook = lambda name, flops, nbytes: seen.append((name, flops, nbytes))
+    try:
+        out, lse = decode_attention_partial(q, k, k, lengths)
+    finally:
+        K.work_hook = None
+    assert out.shape == (B, H, D) and lse.shape == (B, H)
+    assert out.dtype == lse.dtype == torch.float32 and out.device.type == "meta"
+    assert K.decode_attention.launches == launches
+    flops, nbytes = K.decode_attention_partial_work(B, H, Hkv, D, 2, B * S)
+    assert seen == [("decode_attention", flops, nbytes)]
+    k3 = K.decode_attention_work(B, H, Hkv, D, 2, B * S)
+    assert (flops, nbytes - k3[1]) == (k3[0], B * H * D * 2 + B * H * 4)

@@ -26,6 +26,7 @@ serves and simulates while the reference's loop runs.
   ``max_iters`` cut to ``SIM_ITERS``: stage logs and the time to the gap.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 
 import jax

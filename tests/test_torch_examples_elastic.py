@@ -22,6 +22,7 @@ itself (a failing assertion fails its test):
   summary and every record equal, and the trace holds as many events.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import jax
 import numpy as np
 import pytest

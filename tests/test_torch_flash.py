@@ -10,6 +10,7 @@ the functions the CUDA kernels are checked against on the card
 seeded numpy generator and go to both frameworks.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import functools
 import math
 

@@ -17,6 +17,7 @@ smollm-135m (and zamba2 for migration), f32.
    in-flight counts, and (obs on) an equal trace and metrics snapshot.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import numpy as np
 import pytest
 import torch

@@ -26,6 +26,7 @@ chaos search's twin runs its sampled and leak schedules on the card, and
 the int8 error-feedback codec there equals the CPU's bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 import importlib
 
@@ -159,6 +160,36 @@ def test_decode_rows_do_not_depend_on_the_batch(cuda, dtype, H, Hkv, D, S, lens,
         if lens[b] > 0:
             one = K.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths[b:b + 1])
             assert torch.equal(one[0], out[b]), f"K3 row {b}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D,S,lens,bs", DECODE_SHAPES)
+def test_decode_attention_partial_matches_plain(cuda, dtype, H, Hkv, D, S, lens, bs):
+    """K3's partial form at ``parity.DECODE_SHAPES`` (a rank's block of rows
+    among them, lanes with no live row too): its f32 output within 2e-5
+    and its lse within 1e-5 (relative, 1e-5 absolute near 0) of the plain
+    partial form (f32 sums in another order); a row of length 0 gives
+    exact zeros and lse -inf; the output rounded to q's dtype equals K3's
+    bit for bit (the same kernels, K3 rounding at the end); a second
+    launch gives the same bits; and the launch counts on K3's counter."""
+    g = torch.Generator().manual_seed(7)
+    B = len(lens)
+    q = torch.randn((B, H, D), generator=g).to(cuda, dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    live = lengths > 0
+    before = K.decode_attention.launches
+    out, lse = K.decode_attention_partial(q, k, v, lengths)
+    assert K.decode_attention.launches == before + 1
+    ref, ref_lse = K.decode_attention_partial_plain(q, k, v, lengths)
+    assert out.dtype == lse.dtype == torch.float32
+    torch.testing.assert_close(out[live], ref[live], atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-5, rtol=1e-5)
+    assert (out[~live] == 0).all() and torch.isneginf(lse[~live]).all()
+    assert torch.equal(out.to(dtype), K.decode_attention(q, k, v, lengths))
+    again = K.decode_attention_partial(q, k, v, lengths)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

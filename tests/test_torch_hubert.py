@@ -13,6 +13,7 @@ through ``params_from_numpy``. Frames come from the reference's seeded
 largest value (sums in other orders).
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 import functools
 

@@ -10,6 +10,7 @@ frameworks. Tolerance: 2e-5 in f32 (the two frameworks sum in different
 orders); bf16 RMSNorm is held to one bf16 rounding step.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ port in subprocesses of their own on a fake process group
 (``tests/_torch_launch_specs.py``): neither a 512-device jax nor a fake
 default group may stay alive in a pytest worker beside other tests."""
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 import json
 import os
@@ -359,14 +360,31 @@ def _llama_split_product_flops(cfg, data: int, model: int, batch: int, seq: int)
     return cfg.n_layers * (layer * (2 + 2) - w_out) + head * (1 + 2)
 
 
+def _llama_decode_product_flops(cfg, data: int, model: int, batch: int) -> float:
+    """The matrix-product FLOPs of reduced llama's tensor-parallel decode
+    step on one rank under ``sp_decode``: its batch / data tokens through
+    its blocks of q (H / m heads), k and v (Hkv / m), o (its H / m heads of
+    the merged attention), the gated MLP (d_ff / m) and the tied head
+    (V / m), at 2 FLOPs a multiply-add. The attention over the cache is
+    K3's own work (its partial form), not a product."""
+    T = batch // data
+    d, hd, ffl = cfg.d_model, cfg.head_dim, cfg.d_ff // model
+    hl, kvl = cfg.n_heads // model, cfg.n_kv_heads // model
+    layer = 2 * T * (d * hl * hd + 2 * d * kvl * hd + hl * hd * d + 3 * d * ffl)
+    return cfg.n_layers * layer + 2 * T * d * (cfg.vocab_size // model)
+
+
 def test_dryrun_cell_on_a_test_mesh():
     """Reduced llama (and an MoE and the hybrid) traced on a (4, 2) fake
-    mesh. Llama's train and prefill steps compute tensor-parallel: their
-    parameter gathers are exactly one gather of each leaf to its TP-only
-    layout (over "data" only: a leaf cut there gives its block over
-    "model"; nothing else is gathered), and the train step's products
-    count the FLOPs ``_llama_split_product_flops`` gives for the split.
-    Llama's decode step and every step of the MoE and the hybrid gather
+    mesh. Llama's train, prefill and decode steps compute
+    tensor-parallel: their parameter gathers are exactly one gather of
+    each leaf to its TP-only layout (over "data" only: a leaf cut there
+    gives its block over "model"; nothing else is gathered), the train
+    step's products count the FLOPs ``_llama_split_product_flops`` gives
+    for the split, and the decode step's (``sp_decode``, the default for
+    decode cells) ``_llama_decode_product_flops``; the decode step's
+    other all-gathers are its token's heads (``gather_from_tp``), its
+    cache never gathered. Every step of the MoE and the hybrid gathers
     exactly one ``full_value`` of each sharded leaf (a leaf cut along one
     mesh dim: its full bytes; cut along both, DTensor gathers one dim at
     a time, and the first gather's part adds to them). Train steps'
@@ -374,13 +392,16 @@ def test_dryrun_cell_on_a_test_mesh():
     got = json.loads(_run(["-c", _TEST_MESH]).strip().splitlines()[-1])
     for name, c in got.items():
         arch, kind = name.split()
-        tp = arch == "llama3.2-1b" and kind != "decode"
+        tp = arch == "llama3.2-1b"
         gathered = sum(b for s, b in c["sources"] if "(full_value)" in s)
         to_tp = sum(b for s, b in c["sources"] if "(tp_block)" in s)
+        heads = sum(b for s, b in c["sources"] if "via gather_from_tp" in s)
         if tp:
             assert gathered == 0 and to_tp == c["tp_gather_bytes"], name
             assert 0 < to_tp < c["sharded_bytes"], name
-            assert c["collective_bytes"]["all-gather"] == to_tp, name
+            assert c["collective_bytes"]["all-gather"] == to_tp + heads, name
+            assert (heads > 0) == (kind == "decode"), name
+            assert not any("_rows_block" in s for s, _ in c["sources"]), name
             assert c["collective_bytes"]["all-reduce"] > 0, name
         else:
             assert to_tp == 0 and gathered == c["gather_bytes"], name
@@ -390,12 +411,11 @@ def test_dryrun_cell_on_a_test_mesh():
         if kind == "train":
             assert c["collective_bytes"]["reduce-scatter"] > 0, name
             assert {"rmsnorm", "rmsnorm_bwd"} <= set(c["kernel_work"]), name
-        if arch == "llama3.2-1b" and kind == "decode":
-            assert c["collective_bytes"]["all-gather"] == c["gather_bytes"] + sum(
-                b for s, b in c["sources"] if "_rows_block" in s)
     cfg = get_config("llama3.2-1b").reduced(dtype="bfloat16", remat="full")
     assert got["llama3.2-1b train"]["product_flops"] == _llama_split_product_flops(
         cfg, 4, 2, 8, 64)
+    assert got["llama3.2-1b decode"]["product_flops"] == _llama_decode_product_flops(
+        cfg, 4, 2, 8)
     assert "ssd_scan_bwd" in got["zamba2-1.2b train"]["kernel_work"]
     assert "decode_attention" in got["llama3.2-1b decode"]["kernel_work"]
 
@@ -410,7 +430,9 @@ _PRODUCTION = textwrap.dedent("""
 def test_production_cell_has_the_reference_schema(dumps):
     """smollm-135m x decode_32k x pod16x16 on 256 fake ranks: an OK
     artifact holding every key of the reference's (``_finish``), XLA's
-    own figures null, and ``fits``."""
+    own figures null, and ``fits``; its decode step tensor-parallel (the
+    TP-only gather's all-gathers, the merge's, MLP's and lookup's
+    all-reduces; no whole gather)."""
     art = json.loads(_run(["-c", _PRODUCTION], timeout=240).strip().splitlines()[-1])
     schema = dumps["ref"]["__schema__"]
     for k, sub in schema.items():
@@ -421,7 +443,9 @@ def test_production_cell_has_the_reference_schema(dumps):
     assert art["cost"]["xla_flops"] is None and art["cost"]["xla_bytes_accessed"] is None
     assert art["fits"] is True and art["memory"]["peak_bytes"] > art["memory"]["argument_bytes"]
     assert art["kernel_work"]["decode_attention"]["launches"] == get_config("smollm-135m").n_layers
-    assert set(art["collectives"]) == {"all-gather"}
+    assert set(art["collectives"]) == {"all-gather", "all-reduce"}
+    assert not any("(full_value)" in s for s, _ in art["collective_top_sources"])
+    assert art["variant_note"] is None
 
 
 _GUARD = textwrap.dedent("""

@@ -13,6 +13,7 @@ ticket stays valid after its source slot is re-used and overwritten (the
 port's caches change in place, so a snapshot must hold copies).
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 
 import jax

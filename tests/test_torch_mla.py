@@ -21,6 +21,7 @@ Tolerance: 5e-6 relative to the compared leaf's largest magnitude
 every comparison here held at 1e-6 on the CPU. Streams: token for token.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 
 import jax

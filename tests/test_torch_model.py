@@ -8,6 +8,7 @@ block tables come from seeded numpy and go to both frameworks. Logits
 agree at atol 1e-4 in f32 (different summation orders, 2 layers).
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import functools
 
 import jax

@@ -8,6 +8,7 @@ experts, weights within f32 rounding); the dispatch and combine within
 order); gradients against ``jax.grad`` within 1e-5 of the largest.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 
 import jax

@@ -2,8 +2,9 @@
 ("data", "model") mesh, against the reference's single-device numbers
 (its own multi-device step fails on jax 0.9.0, so it is no oracle) and
 the port's single-process loop; and its tensor-parallel compute over
-"model" (the dense decoders' train and prefill steps, the vocab-parallel
-cross-entropy) on that mesh and on a (2, 4) mesh over the same ranks.
+"model" (the dense decoders' train, prefill and decode steps, the
+vocab-parallel cross-entropy) on that mesh and on a (2, 4) mesh over the
+same ranks.
 
 One spawned group (``tests/_torch_multirank.py``) runs every case; the
 parent computes the reference's numbers with JAX and hands the ranks the
@@ -12,6 +13,7 @@ same initial parameters and batches as ``.npz``. The group starts from a
 process group if it has not ended within 300 s.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import json
 import os
 import signal
@@ -32,6 +34,7 @@ from repro.dist.pipeline_parallel import pipeline_forward as j_pipeline_forward
 from repro.dist.pipeline_parallel import stage_params as j_stage_params
 from repro.models import build_model
 from repro.optim import optimizers as jopt
+from repro.runtime.steps import make_decode_step as j_make_decode_step
 from repro.runtime.steps import make_train_step as j_make_train_step
 import repro_torch.core as tcore
 import repro_torch.data as tdata
@@ -43,8 +46,9 @@ from repro_torch.optim import get_optimizer
 from repro_torch.runtime import FaultEvent, TrainLoopConfig, train
 from _noisy import with_noise
 from _torch_multirank import (
-    CASES, CE_VOCAB, LOOP_EVENTS, LOOP_STEPS, N_WORKERS, PIPE_D, PIPE_L, PIPE_MB, PIPE_MICRO,
-    ROWS, SEQ, TP_CASES, TP_MESHES, cut, loop_setup,
+    CASES, CE_VOCAB, DEC_B, DEC_S, DEC_START, DEC_STEPS, DECODE_LAYOUTS, LOOP_EVENTS,
+    LOOP_STEPS, N_WORKERS, PIPE_D, PIPE_L, PIPE_MB, PIPE_MICRO, ROWS, SEQ, TP_CASES,
+    TP_MESHES, cut, loop_setup,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -84,6 +88,7 @@ def _reference_case(name, spec, src, want):
     jp = jax.jit(ref.init)(jax.random.PRNGKey(0))
     if spec.get("noisy"):
         jp = jax.tree.map(jnp.asarray, with_noise(jax.tree.map(np.asarray, jp), 0))
+    init = jp
     for i, p in enumerate(_port_leaves(cfg, jp)):
         src[f"{name}/p{i}"] = p
     batches = _batches(name, spec, cfg.vocab_size)
@@ -99,6 +104,38 @@ def _reference_case(name, spec, src, want):
         for k in metrics:
             metrics[k].append(float(m[k]))
     want[name] = {"metrics": metrics, "params": _port_leaves(cfg, jp), "prefill": prefill}
+    if name in TP_CASES:
+        want[name]["decode"] = _reference_decode(name, ref, cfg, init, src)
+
+
+def _reference_decode(name, ref, cfg, jp, src):
+    """The reference's single-device ``make_decode_step`` from the case's
+    initial parameters over seeded caches (``DEC_B`` x ``DEC_S``, random
+    rows standing for earlier tokens) and seeded tokens, ``DEC_STEPS``
+    steps at the per-lane positions ``DEC_START`` + step: its inputs into
+    ``src`` (the caches in the port's per-layer order), -> (each step's
+    logits, the final caches in the port's leaf order). Run once a
+    config: the meshes and layouts are all held to it."""
+    rng = np.random.default_rng(sum(map(ord, name)) + 7)
+    blank = Model(cfg).blank_caches(DEC_B, DEC_S, device="cpu")
+    filled = tree_map(lambda t: torch.from_numpy(
+        rng.standard_normal(tuple(t.shape)).astype(np.float32)), blank, is_leaf=torch.is_tensor)
+    for i, t in enumerate(_leaves(filled)):
+        src[f"{name}/dec_c{i}"] = t.numpy()
+    tokens = rng.integers(0, cfg.vocab_size, size=(DEC_STEPS, DEC_B, 1)).astype(np.int32)
+    src[f"{name}/dec_tokens"] = tokens
+    # The reference stacks a segment's layers on a leading axis.
+    jc = [{leaf: jnp.stack([jnp.asarray(layer[leaf].numpy()) for layer in seg])
+           for leaf in ("k", "v")} for seg in filled]
+    step = jax.jit(j_make_decode_step(ref))
+    logits = []
+    for s in range(DEC_STEPS):
+        lg, jc = step(jp, jnp.asarray(tokens[s]), jc,
+                      jnp.asarray(np.array(DEC_START, np.int32) + s))
+        logits.append(np.asarray(lg))
+    caches = [np.asarray(jc[g][leaf])[i] for g, seg in enumerate(filled)
+              for i in range(len(seg)) for leaf in ("k", "v")]
+    return {"logits": logits, "caches": caches}
 
 
 def _reference_ce(src, want):
@@ -277,6 +314,76 @@ def test_k1_runs_on_the_ranks_heads(run, key):
     else:
         want = (H // m, 1 if (H // Hkv) % (H // m) == 0 else H // m)
     assert [tuple(h) for h in meta[key]["k1_heads"]] == [want], (key, meta[key]["k1_heads"])
+
+
+DECODE_KEYS = [f"{name}@{mesh}/{layout}" for mesh in TP_MESHES for name in TP_CASES
+               for layout in DECODE_LAYOUTS]
+
+
+@pytest.mark.parametrize("key", DECODE_KEYS)
+def test_tensor_parallel_decode_matches_reference(run, key):
+    """The dense decoders' tensor-parallel decode step on each mesh under
+    each cache layout, ``DEC_STEPS`` steps whose writes cross a rank's
+    block of rows: every step's logits, a DTensor of the rank's rows over
+    "data" and its vocab columns over "model", and the final caches' full
+    values equal the reference's single-device ``make_decode_step``
+    within 1e-5 of their largest magnitude (the prefill's tolerance);
+    every replicated block of the caches holds the same bits on every
+    rank that holds it; the caches come back in their own layout."""
+    want, got, meta = run
+    name, rest = key.split("@")
+    mesh, layout = rest.split("/")
+    ref = want[name]["decode"]
+    for s, w in enumerate(ref["logits"]):
+        assert got[f"{key}/logits{s}"].shape == w.shape
+        _close(got[f"{key}/logits{s}"], w, 0, 1e-5 * np.abs(w).max(), f"{key} logits {s}")
+    for i, w in enumerate(ref["caches"]):
+        _close(got[f"{key}/c{i}"], w, 0, 1e-5 * np.abs(w).max(), f"{key} cache leaf {i}")
+    assert meta[key]["replicas_equal"], key
+    data, m = TP_MESHES[mesh]
+    cfg = cut(get_config(TP_CASES[name]["arch"]), TP_CASES[name]["over"])
+    model_dim = ("Shard(dim=1)" if layout == "sp_decode" else
+                 "Shard(dim=2)" if cfg.n_kv_heads % m == 0 else "Replicate()")
+    assert meta[key]["placements"] == ["Shard(dim=0)", model_dim], key
+    assert meta[key]["logits_placements"] == ["Shard(dim=0)", "Shard(dim=2)"], key
+
+
+@pytest.mark.parametrize("key", DECODE_KEYS)
+def test_k3_runs_on_the_ranks_rows_or_heads(run, key):
+    """What K3 is given in a decode step (the rank's ``DEC_B`` / data lanes):
+    under ``sp_decode`` its partial form, every q head over the rank's
+    ``DEC_S`` / m rows of every kv head; under ``no_sp_decode`` K3 at the
+    rank's H / m q heads over its Hkv / m kv heads where those divide m,
+    over the kv heads its q heads read (as K1 in training) where only the
+    q heads do, and whole where neither does."""
+    _, _, meta = run
+    name, rest = key.split("@")
+    mesh, layout = rest.split("/")
+    data, m = TP_MESHES[mesh]
+    cfg = cut(get_config(TP_CASES[name]["arch"]), TP_CASES[name]["over"])
+    H, Hkv, D, b = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, DEC_B // data
+    if layout == "sp_decode":
+        want = ["partial", [b, H, D], [b, DEC_S // m, Hkv, D]]
+    elif H % m:
+        want = ["k3", [b, H, D], [b, DEC_S, Hkv, D]]
+    elif Hkv % m == 0:
+        want = ["k3", [b, H // m, D], [b, DEC_S, Hkv // m, D]]
+    else:
+        kv = 1 if (H // Hkv) % (H // m) == 0 else H // m
+        want = ["k3", [b, H // m, D], [b, DEC_S, kv, D]]
+    assert meta[key]["kernels"] == [want], (key, meta[key]["kernels"])
+
+
+def test_decode_writes_cross_a_block_and_skip_the_last():
+    """The decode cases' positions do what their tests claim: at every
+    "model" width, lane 1's writes cross from one rank's block of rows
+    into the next, and lane 0 never writes into the last rank's block."""
+    for _, m in TP_MESHES.values():
+        rows = DEC_S // m
+        owners = [[(DEC_START[lane] + s) // rows for s in range(DEC_STEPS)]
+                  for lane in range(DEC_B)]
+        assert len(set(owners[1])) == 2, (m, owners)
+        assert max(owners[0]) < m - 1, (m, owners)
 
 
 @pytest.mark.parametrize("mesh", list(TP_MESHES))

@@ -20,6 +20,7 @@ reference's, on the CPU.
    frameworks' f32 arithmetic) within 1e-5 relative.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 import json
 

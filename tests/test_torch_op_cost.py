@@ -5,6 +5,7 @@ reference's ``collective_bytes_from_hlo``, its peak of live bytes, and
 the kernels' work formulas against the figures of PERF.md's kernel table
 (``chip_smoke.py``'s bounds at the H100's datasheet rates)."""
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import json
 import os
 import subprocess
@@ -248,6 +249,12 @@ def test_decode_work_reproduces_the_kernel_table():
     assert round(_bound_ms(fp, bp, F32), 5) == 0.00101
     f, b = K.paged_decode_attention_work(4, 16, 2, 128, 2, sum(lens), blocks)  # qwen2.5-3b
     assert round(_bound_ms(f, b, F32), 6) == 0.000511
+    # A rank's shapes of llama3.2-1b's decode on two ranks (phase 27 (e)):
+    # K3's partial form over rank 0's 512 rows, K3 at 16 / 4 heads.
+    f, b = K.decode_attention_partial_work(4, 32, 8, 64, 2, 101 + 510 + 512 + 512)
+    assert round(_bound_ms(f, b, F32), 5) == 0.00101
+    f, b = K.decode_attention_work(4, 16, 4, 64, 2, 101 + 510 + 701 + 1001)
+    assert round(_bound_ms(f, b, F32), 6) == 0.000712
 
 
 def test_ssd_work_reproduces_the_kernel_table():

@@ -9,6 +9,7 @@ axis; the port's holds the same values as a list of three dicts
 (``stacked_groups`` finds it). A one-layer segment is unstacked in both.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

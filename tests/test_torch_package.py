@@ -2,6 +2,7 @@
 package, keeps the reference's configs field for field, runs on the card
 by default, and its chip smoke test refuses to run without a card."""
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import ast
 import dataclasses
 import inspect

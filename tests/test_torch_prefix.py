@@ -19,6 +19,7 @@ against the reference, on the CPU.
    capacity-dropped MoE.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 
 import jax

@@ -23,6 +23,7 @@ dscale), the Pallas ``rmsnorm_fwd`` in interpret mode and ``rmsnorm_ref``
 (forward), and ``jax.vjp`` of ``layers.rms_norm`` (backward).
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import re
 from pathlib import Path
 

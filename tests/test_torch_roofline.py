@@ -5,6 +5,7 @@ the three tables and the AUTOGEN injection in the reference's text
 layout. The artifacts are the reference's schema, with and without the
 port's extra keys."""
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 import json
 

@@ -10,6 +10,7 @@ reference's ``Model.init``). Plus the slot pool and the copied
 ``BlockManager``'s invariants, ported from tests/test_serve.py.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import jax
 import numpy as np
 import pytest

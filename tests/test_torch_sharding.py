@@ -4,6 +4,7 @@ specs, the shape presets, the block of a global array each rank holds
 (against jax's own placement on the 8 forced CPU devices), and the
 single-device step builders the dry run uses."""
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ port's scalar lanes' exactly and their trajectories within 1e-9
 relative (the batched gradient sums in another order).
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import math
 
 import numpy as np

@@ -19,6 +19,7 @@ magnitude (``close``: the frameworks sum the same f32 products in other
 orders); the port against its own sequential decode, bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import functools
 
 import jax

@@ -6,6 +6,7 @@ finite and of ``ssd_recurrent`` where it is not, and the autograd wiring.
 Inputs are seeded numpy, handed to both frameworks; everything is f32.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -22,6 +22,7 @@ kernels), to the plain versions and to the reference: ``ssd_chunked``,
 (zamba2-1.2b's decay). Inputs are seeded numpy, rounded to bf16.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

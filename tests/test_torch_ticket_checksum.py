@@ -16,6 +16,7 @@ a port ticket holding the reference snapshot's own leaves, in its
 layout, with the reference's seal.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ their bias and norm leaves, ``tests/_noisy.py``); batches
 come from seeded numpy and go to both frameworks. Everything is f32.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 import functools
 

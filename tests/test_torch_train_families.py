@@ -13,6 +13,7 @@ experts of top 2 and a shared one; xLSTM to 4 layers with an sLSTM every
 third (mLSTM x 2, sLSTM, mLSTM). Set-up: ``tests/_families.py``.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 import functools
 import tempfile

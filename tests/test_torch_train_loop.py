@@ -10,6 +10,7 @@ gradient norms come from two frameworks' f32 arithmetic and agree within
 a stated tolerance.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import tempfile
 
 import jax

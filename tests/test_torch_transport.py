@@ -12,6 +12,7 @@ migration-ticket integrity, on the CPU.
    messages in the same order at every tick, and ``stats()`` agree.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 
 import numpy as np

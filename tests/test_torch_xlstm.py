@@ -27,6 +27,7 @@ stabilise from different starts (``test_mlstm_parallel_and_recurrent_agree``,
 1e-4). Streams: token for token.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 import functools
 

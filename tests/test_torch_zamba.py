@@ -10,6 +10,7 @@ The reduced zamba2 (4 Mamba2 layers, a shared call after every 2, d_model
 frameworks. Everything is f32 but the bridge's bf16 case.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import dataclasses
 import functools
 import tempfile

@@ -18,6 +18,7 @@ leaf (``close``) — the two frameworks sum the same f32 products in other
 orders.
 """
 
+import _torch_threads  # noqa: F401  (a pytest-xdist worker's torch threads)
 import functools
 import math
 

@@ -40,7 +40,8 @@ check_zamba_loop_shapes time_k2_widths phase22 phase22a phase22b train_hubert ho
 phase23 phase23a phase23b hold_paged_decode time_decode time_rmsnorm_rows window
 serve_probed train_hubert hold_flash check_tensor_cores check_ssd_tensor_cores phase24
 p24_steps p24_loop p24_gpipe p24_pieces p24_profile phase25 p25_step p25_dryrun
-phase26 p26_train p26_serve p26_elastic p26_times phase27 p27_launch p27_meta_result""".split()
+phase26 p26_train p26_serve p26_elastic p26_times phase27 p27_launch p27_meta_result
+p27_check_decode time_p27_decode""".split()
 
 
 def main() -> int:
